@@ -9,18 +9,27 @@ Phases, each of which raises on failure (exit code != 0):
 2. build the CUDA kernels from `src/repro_torch/kernels/csrc` (nvcc, with
    `-Xptxas -v`: registers, shared memory and spills per kernel);
 3. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes and at ragged ones, max abs error <= 1e-5 * max|plain|
-   per output (both accumulate in f32, in another order);
-4. the main path at full width: `dsml_fit` (DSML Algorithm 1) on m = 16
-   tasks, n = 512 samples, p = 1024 features, through the kernels (launch
-   counts zeroed just before, read just after), then with
+   paths' shapes and at ragged ones, max abs error <= 1e-5 * max|plain|
+   per output (both accumulate in f32, in another order); the logistic
+   gradient also at the large-p point m = 4, n = 256, p = 8192, and twice,
+   to show that its sample reduction gives the same bits every run;
+4. the regression path at full width: `dsml_fit` (DSML Algorithm 1) on
+   m = 16 tasks, n = 512 samples, p = 1024 features, through the kernels
+   (launch counts zeroed just before, read just after), then with
    `use_kernel=False` on the card as the reference: beta_u within
    1e-4 * max|beta_u| after 1000 chained FISTA iterations, identical
    support;
+4b. the logistic path (paper Section 4) at the same widths:
+   `dsml_logistic_fit` on `gen_classification` data, 600 lasso and 600
+   debias iterations, launch counts zeroed just before and read just after,
+   then the plain path on the card: beta_u and beta_local within
+   1e-4 * max|.|, identical support;
 5. times: each kernel alone (CUDA events, mean of 20 back-to-back
-   launches into preallocated outputs after a warm-up) beside its bound,
-   its plain version, the nearest single PyTorch call, and the wrapper as
-   the main path calls it (checks and allocation included); and the fit's
+   launches into preallocated outputs after a warm-up; and again with the
+   L2 cache flushed before each launch, since back to back an input of up
+   to 50 MB stays in L2, as it does in the solver loops) beside its bound,
+   its plain version, the nearest PyTorch call, and the wrapper as the
+   main path calls it (checks and allocation included); and each fit's
    wall time on both paths.
 
 It prints one JSON line of kernels and, last, the result line. With no
@@ -47,8 +56,9 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 M, N, P, S = 16, 512, 1024, 16          # the main path's configuration
+LARGE_P = (4, 256, 8192)                # benchmarks/largep_logistic.py
 TOL_KERNEL = 1e-5                       # x max|plain|, per output
-TOL_FIT = 1e-4                          # x max|beta_u|, after 1000 steps
+TOL_FIT = 1e-4                          # x max|.|, after chained FISTA steps
 
 
 def check(cond: bool, msg: str) -> None:
@@ -77,6 +87,26 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_ms_cold(fn, reps: int = 20, warm: int = 3) -> float:
+    """Mean device time of `fn` with the 50 MB L2 cache flushed before
+    each call (a 64 MB buffer is overwritten), by one pair of CUDA events
+    per call."""
+    flush = torch.empty(16 * 2**20, device="cuda")
+    for _ in range(warm):
+        fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """Least time on the card in ms, and what sets it."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
@@ -103,13 +133,21 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels "
                          "run only on an NVIDIA card")
-    from repro_torch.core import dsml_fit, gen_regression, hamming
+    from repro_torch.core import (
+        dsml_fit, dsml_logistic_fit, gen_classification, gen_regression,
+        hamming,
+    )
     from repro_torch.core.engine import power_iteration_batched
     from repro_torch.kernels import _build
     from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.kernels.ista_step import ops as ista_ops
     from repro_torch.kernels.ista_step.ops import fista_step_batched
     from repro_torch.kernels.ista_step.ref import fista_step_batched_ref
+    from repro_torch.kernels.logistic_grad import ops as logistic_ops
+    from repro_torch.kernels.logistic_grad.ops import (
+        logistic_grad, logistic_grad_unfused,
+    )
+    from repro_torch.kernels.logistic_grad.ref import logistic_grad_ref
     from repro_torch.kernels.rank_update import ops as rank_ops
     from repro_torch.kernels.rank_update.ops import rank_update
     from repro_torch.kernels.rank_update.ref import rank_update_ref
@@ -205,6 +243,42 @@ def main() -> None:
     check_fista("r=1 p=1000", fista_inputs(Sig_r, 1, 0.5 * lam))
     check_fista("r=p=1000", fista_inputs(Sig_r, 1000, mu))
 
+    def logistic_inputs(m, n, p):
+        X = torch.randn((m, n, p), generator=g, device=dev)
+        y = torch.where(torch.rand((m, n), generator=g, device=dev) < 0.5,
+                        1.0, -1.0)
+        B = torch.randn((m, p), generator=g, device=dev) / float(np.sqrt(p))
+        return X, y, B
+
+    def check_logistic(label, args):
+        worst = []
+        for name, fn in (("logistic_grad", logistic_grad),
+                         ("logistic_grad_unfused", logistic_grad_unfused)):
+            got = fn(*args, use_kernel=True)
+            again = fn(*args, use_kernel=True)
+            ref = fn(*args, use_kernel=False)
+            torch.cuda.synchronize()
+            err, scale = max_err(got, ref)
+            check(err <= TOL_KERNEL * scale,
+                  f"{name} {label}: err {err} > {TOL_KERNEL} * {scale}")
+            check(bool(torch.equal(got, again)),
+                  f"{name} {label}: two launches gave different bits")
+            print(f"check {name} {label}: max abs err {err:.3g} "
+                  f"(max|plain| {scale:.3g}), same bits on a second launch")
+            worst.append(err)
+        return worst
+
+    lg_args = logistic_inputs(M, N, P)
+    lg_large = logistic_inputs(*LARGE_P)
+    (errs["logistic_grad"],
+     errs["logistic_grad_unfused"]) = check_logistic(f"({M},{N},{P})",
+                                                     lg_args)
+    (errs["logistic_grad_p8192"],
+     errs["logistic_grad_unfused_p8192"]) = check_logistic(
+         "({},{},{})".format(*LARGE_P), lg_large)
+    check_logistic("(3,500,1000)", logistic_inputs(3, 500, 1000))
+    check_logistic("(2,7,129)", logistic_inputs(2, 7, 129))
+
     # ---- 4. the main path at full width -----------------------------------
     data = gen_regression(torch.Generator(device=dev).manual_seed(0),
                           m=M, n=N, p=P, s=S, signal_low=0.3, device=dev)
@@ -219,8 +293,9 @@ def main() -> None:
     fit_kernel_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     print(f"main path launches: {launches}")
-    check(launches == {"rank_update": 1, "fista_step_gemv": 400,
-                       "fista_step_gemm": 600},
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(rank_update=1, fista_step_gemv=400, fista_step_gemm=600)
+    check(launches == want,
           f"dsml_fit did not run through the kernels as expected: {launches}")
 
     t0 = time.perf_counter()
@@ -246,6 +321,56 @@ def main() -> None:
           f"{margin:.4g}; hamming to the true support {ham}")
     print(f"dsml_fit wall: kernels {fit_kernel_s * 1e3:.1f} ms, plain "
           f"{fit_plain_s * 1e3:.1f} ms, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB {card}")
+
+    # ---- 4b. the logistic path at full width ------------------------------
+    cdata = gen_classification(torch.Generator(device=dev).manual_seed(0),
+                               m=M, n=N, p=P, s=S, device=dev)
+    lam_c = float(np.sqrt(np.log(P) / N))
+    Lam_c = 0.75
+    cfit_args = (cdata.Xs, cdata.ys, lam_c, 2.0 * lam_c, Lam_c)
+    dsml_logistic_fit(*cfit_args)                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    cres = dsml_logistic_fit(*cfit_args)
+    torch.cuda.synchronize()
+    cfit_kernel_s = time.perf_counter() - t0
+    claunches = dict(LAUNCHES)
+    print(f"logistic path launches: {claunches}")
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(rank_update=2, logistic_grad=600, fista_step_gemm=600)
+    check(claunches == want, "dsml_logistic_fit did not run through the "
+          f"kernels as expected: {claunches}")
+
+    t0 = time.perf_counter()
+    cref = dsml_logistic_fit(*cfit_args, use_kernel=False)
+    torch.cuda.synchronize()
+    cfit_plain_s = time.perf_counter() - t0
+    check(dict(LAUNCHES) == claunches, "the plain path launched a kernel")
+
+    for name, t in zip(cres._fields, cres):
+        check(t.shape == getattr(cref, name).shape, f"{name} shape")
+        if t.is_floating_point():
+            check(bool(torch.isfinite(t).all()), f"{name} not finite")
+    for name in ("beta_u", "beta_local"):
+        err, scale = max_err(getattr(cres, name), getattr(cref, name))
+        check(err <= TOL_FIT * scale,
+              f"dsml_logistic_fit {name}: err {err} > {TOL_FIT} * {scale}")
+        print(f"dsml_logistic_fit {name}: max abs err vs plain {err:.3g} "
+              f"(max|{name}| {scale:.3g})")
+    check(bool(torch.equal(cres.support, cref.support)),
+          "logistic supports differ")
+    norms = torch.linalg.vector_norm(cres.beta_u.T, dim=-1)
+    margin = torch.min(torch.abs(norms - Lam_c)).item()
+    ham = int(hamming(cres.support, cdata.support))
+    print(f"dsml_logistic_fit (m={M}, n={N}, p={P}, s={S}, lam={lam_c:.4g}, "
+          f"Lam={Lam_c}): support size {int(cres.support.sum())}, "
+          f"identical; threshold margin {margin:.4g}; hamming to the true "
+          f"support {ham}")
+    print(f"dsml_logistic_fit wall: kernels {cfit_kernel_s * 1e3:.1f} ms, "
+          f"plain {cfit_plain_s * 1e3:.1f} ms, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB {card}")
 
     # ---- 5. times ---------------------------------------------------------
@@ -283,19 +408,73 @@ def main() -> None:
          lambda: fista_step_batched_ref(*gemm_args),
          lambda: torch.bmm(Sig, gemm_args[1])),
     ]
+    for suffix, (Xl, yl, Bl) in (("", lg_args), ("_p8192", lg_large)):
+        lm, ln, lp = Xl.shape
+        pl = logistic_ops.plan(lm, ln, lp,
+                               *logistic_ops._device_limits(Xl.device))
+        G = torch.empty((lm, lp), device=dev)
+        work = torch.empty((lm, pl.chunks, lp), device=dev)
+        counters = torch.zeros(lm, dtype=torch.int32, device=dev)
+        zbuf = torch.empty((lm, ln), device=dev)
+        rl = yl * torch.sigmoid(-yl * torch.bmm(Xl, Bl[..., None])[..., 0])
+        Xlt = Xl.transpose(1, 2)
+        # no PyTorch call computes this function: the library row is
+        # its two products, X b and X' r, timed together
+        lib = (lambda Xl=Xl, Bl=Bl, Xlt=Xlt, rl=rl:
+               (torch.bmm(Xl, Bl[..., None]), torch.bmm(Xlt, rl[..., None])))
+        rows += [
+            ("logistic_grad" + suffix,
+             "src/repro_torch/kernels/csrc/logistic_grad.cu",
+             "src/repro/kernels/logistic_grad/kernel.py:149",
+             bound(4 * lm * ln * lp,
+                   4 * (lm * ln * lp + lm * ln + 2 * lm * lp)),
+             lambda a=(Xl, yl, Bl, G, work, counters, pl):
+                 logistic_ops.launch(*a),
+             lambda a=(Xl, yl, Bl): logistic_grad(*a),
+             lambda a=(Xl, yl, Bl): logistic_grad_ref(*a),
+             lib),
+            # its own two-dispatch contract: X read twice, z and r through
+            # device memory
+            ("logistic_grad_unfused" + suffix,
+             "src/repro_torch/kernels/csrc/logistic_grad.cu",
+             "src/repro/kernels/logistic_grad/kernel.py:198",
+             bound(4 * lm * ln * lp,
+                   4 * (2 * lm * ln * lp + 2 * lm * lp + 5 * lm * ln)),
+             lambda a=(Xl, yl, Bl, zbuf, G): logistic_ops.launch_unfused(*a),
+             lambda a=(Xl, yl, Bl): logistic_grad_unfused(*a),
+             lambda a=(Xl, yl, Bl): logistic_grad_unfused(*a,
+                                                          use_kernel=False),
+             lib),
+        ]
+    # launches per fit: the regression rows from phase 4, the logistic
+    # rows from phase 4b (the unfused pair is not on either path)
+    fit_launches = {**launches,
+                    "logistic_grad": claunches["logistic_grad"],
+                    "logistic_grad_p8192": claunches["logistic_grad"],
+                    "logistic_grad_unfused": claunches["logistic_z"],
+                    "logistic_grad_unfused_p8192": claunches["logistic_z"]}
+    shapes = {"rank_update": (m, n, p), "fista_step_gemv": (m, p, 1),
+              "fista_step_gemm": (m, p, p),
+              "logistic_grad": (M, N, P), "logistic_grad_unfused": (M, N, P),
+              "logistic_grad_p8192": LARGE_P,
+              "logistic_grad_unfused_p8192": LARGE_P}
     kernels = []
     for (name, source, replaces, (bound_ms, bound_by), kern, wrapper, plain,
          lib) in rows:
         ms, wrap_ms = time_ms(kern), time_ms(wrapper)
         plain_ms, lib_ms = time_ms(plain), time_ms(lib)
+        cold_ms = time_ms_cold(kern)
         print(f"time {name}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), plain {plain_ms:.4f} ms, library {lib_ms:.4f} "
-              f"ms, wrapper {wrap_ms:.4f} ms {card}")
+              f"ms, wrapper {wrap_ms:.4f} ms, kernel with L2 flushed "
+              f"{cold_ms:.4f} ms {card}")
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "shape": list(shapes[name]),
+                        "launches": fit_launches[name],
                         "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": lib_ms})
+                        "bound_by": bound_by, "library_ms": lib_ms,
+                        "cold_ms": cold_ms, "wrapper_ms": wrap_ms})
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,11 +1,12 @@
 """Carry data and solver state across from the JAX reference.
 
 DSML has no trained weights: what crosses between the two packages is
-data (`MultiTaskData`), a fit's result (`DsmlResult`) and the warm-start
-arrays of a refit (`beta0`, the local lasso solution, and `M0`, the
-debias matrices). `from_reference` takes the reference's NamedTuples or
-arrays — JAX or numpy arrays, anything `np.array` reads — and returns
-the port's tensors and NamedTuples on `device`. The reference's types
+data (`MultiTaskData`), a fit's result (`DsmlResult`,
+`DsmlLogisticResult`) and the warm-start arrays of a refit (`beta0`,
+the local lasso solution, and `M0`, the debias matrices).
+`from_reference` takes the reference's NamedTuples or arrays — JAX or
+numpy arrays, anything `np.array` reads — and returns the port's
+tensors and NamedTuples on `device`. The reference's types
 are matched by name and fields, so nothing of the reference is imported.
 """
 from __future__ import annotations
@@ -14,9 +15,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.dsml import DsmlResult
+from repro_torch.core.logistic import DsmlLogisticResult
 from repro_torch.core.synth import MultiTaskData
 
-_TUPLES = {cls.__name__: cls for cls in (MultiTaskData, DsmlResult)}
+_TUPLES = {cls.__name__: cls
+           for cls in (MultiTaskData, DsmlResult, DsmlLogisticResult)}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -26,9 +29,9 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def from_reference(obj, device="cuda"):
-    """A reference `MultiTaskData` or `DsmlResult` -> the port's
-    NamedTuple of tensors; any other array (e.g. `beta0`, `M0`) -> one
-    tensor. Dtypes are kept (float32 stays float32, bool stays bool)."""
+    """A reference `MultiTaskData`, `DsmlResult` or `DsmlLogisticResult`
+    -> the port's NamedTuple of tensors; any other array (e.g. `beta0`,
+    `M0`) -> one tensor. Dtypes are kept (float32 stays float32, bool stays bool)."""
     fields = getattr(obj, "_fields", None)
     if fields is not None:
         cls = _TUPLES.get(type(obj).__name__)

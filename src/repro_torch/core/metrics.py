@@ -25,3 +25,11 @@ def prediction_error(B_hat: torch.Tensor, B_true: torch.Tensor,
     """Population prediction risk (1/m) sum_t (b_t - b*_t)' Sigma (b_t - b*_t)."""
     D = B_hat - B_true                       # (p, m)
     return torch.mean(torch.einsum("pt,pq,qt->t", D, Sigma, D))
+
+
+def classification_error(B_hat: torch.Tensor, Xs: torch.Tensor,
+                         ys: torch.Tensor) -> torch.Tensor:
+    """Average 0/1 error on held-out data. B_hat (p, m), Xs (m, n, p),
+    ys (m, n) in {-1, 1}."""
+    logits = torch.einsum("tnp,pt->tn", Xs, B_hat)
+    return torch.mean((torch.sign(logits) != ys).to(Xs.dtype))

@@ -72,3 +72,25 @@ def gen_regression(gen: torch.Generator | int, *, m: int = 10, n: int = 50,
     eps = sigma * torch.randn((m, n), generator=g, device=device)
     ys = torch.einsum("tnp,pt->tn", Xs, B) + eps
     return MultiTaskData(Xs, ys, B, support, Sigma)
+
+
+def gen_classification(gen: torch.Generator | int, *, m: int = 10,
+                       n: int = 150, p: int = 200, s: int = 10,
+                       rho: float = 0.5, signal_scale: float = 2.0,
+                       device="cuda") -> MultiTaskData:
+    """Multi-task logistic data, paper model (7): y in {-1, +1},
+    P(y|x) = sigmoid(y * x @ beta); AR(rho) rows and shared-support
+    coefficients uniform in [0, signal_scale]. float32 on `device`; `gen`
+    is a generator on `device`, or a seed for one."""
+    g = _generator(gen, device)
+    Sigma = ar_covariance(p, rho, device=device)
+    eye = torch.eye(p, dtype=Sigma.dtype, device=device)
+    chol = torch.linalg.cholesky(Sigma + 1e-9 * eye)
+    B, support = sample_coefficients(g, p, m, s, 0.0, signal_scale,
+                                     device=device)
+    Z = torch.randn((m, n, p), generator=g, device=device)
+    Xs = Z @ chol.T
+    logits = torch.einsum("tnp,pt->tn", Xs, B)
+    u = torch.rand((m, n), generator=g, device=device)
+    ys = torch.where(u < torch.sigmoid(logits), 1.0, -1.0)
+    return MultiTaskData(Xs, ys, B, support, Sigma)

@@ -23,6 +23,9 @@ LAUNCHES: dict[str, int] = {
     "rank_update": 0,        # kernels/rank_update: Sigma and c in one pass
     "fista_step_gemv": 0,    # kernels/ista_step, r == 1 path
     "fista_step_gemm": 0,    # kernels/ista_step, r > 1 path
+    "logistic_grad": 0,      # kernels/logistic_grad: the fused gradient
+    "logistic_z": 0,         # kernels/logistic_grad, unfused: z = X b
+    "logistic_backproject": 0,  # kernels/logistic_grad, unfused: -X'r/n
 }
 
 

@@ -16,9 +16,13 @@ import torch
 
 from repro_torch.core.dsml import dsml_fit
 from repro_torch.core.engine import power_iteration_batched
-from repro_torch.core.synth import gen_regression
+from repro_torch.core.logistic import dsml_logistic_fit
+from repro_torch.core.synth import gen_classification, gen_regression
 from repro_torch.kernels.common import LAUNCHES
 from repro_torch.kernels.ista_step.ops import fista_step_batched
+from repro_torch.kernels.logistic_grad.ops import (
+    logistic_grad, logistic_grad_unfused,
+)
 from repro_torch.kernels.rank_update.ops import rank_update
 
 pytestmark = pytest.mark.gpu
@@ -88,3 +92,53 @@ def test_dsml_fit_kernels_match_plain_path(cuda):
     want = dsml_fit(d.Xs, d.ys, lam, mu, 0.5, use_kernel=False)
     assert torch.equal(got.support, want.support)
     _assert_close((got.beta_u,), (want.beta_u,), tol=1e-4)
+
+
+_LOGISTIC_SHAPES = [(4, 256, 256), (3, 100, 200), (2, 7, 129),
+                    (16, 512, 1024), (4, 256, 8192)]
+
+
+def _logistic_inputs(device, m, n, p):
+    g = torch.Generator(device=device).manual_seed(2)
+    X = torch.randn((m, n, p), generator=g, device=device)
+    y = torch.where(torch.rand((m, n), generator=g, device=device) < 0.5,
+                    1.0, -1.0)
+    B = torch.randn((m, p), generator=g, device=device) / np.sqrt(p)
+    return X, y, B
+
+
+@pytest.mark.parametrize("m, n, p", _LOGISTIC_SHAPES)
+def test_logistic_grad_kernel_matches_plain(cuda, m, n, p):
+    X, y, B = _logistic_inputs(cuda, m, n, p)
+    before = LAUNCHES["logistic_grad"]
+    got = logistic_grad(X, y, B)
+    assert LAUNCHES["logistic_grad"] == before + 1
+    _assert_close((got,), (logistic_grad(X, y, B, use_kernel=False),))
+    # the sample reduction runs in a fixed order: the same bits every run
+    assert torch.equal(got, logistic_grad(X, y, B))
+
+
+@pytest.mark.parametrize("m, n, p", _LOGISTIC_SHAPES)
+def test_logistic_unfused_kernels_match_plain(cuda, m, n, p):
+    X, y, B = _logistic_inputs(cuda, m, n, p)
+    before = dict(LAUNCHES)
+    got = logistic_grad_unfused(X, y, B)
+    assert LAUNCHES["logistic_z"] == before["logistic_z"] + 1
+    assert LAUNCHES["logistic_backproject"] == \
+        before["logistic_backproject"] + 1
+    _assert_close((got,), (logistic_grad_unfused(X, y, B, use_kernel=False),))
+
+
+def test_dsml_logistic_fit_kernels_match_plain_path(cuda):
+    d = gen_classification(0, m=4, n=150, p=120, s=6, device=cuda)
+    lam = float(np.sqrt(np.log(120) / 150))
+    before = dict(LAUNCHES)
+    got = dsml_logistic_fit(d.Xs, d.ys, lam, 2 * lam, 0.5)
+    assert LAUNCHES["rank_update"] == before["rank_update"] + 2
+    assert LAUNCHES["logistic_grad"] == before["logistic_grad"] + 600
+    assert LAUNCHES["fista_step_gemm"] == before["fista_step_gemm"] + 600
+    want = dsml_logistic_fit(d.Xs, d.ys, lam, 2 * lam, 0.5,
+                             use_kernel=False)
+    assert torch.equal(got.support, want.support)
+    _assert_close((got.beta_u, got.beta_local),
+                  (want.beta_u, want.beta_local), tol=1e-4)
