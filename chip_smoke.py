@@ -12,7 +12,10 @@ Phases, each of which raises on failure (exit code != 0):
    paths' shapes and at ragged ones, max abs error <= 1e-5 * max|plain|
    per output (both accumulate in f32, in another order); the logistic
    gradient also at the large-p point m = 4, n = 256, p = 8192, and twice,
-   to show that its sample reduction gives the same bits every run;
+   to show that its sample reduction gives the same bits every run; the
+   ISTA steps (batched and single-task), the unfused rank pair and the
+   group threshold at their path shapes and at ragged ones (p = 129,
+   r = 7, m = 3; (2, 7, 129); (1001, 5)), each twice for the same bits;
 4. the regression path at full width: `dsml_fit` (DSML Algorithm 1) on
    m = 16 tasks, n = 512 samples, p = 1024 features, through the kernels
    (launch counts zeroed just before, read just after), then with
@@ -24,6 +27,19 @@ Phases, each of which raises on failure (exit code != 0):
    debias iterations, launch counts zeroed just before and read just after,
    then the plain path on the card: beta_u and beta_local within
    1e-4 * max|.|, identical support;
+4c. the remaining DSML kernels and the regression baselines at the
+   configuration of phase 4 (launch counts zeroed just before, read just
+   after, every new count > 0): `rank_update_unfused` against
+   `rank_update` on the fit's X, y; `group_threshold` of the fit's
+   beta_u' at its Lambda, whose keep must be the fit's support and whose
+   rows the fit's beta_tilde (the master step, eq. 5-6); `ista_solve` on
+   task 0 (400 steps) against its plain path, within 1e-4 * max|beta|
+   with an identical support; `ista_step` at r = p and
+   `ista_step_batched` at r = 1 and r = p against their plain versions;
+   `solve_lasso_eq2_grid` over k = 8 values of lambda (128 tasks) against
+   its plain path; `group_lasso`, `icap` and `dirty_model` (400
+   iterations each) against their plain paths, with wall time and
+   support size;
 5. times: each kernel alone (CUDA events, mean of 20 back-to-back
    launches into preallocated outputs after a warm-up; and again with the
    L2 cache flushed before each launch, since back to back an input of up
@@ -134,23 +150,36 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels "
                          "run only on an NVIDIA card")
     from repro_torch.core import (
-        dsml_fit, dsml_logistic_fit, gen_classification, gen_regression,
-        hamming,
+        dirty_model, dsml_fit, dsml_logistic_fit, gen_classification,
+        gen_regression, group_lasso, hamming, icap, solve_lasso_eq2_grid,
     )
-    from repro_torch.core.engine import power_iteration_batched
+    from repro_torch.core.engine import (
+        power_iteration_batched, scaled_identity_m0,
+    )
     from repro_torch.kernels import _build
     from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.kernels.group_threshold import ops as threshold_ops
+    from repro_torch.kernels.group_threshold.ops import group_threshold
+    from repro_torch.kernels.group_threshold.ref import group_threshold_ref
     from repro_torch.kernels.ista_step import ops as ista_ops
-    from repro_torch.kernels.ista_step.ops import fista_step_batched
-    from repro_torch.kernels.ista_step.ref import fista_step_batched_ref
+    from repro_torch.kernels.ista_step.ops import (
+        fista_step_batched, ista_solve, ista_step, ista_step_batched,
+    )
+    from repro_torch.kernels.ista_step.ref import (
+        fista_step_batched_ref, ista_step_batched_ref, ista_step_ref,
+    )
     from repro_torch.kernels.logistic_grad import ops as logistic_ops
     from repro_torch.kernels.logistic_grad.ops import (
         logistic_grad, logistic_grad_unfused,
     )
     from repro_torch.kernels.logistic_grad.ref import logistic_grad_ref
     from repro_torch.kernels.rank_update import ops as rank_ops
-    from repro_torch.kernels.rank_update.ops import rank_update
-    from repro_torch.kernels.rank_update.ref import rank_update_ref
+    from repro_torch.kernels.rank_update.ops import (
+        rank_update, rank_update_unfused,
+    )
+    from repro_torch.kernels.rank_update.ref import (
+        rank_c_ref, rank_sigma_ref, rank_update_ref,
+    )
 
     dev = torch.device("cuda")
 
@@ -279,6 +308,86 @@ def main() -> None:
     check_logistic("(3,500,1000)", logistic_inputs(3, 500, 1000))
     check_logistic("(2,7,129)", logistic_inputs(2, 7, 129))
 
+    def check_kernel(name, label, fn, *args):
+        """`fn` launched twice and on its plain path; every float output
+        within TOL_KERNEL * max|plain|, every other output equal, and the
+        two launches the same bits. Returns the max abs error."""
+        def outs(use_kernel):
+            out = fn(*args, use_kernel=use_kernel)
+            return out if isinstance(out, tuple) else (out,)
+        got, again, ref = outs(True), outs(True), outs(False)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for a, b in zip(got, ref):
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"{name} {label}: shape or dtype")
+            if a.is_floating_point():
+                err, scale = max_err(a.float(), b.float())
+                check(err <= TOL_KERNEL * scale,
+                      f"{name} {label}: err {err} > {TOL_KERNEL} * {scale}")
+                worst = max(worst, err)
+            else:
+                check(bool(torch.equal(a, b)), f"{name} {label}: differs")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{name} {label}: two launches gave different bits")
+        print(f"check {name} {label}: max abs err {worst:.3g}, same bits "
+              "on a second launch")
+        return worst
+
+    def ista_inputs(Sigmas, r, lam):
+        m, p, _ = Sigmas.shape
+        etas = 1.0 / torch.clamp_min(power_iteration_batched(Sigmas), 1e-12)
+        b = 0.05 * torch.randn((m, p, r), generator=g, device=dev)
+        c = (torch.eye(p, device=dev).expand(m, p, p).contiguous() if r == p
+             else 0.1 * torch.randn((m, p, r), generator=g, device=dev))
+        return Sigmas, b, c, etas, torch.full((m,), lam, device=dev)
+
+    def single(args):
+        Sigmas, b, c, etas, lams = args
+        return Sigmas[0], b[0], c[0], etas[0], lams[0]
+
+    isb_gemv = ista_inputs(Sig, 1, 0.5 * lam)
+    isb_gemm = ista_inputs(Sig, P, mu)
+    errs["ista_step_batched_gemv"] = check_kernel(
+        "ista_step_batched", f"r=1 p={P}", ista_step_batched, *isb_gemv)
+    errs["ista_step_batched_gemm"] = check_kernel(
+        "ista_step_batched", f"r=p={P}", ista_step_batched, *isb_gemm)
+    errs["ista_step_gemv"] = check_kernel(
+        "ista_step", f"r=1 p={P}", ista_step, *single(isb_gemv))
+    errs["ista_step_gemm"] = check_kernel(
+        "ista_step", f"r=p={P}", ista_step, *single(isb_gemm))
+    Xg, yg, _ = rank_inputs(3, 200, 129)
+    Sig_g, _ = rank_update(Xg, yg, use_kernel=False)
+    for r in (1, 7):
+        rag = ista_inputs(Sig_g, r, 0.1)
+        check_kernel("ista_step_batched", f"m=3 p=129 r={r}",
+                     ista_step_batched, *rag)
+        check_kernel("ista_step", f"p=129 r={r}", ista_step, *single(rag))
+    errs["rank_update_sigma"] = errs["rank_update_c"] = check_kernel(
+        "rank_update_unfused", f"({M},{N},{P})", rank_update_unfused, X, y)
+    check_kernel("rank_update_unfused", f"({M},{N},{P}) weighted",
+                 rank_update_unfused, X, y, w)
+    Xs2, ys2, ws2 = rank_inputs(2, 7, 129)
+    check_kernel("rank_update_unfused", "(2,7,129)", rank_update_unfused,
+                 Xs2, ys2)
+    check_kernel("rank_update_unfused", "(2,7,129) weighted",
+                 rank_update_unfused, Xs2, ys2, ws2)
+
+    def threshold_input(p, m, dtype=torch.float32):
+        scale = 0.1 + 2.0 * torch.rand((p, 1), generator=g, device=dev)
+        B = torch.randn((p, m), generator=g, device=dev) * scale
+        return (B / float(np.sqrt(m))).to(dtype)
+
+    B_gt = threshold_input(P, M)
+    errs["group_threshold"] = check_kernel(
+        "group_threshold", f"({P},{M})", group_threshold, B_gt, 0.8)
+    check_kernel("group_threshold", f"({P},{M}) bf16", group_threshold,
+                 threshold_input(P, M, torch.bfloat16), 0.8)
+    check_kernel("group_threshold", "(1001,5)", group_threshold,
+                 threshold_input(1001, 5), 0.8)
+    check_kernel("group_threshold", "(1001,5) bf16", group_threshold,
+                 threshold_input(1001, 5, torch.bfloat16), 0.8)
+
     # ---- 4. the main path at full width -----------------------------------
     data = gen_regression(torch.Generator(device=dev).manual_seed(0),
                           m=M, n=N, p=P, s=S, signal_low=0.3, device=dev)
@@ -373,6 +482,135 @@ def main() -> None:
           f"plain {cfit_plain_s * 1e3:.1f} ms, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB {card}")
 
+    # ---- 4c. the remaining DSML kernels and the baselines -----------------
+    def wall(fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    Xs, ys = data.Xs, data.ys
+    Sig0, c0 = rank_update(Xs, ys, use_kernel=False)
+    etas0 = 1.0 / torch.clamp_min(power_iteration_batched(Sig0), 1e-12)
+    eye = torch.eye(P, device=dev)
+    M0 = scaled_identity_m0(Sig0)
+    lam_max = 2.0 * torch.max(torch.abs(c0)).item()
+    grid = torch.tensor(lam_max * np.geomspace(1.0, 0.01, 8),
+                        dtype=torch.float32, device=dev)
+    base = float(np.sqrt(np.log(P) / N))      # benchmarks/paper_common.py
+    baselines = {"group_lasso": (group_lasso, (Xs, ys, 2.0 * base, 400)),
+                 "icap": (icap, (Xs, ys, 4.0 * base, 400)),
+                 "dirty_model": (dirty_model, (Xs, ys, 2.0 * base, base,
+                                               400))}
+    for fn, args in baselines.values():         # warm-up: first-call costs
+        fn(*args[:-1], 5)
+    torch.cuda.synchronize()
+    reset_launches()
+    t4c = time.perf_counter()
+    unf = rank_update_unfused(Xs, ys)
+    fused = rank_update(Xs, ys)
+    filtered, keep = group_threshold(res.beta_u.T, Lam)
+    sol, sol_s = wall(ista_solve, Sig0[0], c0[0], 0.5 * lam, iters=400)
+    step_p = ista_step(Sig0[0], M0[0], eye, etas0[0], mu)
+    isb1 = ista_step_batched(Sig0, res.beta_local, c0, etas0, 0.5 * lam)
+    isbp = ista_step_batched(Sig0, M0, eye.expand(M, P, P).contiguous(),
+                             etas0, mu)
+    Bgrid, grid_s = wall(solve_lasso_eq2_grid, Sig0, c0, grid, iters=400)
+    base_out = {name: wall(fn, *args) for name, (fn, args)
+                in baselines.items()}
+    torch.cuda.synchronize()
+    t4c = time.perf_counter() - t4c
+    launches_4c = dict(LAUNCHES)
+    print(f"phase 4c launches: {launches_4c}")
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(rank_update_sigma=1, rank_update_c=1, rank_update=4,
+                group_threshold=1, ista_step_gemv=400, ista_step_gemm=1,
+                ista_step_batched_gemv=1, ista_step_batched_gemm=1,
+                fista_step_gemv=400)
+    check(launches_4c == want,
+          f"phase 4c did not run through the kernels as expected: "
+          f"{launches_4c}")
+    new_keys = ("ista_step_batched_gemv", "ista_step_batched_gemm",
+                "ista_step_gemv", "ista_step_gemm", "rank_update_sigma",
+                "rank_update_c", "group_threshold")
+    check(all(launches_4c[k] > 0 for k in new_keys),
+          "a new kernel did not launch in phase 4c")
+
+    for name, a, b in zip(("Sigma", "c"), unf, fused):
+        err, scale = max_err(a, b)
+        check(err <= TOL_KERNEL * scale, f"rank_update_unfused {name} vs "
+              f"rank_update: err {err} > {TOL_KERNEL} * {scale}")
+        print(f"rank_update_unfused {name} vs rank_update at ({M},{N},{P}): "
+              f"max abs err {err:.3g} (max {scale:.3g})")
+    check(bool(torch.equal(keep, res.support)),
+          "group_threshold keep differs from dsml_fit's support")
+    check(bool(torch.equal(filtered.T, res.beta_tilde)),
+          "group_threshold rows differ from dsml_fit's beta_tilde")
+    print(f"group_threshold of beta_u' at Lam={Lam}: keep equals the fit's "
+          f"support ({int(keep.sum())} rows), filtered' equals beta_tilde")
+
+    sol_ref, sol_ref_s = wall(ista_solve, Sig0[0], c0[0], 0.5 * lam,
+                              iters=400, use_kernel=False)
+    err, scale = max_err(sol, sol_ref)
+    check(err <= TOL_FIT * scale,
+          f"ista_solve: err {err} > {TOL_FIT} * {scale}")
+    check(bool(torch.equal(sol != 0, sol_ref != 0)),
+          "ista_solve supports differ")
+    print(f"ista_solve (p={P}, 400 steps, lam={0.5 * lam:.4g}): max abs err "
+          f"vs plain {err:.3g} (max|beta| {scale:.3g}); support "
+          f"{int((sol != 0).sum())}, identical; wall kernels "
+          f"{sol_s * 1e3:.1f} ms, plain {sol_ref_s * 1e3:.1f} ms {card}")
+    for name, got, ref in (
+            ("ista_step r=p", step_p,
+             ista_step_ref(Sig0[0], M0[0], eye, etas0[0], mu)),
+            ("ista_step_batched r=1", isb1,
+             ista_step_batched_ref(Sig0, res.beta_local[..., None],
+                                   c0[..., None], etas0, 0.5 * lam)[..., 0]),
+            ("ista_step_batched r=p", isbp,
+             ista_step_batched_ref(Sig0, M0, eye.expand(M, P, P), etas0,
+                                   mu))):
+        err, scale = max_err(got, ref)
+        check(err <= TOL_KERNEL * scale,
+              f"{name}: err {err} > {TOL_KERNEL} * {scale}")
+        print(f"{name} on the fit's statistics: max abs err vs plain "
+              f"{err:.3g} (max {scale:.3g})")
+
+    Bgrid_ref, grid_ref_s = wall(solve_lasso_eq2_grid, Sig0, c0, grid,
+                                 iters=400, use_kernel=False)
+    check(Bgrid.shape == (8, M, P) and bool(torch.isfinite(Bgrid).all()),
+          "grid shape or values")
+    err, scale = max_err(Bgrid, Bgrid_ref)
+    check(err <= TOL_FIT * scale,
+          f"solve_lasso_eq2_grid: err {err} > {TOL_FIT} * {scale}")
+    sizes = [int(b.any(0).sum()) for b in Bgrid]
+    print(f"solve_lasso_eq2_grid (k=8, {8 * M} tasks, lam {lam_max:.4g} .. "
+          f"{lam_max / 100:.4g}): max abs err vs plain {err:.3g} "
+          f"(max|B| {scale:.3g}); union support per lam {sizes}; wall "
+          f"kernels {grid_s * 1e3:.1f} ms, plain {grid_ref_s * 1e3:.1f} ms "
+          f"{card}")
+    for name, (fn, args) in baselines.items():
+        out, secs = base_out[name]
+        ref_out, ref_s = wall(fn, *args, use_kernel=False)
+        out = out if isinstance(out, tuple) else (out,)
+        ref_out = ref_out if isinstance(ref_out, tuple) else (ref_out,)
+        worst = 0.0
+        for a, b in zip(out, ref_out):
+            check(a.shape == (P, M) and bool(torch.isfinite(a).all()),
+                  f"{name}: shape or values")
+            err, scale = max_err(a, b)
+            check(err <= TOL_FIT * scale,
+                  f"{name}: err {err} > {TOL_FIT} * {scale}")
+            worst = max(worst, err)
+        rows = int((torch.linalg.vector_norm(out[0], dim=1) > 0).sum())
+        ham = int(hamming(torch.linalg.vector_norm(out[0], dim=1) > 1e-3,
+                          data.support))
+        print(f"{name} (400 iterations): support {rows} rows, hamming "
+              f"{ham} to the true support; max abs err vs plain "
+              f"{worst:.3g}; "
+              f"wall kernels {secs * 1e3:.1f} ms, plain {ref_s * 1e3:.1f} "
+              f"ms {card}")
+    print(f"phase 4c wall (kernel paths): {t4c * 1e3:.1f} ms {card}")
+
     # ---- 5. times ---------------------------------------------------------
     m, n, p = M, N, P
     # Sigma is symmetric by construction: its least work is the upper
@@ -446,18 +684,90 @@ def main() -> None:
                                                           use_kernel=False),
              lib),
         ]
-    # launches per fit: the regression rows from phase 4, the logistic
-    # rows from phase 4b (the unfused pair is not on either path)
+    # the step without momentum, m tasks and one task (m = 1): Sigma,
+    # beta, c and the output, no x and no z'
+    def ista_row(name, args, counter):
+        Sl, bl, cl, el, ll = args
+        tm, tp, tr = bl.shape
+        out = torch.empty_like(bl)
+        wrapped = args if counter == "ista_step_batched" else \
+            (Sl[0], bl[0], cl[0], el[0], ll[0])
+        wrapper = ista_step_batched if counter == "ista_step_batched" \
+            else ista_step
+        plain = ista_step_batched_ref if counter == "ista_step_batched" \
+            else ista_step_ref
+        return (name, "src/repro_torch/kernels/csrc/fista_step.cu",
+                "src/repro/kernels/ista_step/kernel.py:" +
+                ("153" if counter == "ista_step_batched" else "196"),
+                bound(2 * tm * tp * tp * tr,
+                      4 * (tm * tp * tp + 3 * tm * tp * tr + 2 * tm)),
+                lambda: ista_ops.launch_ista(*args, out, counter),
+                lambda: wrapper(*wrapped),
+                lambda: plain(*wrapped),
+                lambda: torch.bmm(Sl, bl))
+
+    def one_task(args):
+        Sl, bl, cl, el, ll = args
+        return (Sl[:1].contiguous(), bl[:1].contiguous(),
+                cl[:1].contiguous(), el[:1].contiguous(), ll[:1].contiguous())
+
+    rows += [
+        ista_row("ista_step_batched_gemv", isb_gemv, "ista_step_batched"),
+        ista_row("ista_step_batched_gemm", isb_gemm, "ista_step_batched"),
+        ista_row("ista_step_gemv", one_task(isb_gemv), "ista_step"),
+        ista_row("ista_step_gemm", one_task(isb_gemm), "ista_step"),
+    ]
+    c_out2 = torch.empty((m, p), device=dev)
+    yt = y[..., None]
+    gt_out = torch.empty_like(B_gt)
+    gt_keep = torch.empty(P, dtype=torch.int8, device=dev)
+    pg, mg = B_gt.shape
+    rows += [
+        # Sigma alone: the symmetric least work, X in and Sigma out
+        ("rank_update_sigma", "src/repro_torch/kernels/csrc/rank_update.cu",
+         "src/repro/kernels/rank_update/kernel.py:162",
+         bound(m * n * p * (p + 1), 4 * (m * n * p + m * p * p)),
+         lambda: rank_ops.launch_sigma(X, None, S_out),
+         lambda: rank_update_unfused(X, y),
+         lambda: rank_sigma_ref(X),
+         lambda: torch.bmm(Xt, X)),
+        # c alone: X, y in, c out
+        ("rank_update_c", "src/repro_torch/kernels/csrc/rank_update.cu",
+         "src/repro/kernels/rank_update/kernel.py:162",
+         bound(2 * m * n * p, 4 * (m * n * p + m * n + m * p)),
+         lambda: rank_ops.launch_c(X, y, None, c_out2),
+         lambda: rank_update_unfused(X, y),
+         lambda: rank_c_ref(X, y),
+         lambda: torch.bmm(Xt, yt)),
+        # B in, B out, the int8 keep column
+        ("group_threshold", "src/repro_torch/kernels/csrc/group_threshold.cu",
+         "src/repro/kernels/group_threshold/kernel.py:28",
+         bound(2 * pg * mg + pg, 4 * 2 * pg * mg + pg),
+         lambda: threshold_ops.launch(B_gt, 0.8, gt_out, gt_keep),
+         lambda: group_threshold(B_gt, 0.8),
+         lambda: group_threshold_ref(B_gt, 0.8),
+         lambda: B_gt * (torch.linalg.vector_norm(B_gt, dim=1,
+                                                  keepdim=True) > 0.8)),
+    ]
+    # launches per run: the regression rows from phase 4, the logistic
+    # rows from phase 4b (the unfused pair is not on either path), the
+    # rows of this slice from phase 4c
     fit_launches = {**launches,
                     "logistic_grad": claunches["logistic_grad"],
                     "logistic_grad_p8192": claunches["logistic_grad"],
                     "logistic_grad_unfused": claunches["logistic_z"],
-                    "logistic_grad_unfused_p8192": claunches["logistic_z"]}
+                    "logistic_grad_unfused_p8192": claunches["logistic_z"],
+                    **{k: launches_4c[k] for k in new_keys}}
     shapes = {"rank_update": (m, n, p), "fista_step_gemv": (m, p, 1),
               "fista_step_gemm": (m, p, p),
               "logistic_grad": (M, N, P), "logistic_grad_unfused": (M, N, P),
               "logistic_grad_p8192": LARGE_P,
-              "logistic_grad_unfused_p8192": LARGE_P}
+              "logistic_grad_unfused_p8192": LARGE_P,
+              "ista_step_batched_gemv": (m, p, 1),
+              "ista_step_batched_gemm": (m, p, p),
+              "ista_step_gemv": (1, p, 1), "ista_step_gemm": (1, p, p),
+              "rank_update_sigma": (m, n, p), "rank_update_c": (m, n, p),
+              "group_threshold": (pg, mg)}
     kernels = []
     for (name, source, replaces, (bound_ms, bound_by), kern, wrapper, plain,
          lib) in rows:

@@ -1,6 +1,7 @@
-"""Core DSML library of the port: Algorithm 1 for regression and its
-Section-4 logistic extension."""
+"""Core DSML library of the port: Algorithm 1 for regression, its
+Section-4 logistic extension, and the paper's comparison estimators."""
 from repro_torch.core.debias import coherence, debias_lasso, inverse_hessian_m
+from repro_torch.core.dirty import dirty_model
 from repro_torch.core.dsml import DsmlResult, dsml_fit
 from repro_torch.core.engine import (
     debias_batched,
@@ -9,6 +10,8 @@ from repro_torch.core.engine import (
     scaled_identity_m0,
     solve_lasso_batched,
     solve_lasso_eq2,
+    solve_lasso_eq2_grid,
+    solve_lasso_grid,
     solve_logistic_lasso_batched,
     sufficient_stats,
 )
@@ -39,6 +42,8 @@ from repro_torch.core.prox import (
 )
 from repro_torch.core.solvers import (
     fista,
+    group_lasso,
+    icap,
     lasso,
     lasso_stats_step_scale,
     power_iteration,
@@ -54,10 +59,11 @@ from repro_torch.core.synth import (
 )
 
 __all__ = [
-    "coherence", "debias_lasso", "inverse_hessian_m",
+    "coherence", "debias_lasso", "inverse_hessian_m", "dirty_model",
     "DsmlResult", "dsml_fit",
     "debias_batched", "inverse_hessian_batched", "power_iteration_batched",
     "scaled_identity_m0", "solve_lasso_batched", "solve_lasso_eq2",
+    "solve_lasso_eq2_grid", "solve_lasso_grid",
     "solve_logistic_lasso_batched", "sufficient_stats",
     "DsmlLogisticResult", "debias_logistic", "debias_logistic_batched",
     "dsml_logistic_fit", "group_logistic_lasso", "icap_logistic",
@@ -66,7 +72,7 @@ __all__ = [
     "prediction_error", "support_of",
     "group_hard_threshold", "group_soft_threshold", "project_l1_ball",
     "prox_linf", "soft_threshold", "support_from_rows",
-    "fista", "lasso", "lasso_stats_step_scale", "power_iteration",
+    "fista", "group_lasso", "icap", "lasso", "lasso_stats_step_scale", "power_iteration",
     "refit_ols_masked", "refit_ols_masked_stats",
     "MultiTaskData", "ar_covariance", "gen_classification",
     "gen_regression",

@@ -168,6 +168,45 @@ def solve_lasso_eq2(Sigmas: torch.Tensor, cs: torch.Tensor, lam, *,
                                return_iters=return_iters)
 
 
+def solve_lasso_grid(Sigmas: torch.Tensor, cs: torch.Tensor, lams, *,
+                     iters: int = 400, etas: torch.Tensor | None = None,
+                     use_kernel: bool | None = None) -> torch.Tensor:
+    """Solve every (task, lambda) pair of a tuning grid in ONE batch.
+
+    Sigmas (m, p, p), cs (m, p), lams (k,) -> (k, m, p). The engine takes
+    per-task regularization weights, so a lambda grid is k*m tasks
+    sharing tiled statistics: Sigma, c and the step sizes are tiled k
+    times and each lambda repeated per task, and the whole sweep is one
+    `solve_lasso_batched` of `iters` steps (on CUDA tensors, one launch of
+    the fused FISTA kernel over the k*m tasks per step). Step sizes
+    depend only on Sigma and are shared across the grid; default
+    1/lambda_max per task."""
+    m, p = cs.shape
+    lams = torch.as_tensor(lams, dtype=cs.dtype, device=cs.device)
+    lams = lams.reshape(-1)
+    k = lams.shape[0]
+    if etas is None:
+        etas = 1.0 / torch.clamp_min(power_iteration_batched(Sigmas), 1e-12)
+    etas = torch.as_tensor(etas, dtype=cs.dtype, device=cs.device)
+    B = solve_lasso_batched(Sigmas.repeat(k, 1, 1), cs.repeat(k, 1),
+                            lams.repeat_interleave(m), iters=iters,
+                            etas=etas.reshape(-1).repeat(k),
+                            use_kernel=use_kernel, check_every=25)
+    return B.reshape(k, m, p)
+
+
+def solve_lasso_eq2_grid(Sigmas: torch.Tensor, cs: torch.Tensor, lams, *,
+                         iters: int = 400,
+                         use_kernel: bool | None = None) -> torch.Tensor:
+    """`solve_lasso_grid` in the paper's eq.-2 convention (see
+    `solve_lasso_eq2`: step 2/max(2*lambda_max, eps), threshold weight
+    lam/2). Sigmas (m, p, p), cs (m, p), lams (k,) -> (k, m, p)."""
+    lams = torch.as_tensor(lams, dtype=cs.dtype, device=cs.device)
+    return solve_lasso_grid(Sigmas, cs, 0.5 * lams, iters=iters,
+                            etas=lasso_stats_step_scale(Sigmas),
+                            use_kernel=use_kernel)
+
+
 def solve_logistic_lasso_batched(Xs: torch.Tensor, ys: torch.Tensor, lam, *,
                                  iters: int = 600,
                                  etas: torch.Tensor | None = None,

@@ -1,6 +1,12 @@
-"""FISTA solvers for the local lasso, and their building blocks.
+"""FISTA solvers for the local lasso, group lasso and iCAP estimators,
+and their building blocks.
 
-The paper's lasso (eq. 2): (1/n)||y_t - X_t b||^2 + lambda_t ||b||_1.
+The paper's objectives:
+
+  lasso (eq. 2):        (1/n)||y_t - X_t b||^2 + lambda_t ||b||_1
+  multi-task (eq. 3):   (1/(mn)) sum_t ||y_t - X_t b_t||^2 + lambda*pen(B)
+      pen = sum_j ||B_j||_2      (group lasso)
+      pen = sum_j max_t |B_tj|   (iCAP)
 
 Every solver runs a fixed iteration budget with the Lipschitz constant
 from power iteration on the empirical covariance, as the reference does
@@ -13,6 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core.prox import group_soft_threshold, prox_linf
 
 _HALF, _ONE, _FOUR = np.float32(0.5), np.float32(1.0), np.float32(4.0)
 
@@ -72,6 +80,55 @@ def lasso(X: torch.Tensor, y: torch.Tensor, lam, iters: int = 400, *,
     c = (X.T @ y) / n
     return solve_lasso_eq2(Sigma[None], c[None], lam,
                            iters=iters, use_kernel=use_kernel)[0]
+
+
+def multitask_loss_grad(Xs: torch.Tensor, ys: torch.Tensor, *,
+                        use_kernel: bool | None = None):
+    """The eq.-3 loss (1/(mn)) sum_t ||y_t - X_t b_t||^2 on sufficient
+    statistics: returns (grad, step), grad(B (p, m)) -> (p, m) and the
+    step 1/max(2/m max_t lambda_max(Sigma_t), 1e-12). `use_kernel`
+    reaches `sufficient_stats` (the rank-n update kernel on CUDA
+    tensors); the gradient is plain PyTorch, as the reference leaves it
+    to XLA."""
+    from repro_torch.core.engine import sufficient_stats
+    m = Xs.shape[0]
+    Sigmas, cs = sufficient_stats(Xs, ys, use_kernel=use_kernel)
+    L = 2.0 / m * torch.max(power_iteration(Sigmas))
+    step = 1.0 / torch.clamp_min(L, 1e-12)
+
+    def grad(B):
+        return (2.0 / m) * (torch.einsum("tij,jt->it", Sigmas, B) - cs.T)
+
+    return grad, step
+
+
+def _multitask_fista(Xs: torch.Tensor, ys: torch.Tensor, prox, iters: int,
+                     use_kernel: bool | None) -> torch.Tensor:
+    """FISTA on the eq.-3 loss with the row penalty's `prox(V, step)`,
+    from zero. Returns B (p, m)."""
+    m, _, p = Xs.shape
+    grad, step = multitask_loss_grad(Xs, ys, use_kernel=use_kernel)
+    return fista(grad, prox, torch.zeros((p, m), dtype=Xs.dtype,
+                                         device=Xs.device), step, iters)
+
+
+def group_lasso(Xs: torch.Tensor, ys: torch.Tensor, lam, iters: int = 400,
+                *, use_kernel: bool | None = None) -> torch.Tensor:
+    """Centralized multi-task group lasso (eq. 3 with l1/l2 penalty).
+
+    Xs: (m, n, p), ys: (m, n). Returns B: (p, m) (rows = variables).
+    `use_kernel` as in `multitask_loss_grad`."""
+    return _multitask_fista(
+        Xs, ys, lambda V, s: group_soft_threshold(V, s * lam), iters,
+        use_kernel)
+
+
+def icap(Xs: torch.Tensor, ys: torch.Tensor, lam, iters: int = 400, *,
+         use_kernel: bool | None = None) -> torch.Tensor:
+    """iCAP estimator: l1/linf composite penalty (Zhao et al., 2009).
+    Same arguments and result as `group_lasso`."""
+    return _multitask_fista(
+        Xs, ys, lambda V, s: prox_linf(V, s * lam), iters, use_kernel)
 
 
 def refit_ols_masked_stats(S: torch.Tensor, c: torch.Tensor,

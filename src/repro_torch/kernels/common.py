@@ -10,7 +10,8 @@ Every wrapper follows one convention (`use_kernel`):
 A CUDA tensor with `use_kernel=None` launches the kernel or raises;
 nothing falls back to the plain version.
 
-`LAUNCHES` counts kernel launches, one plain integer per CUDA kernel,
+`LAUNCHES` counts kernel launches, one plain integer per wrapper and
+CUDA kernel (two wrappers that launch one compiled kernel count apart),
 incremented by the wrapper right where it launches. A run proves it
 went through a kernel by zeroing the counts (`reset_launches`) before
 it and reading them after.
@@ -26,6 +27,13 @@ LAUNCHES: dict[str, int] = {
     "logistic_grad": 0,      # kernels/logistic_grad: the fused gradient
     "logistic_z": 0,         # kernels/logistic_grad, unfused: z = X b
     "logistic_backproject": 0,  # kernels/logistic_grad, unfused: -X'r/n
+    "ista_step_batched_gemv": 0,  # kernels/ista_step, no momentum, r == 1
+    "ista_step_batched_gemm": 0,  # kernels/ista_step, no momentum, r > 1
+    "ista_step_gemv": 0,     # kernels/ista_step, one task, r == 1
+    "ista_step_gemm": 0,     # kernels/ista_step, one task, r > 1
+    "rank_update_sigma": 0,  # kernels/rank_update, unfused: Sigma alone
+    "rank_update_c": 0,      # kernels/rank_update, unfused: c alone
+    "group_threshold": 0,    # kernels/group_threshold
 }
 
 

@@ -10,8 +10,18 @@
 // in f32 on the already-rounded x', as in the TPU kernel's epilogue. The
 // outputs must not alias z or x: every block reads all of z.
 //
-// Two code paths for the two shapes of the DSML main path, one C entry
-// each; the wrapper chooses by r.
+// The same kernels with the compile-time flag MOMENTUM = false are the
+// plain ISTA step, x' = soft(beta - eta_t (Sigma_t beta - c_t), eta_t lam_t)
+// with no x input and no z' output. They replace `ista_step_batched_pallas`
+// (body `_ista_batched_kernel`, per-task eta and lam) and, launched with
+// m = 1, `ista_step_pallas` (body `_ista_kernel`, scalar eta and lam): the
+// two TPU bodies share the epilogue computed here. Without the x read and
+// the z' write the step moves two (m, p, r) arrays fewer; at r = 1 it is
+// still bound by Sigma's bytes and at r = p by the operations.
+//
+// Two code paths for the two shapes of the DSML main path, each with a C
+// entry with momentum (fista_step_*) and one without (ista_step_*); the
+// wrapper chooses by r.
 //
 // * r == 1 (the m local lassos): a batched matrix-vector product, bound by
 //   bytes. At (m, p) = (16, 1024) Sigma is 67 MB, more than the 50 MB L2,
@@ -42,14 +52,20 @@
 
 namespace {
 
+// Output element o of task t: x' into xn[o] and, with MOMENTUM, z' into
+// zn[o] (x read from xp[o]). Without MOMENTUM xp and zn are never touched.
+template <bool MOMENTUM>
 __device__ __forceinline__ void epilogue(float acc, float c, float z,
-                                         float x, float eta, float tau,
-                                         float theta, float* xn, float* zn) {
+                                         const float* __restrict__ xp,
+                                         float eta, float tau, float theta,
+                                         float* __restrict__ xn,
+                                         float* __restrict__ zn, size_t o) {
   const float v = __fsub_rn(z, __fmul_rn(eta, __fsub_rn(acc, c)));
   const float mag = fmaxf(__fsub_rn(fabsf(v), tau), 0.f);
   const float xv = v > 0.f ? mag : (v < 0.f ? -mag : 0.f);
-  *xn = xv;
-  *zn = __fadd_rn(xv, __fmul_rn(theta, __fsub_rn(xv, x)));
+  xn[o] = xv;
+  if constexpr (MOMENTUM)
+    zn[o] = __fadd_rn(xv, __fmul_rn(theta, __fsub_rn(xv, xp[o])));
 }
 
 // ---- r == 1: batched GEMV ---------------------------------------------------
@@ -59,7 +75,7 @@ constexpr int GV_THREADS = 32 * GV_WARPS;
 constexpr int GV_ROWS = 4;           // rows per warp, streamed together
 constexpr int GV_CHUNK = 4096;       // floats of z_t staged per pass (16 KB)
 
-template <bool VEC>
+template <bool VEC, bool MOMENTUM>
 __global__ void __launch_bounds__(GV_THREADS)
 fista_gemv_kernel(const float* __restrict__ Sig, const float* __restrict__ Z,
                   const float* __restrict__ Xp, const float* __restrict__ C,
@@ -124,7 +140,8 @@ fista_gemv_kernel(const float* __restrict__ Sig, const float* __restrict__ Z,
     for (int rr = 0; rr < GV_ROWS; ++rr) {
       if (rr < nrows) {
         const size_t o = (size_t)t * p + row0 + rr;
-        epilogue(acc[rr], C[o], Z[o], Xp[o], e, tau, theta, Xn + o, Zn + o);
+        epilogue<MOMENTUM>(acc[rr], C[o], Z[o], Xp, e, tau, theta, Xn, Zn,
+                           o);
       }
     }
   }
@@ -143,6 +160,7 @@ constexpr int RN = BN / TX;
 constexpr int LOADS = BK * BM / THREADS;
 constexpr int APAD = 4;
 
+template <bool MOMENTUM>
 __global__ void __launch_bounds__(THREADS)
 fista_gemm_kernel(const float* __restrict__ Sig, const float* __restrict__ Z,
                   const float* __restrict__ Xp, const float* __restrict__ C,
@@ -209,19 +227,16 @@ fista_gemm_kernel(const float* __restrict__ Sig, const float* __restrict__ Z,
       const int j = j0 + tx + TX * s;
       if (j >= r) continue;
       const size_t o = ((size_t)t * p + i) * r + j;
-      epilogue(acc[q][s], C[o], Z[o], Xp[o], e, tau, theta, Xn + o, Zn + o);
+      epilogue<MOMENTUM>(acc[q][s], C[o], Z[o], Xp, e, tau, theta, Xn, Zn,
+                         o);
     }
   }
 }
 
-}  // namespace
-
-// Sigma (m, p, p); z, x, c (m, p); eta, lam (m,) -> x', z' (m, p).
-extern "C" int fista_step_gemv_f32(const void* Sig, const void* Z,
-                                   const void* Xp, const void* C,
-                                   const void* eta, const void* lam,
-                                   float theta, void* Xn, void* Zn, int m,
-                                   int p, int device, void* stream) {
+template <bool MOMENTUM>
+int launch_gemv(const void* Sig, const void* Z, const void* Xp,
+                const void* C, const void* eta, const void* lam, float theta,
+                void* Xn, void* Zn, int m, int p, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int rows_per_block = GV_WARPS * GV_ROWS;
@@ -234,14 +249,43 @@ extern "C" int fista_step_gemv_f32(const void* Sig, const void* Z,
       static_cast<const float*>(Xp), static_cast<const float*>(C),
       static_cast<const float*>(eta), static_cast<const float*>(lam)};
   if (vec)
-    fista_gemv_kernel<true><<<grid, GV_THREADS, 0, s>>>(
+    fista_gemv_kernel<true, MOMENTUM><<<grid, GV_THREADS, 0, s>>>(
         args[0], args[1], args[2], args[3], args[4], args[5], theta,
         static_cast<float*>(Xn), static_cast<float*>(Zn), p);
   else
-    fista_gemv_kernel<false><<<grid, GV_THREADS, 0, s>>>(
+    fista_gemv_kernel<false, MOMENTUM><<<grid, GV_THREADS, 0, s>>>(
         args[0], args[1], args[2], args[3], args[4], args[5], theta,
         static_cast<float*>(Xn), static_cast<float*>(Zn), p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool MOMENTUM>
+int launch_gemm(const void* Sig, const void* Z, const void* Xp,
+                const void* C, const void* eta, const void* lam, float theta,
+                void* Xn, void* Zn, int m, int p, int r, int device,
+                void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const dim3 grid((r + BN - 1) / BN, (p + BM - 1) / BM, m);
+  fista_gemm_kernel<MOMENTUM>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(Sig), static_cast<const float*>(Z),
+          static_cast<const float*>(Xp), static_cast<const float*>(C),
+          static_cast<const float*>(eta), static_cast<const float*>(lam),
+          theta, static_cast<float*>(Xn), static_cast<float*>(Zn), p, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Sigma (m, p, p); z, x, c (m, p); eta, lam (m,) -> x', z' (m, p).
+extern "C" int fista_step_gemv_f32(const void* Sig, const void* Z,
+                                   const void* Xp, const void* C,
+                                   const void* eta, const void* lam,
+                                   float theta, void* Xn, void* Zn, int m,
+                                   int p, int device, void* stream) {
+  return launch_gemv<true>(Sig, Z, Xp, C, eta, lam, theta, Xn, Zn, m, p,
+                           device, stream);
 }
 
 // Sigma (m, p, p); z, x, c (m, p, r); eta, lam (m,) -> x', z' (m, p, r).
@@ -250,13 +294,26 @@ extern "C" int fista_step_gemm_f32(const void* Sig, const void* Z,
                                    const void* eta, const void* lam,
                                    float theta, void* Xn, void* Zn, int m,
                                    int p, int r, int device, void* stream) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid((r + BN - 1) / BN, (p + BM - 1) / BM, m);
-  fista_gemm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(Sig), static_cast<const float*>(Z),
-      static_cast<const float*>(Xp), static_cast<const float*>(C),
-      static_cast<const float*>(eta), static_cast<const float*>(lam), theta,
-      static_cast<float*>(Xn), static_cast<float*>(Zn), p, r);
-  return static_cast<int>(cudaGetLastError());
+  return launch_gemm<true>(Sig, Z, Xp, C, eta, lam, theta, Xn, Zn, m, p, r,
+                           device, stream);
+}
+
+// The ISTA step: Sigma (m, p, p); beta, c (m, p); eta, lam (m,) -> beta'
+// (m, p), which must not alias beta.
+extern "C" int ista_step_gemv_f32(const void* Sig, const void* B,
+                                  const void* C, const void* eta,
+                                  const void* lam, void* Out, int m, int p,
+                                  int device, void* stream) {
+  return launch_gemv<false>(Sig, B, nullptr, C, eta, lam, 0.f, Out, nullptr,
+                            m, p, device, stream);
+}
+
+// The ISTA step: Sigma (m, p, p); beta, c (m, p, r); eta, lam (m,) ->
+// beta' (m, p, r), which must not alias beta.
+extern "C" int ista_step_gemm_f32(const void* Sig, const void* B,
+                                  const void* C, const void* eta,
+                                  const void* lam, void* Out, int m, int p,
+                                  int r, int device, void* stream) {
+  return launch_gemm<false>(Sig, B, nullptr, C, eta, lam, 0.f, Out, nullptr,
+                            m, p, r, device, stream);
 }

@@ -1,8 +1,15 @@
-"""Wrapper of the fused FISTA step kernel (`kernels/csrc/fista_step.cu`).
+"""Wrappers of the proximal-gradient step kernels (`kernels/csrc/fista_step.cu`).
 
-One wrapper, two CUDA kernels chosen by shape: r == 1 (the lasso, a
-batched matrix-vector product) and r > 1 (the debias solve, a batched
-matrix product). `use_kernel` follows `kernels/common.py`.
+Three entry points, each with two CUDA kernels chosen by shape: r == 1 (a
+batched matrix-vector product) and r > 1 (a batched matrix product).
+
+* `fista_step_batched`: the fused FISTA step (prox step + momentum), the
+  body of the engine's solves;
+* `ista_step_batched`: the same step without momentum, m tasks;
+* `ista_step`: one task with scalar eta and lam (the kernel at m = 1), and
+  `ista_solve`, a whole proximal-gradient solve with it as the body.
+
+`use_kernel` follows `kernels/common.py`.
 """
 from __future__ import annotations
 
@@ -14,7 +21,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
     LAUNCHES, check_f32, resolve_use_kernel,
 )
-from repro_torch.kernels.ista_step.ref import fista_step_batched_ref
+from repro_torch.kernels.ista_step.ref import (
+    fista_step_batched_ref, ista_step_batched_ref, ista_step_ref,
+)
 
 _GEMV_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
@@ -22,6 +31,51 @@ _GEMV_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
 _GEMM_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                   + [ctypes.c_void_p])
+_ISTA_GEMV_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + \
+    [ctypes.c_void_p]
+_ISTA_GEMM_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
+    [ctypes.c_void_p]
+
+
+def _check_batch(name: str, Sigmas: torch.Tensor, etas: torch.Tensor,
+                 **iterates: torch.Tensor) -> tuple[int, int, int]:
+    """Sigmas (m, p, p), every iterate (m, p, r), etas (m,), float32.
+    Returns (m, p, r)."""
+    first = next(iter(iterates.values()))
+    if first.ndim != 3 or Sigmas.ndim != 3:
+        raise ValueError(f"{name}: Sigmas (m, p, p) and iterates "
+                         f"(m, p[, r]) expected, got {tuple(Sigmas.shape)}, "
+                         f"{tuple(first.shape)}")
+    m, p, r = first.shape
+    if tuple(Sigmas.shape) != (m, p, p) or tuple(etas.shape) != (m,) \
+            or any(t.shape != first.shape for t in iterates.values()):
+        shapes = ", ".join(f"{k} {tuple(t.shape)}"
+                           for k, t in iterates.items())
+        raise ValueError(
+            f"{name}: shapes Sigmas {tuple(Sigmas.shape)}, {shapes}, etas "
+            f"{tuple(etas.shape)} do not fit (m, p, r) = {(m, p, r)}")
+    check_f32(name, Sigmas=Sigmas, etas=etas, **iterates)
+    return m, p, r
+
+
+def _per_task(name: str, arg: str, v, m: int,
+              device: torch.device) -> torch.Tensor:
+    """A scalar or per-task (m,) value `arg` as a contiguous float32 (m,)
+    tensor on `device`."""
+    if isinstance(v, torch.Tensor):
+        check_f32(name, **{arg: v})
+    t = torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1)
+    if t.numel() not in (1, m):
+        raise ValueError(f"{name}: {arg} must be a scalar or ({m},), got "
+                         f"{t.numel()} values")
+    return t.expand(m).contiguous()
+
+
+def _kernel_ready(name: str, shape, tensors) -> None:
+    if min(shape) == 0:
+        raise ValueError(f"{name}: empty shape {tuple(shape)}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
 def fista_step_batched(Sigmas: torch.Tensor, zs: torch.Tensor,
@@ -36,33 +90,15 @@ def fista_step_batched(Sigmas: torch.Tensor, zs: torch.Tensor,
     squeeze = zs.ndim == 2
     if squeeze:
         zs, xs, cs = zs[..., None], xs[..., None], cs[..., None]
-    if zs.ndim != 3 or Sigmas.ndim != 3:
-        raise ValueError(f"fista_step_batched: Sigmas (m, p, p) and zs "
-                         f"(m, p[, r]) expected, got {tuple(Sigmas.shape)}, "
-                         f"{tuple(zs.shape)}")
-    m, p, r = zs.shape
-    if tuple(Sigmas.shape) != (m, p, p) or xs.shape != zs.shape \
-            or cs.shape != zs.shape or tuple(etas.shape) != (m,):
-        raise ValueError(
-            f"fista_step_batched: shapes Sigmas {tuple(Sigmas.shape)}, zs "
-            f"{tuple(zs.shape)}, xs {tuple(xs.shape)}, cs {tuple(cs.shape)}, "
-            f"etas {tuple(etas.shape)} do not fit (m, p, r) = {(m, p, r)}")
-    check_f32("fista_step_batched", Sigmas=Sigmas, zs=zs, xs=xs, cs=cs,
-              etas=etas)
-    if isinstance(lam, torch.Tensor):
-        check_f32("fista_step_batched", lam=lam)
-    lam_t = torch.as_tensor(lam, dtype=torch.float32, device=zs.device)
-    lam_t = lam_t.reshape(-1).expand(m).contiguous()
+    m, p, r = _check_batch("fista_step_batched", Sigmas, etas, zs=zs, xs=xs,
+                           cs=cs)
+    lam_t = _per_task("fista_step_batched", "lam", lam, m, zs.device)
     tensors = (Sigmas, zs, xs, cs, etas, lam_t)
     if not resolve_use_kernel("fista_step_batched", use_kernel, *tensors):
         xn, zn = fista_step_batched_ref(Sigmas, zs, xs, cs, etas, lam_t,
                                         theta)
         return (xn[..., 0], zn[..., 0]) if squeeze else (xn, zn)
-    if min(m, p, r) == 0:
-        raise ValueError(f"fista_step_batched: empty shape {(m, p, r)}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fista_step_batched: the kernel takes contiguous "
-                         "tensors")
+    _kernel_ready("fista_step_batched", (m, p, r), tensors)
     xn = torch.empty_like(zs)
     zn = torch.empty_like(zs)
     launch(Sigmas, zs, xs, cs, etas, lam_t, theta, xn, zn)
@@ -90,3 +126,95 @@ def launch(Sigmas, zs, xs, cs, etas, lams, theta, xn, zn) -> None:
         _build.call(fn, *ptrs, float(theta), xn.data_ptr(), zn.data_ptr(), m,
                     p, r, dev.index, _build.stream(dev))
         LAUNCHES["fista_step_gemm"] += 1
+
+
+def ista_step_batched(Sigmas: torch.Tensor, betas: torch.Tensor,
+                      cs: torch.Tensor, etas: torch.Tensor, lam, *,
+                      use_kernel: bool | None = None) -> torch.Tensor:
+    """One ISTA step for m tasks, beta' = soft(beta - eta (Sigma beta -
+    c), eta lam). Sigmas (m, p, p); betas, cs (m, p) or (m, p, r); etas
+    (m,) per-task step sizes; lam a scalar or per-task (m,). Returns a
+    fresh tensor shaped like `betas`."""
+    squeeze = betas.ndim == 2
+    if squeeze:
+        betas, cs = betas[..., None], cs[..., None]
+    m, p, r = _check_batch("ista_step_batched", Sigmas, etas, betas=betas,
+                           cs=cs)
+    lam_t = _per_task("ista_step_batched", "lam", lam, m,
+                      betas.device)
+    tensors = (Sigmas, betas, cs, etas, lam_t)
+    if resolve_use_kernel("ista_step_batched", use_kernel, *tensors):
+        _kernel_ready("ista_step_batched", (m, p, r), tensors)
+        out = torch.empty_like(betas)
+        launch_ista(*tensors, out, "ista_step_batched")
+    else:
+        out = ista_step_batched_ref(*tensors)
+    return out[..., 0] if squeeze else out
+
+
+def ista_step(Sigma: torch.Tensor, beta: torch.Tensor, c: torch.Tensor,
+              eta, lam, *, use_kernel: bool | None = None) -> torch.Tensor:
+    """One ISTA step for one task: Sigma (p, p); beta, c (p,) or (p, r);
+    eta and lam scalars (numbers or one-element float32 tensors). On CUDA
+    tensors it is the batched kernel at m = 1. Returns a fresh tensor
+    shaped like `beta`."""
+    squeeze = beta.ndim == 1
+    if squeeze:
+        beta, c = beta[:, None], c[:, None]
+    if Sigma.ndim != 2 or beta.ndim != 2:
+        raise ValueError(f"ista_step: Sigma (p, p) and beta (p[, r]) "
+                         f"expected, got {tuple(Sigma.shape)}, "
+                         f"{tuple(beta.shape)}")
+    p, r = beta.shape
+    eta_t = _per_task("ista_step", "eta", eta, 1, beta.device)
+    lam_t = _per_task("ista_step", "lam", lam, 1, beta.device)
+    _check_batch("ista_step", Sigma[None], eta_t, beta=beta[None],
+                 c=c[None])
+    tensors = (Sigma, beta, c, eta_t, lam_t)
+    if resolve_use_kernel("ista_step", use_kernel, *tensors):
+        _kernel_ready("ista_step", (p, r), tensors)
+        out = torch.empty_like(beta)
+        launch_ista(Sigma[None], beta[None], c[None], eta_t, lam_t,
+                    out[None], "ista_step")
+    else:
+        out = ista_step_ref(Sigma, beta, c, eta_t[0], lam_t[0])
+    return out[:, 0] if squeeze else out
+
+
+def ista_solve(Sigma: torch.Tensor, c: torch.Tensor, lam, *,
+               iters: int = 400, use_kernel: bool | None = None
+               ) -> torch.Tensor:
+    """Proximal-gradient (ISTA, no momentum) lasso solve on sufficient
+    statistics, min_b 1/2 b'Sigma b - c'b + lam |b|_1, for one task:
+    Sigma (p, p), c (p,) or (p, r) (multi-RHS). The step is
+    1/max(lambda_max(Sigma), 1e-12); `iters` steps of `ista_step` from
+    zero, a host loop."""
+    from repro_torch.core.solvers import power_iteration
+    eta = 1.0 / torch.clamp_min(power_iteration(Sigma), 1e-12)
+    lam_t = torch.as_tensor(lam, dtype=torch.float32, device=c.device)
+    beta = torch.zeros_like(c)
+    for _ in range(iters):
+        beta = ista_step(Sigma, beta, c, eta, lam_t, use_kernel=use_kernel)
+    return beta
+
+
+def launch_ista(Sigmas, betas, cs, etas, lams, out, counter: str) -> None:
+    """Launch the ISTA step kernel into `out`, with no checks: the
+    operands are what `ista_step_batched` passes (float32, contiguous, one
+    CUDA device; Sigmas (m, p, p), betas/cs/out (m, p, r), etas and lams
+    (m,), out not aliasing betas). Adds one to LAUNCHES[counter + "_gemv"]
+    or [counter + "_gemm"]. A timing loop calls it to time the kernel
+    alone."""
+    m, p, r = betas.shape
+    ptrs = [t.data_ptr() for t in (Sigmas, betas, cs, etas, lams, out)]
+    dev = betas.device
+    if r == 1:
+        fn = _build.function("fista_step", "ista_step_gemv_f32",
+                             _ISTA_GEMV_ARGTYPES)
+        _build.call(fn, *ptrs, m, p, dev.index, _build.stream(dev))
+        LAUNCHES[counter + "_gemv"] += 1
+    else:
+        fn = _build.function("fista_step", "ista_step_gemm_f32",
+                             _ISTA_GEMM_ARGTYPES)
+        _build.call(fn, *ptrs, m, p, r, dev.index, _build.stream(dev))
+        LAUNCHES[counter + "_gemm"] += 1

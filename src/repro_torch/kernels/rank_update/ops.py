@@ -1,7 +1,10 @@
-"""Wrapper of the fused rank-n update kernel (`kernels/csrc/rank_update.cu`).
+"""Wrappers of the rank-n update kernels (`kernels/csrc/rank_update.cu`).
 
-`use_kernel` follows `kernels/common.py`: the CUDA kernel for CUDA
-tensors, the plain version (`ref.py`) for CPU tensors.
+`rank_update` is the fused kernel (Sigma and c in one launch), the path
+of `sufficient_stats`; `rank_update_unfused` is the two-dispatch pair
+(Sigma alone, then c alone), the fused kernel's yardstick. `use_kernel`
+follows `kernels/common.py`: the CUDA kernels for CUDA tensors, the plain
+version (`ref.py`) for CPU tensors.
 """
 from __future__ import annotations
 
@@ -16,6 +19,41 @@ from repro_torch.kernels.common import (
 from repro_torch.kernels.rank_update.ref import rank_update_ref
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_SIGMA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
+    [ctypes.c_void_p]
+_C_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def _checked(name: str, Xs: torch.Tensor, ys: torch.Tensor,
+             weights: torch.Tensor | None,
+             use_kernel: bool | None) -> bool:
+    """Check the operands (Xs (m, n, p); ys and optional weights (m, n);
+    float32) and return whether the kernel runs."""
+    if Xs.ndim != 3:
+        raise ValueError(f"{name}: Xs must be (m, n, p), got "
+                         f"{tuple(Xs.shape)}")
+    m, n, p = Xs.shape
+    args = {"Xs": Xs, "ys": ys}
+    if weights is not None:
+        args["weights"] = weights
+    for arg, t in args.items():
+        if arg != "Xs" and tuple(t.shape) != (m, n):
+            raise ValueError(f"{name}: {arg} must be {(m, n)}, got "
+                             f"{tuple(t.shape)}")
+    check_f32(name, **args)
+    if not resolve_use_kernel(name, use_kernel, *args.values()):
+        return False
+    if min(m, n, p) == 0:
+        raise ValueError(f"{name}: empty shape {(m, n, p)}")
+    if not all(t.is_contiguous() for t in args.values()):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    return True
+
+
+def _outputs(Xs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    m, _, p = Xs.shape
+    return (torch.empty((m, p, p), dtype=torch.float32, device=Xs.device),
+            torch.empty((m, p), dtype=torch.float32, device=Xs.device))
 
 
 def rank_update(Xs: torch.Tensor, ys: torch.Tensor,
@@ -25,41 +63,65 @@ def rank_update(Xs: torch.Tensor, ys: torch.Tensor,
     """Sigma_t = X_t' W_t X_t / n and c_t = X_t' W_t y_t / n for all m
     tasks. Xs (m, n, p); ys and optional weights (m, n); float32.
     Returns (Sigmas (m, p, p), cs (m, p))."""
-    if Xs.ndim != 3:
-        raise ValueError(f"rank_update: Xs must be (m, n, p), got "
-                         f"{tuple(Xs.shape)}")
-    m, n, p = Xs.shape
-    args = {"Xs": Xs, "ys": ys}
-    if weights is not None:
-        args["weights"] = weights
-    for name, t in args.items():
-        if name != "Xs" and tuple(t.shape) != (m, n):
-            raise ValueError(f"rank_update: {name} must be {(m, n)}, got "
-                             f"{tuple(t.shape)}")
-    check_f32("rank_update", **args)
-    if not resolve_use_kernel("rank_update", use_kernel, *args.values()):
+    if not _checked("rank_update", Xs, ys, weights, use_kernel):
         return rank_update_ref(Xs, ys, weights)
-    if min(m, n, p) == 0:
-        raise ValueError(f"rank_update: empty shape {(m, n, p)}")
-    if not all(t.is_contiguous() for t in args.values()):
-        raise ValueError("rank_update: the kernel takes contiguous tensors")
-
-    Sigmas = torch.empty((m, p, p), dtype=torch.float32, device=Xs.device)
-    cs = torch.empty((m, p), dtype=torch.float32, device=Xs.device)
+    Sigmas, cs = _outputs(Xs)
     launch(Xs, ys, weights, Sigmas, cs)
     return Sigmas, cs
 
 
+def rank_update_unfused(Xs: torch.Tensor, ys: torch.Tensor,
+                        weights: torch.Tensor | None = None, *,
+                        use_kernel: bool | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`rank_update` in two launches, Sigma alone and then c alone, as
+    the reference's two-dispatch baseline computes it: X is read twice.
+    Same arguments and result as `rank_update`."""
+    if not _checked("rank_update_unfused", Xs, ys, weights, use_kernel):
+        return rank_update_ref(Xs, ys, weights)
+    Sigmas, cs = _outputs(Xs)
+    launch_sigma(Xs, weights, Sigmas)
+    launch_c(Xs, ys, weights, cs)
+    return Sigmas, cs
+
+
+def _wptr(weights: torch.Tensor | None):
+    return None if weights is None else weights.data_ptr()
+
+
+# The launchers below take what the wrappers pass (float32, contiguous,
+# one CUDA device; Xs (m, n, p), ys and weights (m, n), Sigmas (m, p, p),
+# cs (m, p)) and check nothing: a timing loop calls them to time a kernel
+# alone.
+
 def launch(Xs: torch.Tensor, ys: torch.Tensor, weights: torch.Tensor | None,
            Sigmas: torch.Tensor, cs: torch.Tensor) -> None:
-    """Launch the kernel into the given outputs, with no checks: the
-    operands are what `rank_update` passes (float32, contiguous, one CUDA
-    device; Xs (m, n, p), ys and weights (m, n), Sigmas (m, p, p), cs
-    (m, p)). A timing loop calls it to time the kernel alone."""
+    """Launch the fused kernel into Sigmas and cs."""
     m, n, p = Xs.shape
     fn = _build.function("rank_update", "rank_update_f32", _ARGTYPES)
-    _build.call(fn, Xs.data_ptr(), ys.data_ptr(),
-                None if weights is None else weights.data_ptr(),
+    _build.call(fn, Xs.data_ptr(), ys.data_ptr(), _wptr(weights),
                 Sigmas.data_ptr(), cs.data_ptr(), m, n, p,
                 Xs.device.index, _build.stream(Xs.device))
     LAUNCHES["rank_update"] += 1
+
+
+def launch_sigma(Xs: torch.Tensor, weights: torch.Tensor | None,
+                 Sigmas: torch.Tensor) -> None:
+    """Launch the unfused pair's Sigma-only kernel into Sigmas."""
+    m, n, p = Xs.shape
+    fn = _build.function("rank_update", "rank_update_sigma_f32",
+                         _SIGMA_ARGTYPES)
+    _build.call(fn, Xs.data_ptr(), _wptr(weights), Sigmas.data_ptr(), m, n,
+                p, Xs.device.index, _build.stream(Xs.device))
+    LAUNCHES["rank_update_sigma"] += 1
+
+
+def launch_c(Xs: torch.Tensor, ys: torch.Tensor, weights: torch.Tensor | None,
+             cs: torch.Tensor) -> None:
+    """Launch the unfused pair's c-only kernel into cs."""
+    m, n, p = Xs.shape
+    fn = _build.function("rank_update", "rank_update_c_f32", _C_ARGTYPES)
+    _build.call(fn, Xs.data_ptr(), ys.data_ptr(), _wptr(weights),
+                cs.data_ptr(), m, n, p, Xs.device.index,
+                _build.stream(Xs.device))
+    LAUNCHES["rank_update_c"] += 1

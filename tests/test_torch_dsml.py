@@ -68,8 +68,11 @@ for name in names:
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.")
              or k == "repro" or k.startswith("repro."))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+missing = sorted({"repro_torch.core.dirty",
+                  "repro_torch.kernels.group_threshold.ops",
+                  "repro_torch.kernels.group_threshold.ref"} - set(names))
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 26 else 0)
 """
 
 

@@ -15,15 +15,22 @@ import pytest
 import torch
 
 from repro_torch.core.dsml import dsml_fit
-from repro_torch.core.engine import power_iteration_batched
+from repro_torch.core.engine import (
+    power_iteration_batched, solve_lasso_eq2_grid, sufficient_stats,
+)
 from repro_torch.core.logistic import dsml_logistic_fit
 from repro_torch.core.synth import gen_classification, gen_regression
 from repro_torch.kernels.common import LAUNCHES
-from repro_torch.kernels.ista_step.ops import fista_step_batched
+from repro_torch.kernels.group_threshold.ops import group_threshold
+from repro_torch.kernels.ista_step.ops import (
+    fista_step_batched, ista_solve, ista_step, ista_step_batched,
+)
 from repro_torch.kernels.logistic_grad.ops import (
     logistic_grad, logistic_grad_unfused,
 )
-from repro_torch.kernels.rank_update.ops import rank_update
+from repro_torch.kernels.rank_update.ops import (
+    rank_update, rank_update_unfused,
+)
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-5
@@ -142,3 +149,114 @@ def test_dsml_logistic_fit_kernels_match_plain_path(cuda):
     assert torch.equal(got.support, want.support)
     _assert_close((got.beta_u, got.beta_local),
                   (want.beta_u, want.beta_local), tol=1e-4)
+
+
+def _ista_inputs(device, m, p, r):
+    g = torch.Generator(device=device).manual_seed(3)
+    X = torch.randn((m, 2 * p, p), generator=g, device=device)
+    Sig = torch.einsum("tni,tnj->tij", X, X) / (2 * p)
+    etas = 1.0 / power_iteration_batched(Sig)
+    b = 0.3 * torch.randn((m, p, r), generator=g, device=device)
+    c = 0.5 * torch.randn((m, p, r), generator=g, device=device)
+    lams = 0.02 + 0.05 * torch.rand((m,), generator=g, device=device)
+    return Sig, b, c, etas, lams
+
+
+_ISTA_SHAPES = [(4, 256, 1), (4, 256, 256), (3, 129, 1), (3, 129, 7),
+                (2, 130, 5)]
+
+
+@pytest.mark.parametrize("m, p, r", _ISTA_SHAPES)
+def test_ista_step_batched_kernel_matches_plain(cuda, m, p, r):
+    args = _ista_inputs(cuda, m, p, r)
+    key = "ista_step_batched_" + ("gemv" if r == 1 else "gemm")
+    before = LAUNCHES[key]
+    got = ista_step_batched(*args)
+    assert LAUNCHES[key] == before + 1
+    assert got.data_ptr() != args[1].data_ptr()
+    _assert_close((got,), (ista_step_batched(*args, use_kernel=False),))
+    assert torch.equal(got, ista_step_batched(*args))
+    # the squeezed single-RHS form and a scalar lam
+    if r == 1:
+        sq = ista_step_batched(args[0], args[1][..., 0], args[2][..., 0],
+                               args[3], 0.05)
+        _assert_close((sq,), (ista_step_batched(
+            args[0], args[1][..., 0], args[2][..., 0], args[3], 0.05,
+            use_kernel=False),))
+
+
+@pytest.mark.parametrize("m, p, r", _ISTA_SHAPES)
+def test_ista_step_kernel_matches_plain(cuda, m, p, r):
+    Sig, b, c, etas, lams = _ista_inputs(cuda, m, p, r)
+    args = (Sig[0], b[0], c[0], etas[0], lams[0])
+    key = "ista_step_" + ("gemv" if r == 1 else "gemm")
+    before = LAUNCHES[key]
+    got = ista_step(*args)
+    assert LAUNCHES[key] == before + 1
+    _assert_close((got,), (ista_step(*args, use_kernel=False),))
+    assert torch.equal(got, ista_step(*args))
+
+
+@pytest.mark.parametrize("p, r", [(256, 1), (129, 7)])
+def test_ista_solve_kernel_matches_plain(cuda, p, r):
+    Sig, _, c, _, _ = _ista_inputs(cuda, 1, p, r)
+    key = "ista_step_" + ("gemv" if r == 1 else "gemm")
+    before = LAUNCHES[key]
+    got = ista_solve(Sig[0], c[0], 0.05, iters=200)
+    assert LAUNCHES[key] == before + 200
+    want = ista_solve(Sig[0], c[0], 0.05, iters=200, use_kernel=False)
+    _assert_close((got,), (want,), tol=1e-4)
+    assert torch.equal(got != 0, want != 0)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("m, n, p", [(4, 256, 256), (2, 7, 129),
+                                     (3, 100, 201)])
+def test_rank_update_unfused_kernels_match_plain(cuda, m, n, p, weighted):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    X = torch.randn((m, n, p), generator=g, device=cuda)
+    y = torch.randn((m, n), generator=g, device=cuda)
+    w = 0.5 + torch.rand((m, n), generator=g, device=cuda) if weighted \
+        else None
+    before = dict(LAUNCHES)
+    got = rank_update_unfused(X, y, w)
+    assert LAUNCHES["rank_update_sigma"] == before["rank_update_sigma"] + 1
+    assert LAUNCHES["rank_update_c"] == before["rank_update_c"] + 1
+    _assert_close(got, rank_update(X, y, w, use_kernel=False))
+    again = rank_update_unfused(X, y, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p, m", [(1024, 16), (1001, 5), (64, 40)])
+def test_group_threshold_kernel_matches_plain(cuda, p, m, dtype):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B = (torch.randn((p, m), generator=g, device=cuda)
+         * (0.1 + 2 * torch.rand((p, 1), generator=g, device=cuda))
+         / np.sqrt(m)).to(dtype)
+    before = LAUNCHES["group_threshold"]
+    out, keep = group_threshold(B, 0.8)
+    assert LAUNCHES["group_threshold"] == before + 1
+    out_p, keep_p = group_threshold(B, 0.8, use_kernel=False)
+    torch.cuda.synchronize()
+    assert keep.dtype == torch.bool and out.dtype == dtype
+    assert torch.equal(keep, keep_p) and torch.equal(out, out_p)
+    assert 0 < int(keep.sum()) < p
+    # a strided B is taken too (the master step passes beta_u.T)
+    out_t, keep_t = group_threshold(B.T.contiguous().T, 0.8)
+    assert torch.equal(keep_t, keep) and torch.equal(out_t, out)
+
+
+def test_grid_solve_kernels_match_plain_path(cuda):
+    d = gen_regression(0, m=4, n=100, p=120, s=6, signal_low=0.3,
+                       device=cuda)
+    S, c = sufficient_stats(d.Xs, d.ys)
+    lam_max = 2.0 * torch.max(torch.abs(c)).item()
+    lams = torch.tensor(lam_max * np.geomspace(1.0, 0.01, 5),
+                        dtype=torch.float32, device=cuda)
+    before = LAUNCHES["fista_step_gemv"]
+    got = solve_lasso_eq2_grid(S, c, lams, iters=200)
+    assert LAUNCHES["fista_step_gemv"] == before + 200
+    want = solve_lasso_eq2_grid(S, c, lams, iters=200, use_kernel=False)
+    assert got.shape == (5, 4, 120)
+    _assert_close((got,), (want,), tol=1e-4)

@@ -21,15 +21,24 @@ from repro.kernels.ista_step.ref import (
     ista_step_batched_ref as jax_ista_step_batched_ref,
     ista_step_ref as jax_ista_step_ref,
 )
-from repro.kernels.rank_update.kernel import rank_update_pallas
+from repro.kernels.rank_update.kernel import (
+    rank_update_pallas, rank_update_unfused_pallas,
+)
+from repro.kernels.rank_update.ops import (
+    rank_update_unfused as jax_rank_update_unfused,
+)
 from repro.kernels.rank_update.ref import rank_update_ref as jax_rank_update_ref
 from repro_torch.kernels.common import LAUNCHES
 from repro_torch.kernels.ista_step.ops import fista_step_batched
 from repro_torch.kernels.ista_step.ref import (
     fista_step_batched_ref, ista_step_batched_ref, ista_step_ref,
 )
-from repro_torch.kernels.rank_update.ops import rank_update
-from repro_torch.kernels.rank_update.ref import rank_update_ref
+from repro_torch.kernels.rank_update.ops import (
+    rank_update, rank_update_unfused,
+)
+from repro_torch.kernels.rank_update.ref import (
+    rank_c_ref, rank_sigma_ref, rank_update_ref,
+)
 
 ATOL = 1e-5
 
@@ -96,6 +105,41 @@ def test_rank_update_ref_matches_pallas_interpret(weighted):
     _close(c, c_k)
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+def test_rank_update_unfused_matches_pallas_interpret(weighted):
+    X, y, w = _rank_inputs(2, 32, 16, seed=5)
+    w_ = w if weighted else None
+    S, c = rank_update_unfused(_t(X), _t(y), None if w_ is None else _t(w_))
+    S_k, c_k = rank_update_unfused_pallas(
+        jnp.asarray(X), jnp.asarray(y),
+        None if w_ is None else jnp.asarray(w_), bp=8, bn=8, interpret=True)
+    _close(S, S_k)
+    _close(c, c_k)
+
+
+# (16, 24) routes the reference's wrapper to its two Pallas dispatches in
+# interpret mode, (7, 13) is ragged and takes its oracle
+@pytest.mark.parametrize("n, p", [(16, 24), (7, 13)])
+def test_rank_update_unfused_matches_reference_wrapper(n, p):
+    X, y, w = _rank_inputs(2, n, p, seed=6)
+    for w_ in (None, w):
+        S, c = rank_update_unfused(_t(X), _t(y),
+                                   None if w_ is None else _t(w_))
+        S_j, c_j = jax_rank_update_unfused(X, y, w_)
+        _close(S, S_j)
+        _close(c, c_j)
+
+
+def test_rank_update_halves_are_the_fused_plain_version():
+    X, y, w = _rank_inputs(2, 12, 10, seed=7)
+    S, c = rank_update_ref(_t(X), _t(y), _t(w))
+    assert torch.equal(rank_sigma_ref(_t(X), _t(w)), S)
+    assert torch.equal(rank_c_ref(_t(X), _t(y), _t(w)), c)
+    S, c = rank_update_unfused(_t(X), _t(y), _t(w), use_kernel=False)
+    assert torch.equal(rank_sigma_ref(_t(X), _t(w)), S)
+    assert torch.equal(rank_c_ref(_t(X), _t(y), _t(w)), c)
+
+
 # ---- ista_step --------------------------------------------------------------
 
 @pytest.mark.parametrize("r", [1, 12])
@@ -141,6 +185,8 @@ def test_cpu_tensors_run_plain_versions_and_launch_nothing():
     S, c = rank_update(_t(X), _t(y), _t(w))
     S_r, c_r = rank_update_ref(_t(X), _t(y), _t(w))
     assert torch.equal(S, S_r) and torch.equal(c, c_r)
+    S, c = rank_update_unfused(_t(X), _t(y), _t(w))
+    assert torch.equal(S, S_r) and torch.equal(c, c_r)
     Sig, z, x, c2, etas, lams, theta = _fista_inputs(2, 8, 1)
     args = (_t(Sig), _t(z), _t(x), _t(c2), _t(etas), _t(lams), theta)
     got = fista_step_batched(*args)
@@ -153,6 +199,8 @@ def test_use_kernel_true_on_cpu_raises():
     X, y, _ = _rank_inputs(2, 16, 8)
     with pytest.raises(ValueError, match="CUDA"):
         rank_update(_t(X), _t(y), use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        rank_update_unfused(_t(X), _t(y), use_kernel=True)
     Sig, z, x, c, etas, lams, theta = _fista_inputs(2, 8, 1)
     with pytest.raises(ValueError, match="CUDA"):
         fista_step_batched(_t(Sig), _t(z), _t(x), _t(c), _t(etas), 0.1,
@@ -163,6 +211,8 @@ def test_float64_raises():
     X, y, _ = _rank_inputs(2, 16, 8)
     with pytest.raises(TypeError, match="float32"):
         rank_update(_t(X).double(), _t(y))
+    with pytest.raises(TypeError, match="float32"):
+        rank_update_unfused(_t(X), _t(y).double())
     Sig, z, x, c, etas, lams, theta = _fista_inputs(2, 8, 1)
     with pytest.raises(TypeError, match="float32"):
         fista_step_batched(_t(Sig).double(), _t(z), _t(x), _t(c), _t(etas),
@@ -186,6 +236,10 @@ def test_wrappers_reject_mismatched_shapes():
     X, y, _ = _rank_inputs(2, 16, 8)
     with pytest.raises(ValueError, match="ys"):
         rank_update(_t(X), _t(y[:, :5]))
+    with pytest.raises(ValueError, match="weights"):
+        rank_update_unfused(_t(X), _t(y), _t(y[:1]))
+    with pytest.raises(ValueError, match=r"\(m, n, p\)"):
+        rank_update_unfused(_t(X[0]), _t(y))
     Sig, z, x, c, etas, _, theta = _fista_inputs(2, 8, 3)
     with pytest.raises(ValueError, match="do not fit"):
         fista_step_batched(_t(Sig), _t(z), _t(x[:, :4]), _t(c), _t(etas),
