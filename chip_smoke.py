@@ -16,6 +16,16 @@ Phases, each of which raises on failure (exit code != 0):
    ISTA steps (batched and single-task), the unfused rank pair and the
    group threshold at their path shapes and at ragged ones (p = 129,
    r = 7, m = 3; (2, 7, 129); (1001, 5)), each twice for the same bits;
+   the flash-attention forward in f32 at (B, S, N, K, H) = (2, 256, 8, 2,
+   64), a ragged (1, 200, 4, 1, 128), (1, 512, 4, 1, 256) with window 64
+   and a non-causal case, within 2e-5 * max|plain|, and in bf16 at the
+   serving path's (4, 2048, 32, 8, 64) and at the ragged and windowed
+   shapes against the plain version on the f32 upcast of the same
+   inputs; in both dtypes each query row's output within a relative l2
+   error of the plain row (1e-4 in f32, 1e-2 in bf16: the output's
+   scale falls with the row, as 1 / sqrt(row + 1), so a bar on
+   max|plain|, set by row 0, would not follow it), each twice for the
+   same bits;
 4. the regression path at full width: `dsml_fit` (DSML Algorithm 1) on
    m = 16 tasks, n = 512 samples, p = 1024 features, through the kernels
    (launch counts zeroed just before, read just after), then with
@@ -46,10 +56,23 @@ Phases, each of which raises on failure (exit code != 0):
    to 50 MB stays in L2, as it does in the solver loops) beside its bound,
    its plain version, the nearest PyTorch call, and the wrapper as the
    main path calls it (checks and allocation included); and each fit's
-   wall time on both paths.
+   wall time on both paths;
+6. the serving path at full width, the cell of
+   `repro_torch/serving/cell.py`: granite-3-2b (40 layers, d 2048, 32/8
+   heads of 64, bf16) from a seeded `torch.Generator`, `greedy_generate`
+   on a batch of 4 prompts of 2048 random ids and 16 new tokens, launch
+   counts zeroed just before and read just after (`flash_attention` 40
+   times, one per layer's prefill, and nothing else), then the same with
+   `use_kernel=False` on the card: the prefill's last logits within
+   0.1 * max|logits|, the shared tokens counted, prefill and decode
+   times, tokens per second and peak memory; then an f32 copy of the same
+   widths at 4 layers (batch 2, prompt 2048, 8 new tokens), whose kernel
+   and plain paths must give identical tokens and last logits within
+   1e-4 * max|logits|.
 
-It prints one JSON line of kernels and, last, the result line. With no
-CUDA device it raises before printing any result.
+It prints one JSON line of kernels (launches per run from phases 4-4c
+and 6) and, last, the result line. With no CUDA device it raises before
+printing any result.
 """
 from __future__ import annotations
 
@@ -67,14 +90,19 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # published H100 SXM peaks (NVIDIA data sheet): f32 FMA outside the tensor
-# cores, and HBM3 bandwidth
+# cores, dense bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 M, N, P, S = 16, 512, 1024, 16          # the main path's configuration
 LARGE_P = (4, 256, 8192)                # benchmarks/largep_logistic.py
 TOL_KERNEL = 1e-5                       # x max|plain|, per output
 TOL_FIT = 1e-4                          # x max|.|, after chained FISTA steps
+TOL_FLASH = 2e-5                        # x max|plain|, f32
+# worst relative l2 error of a query row's output
+TOL_FLASH_ROW = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+TOL_SERVE_BF16 = 0.1                    # x max|logits|; a wrong head map: O(1)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -123,9 +151,19 @@ def time_ms_cold(fn, reps: int = 20, warm: int = 3) -> float:
     return total / reps
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time on the card in ms, and what sets it."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def row_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max over rows of ||got_r - ref_r|| / ||ref_r||, a row being the
+    last axis."""
+    num = torch.linalg.vector_norm(got - ref, dim=-1)
+    den = torch.linalg.vector_norm(ref, dim=-1)
+    return torch.max(num / torch.clamp_min(den, 1e-30)).item()
+
+
+def bound(flops: float, nbytes: float,
+          peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    """Least time on the card in ms, and what sets it, for work done at
+    the peak rate `peak` (FLOP/s)."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -157,7 +195,10 @@ def main() -> None:
         power_iteration_batched, scaled_identity_m0,
     )
     from repro_torch.kernels import _build
+    from repro_torch.configs import get_config
     from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.group_threshold import ops as threshold_ops
     from repro_torch.kernels.group_threshold.ops import group_threshold
     from repro_torch.kernels.group_threshold.ref import group_threshold_ref
@@ -180,6 +221,9 @@ def main() -> None:
     from repro_torch.kernels.rank_update.ref import (
         rank_c_ref, rank_sigma_ref, rank_update_ref,
     )
+    from repro_torch.models import Batch, forward_prefill
+    from repro_torch.serving import cell
+    from repro_torch.serving.engine import greedy_generate
 
     dev = torch.device("cuda")
 
@@ -387,6 +431,53 @@ def main() -> None:
                  threshold_input(1001, 5), 0.8)
     check_kernel("group_threshold", "(1001,5) bf16", group_threshold,
                  threshold_input(1001, 5, torch.bfloat16), 0.8)
+
+    def flash_inputs(b, s, n, k, h, dtype):
+        return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((b, s, n, h), (b, s, k, h), (b, s, k, h)))
+
+    def check_flash(shape, dtype, causal=True, window=0):
+        """The kernel twice and the plain version on the f32 upcast of the
+        same inputs; every query row within TOL_FLASH_ROW[dtype] of the
+        plain row (relative l2) and, in f32, max abs error <= TOL_FLASH *
+        max|plain|."""
+        qkv = flash_inputs(*shape, dtype)
+        got = flash_attention(*qkv, causal=causal, window=window,
+                              use_kernel=True)
+        again = flash_attention(*qkv, causal=causal, window=window,
+                                use_kernel=True)
+        ref = flash_attention(*(t.float() for t in qkv), causal=causal,
+                              window=window, use_kernel=False)
+        torch.cuda.synchronize()
+        label = (f"{shape} {str(dtype).split('.')[-1]} causal={causal} "
+                 f"window={window}")
+        check(got.shape == ref.shape and got.dtype == dtype,
+              f"flash_attention {label}: shape or dtype")
+        err, scale = max_err(got.float(), ref)
+        rows = row_err(got.float(), ref)
+        check(rows <= TOL_FLASH_ROW[dtype], f"flash_attention {label}: a "
+              f"row's relative error {rows} > {TOL_FLASH_ROW[dtype]}")
+        check(dtype != f32 or err <= TOL_FLASH * scale, f"flash_attention "
+              f"{label}: err {err} > {TOL_FLASH} * {scale}")
+        check(bool(torch.equal(got, again)),
+              f"flash_attention {label}: two launches gave different bits")
+        print(f"check flash_attention {label}: worst row relative err "
+              f"{rows:.3g} (bar {TOL_FLASH_ROW[dtype]:g}), max abs err "
+              f"{err:.3g} (max|plain| {scale:.3g}), same bits on a second "
+              "launch")
+        return err, qkv
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    serve_cfg = get_config(cell.ARCH)
+    flash_path = (cell.BATCH, cell.PROMPT, serve_cfg.n_heads,
+                  serve_cfg.n_kv_heads, serve_cfg.resolved_head_dim)
+    check_flash((2, 256, 8, 2, 64), f32)
+    check_flash((1, 200, 4, 1, 128), f32)
+    check_flash((1, 512, 4, 1, 256), f32, window=64)
+    check_flash((2, 256, 8, 2, 64), f32, causal=False)
+    errs["flash_attention"], flash_qkv = check_flash(flash_path, bf16)
+    check_flash((1, 200, 4, 1, 128), bf16)
+    check_flash((1, 512, 4, 1, 256), bf16, window=64)
 
     # ---- 4. the main path at full width -----------------------------------
     data = gen_regression(torch.Generator(device=dev).manual_seed(0),
@@ -626,7 +717,23 @@ def main() -> None:
     S_out, c_out = torch.empty_like(Sig), torch.empty((m, p), device=dev)
     gemv_out = (torch.empty_like(gemv_args[1]), torch.empty_like(gemv_args[1]))
     gemm_out = (torch.empty_like(gemm_args[1]), torch.empty_like(gemm_args[1]))
+    fb, fs, fn, fk, fh = flash_path
+    fq, fkk, fv = flash_qkv
+    f_out = torch.empty_like(fq)
     rows = [
+        # the causal triangle on the bf16 tensor cores; q, k, v and out
+        # once each
+        ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention/kernel.py:83",
+         bound(4 * fb * fn * (fs * (fs + 1) // 2) * fh,
+               2 * (2 * fb * fs * fn * fh + 2 * fb * fs * fk * fh),
+               PEAK_BF16_FLOPS),
+         lambda: flash_ops.launch(fq, fkk, fv, f_out),
+         lambda: flash_attention(fq, fkk, fv),
+         lambda: flash_attention(fq, fkk, fv, use_kernel=False),
+         lambda: torch.nn.functional.scaled_dot_product_attention(
+             fq.transpose(1, 2), fkk.transpose(1, 2), fv.transpose(1, 2),
+             is_causal=True, enable_gqa=True)),
         ("rank_update", "src/repro_torch/kernels/csrc/rank_update.cu",
          "src/repro/kernels/rank_update/kernel.py:121", rank_bound,
          lambda: rank_ops.launch(X, y, None, S_out, c_out),
@@ -749,15 +856,6 @@ def main() -> None:
          lambda: B_gt * (torch.linalg.vector_norm(B_gt, dim=1,
                                                   keepdim=True) > 0.8)),
     ]
-    # launches per run: the regression rows from phase 4, the logistic
-    # rows from phase 4b (the unfused pair is not on either path), the
-    # rows of this slice from phase 4c
-    fit_launches = {**launches,
-                    "logistic_grad": claunches["logistic_grad"],
-                    "logistic_grad_p8192": claunches["logistic_grad"],
-                    "logistic_grad_unfused": claunches["logistic_z"],
-                    "logistic_grad_unfused_p8192": claunches["logistic_z"],
-                    **{k: launches_4c[k] for k in new_keys}}
     shapes = {"rank_update": (m, n, p), "fista_step_gemv": (m, p, 1),
               "fista_step_gemm": (m, p, p),
               "logistic_grad": (M, N, P), "logistic_grad_unfused": (M, N, P),
@@ -767,8 +865,8 @@ def main() -> None:
               "ista_step_batched_gemm": (m, p, p),
               "ista_step_gemv": (1, p, 1), "ista_step_gemm": (1, p, p),
               "rank_update_sigma": (m, n, p), "rank_update_c": (m, n, p),
-              "group_threshold": (pg, mg)}
-    kernels = []
+              "group_threshold": (pg, mg), "flash_attention": flash_path}
+    kernels = []              # launches per run are added after phase 6
     for (name, source, replaces, (bound_ms, bound_by), kern, wrapper, plain,
          lib) in rows:
         ms, wrap_ms = time_ms(kern), time_ms(wrapper)
@@ -780,13 +878,123 @@ def main() -> None:
               f"{cold_ms:.4f} ms {card}")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "shape": list(shapes[name]),
-                        "launches": fit_launches[name],
                         "max_abs_err": errs[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": lib_ms,
                         "cold_ms": cold_ms, "wrapper_ms": wrap_ms})
 
-    print(json.dumps({"kernels": kernels}))
+    # ---- 6. the serving path at full width -------------------------------
+    def prefill(params, cfg, prompt, steps, use_kernel=None):
+        """One prefill, as `greedy_generate` runs it: its last logits (f32)
+        and its wall time."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = forward_prefill(params, cfg, Batch(tokens=prompt),
+                                         cache_len=prompt.shape[1] + steps,
+                                         use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        del caches
+        return logits.float(), time.perf_counter() - t0
+
+    def generate(params, cfg, prompt, steps, use_kernel=None):
+        """`greedy_generate` with the launch counts zeroed just before and
+        read just after; (tokens, wall seconds, launches)."""
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = greedy_generate(params, cfg, prompt, steps=steps,
+                              use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(LAUNCHES)
+
+    def serve_checks(label, cfg, out, prompt, steps, got, want_flash):
+        b, s = prompt.shape
+        check(out.shape == (b, s + steps) and out.dtype == prompt.dtype,
+              f"{label}: generated shape {tuple(out.shape)}")
+        check(bool(torch.equal(out[:, :s], prompt)),
+              f"{label}: the prompt changed")
+        check(bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+              f"{label}: a token outside the vocabulary")
+        want = dict.fromkeys(LAUNCHES, 0)
+        want["flash_attention"] = want_flash
+        check(got == want, f"{label}: launches {got}, expected "
+              f"flash_attention={want_flash} and nothing else")
+
+    steps = cell.NEW_TOKENS
+    base_mem = torch.cuda.memory_allocated()
+    cfg, params, prompt = cell.make_cell(dev)
+    batch, plen = prompt.shape
+    weights_gib = (torch.cuda.memory_allocated() - base_mem) / 2**30
+    generate(params, cfg, prompt, 2)                     # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    out, gen_s, serve_launches = generate(params, cfg, prompt, steps)
+    peak_total_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_gib = peak_total_gib - base_mem / 2**30
+    print(f"serving path launches: {serve_launches}")
+    serve_checks(f"{cfg.name} kernels", cfg, out, prompt, steps,
+                 serve_launches, cfg.n_layers)
+    out_p, gen_plain_s, plain_launches = generate(params, cfg, prompt, steps,
+                                                  use_kernel=False)
+    serve_checks(f"{cfg.name} plain", cfg, out_p, prompt, steps,
+                 plain_launches, 0)
+    logits_k, pre_s = prefill(params, cfg, prompt, steps)
+    logits_p, pre_plain_s = prefill(params, cfg, prompt, steps,
+                                    use_kernel=False)
+    check(bool(torch.isfinite(logits_k).all()), "prefill logits not finite")
+    err, scale = max_err(logits_k, logits_p)
+    check(err <= TOL_SERVE_BF16 * scale, f"{cfg.name} prefill logits: err "
+          f"{err} > {TOL_SERVE_BF16} * {scale}")
+    shared = int((out[:, plen:] == out_p[:, plen:]).sum())
+    decode_ms = (gen_s - pre_s) / (steps - 1) * 1e3
+    print(f"{cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"{cfg.compute_dtype}), batch {batch}, prompt {plen}, "
+          f"{steps} new tokens: prefill last logits vs plain max abs "
+          f"err {err:.4g} = {err / scale:.4g} of max|logits| {scale:.4g}; "
+          f"{shared} of {batch * steps} generated tokens shared "
+          f"with the plain path")
+    print(f"{cfg.name} serving wall: generate {gen_s * 1e3:.1f} ms (plain "
+          f"{gen_plain_s * 1e3:.1f}), prefill {pre_s * 1e3:.1f} ms (plain "
+          f"{pre_plain_s * 1e3:.1f}), decode {decode_ms:.2f} ms per token "
+          f"step ((generate - prefill) / {steps - 1}), "
+          f"{batch * steps / gen_s:.1f} tokens/s; weights "
+          f"{weights_gib:.2f} GiB; peak during generate {peak_gib:.2f} GiB "
+          f"(weights included), {peak_total_gib:.2f} GiB with what earlier "
+          f"phases hold {card}")
+    del params, logits_k, logits_p
+
+    cfg32, p32, _ = cell.make_cell(dev, n_layers=4, param_dtype="float32",
+                                   compute_dtype="float32")
+    prompt32 = prompt[:2]
+    out32, gen32_s, launches32 = generate(p32, cfg32, prompt32, 8)
+    serve_checks(f"{cfg.name} f32 4 layers", cfg32, out32, prompt32, 8,
+                 launches32, cfg32.n_layers)
+    out32_p, _, _ = generate(p32, cfg32, prompt32, 8, use_kernel=False)
+    check(bool(torch.equal(out32, out32_p)),
+          "f32 4 layers: kernel and plain paths gave different tokens")
+    l32, _ = prefill(p32, cfg32, prompt32, 8)
+    l32_p, _ = prefill(p32, cfg32, prompt32, 8, use_kernel=False)
+    err, scale = max_err(l32, l32_p)
+    check(err <= TOL_FIT * scale, f"f32 4 layers prefill logits: err {err} "
+          f"> {TOL_FIT} * {scale}")
+    print(f"{cfg.name} f32 at 4 layers (batch 2, prompt {plen}, 8 new "
+          f"tokens): identical tokens on both paths; prefill last logits "
+          f"max abs err {err:.3g} (max|logits| {scale:.3g}); generate "
+          f"{gen32_s * 1e3:.1f} ms {card}")
+    del p32
+
+    # launches per run: the regression rows from phase 4, the logistic
+    # rows from phase 4b (the unfused pair is not on either path), the
+    # rows of the third slice from phase 4c, flash from phase 6
+    run_launches = {**launches,
+                    "logistic_grad": claunches["logistic_grad"],
+                    "logistic_grad_p8192": claunches["logistic_grad"],
+                    "logistic_grad_unfused": claunches["logistic_z"],
+                    "logistic_grad_unfused_p8192": claunches["logistic_z"],
+                    **{k: launches_4c[k] for k in new_keys},
+                    "flash_attention": serve_launches["flash_attention"]}
+    print(json.dumps({"kernels": [
+        {**row, "launches": run_launches[row["name"]]} for row in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -34,6 +34,7 @@ LAUNCHES: dict[str, int] = {
     "rank_update_sigma": 0,  # kernels/rank_update, unfused: Sigma alone
     "rank_update_c": 0,      # kernels/rank_update, unfused: c alone
     "group_threshold": 0,    # kernels/group_threshold
+    "flash_attention": 0,    # kernels/flash_attention: the prefill attention
 }
 
 

@@ -1,0 +1,93 @@
+"""Wrapper of the flash-attention forward kernel (`kernels/csrc/
+flash_attention.cu`), the prefill attention of the model stack.
+
+`use_kernel` follows `kernels/common.py`: the CUDA kernel for CUDA
+tensors, the plain version (`ref.py`) for CPU tensors. Nothing on CUDA
+routes to the plain version: ragged S and T are masked in the kernel.
+Shapes and types the kernel does not take raise on both paths, so that
+the CPU and the card refuse the same calls.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import LAUNCHES, resolve_use_kernel
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+HEAD_DIMS = (64, 128, 256)                 # the kernel's template instances
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+             + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("flash_attention: q must be (B, S, N, H) and k, v "
+                         "(B, T, K, H)")
+    B, S, N, H = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != H:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    K = k.shape[2]
+    if min(B, S, N, K, k.shape[1]) == 0 or N % K:
+        raise ValueError(f"flash_attention: N = {N} must be a positive "
+                         f"multiple of K = {K}, and no axis empty")
+    if H not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {H} not in {HEAD_DIMS}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k, v must share float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    use_kernel: bool | None = None) -> torch.Tensor:
+    """Causal (or not) attention with an optional sliding window, by
+    position index: query s sees key t where t <= s (causal) and
+    t > s - window (window > 0). q (B, S, N, H), k/v (B, T, K, H) with
+    N % K == 0 (query head n reads kv head n // (N // K)), float32 or
+    bfloat16, H in {64, 128, 256} -> (B, S, N, H) in q's dtype. A row
+    that sees no key is zero."""
+    _check(q, k, v, window)
+    if not resolve_use_kernel("flash_attention", use_kernel, q, k, v):
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    launch(q, k, v, out, causal=causal, window=window)
+    return out
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself when the kernel can read it through its strides (last
+    axis contiguous, 16-byte rows and base), else a contiguous copy."""
+    vec = 16 // t.element_size()
+    if t.stride(3) == 1 and t.data_ptr() % 16 == 0 and \
+            all(s % vec == 0 for s in t.stride()[:3]):
+        return t
+    return t.contiguous()
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           out: torch.Tensor, *, causal: bool = True, window: int = 0) -> None:
+    """Launch the kernel into `out` (B, S, N, H), with no checks: the
+    operands are what `flash_attention` passes (checked shapes and types,
+    strides the kernel reads, one CUDA device). A timing loop calls it to
+    time the kernel alone."""
+    B, S, N, H = q.shape
+    T, K = k.shape[1], k.shape[2]
+    fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(H)))  # as ref.py
+    _build.call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                int(q.dtype == torch.bfloat16), B, S, T, N, K, H, *strides,
+                int(causal), int(window), scale, q.device.index,
+                _build.stream(q.device))
+    LAUNCHES["flash_attention"] += 1

@@ -6,7 +6,12 @@ where no CUDA device is present. Run them on a machine with a card:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerance: max abs error <= 1e-5 * max|plain| per output (both sides
-accumulate in f32, in another order).
+accumulate in f32, in another order). The flash-attention kernel is held
+against the plain version on the f32 upcast of its inputs, query row by
+query row: each row's output within a relative l2 error of 1e-4 in f32
+and 1e-2 in bf16 of the plain row (a row's scale falls as
+1 / sqrt(row + 1), so a bar on max|plain|, set by row 0, would not follow
+it), and in f32 also within 2e-5 * max|plain|.
 """
 from __future__ import annotations
 
@@ -20,7 +25,9 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.logistic import dsml_logistic_fit
 from repro_torch.core.synth import gen_classification, gen_regression
+from repro_torch.configs import get_config
 from repro_torch.kernels.common import LAUNCHES
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.group_threshold.ops import group_threshold
 from repro_torch.kernels.ista_step.ops import (
     fista_step_batched, ista_solve, ista_step, ista_step_batched,
@@ -31,6 +38,8 @@ from repro_torch.kernels.logistic_grad.ops import (
 from repro_torch.kernels.rank_update.ops import (
     rank_update, rank_update_unfused,
 )
+from repro_torch.models import Batch, forward_decode, forward_prefill
+from repro_torch.models import init_params
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-5
@@ -260,3 +269,67 @@ def test_grid_solve_kernels_match_plain_path(cuda):
     want = solve_lasso_eq2_grid(S, c, lams, iters=200, use_kernel=False)
     assert got.shape == (5, 4, 120)
     _assert_close((got,), (want,), tol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, s, t, n, k, h, causal, window", [
+    (2, 256, 256, 8, 2, 64, True, 0), (1, 200, 200, 4, 1, 128, True, 0),
+    (1, 512, 512, 4, 1, 256, True, 64), (2, 256, 256, 8, 2, 64, False, 0),
+    (1, 64, 200, 4, 2, 64, True, 0), (1, 200, 333, 4, 1, 128, False, 16),
+    (4, 2048, 2048, 32, 8, 64, True, 0)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, t, n, k, h,
+                                              causal, window):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((b, s, n, h), generator=g, device=cuda).to(dtype)
+    kk = torch.randn((b, t, k, h), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, t, k, h), generator=g, device=cuda).to(dtype)
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention(q, kk, v, causal=causal, window=window)
+    again = flash_attention(q, kk, v, causal=causal, window=window)
+    assert LAUNCHES["flash_attention"] == before + 2
+    want = flash_attention(q.float(), kk.float(), v.float(), causal=causal,
+                           window=window, use_kernel=False)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, again)
+    row_err = (torch.linalg.vector_norm(got.float() - want, dim=-1)
+               / torch.clamp_min(torch.linalg.vector_norm(want, dim=-1),
+                                 1e-30)).max().item()
+    assert row_err <= (1e-4 if dtype == torch.float32 else 1e-2), row_err
+    if dtype == torch.float32:
+        _assert_close((got.float(),), (want,), tol=2e-5)
+
+
+def test_flash_attention_kernel_reads_strided_operands(cuda):
+    """q and k as views with head-major storage: read through their
+    strides, the same bits as contiguous copies."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((2, 8, 300, 64), generator=g, device=cuda).transpose(1, 2)
+    kk = torch.randn((2, 2, 300, 64), generator=g, device=cuda).transpose(1, 2)
+    v = torch.randn((2, 300, 2, 64), generator=g, device=cuda)
+    got = flash_attention(q, kk, v)
+    assert torch.equal(got, flash_attention(q.contiguous(), kk.contiguous(),
+                                            v))
+
+
+def test_flash_attention_launches_once_per_layer_of_prefill(cuda):
+    """A 4-layer granite at full width: one prefill of S = 2048 launches
+    the kernel once per layer; decode launches none."""
+    cfg = get_config("granite-3-2b").replace(n_layers=4)
+    params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (1, 2049), device=cuda,
+                           generator=gen)
+    before = LAUNCHES["flash_attention"]
+    logits, caches = forward_prefill(params, cfg,
+                                     Batch(tokens=tokens[:, :2048]),
+                                     cache_len=2049)
+    assert LAUNCHES["flash_attention"] == before + cfg.n_layers
+    plain, _ = forward_prefill(params, cfg, Batch(tokens=tokens[:, :2048]),
+                               use_kernel=False)
+    assert LAUNCHES["flash_attention"] == before + cfg.n_layers
+    d_logits, _ = forward_decode(params, cfg, tokens[:, 2048:], 2048, caches)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + cfg.n_layers
+    assert bool(torch.isfinite(d_logits[..., :cfg.vocab]).all())
+    err = (logits.float() - plain.float()).abs().max().item()
+    assert err <= 0.1 * plain.float().abs().max().item()
