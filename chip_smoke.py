@@ -7,7 +7,9 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. the card: name, count, and `nvidia-smi` name and power limit;
 2. build the CUDA kernels from `src/repro_torch/kernels/csrc` (nvcc, with
-   `-Xptxas -v`: registers, shared memory and spills per kernel);
+   `-Xptxas -v`: registers, shared memory and spills per kernel); the
+   r > 1 FISTA/ISTA SGEMM (`fista_gemm_kernel`) and the bf16 Hopper flash
+   forward (`flash_fwd_wgmma`) must not spill;
 3. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at ragged ones, max abs error <= 1e-5 * max|plain|
    per output (both accumulate in f32, in another order); the logistic
@@ -15,12 +17,16 @@ Phases, each of which raises on failure (exit code != 0):
    to show that its sample reduction gives the same bits every run; the
    ISTA steps (batched and single-task), the unfused rank pair and the
    group threshold at their path shapes and at ragged ones (p = 129,
-   r = 7, m = 3; (2, 7, 129); (1001, 5)), each twice for the same bits;
+   r = 7, m = 3; (2, 7, 129); (1001, 5)), each twice for the same bits,
+   and the SGEMM's block tile as its launcher chooses it held to
+   `ops.gemm_plan`;
    the flash-attention forward in f32 at (B, S, N, K, H) = (2, 256, 8, 2,
    64), a ragged (1, 200, 4, 1, 128), (1, 512, 4, 1, 256) with window 64
    and a non-causal case, within 2e-5 * max|plain|, and in bf16 at the
-   serving path's (4, 2048, 32, 8, 64) and at the ragged and windowed
-   shapes against the plain version on the f32 upcast of the same
+   serving path's (4, 2048, 32, 8, 64), at the ragged and windowed
+   shapes and at (1, 300, 4, 2, 64) with window 40 (T not a multiple of
+   the bf16 kernel's 128-key tile, the window cutting its tiles),
+   against the plain version on the f32 upcast of the same
    inputs; in both dtypes each query row's output within a relative l2
    error of the plain row (1e-4 in f32, 1e-2 in bf16: the output's
    scale falls with the row, as 1 / sqrt(row + 1), so a bar on
@@ -55,8 +61,9 @@ Phases, each of which raises on failure (exit code != 0):
    L2 cache flushed before each launch, since back to back an input of up
    to 50 MB stays in L2, as it does in the solver loops) beside its bound,
    its plain version, the nearest PyTorch call, and the wrapper as the
-   main path calls it (checks and allocation included); and each fit's
-   wall time on both paths;
+   main path calls it (checks and allocation included), and for the SGEMM
+   rows and flash the achieved TFLOP/s; and each fit's wall time on both
+   paths;
 6. the serving path at full width, the cell of
    `repro_torch/serving/cell.py`: granite-3-2b (40 layers, d 2048, 32/8
    heads of 64, bf16) from a seeded `torch.Generator`, `greedy_generate`
@@ -249,6 +256,9 @@ def main() -> None:
         print(f"ptxas {src}.cu:")
         for line in ptxas_lines(log):
             print(line)
+            if "fista_gemm_kernel" in line or "flash_fwd_wgmma" in line:
+                check(" 0 bytes spill stores" in line,
+                      f"a redesigned kernel spills: {line}")
 
     # ---- 3. kernel vs plain -----------------------------------------------
     g = torch.Generator(device=dev).manual_seed(1)
@@ -315,6 +325,15 @@ def main() -> None:
     Sig_r, _ = rank_update(Xr, yr, use_kernel=False)
     check_fista("r=1 p=1000", fista_inputs(Sig_r, 1, 0.5 * lam))
     check_fista("r=p=1000", fista_inputs(Sig_r, 1000, mu))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for shape in ((M, P, P), (1, P, P), (3, 1000, 1000), (3, 129, 7)):
+        plan = ista_ops.gemm_plan(*shape, sms)
+        check(ista_ops.kernel_gemm_plan(*shape, dev) == (plan.bm, plan.bn,
+                                                         sms),
+              f"SGEMM tile at {shape}: the launcher's differs from "
+              f"gemm_plan's {plan}")
+        print(f"SGEMM tile at {shape}: {plan.bm} x {plan.bn}, "
+              f"{plan.blocks} blocks of {plan.threads} threads on {sms} SMs")
 
     def logistic_inputs(m, n, p):
         X = torch.randn((m, n, p), generator=g, device=dev)
@@ -478,6 +497,10 @@ def main() -> None:
     errs["flash_attention"], flash_qkv = check_flash(flash_path, bf16)
     check_flash((1, 200, 4, 1, 128), bf16)
     check_flash((1, 512, 4, 1, 256), bf16, window=64)
+    check_flash((1, 300, 4, 2, 64), bf16, window=40)
+    fb_, fs_, fn_, _, fh_ = flash_path
+    print(f"flash launch at {flash_path} bf16: "
+          f"{flash_ops.launch_plan(fb_, fs_, fn_, fh_, bf16)}")
 
     # ---- 4. the main path at full width -----------------------------------
     data = gen_regression(torch.Generator(device=dev).manual_seed(0),
@@ -866,6 +889,10 @@ def main() -> None:
               "ista_step_gemv": (1, p, 1), "ista_step_gemm": (1, p, p),
               "rank_update_sigma": (m, n, p), "rank_update_c": (m, n, p),
               "group_threshold": (pg, mg), "flash_attention": flash_path}
+    # the redesigned kernels' work, for their achieved rate
+    row_flops = {"flash_attention": 4 * fb * fn * (fs * (fs + 1) // 2) * fh,
+                 "fista_step_gemm": 2 * m * p * p * p,
+                 "ista_step_gemm": 2 * p * p * p}
     kernels = []              # launches per run are added after phase 6
     for (name, source, replaces, (bound_ms, bound_by), kern, wrapper, plain,
          lib) in rows:
@@ -876,12 +903,17 @@ def main() -> None:
               f"({bound_by}), plain {plain_ms:.4f} ms, library {lib_ms:.4f} "
               f"ms, wrapper {wrap_ms:.4f} ms, kernel with L2 flushed "
               f"{cold_ms:.4f} ms {card}")
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "shape": list(shapes[name]),
-                        "max_abs_err": errs[name], "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": lib_ms,
-                        "cold_ms": cold_ms, "wrapper_ms": wrap_ms})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "shape": list(shapes[name]),
+               "max_abs_err": errs[name], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": lib_ms,
+               "cold_ms": cold_ms, "wrapper_ms": wrap_ms}
+        if name in row_flops:
+            row["tflops"] = row_flops[name] / ms / 1e9
+            print(f"rate {name}: kernel {row['tflops']:.1f} TFLOP/s, library "
+                  f"{row_flops[name] / lib_ms / 1e9:.1f} TFLOP/s {card}")
+        kernels.append(row)
 
     # ---- 6. the serving path at full width -------------------------------
     def prefill(params, cfg, prompt, steps, use_kernel=None):

@@ -35,22 +35,63 @@
 // * r > 1 (the debias solve, r = p, c = I): a batched matrix product, bound
 //   by operations. At (m, p) = (16, 1024) one step is 2 m p^3 = 34.4 GFLOP
 //   of f32 FMA, 0.51 ms at 67 TFLOP/s f32; the bytes (about 400 MB) take
-//   0.12 ms. The f32 parity bar rules out TF32 tensor cores. Design: a
-//   shared-memory tiled SGEMM, 128 x 128 output tile per block, 8-deep
-//   k-steps, an 8 x 8 register tile per thread (rows ty + 16 a, columns
-//   tx + 16 b: conflict-free shared reads and coalesced epilogue accesses).
-//   Sigma's tile is transposed into shared memory on load (rows padded by 4
-//   floats against bank conflicts); z's tile is loaded as stored. The
-//   gradient step, soft threshold and momentum run in the epilogue on the
-//   accumulator registers.
+//   0.12 ms. Full f32 rules out the TF32 tensor cores, so the kernel is an
+//   SGEMM on the CUDA cores and what bounds it is the FMA issue rate: the
+//   design keeps the FMA pipes fed.
+//   - A ring of STAGES = 4 shared-memory stages, each 16 deep in k, filled
+//     by 16-byte `cp.async.cg` (4-byte `cp.async.ca` where p or r is not a
+//     multiple of 4 or an operand is not 16-byte aligned), with the loads
+//     of the next three stages in flight while a stage's FMAs run; one
+//     barrier per stage.
+//   - Each thread owns an 8 x 8 register tile made of 4-wide groups: rows
+//     4 ty + {0..3} and BM/2 + 4 ty + {0..3}, columns 4 tx + {0..3} and
+//     BN/2 + 4 tx + {0..3}. Sigma's tile stays row-major in shared memory
+//     (i-major, as cp.async copies it) and a thread reads four k values of
+//     a row as one float4; z's tile is k-major and a thread reads four
+//     columns as one float4. That is 4 LDS.128 per 64 FMA. The 16-byte
+//     chunks of a Sigma row are XOR-swizzled by (row / 4) % 4, so the rows
+//     that the warp's threads read at once fall in distinct banks.
+//   - The block tile is chosen per launch by `gemm_plan`: 128 x 64 (128
+//     threads) where m * tiles gives at least one block per SM, else
+//     64 x 64 (64 threads). At m = 16, p = r = 1024 that is 2048 blocks of
+//     128 x 64, three resident per SM (168 registers a thread); on the
+//     H100 that ran faster than 128 x 128 tiles, of which one block of 8
+//     warps fits an SM. At m = 1 it is 256 blocks of 64 x 64, where
+//     128 x 128 left more than half of the 132 SMs idle. `ops.py` keeps a
+//     copy of the rule for its tests; `fista_gemm_plan` returns this one.
+//   - No split-K: every output is one FMA chain over k = 0 .. p - 1 in
+//     order from 0, as in the first version of this kernel, so the result
+//     is the same bits whatever tile is chosen, and deterministic.
+//   What holds it back: it reaches about 58 % of the f32 peak at m = 16,
+//   where cuBLAS's `bmm` reaches 75 % (`chip_smoke.py` phase 5); the
+//   loop's instructions are nearly all FFMA, so the rest is issue stalls
+//   that the compiled loop does not hide (latency with 12 warps a SM,
+//   register bank conflicts; not measured: the card's profilers do not
+//   run where it was built).
+//   The gradient step, soft threshold and momentum run in the epilogue on
+//   the accumulator registers, four columns at a time where r % 4 == 0.
 //
-// Every edge is masked, so any p and r work. The epilogue rounds each
-// operation on its own (__fmul_rn, no FMA contraction), as the plain
-// PyTorch version does.
+// Every edge is masked, so any p and r work (zero-filled past p and r;
+// zeros add nothing to the FMA chain). The epilogue rounds each operation
+// on its own (__fmul_rn, no FMA contraction), as the plain PyTorch version
+// does.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// The proximal step of one output, x' = soft(z - eta (acc - c), tau), and
+// the momentum z' = x' + theta (x' - x), each operation rounded on its own.
+__device__ __forceinline__ float prox(float acc, float c, float z, float eta,
+                                      float tau) {
+  const float v = __fsub_rn(z, __fmul_rn(eta, __fsub_rn(acc, c)));
+  const float mag = fmaxf(__fsub_rn(fabsf(v), tau), 0.f);
+  return v > 0.f ? mag : (v < 0.f ? -mag : 0.f);
+}
+
+__device__ __forceinline__ float momentum(float xv, float x, float theta) {
+  return __fadd_rn(xv, __fmul_rn(theta, __fsub_rn(xv, x)));
+}
 
 // Output element o of task t: x' into xn[o] and, with MOMENTUM, z' into
 // zn[o] (x read from xp[o]). Without MOMENTUM xp and zn are never touched.
@@ -60,12 +101,9 @@ __device__ __forceinline__ void epilogue(float acc, float c, float z,
                                          float eta, float tau, float theta,
                                          float* __restrict__ xn,
                                          float* __restrict__ zn, size_t o) {
-  const float v = __fsub_rn(z, __fmul_rn(eta, __fsub_rn(acc, c)));
-  const float mag = fmaxf(__fsub_rn(fabsf(v), tau), 0.f);
-  const float xv = v > 0.f ? mag : (v < 0.f ? -mag : 0.f);
+  const float xv = prox(acc, c, z, eta, tau);
   xn[o] = xv;
-  if constexpr (MOMENTUM)
-    zn[o] = __fadd_rn(xv, __fmul_rn(theta, __fsub_rn(xv, xp[o])));
+  if constexpr (MOMENTUM) zn[o] = momentum(xv, xp[o], theta);
 }
 
 // ---- r == 1: batched GEMV ---------------------------------------------------
@@ -146,91 +184,240 @@ fista_gemv_kernel(const float* __restrict__ Sig, const float* __restrict__ Z,
     }
   }
 }
-
 // ---- r > 1: batched SGEMM ---------------------------------------------------
 
-constexpr int BM = 128;            // output rows (i) per block
-constexpr int BN = 128;            // output columns (j) per block
-constexpr int BK = 8;              // contraction depth per step
-constexpr int TX = 16;
-constexpr int TY = 16;
-constexpr int THREADS = TX * TY;
-constexpr int RM = BM / TY;
-constexpr int RN = BN / TX;
-constexpr int LOADS = BK * BM / THREADS;
-constexpr int APAD = 4;
+constexpr int BK = 16;             // contraction depth per stage
+constexpr int STAGES = 4;          // shared-memory ring
+constexpr int TILE = 8;            // register tile per thread, TILE x TILE
 
-template <bool MOMENTUM>
-__global__ void __launch_bounds__(THREADS)
+template <int BM, int BN>
+struct GemmTile {
+  static constexpr int TX = BN / TILE;          // threads along j
+  static constexpr int TY = BM / TILE;          // threads along i
+  static constexpr int THREADS = TX * TY;
+  static constexpr int A_FLOATS = BM * BK;      // Sigma[i0 + i, k0 + k]
+  static constexpr int B_FLOATS = BK * BN;      // z[k0 + k, j0 + j]
+  static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
+  static constexpr int SMEM = STAGES * STAGE_FLOATS * (int)sizeof(float);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes (VEC) or 4 bytes from global to shared memory, asynchronously;
+// zeros where `in` is false (src-size 0, the source is not read)
+template <bool VEC>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool in) {
+  if constexpr (VEC)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(in ? 4 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Where Sigma's (i, k) of a stage lives: row i holds BK floats as four
+// 16-byte chunks, chunk k / 4 stored at position (k / 4) ^ ((i / 4) % 4)
+__device__ __forceinline__ int a_index(int i, int k) {
+  return i * BK + ((((k >> 2) ^ (i >> 2)) & 3) << 2) + (k & 3);
+}
+
+// One stage: Sigma[i0 .. i0 + BM, k0 .. k0 + BK) and z[k0 .. k0 + BK,
+// j0 .. j0 + BN) of task t into As / Bs, zero past p and r
+template <int BM, int BN, bool VEC>
+__device__ __forceinline__ void load_stage(float* As, float* Bs,
+                                           const float* __restrict__ St,
+                                           const float* __restrict__ Zt,
+                                           int i0, int j0, int k0, int p,
+                                           int r, int tid) {
+  using G = GemmTile<BM, BN>;
+  constexpr int W = VEC ? 4 : 1;                // floats per copy
+#pragma unroll
+  for (int l = 0; l < G::A_FLOATS / W / G::THREADS; ++l) {
+    const int idx = (tid + l * G::THREADS) * W;
+    const int i = idx / BK, k = idx % BK;
+    const bool in = i0 + i < p && k0 + k < p;
+    cp_async<VEC>(As + a_index(i, k),
+                  in ? St + (size_t)(i0 + i) * p + k0 + k : St, in);
+  }
+#pragma unroll
+  for (int l = 0; l < G::B_FLOATS / W / G::THREADS; ++l) {
+    const int idx = (tid + l * G::THREADS) * W;
+    const int k = idx / BN, j = idx % BN;
+    const bool in = k0 + k < p && j0 + j < r;
+    cp_async<VEC>(Bs + idx, in ? Zt + (size_t)(k0 + k) * r + j0 + j : Zt,
+                  in);
+  }
+}
+
+template <int BM, int BN, bool VEC, bool MOMENTUM>
+__global__ void __launch_bounds__(GemmTile<BM, BN>::THREADS)
 fista_gemm_kernel(const float* __restrict__ Sig, const float* __restrict__ Z,
                   const float* __restrict__ Xp, const float* __restrict__ C,
                   const float* __restrict__ eta, const float* __restrict__ lam,
                   float theta, float* __restrict__ Xn, float* __restrict__ Zn,
                   int p, int r) {
+  using G = GemmTile<BM, BN>;
+  extern __shared__ __align__(16) float smem[];
   const int t = blockIdx.z;
   const int i0 = blockIdx.y * BM;
   const int j0 = blockIdx.x * BN;
   const float* St = Sig + (size_t)t * p * p;
   const float* Zt = Z + (size_t)t * p * r;
 
-  __shared__ float As[BK][BM + APAD];   // Sigma[i0 + ii, k0 + kk]
-  __shared__ float Bs[BK][BN];          // z[k0 + kk, j0 + jj]
-
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  float acc[RM][RN] = {};
+  const int tx = tid % G::TX;
+  const int ty = tid / G::TX;
+  float acc[TILE][TILE] = {};
 
-  for (int k0 = 0; k0 < p; k0 += BK) {
+  const int kts = (p + BK - 1) / BK;
 #pragma unroll
-    for (int l = 0; l < LOADS; ++l) {
-      const int idx = tid + THREADS * l;
-      const int ii = idx / BK;
-      const int kk = idx % BK;
-      const int i = i0 + ii;
-      const int k = k0 + kk;
-      As[kk][ii] = (i < p && k < p) ? St[(size_t)i * p + k] : 0.f;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < kts) {
+      float* As = smem + s * G::STAGE_FLOATS;
+      load_stage<BM, BN, VEC>(As, As + G::A_FLOATS, St, Zt, i0, j0, s * BK,
+                              p, r, tid);
     }
-#pragma unroll
-    for (int l = 0; l < LOADS; ++l) {
-      const int idx = tid + THREADS * l;
-      const int kk = idx / BN;
-      const int jj = idx % BN;
-      const int k = k0 + kk;
-      const int j = j0 + jj;
-      Bs[kk][jj] = (k < p && j < r) ? Zt[(size_t)k * r + j] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[RM], b[RN];
-#pragma unroll
-      for (int q = 0; q < RM; ++q) a[q] = As[kk][ty + TY * q];
-#pragma unroll
-      for (int s = 0; s < RN; ++s) b[s] = Bs[kk][tx + TX * s];
-#pragma unroll
-      for (int q = 0; q < RM; ++q)
-#pragma unroll
-        for (int s = 0; s < RN; ++s) acc[q][s] = fmaf(a[q], b[s], acc[q][s]);
-    }
-    __syncthreads();
+    cp_async_commit();
   }
+
+  for (int kt = 0; kt < kts; ++kt) {
+    cp_async_wait<STAGES - 2>();     // this stage's copies have landed
+    __syncthreads();                 // and every thread is done with kt - 1
+    const int next = kt + STAGES - 1;
+    if (next < kts) {
+      float* As = smem + (next % STAGES) * G::STAGE_FLOATS;
+      load_stage<BM, BN, VEC>(As, As + G::A_FLOATS, St, Zt, i0, j0,
+                              next * BK, p, r, tid);
+    }
+    cp_async_commit();
+
+    const float* As = smem + (kt % STAGES) * G::STAGE_FLOATS;
+    const float* Bs = As + G::A_FLOATS;
+#pragma unroll
+    for (int kc = 0; kc < BK / 4; ++kc) {
+      // rows 4 ty + q and BM/2 + 4 ty + q, k = 4 kc .. 4 kc + 3
+      float4 a[TILE];
+#pragma unroll
+      for (int q = 0; q < TILE; ++q) {
+        const int i = (q < 4 ? 0 : BM / 2) + 4 * ty + (q & 3);
+        a[q] = *reinterpret_cast<const float4*>(As + a_index(i, 4 * kc));
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* brow = Bs + (4 * kc + kk) * BN + 4 * tx;
+        const float4 b0 = *reinterpret_cast<const float4*>(brow);
+        const float4 b1 = *reinterpret_cast<const float4*>(brow + BN / 2);
+        const float b[TILE] = {b0.x, b0.y, b0.z, b0.w,
+                               b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int q = 0; q < TILE; ++q) {
+          const float av = kk == 0 ? a[q].x : kk == 1 ? a[q].y
+                         : kk == 2 ? a[q].z : a[q].w;
+#pragma unroll
+          for (int s = 0; s < TILE; ++s) acc[q][s] = fmaf(av, b[s], acc[q][s]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
 
   const float e = eta[t];
   const float tau = __fmul_rn(e, lam[t]);
 #pragma unroll
-  for (int q = 0; q < RM; ++q) {
-    const int i = i0 + ty + TY * q;
+  for (int q = 0; q < TILE; ++q) {
+    const int i = i0 + (q < 4 ? 0 : BM / 2) + 4 * ty + (q & 3);
     if (i >= p) continue;
 #pragma unroll
-    for (int s = 0; s < RN; ++s) {
-      const int j = j0 + tx + TX * s;
-      if (j >= r) continue;
+    for (int h = 0; h < 2; ++h) {
+      const int j = j0 + h * (BN / 2) + 4 * tx;
       const size_t o = ((size_t)t * p + i) * r + j;
-      epilogue<MOMENTUM>(acc[q][s], C[o], Z[o], Xp, e, tau, theta, Xn, Zn,
-                         o);
+      if constexpr (VEC) {
+        if (j >= r) continue;                    // r % 4 == 0: all four in
+        const float4 c4 = *reinterpret_cast<const float4*>(C + o);
+        const float4 z4 = *reinterpret_cast<const float4*>(Z + o);
+        float4 x4;
+        x4.x = prox(acc[q][4 * h], c4.x, z4.x, e, tau);
+        x4.y = prox(acc[q][4 * h + 1], c4.y, z4.y, e, tau);
+        x4.z = prox(acc[q][4 * h + 2], c4.z, z4.z, e, tau);
+        x4.w = prox(acc[q][4 * h + 3], c4.w, z4.w, e, tau);
+        *reinterpret_cast<float4*>(Xn + o) = x4;
+        if constexpr (MOMENTUM) {
+          const float4 p4 = *reinterpret_cast<const float4*>(Xp + o);
+          *reinterpret_cast<float4*>(Zn + o) = make_float4(
+              momentum(x4.x, p4.x, theta), momentum(x4.y, p4.y, theta),
+              momentum(x4.z, p4.z, theta), momentum(x4.w, p4.w, theta));
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          if (j + s < r)
+            epilogue<MOMENTUM>(acc[q][4 * h + s], C[o + s], Z[o + s], Xp, e, tau, theta,
+                               Xn, Zn, o + s);
+      }
     }
   }
+}
+
+// The block tile for (m, p, r) on a card with `sms` SMs (`gemm_plan` in
+// ops.py is the same rule): the larger tile where its grid has at least
+// one block per SM, else the smaller. Returns 0 for 128 x 64, 1 for
+// 64 x 64.
+constexpr int PLAN_TILES[2][2] = {{128, 64}, {64, 64}};
+
+int gemm_plan(int m, int p, int r, int sms) {
+  const long long blocks = (long long)m *
+                           ((p + PLAN_TILES[0][0] - 1) / PLAN_TILES[0][0]) *
+                           ((r + PLAN_TILES[0][1] - 1) / PLAN_TILES[0][1]);
+  return blocks >= sms ? 0 : 1;
+}
+
+int device_sms(int device) {
+  static int sms[64] = {};
+  if (device < 0 || device >= 64) return 0;
+  if (sms[device] == 0)
+    cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount,
+                           device);
+  return sms[device];
+}
+
+template <int BM, int BN, bool VEC, bool MOMENTUM>
+cudaError_t launch_tile(const float* const* in, float theta, float* Xn,
+                        float* Zn, int m, int p, int r, cudaStream_t s) {
+  using G = GemmTile<BM, BN>;
+  auto kernel = fista_gemm_kernel<BM, BN, VEC, MOMENTUM>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((r + BN - 1) / BN, (p + BM - 1) / BM, m);
+  kernel<<<grid, G::THREADS, G::SMEM, s>>>(in[0], in[1], in[2], in[3], in[4],
+                                           in[5], theta, Xn, Zn, p, r);
+  return cudaGetLastError();
+}
+
+template <bool VEC, bool MOMENTUM>
+cudaError_t launch_plan(int tile, const float* const* in, float theta,
+                        float* Xn, float* Zn, int m, int p, int r,
+                        cudaStream_t s) {
+  return tile == 0 ? launch_tile<128, 64, VEC, MOMENTUM>(in, theta, Xn, Zn,
+                                                         m, p, r, s)
+                   : launch_tile<64, 64, VEC, MOMENTUM>(in, theta, Xn, Zn, m,
+                                                        p, r, s);
 }
 
 template <bool MOMENTUM>
@@ -259,6 +446,10 @@ int launch_gemv(const void* Sig, const void* Z, const void* Xp,
   return static_cast<int>(cudaGetLastError());
 }
 
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
 template <bool MOMENTUM>
 int launch_gemm(const void* Sig, const void* Z, const void* Xp,
                 const void* C, const void* eta, const void* lam, float theta,
@@ -266,14 +457,25 @@ int launch_gemm(const void* Sig, const void* Z, const void* Xp,
                 void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid((r + BN - 1) / BN, (p + BM - 1) / BM, m);
-  fista_gemm_kernel<MOMENTUM>
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(Sig), static_cast<const float*>(Z),
-          static_cast<const float*>(Xp), static_cast<const float*>(C),
-          static_cast<const float*>(eta), static_cast<const float*>(lam),
-          theta, static_cast<float*>(Xn), static_cast<float*>(Zn), p, r);
-  return static_cast<int>(cudaGetLastError());
+  const int sms = device_sms(device);
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int tile = gemm_plan(m, p, r, sms);
+  // 16-byte copies need every row of Sigma and z, and every operand, on a
+  // 16-byte boundary
+  const bool vec = p % 4 == 0 && r % 4 == 0 && aligned16(Sig) &&
+                   aligned16(Z) && aligned16(C) && aligned16(Xn) &&
+                   (!MOMENTUM || (aligned16(Xp) && aligned16(Zn)));
+  const float* in[6] = {
+      static_cast<const float*>(Sig), static_cast<const float*>(Z),
+      static_cast<const float*>(Xp), static_cast<const float*>(C),
+      static_cast<const float*>(eta), static_cast<const float*>(lam)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* xn = static_cast<float*>(Xn);
+  float* zn = static_cast<float*>(Zn);
+  return static_cast<int>(
+      vec ? launch_plan<true, MOMENTUM>(tile, in, theta, xn, zn, m, p, r, s)
+          : launch_plan<false, MOMENTUM>(tile, in, theta, xn, zn, m, p, r,
+                                         s));
 }
 
 }  // namespace
@@ -316,4 +518,16 @@ extern "C" int ista_step_gemm_f32(const void* Sig, const void* B,
                                   int r, int device, void* stream) {
   return launch_gemm<false>(Sig, B, nullptr, C, eta, lam, 0.f, Out, nullptr,
                             m, p, r, device, stream);
+}
+
+// The SGEMM's block tile for (m, p, r) on `device`: *bm, *bn and the SM
+// count the rule saw, so that a test can hold `ops.gemm_plan` to it.
+extern "C" int fista_gemm_plan(int m, int p, int r, int device, int* bm,
+                               int* bn, int* sms) {
+  *sms = device_sms(device);
+  if (*sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int tile = gemm_plan(m, p, r, *sms);
+  *bm = PLAN_TILES[tile][0];
+  *bn = PLAN_TILES[tile][1];
+  return 0;
 }

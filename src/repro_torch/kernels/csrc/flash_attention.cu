@@ -6,44 +6,81 @@
 // Replaces `flash_attention_pallas` (src/repro/kernels/flash_attention/
 // kernel.py:83, body `_flash_kernel`). It computes what the TPU body
 // computes: m, l and the accumulator in f32; q.k accumulated in f32 and
-// kept in f32, times 1/sqrt(H) rounded to f32 (the TPU body divides by
-// sqrt(H): the same bits at H = 64 and 256, within an ulp at 128);
-// masked scores set to -1e30 and p multiplied by the mask;
-// p rounded to v's type before P.V, accumulated in f32; out =
+// kept in f32, scaled by 1/sqrt(H); masked scores out of the softmax
+// (p = 0); p rounded to v's type before P.V, accumulated in f32; out =
 // acc / max(l, 1e-30) in the input type. q and out are (B, S, N, H), k and
 // v (B, T, K, H) with N = K * G, float32 or bfloat16, H in {64, 128, 256};
 // every axis but the last is addressed through the strides it is given.
 //
 // Where it differs from the TPU kernel, the same function with other
 // work: there the grid's third axis walks the key tiles in order and
-// `ops.py` repeats the kv heads into HBM; here one block owns 64 query
-// rows of one (batch, head) and loops over the key tiles itself, reading
-// kv head n / G in place (no repeat). Causal blocks stop at the diagonal
-// tile (the Pallas tile skip); with a window they also start at the
-// first tile the window reaches. Skipped tiles are fully masked, so the
-// skip changes nothing in m, l or acc. Ragged S and T are masked here,
-// not routed elsewhere: key rows past T load as zeros and are masked,
-// query rows past S are computed and not stored. Blocks of the latest
-// (longest) query tiles are issued first, so the causal triangle does
-// not leave one long tail of blocks.
+// `ops.py` repeats the kv heads into HBM; here one block owns a tile of
+// query rows of one (batch, head) and loops over the key tiles itself,
+// reading kv head n / G in place (no repeat). Causal blocks stop at the
+// diagonal tile (the Pallas tile skip); with a window they also start at
+// the first tile the window reaches. Skipped tiles are fully masked, so
+// the skip changes nothing in m, l or acc. Ragged S and T are masked
+// here, not routed elsewhere: key rows past T load as zeros and are
+// masked, query rows past S are computed and not stored. Blocks of the
+// latest (longest) query tiles are issued first, so the causal triangle
+// does not leave one long tail of blocks. No split over keys: a row's
+// sum runs in one order, so two launches give the same bits.
 //
 // What bounds it on this card: the operations. At the serving path's
 // shape (B, S, N, K, H) = (4, 2048, 32, 8, 64) in bf16, the causal half
 // is 4 B N (S (S + 1) / 2) H = 68.7 GFLOP, 0.069 ms on the bf16 tensor
 // cores (989 TFLOP/s), against 84 MB of q, k, v and out, 0.025 ms at
-// 3.35 TB/s. So the design spends its effort on the products: in bf16
-// both products run on the tensor cores through `mma.sync` m16n8k16
-// (bf16 in, f32 accumulate), the score fragments are turned into the P.V
-// operand in registers (no trip through shared memory), and each block
-// streams K and V tiles through shared memory once for its 64 rows. In
-// f32 there is no tensor-core path that keeps full f32 (TF32 keeps about
-// three digits), so the same fragment layout is filled by FP32 FMA, and P
-// goes through a per-warp shared tile. This first version loads each tile
-// and then computes (no cp.async or TMA pipeline, no wgmma, no warp
-// specialisation): those are the work of a later change.
-#include <cuda_runtime.h>
+// 3.35 TB/s. Two designs:
+//
+// * bf16 at H = 64 and 128 (`hopper::flash_fwd_wgmma`), the serving
+//   path's kernel. A persistent grid (one block per SM) walks work items
+//   of 64 x CONSUMERS query rows of one (batch, head), the longest first,
+//   aligned to S's end (a partial item is the first, the shortest under a
+//   causal mask). A block has CONSUMERS warpgroups of 64 rows each (three
+//   at H = 64, two at H = 128, where three would not fit shared memory)
+//   and a producer warpgroup, whose first thread loads each item's Q
+//   once and then K and V tile by tile (128 keys) by TMA into a ring of
+//   three stages, with a full and an empty mbarrier per stage (and a pair
+//   for Q); the ring runs on across items, so the next item's loads
+//   overlap this item's end.
+//   The tensor maps are built on the host over the operands' own strides,
+//   128-byte swizzled, zero-filled past T. setmaxnreg gives the producer's
+//   registers to the consumers. Each consumer computes S = Q K' with
+//   `wgmma` m64n128k16 from shared memory (Q stays there for the whole key
+//   loop), the online softmax in registers (exp2 with log2(e) folded into
+//   the scale; row maxima and sums as four interleaved chains), and
+//   O += P V with `wgmma` m64nHk16, P rounded to bf16 as the register A
+//   operand and V read from shared memory through the transpose bit. The
+//   S product of tile j and the P V of tile j - 1 are in flight together
+//   while tile j's softmax runs, and the warpgroups take turns at issuing
+//   (round robin on named barriers), so the others' softmaxes run under
+//   one's products. The mask is evaluated only on tiles that
+//   cross T's end, the diagonal or the window's edge for some row of the
+//   warpgroup, branch-free from each row's first and last visible key;
+//   interior tiles skip it. What bounds it: at the serving shape it runs
+//   at about a third of the bf16 peak (`chip_smoke.py` phase 5). The
+//   softmax's instructions (about 6 per score) are not fully hidden under
+//   the products at H = 64, where a tile's two products are short: on
+//   the H100 a build without the softmax ran much faster, and one that
+//   moved a share of the exp2 onto an FMA polynomial ran slower, so the
+//   issue slots, not the MUFU unit, are the limit.
+// * float32 at every H, and bf16 at H = 256, keep the first design
+//   (`flash_fwd_kernel`): one block of 4 warps per 64 query rows, each
+//   tile loaded with 16-byte loads and then computed behind two
+//   barriers. In bf16 both products run on `mma.sync` m16n8k16 (bf16 in,
+//   f32 accumulate) with P re-packed in registers; in f32 there is no
+//   tensor-core path that keeps full f32 (TF32 keeps about three digits),
+//   so the same fragment layout is filled by FP32 FMA and P goes through a
+//   per-warp shared tile. At H = 256 the wgmma accumulators of O (128
+//   floats a thread) and S do not fit the register file beside each
+//   other.
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
+
+#include <cmath>
 
 namespace {
 
@@ -343,13 +380,695 @@ int launch(const Args& a, int BH, int device, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16 at H = 64 and 128: TMA, mbarriers and wgmma --------------------
+
+namespace hopper {
+
+constexpr int BKEYS = 128;                      // keys per tile
+constexpr int STAGES = 3;                       // K/V ring
+constexpr int PANEL_KV = BKEYS * 128;           // bytes of a 64-column panel
+constexpr int PRODUCER_REGS = 24;
+
+// Consumer warpgroups of 64 query rows each: three at H = 64 (two
+// softmaxes run under the third's products), two at H = 128 (three would
+// not fit shared memory), and a producer warpgroup. Registers per thread
+// after setmaxnreg: an SM sub-partition holds one warp of each
+// warpgroup, and 24 + CONSUMERS x CONSUMER_REGS <= 512 of its 16384 / 32.
+// Shared memory: Q, then the K stages, then the V stages, each a run of
+// H / 64 panels of (rows, 64) bf16, 128-byte rows swizzled as TMA writes
+// them and wgmma reads them; then the mbarriers
+template <int H>
+struct Layout {
+  static constexpr int CONSUMERS = H == 64 ? 3 : 2;
+  static constexpr int BQ = 64 * CONSUMERS;     // query rows per item
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+  static constexpr int CONSUMER_REGS = CONSUMERS == 3 ? 160 : 240;
+  static constexpr int PANEL_Q = BQ * 128;
+  static constexpr int PANELS = H / 64;
+  static constexpr int Q_BYTES = PANELS * PANEL_Q;
+  static constexpr int KV_BYTES = PANELS * PANEL_KV;   // K or V, one stage
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // the barriers, and room to align the base to 1024 bytes
+  static constexpr int SMEM = BAR_OFF + 8 * (2 * STAGES + 2) + 1024;
+};
+static_assert(Layout<64>::SMEM <= 232448 && Layout<128>::SMEM <= 232448,
+              "over a block's shared memory");
+
+struct Params {
+  CUtensorMap q, k, v;        // (H, rows, heads, B) through the strides
+  void* o;
+  int B, S, T, N, G, causal, window;
+  float scale_log2;           // 1 / sqrt(H) times log2(e)
+  long long ob, os, on;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of `bar` with this parity has completed; a wait that
+// outlasts any real copy (about 2^30 polls) traps, so a lost arrival is a
+// launch error and not a hung card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 30)) asm volatile("trap;\n");
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a tensor map into shared memory, completion on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor for a 128-byte swizzled tile:
+// start address, leading and stride byte offsets (16-byte units)
+__device__ __forceinline__ uint64_t sw128(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// named barrier `id` over two consumer warpgroups: one waits for its
+// turn (sync), the one before it opens it (arrive)
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// keeps the compiler from moving accesses of `d` across the asm around it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// D (64 x 128, f32) {+}= A (64 x 16, shared) B (16 x 128, shared),
+// bf16, both K-major; scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The first k-step of the same product: D = A B, D only written, so
+// that its old values need not stay live
+__device__ __forceinline__ void wgmma_ss_n128_zero(float (&d)[64], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 registers) B (16 x 64, shared,
+// MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 registers) B (16 x 128, shared,
+// MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int H>
+__device__ __forceinline__ void wgmma_pv(float (&o)[H / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (H == 64)
+    wgmma_rs_n64(o, a, db);
+  else
+    wgmma_rs_n128(o, a, db);
+}
+
+// Persistent and warp specialised. A block stays on its SM and walks the
+// work items (BQ query rows of one (batch, head)) w = blockIdx.x,
+// blockIdx.x + gridDim.x, ..., the latest (longest) query tiles first.
+// Warpgroups 0 .. CONSUMERS - 1 each own 64 rows of the item; the last
+// warpgroup is the producer, whose first thread issues every TMA copy:
+// the item's Q into its buffer once the consumers have released it
+// (after their last S product of the item before), then K and V tile by
+// tile into the ring,
+// whose position runs on across items, so the next item's loads overlap
+// this item's last tiles and its output stores. setmaxnreg moves the
+// producer's registers to the consumers.
+// The accumulators use wgmma's fragment layout: in warp w of a warpgroup,
+// lane 4 g + t holds for each 8-column tile j the entries (16 w + g,
+// 8 j + 2 t + e) at 4 j + e and (16 w + g + 8, 8 j + 2 t + e) at
+// 4 j + 2 + e, e in {0, 1}.
+template <int H>
+__global__ void __launch_bounds__(Layout<H>::THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ Params a) {
+  using L = Layout<H>;
+  constexpr int CONSUMERS = L::CONSUMERS, BQ = L::BQ, PANEL_Q = L::PANEL_Q;
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled panels start on 1024-byte boundaries
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t qs = base, ks = base + L::K_OFF, vs = base + L::V_OFF;
+  // mbarriers: full[STAGES], empty[STAGES], q full, q empty
+  const uint32_t bars = base + L::BAR_OFF;
+  const uint32_t q_full = bars + 16 * STAGES, q_empty = q_full + 8;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+
+  const int BN = a.B * a.N;
+  const int qtiles = (a.S + BQ - 1) / BQ;
+  const int items = BN * qtiles;
+  // item w: its query tile, (batch, head), and the key tiles any of its
+  // rows can see (none where tiles <= 0). Query tiles are aligned to S's
+  // end, so where BQ does not divide S the partial tile is the first,
+  // the shortest under a causal mask: its rows below 0 load as zeros
+  // (TMA) and are not stored.
+  struct Item {
+    int q0, b, n, kt0, tiles;
+  };
+  auto item = [&](int w) {
+    Item it;
+    it.q0 = a.S - (1 + w / BN) * BQ;
+    it.b = (w % BN) / a.N;
+    it.n = (w % BN) % a.N;
+    const int q_last = it.q0 + BQ - 1;
+    const int k_end = a.causal ? min(a.T, q_last + 1) : a.T;
+    const int k_begin = a.window > 0 ? max(0, it.q0 - a.window + 1) : 0;
+    it.kt0 = k_begin / BKEYS;
+    it.tiles = (k_end + BKEYS - 1) / BKEYS - it.kt0;
+    return it;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);                     // the producer's copy
+      mbar_init(empty(s), 4 * CONSUMERS);        // every consumer warp
+    }
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 4 * CONSUMERS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x % 128 == 0) {
+      int ring = 0, round = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x, ++round) {
+        const Item it = item(w);
+        const int kvh = it.n / a.G;
+        mbar_wait(q_empty, (round & 1) ^ 1);
+        mbar_expect_tx(q_full, L::Q_BYTES);
+        for (int pn = 0; pn < L::PANELS; ++pn)
+          tma_load(qs + pn * PANEL_Q, &a.q, 64 * pn, it.q0, it.n, it.b,
+                   q_full);
+        for (int j = 0; j < it.tiles; ++j, ++ring) {
+          const int s = ring % STAGES;
+          mbar_wait(empty(s), ((ring / STAGES) & 1) ^ 1);
+          mbar_expect_tx(full(s), 2 * L::KV_BYTES);
+          const int k0 = (it.kt0 + j) * BKEYS;
+          for (int pn = 0; pn < L::PANELS; ++pn) {
+            tma_load(ks + s * L::KV_BYTES + pn * PANEL_KV, &a.k, 64 * pn, k0,
+                     kvh, it.b, full(s));
+            tma_load(vs + s * L::KV_BYTES + pn * PANEL_KV, &a.v, 64 * pn, k0,
+                     kvh, it.b, full(s));
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<L::CONSUMER_REGS>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const uint32_t qa = qs + wg * 64 * 128;
+    const float sl2 = a.scale_log2;
+
+    float o[H / 2], sc[BKEYS / 2], m[2] = {}, l[2] = {}, alpha[2] = {};
+    uint32_t pa[BKEYS / 16][4];
+    int wr0 = 0, row[2] = {0, 0};
+
+    // S = Q K' over the tile in stage s, unscaled, issued (not waited for)
+    auto issue_s = [&](int s) {
+      const uint32_t kb = ks + s * L::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < H / 16; ++kk) {
+        const uint64_t da =
+            sw128(qa + (kk / 4) * PANEL_Q + (kk % 4) * 32, 16, 1024);
+        const uint64_t db =
+            sw128(kb + (kk / 4) * PANEL_KV + (kk % 4) * 32, 16, 1024);
+        if (kk == 0)
+          wgmma_ss_n128_zero(sc, da, db);
+        else
+          wgmma_ss_n128(sc, da, db, 1);
+      }
+      wgmma_commit();
+    };
+    // O += P V over the tile in stage s: P rounded to bf16 as the register
+    // A operand, V read through the transpose bit; issued
+    auto issue_pv = [&](int s) {
+      const uint32_t vb = vs + s * L::KV_BYTES;
+#pragma unroll
+      for (int kc = 0; kc < BKEYS / 16; ++kc)
+        wgmma_pv<H>(o, pa[kc], sw128(vb + kc * 16 * 128, PANEL_KV, 1024));
+      wgmma_commit();
+    };
+    // the online softmax of the scores in sc, of the tile at key k0: sc
+    // becomes p (0 where masked), m and l move on, and alpha is the factor
+    // that O takes before this tile's P V is added
+    auto softmax = [&](int k0) {
+      // the mask, only on tiles that cross T's end, the diagonal or the
+      // window's edge for some row of this warpgroup: row r sees keys
+      // lo[r] .. hi[r]
+      const bool edge = k0 + BKEYS > a.T ||
+                        (a.causal && k0 + BKEYS - 1 > wr0) ||
+                        (a.window > 0 && k0 <= wr0 + 63 - a.window);
+      if (edge) {
+        int lo[2], hi[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          hi[r] = a.causal ? min(row[r], a.T - 1) : a.T - 1;
+          lo[r] = a.window > 0 ? row[r] - a.window + 1 : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < BKEYS / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          sc[i] = (key >= lo[r]) & (key <= hi[r]) ? sc[i] : -INFINITY;
+        }
+      }
+      // row maxima as four interleaved chains (max is exact in any order)
+      float mx4[2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mx4[r][c] = m[r];
+#pragma unroll
+      for (int i = 0; i < BKEYS / 2; ++i)
+        mx4[(i >> 1) & 1][(i >> 2) & 3] =
+            fmaxf(mx4[(i >> 1) & 1][(i >> 2) & 3], sc[i]);
+      float mb[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = fmaxf(fmaxf(mx4[r][0], mx4[r][1]),
+                         fmaxf(mx4[r][2], mx4[r][3]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // a row that has seen no visible key yet keeps alpha = 1, p = 0
+        const bool none = mx == -INFINITY;
+        alpha[r] = none ? 1.f : ex2((m[r] - mx) * sl2);
+        mb[r] = none ? 0.f : mx * sl2;
+        m[r] = mx;
+      }
+      // p, and this lane's share of the row sums in four chains
+      float sum4[2][4] = {};
+#pragma unroll
+      for (int i = 0; i < BKEYS / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        sc[i] = ex2(fmaf(sc[i], sl2, -mb[r]));
+        sum4[r][(i >> 2) & 3] += sc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        l[r] = l[r] * alpha[r] +
+               ((sum4[r][0] + sum4[r][1]) + (sum4[r][2] + sum4[r][3]));
+    };
+    // O takes alpha and P is packed to bf16 A fragments, once the last
+    // P V has completed
+    auto rescale_pack = [&]() {
+#pragma unroll
+      for (int i = 0; i < H / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int kc = 0; kc < BKEYS / 16; ++kc) {
+        pa[kc][0] = pack2(sc[8 * kc + 0], sc[8 * kc + 1]);
+        pa[kc][1] = pack2(sc[8 * kc + 2], sc[8 * kc + 3]);
+        pa[kc][2] = pack2(sc[8 * kc + 4], sc[8 * kc + 5]);
+        pa[kc][3] = pack2(sc[8 * kc + 6], sc[8 * kc + 7]);
+      }
+    };
+    // Round robin: the warpgroups take turns at issuing their products
+    // (named barrier 1 + wg is this warpgroup's turn, opened by the one
+    // before it), so that the others' softmaxes run while one's products
+    // hold the tensor cores. In an item each warpgroup has tiles + 1
+    // turns; the last warpgroup opens warpgroup 0's first turn and opens
+    // none after its own last one.
+    int turns = 0, turn = 0;
+    auto turn_begin = [&]() { named_sync(1 + wg); };
+    auto turn_end = [&]() {
+      if (wg != CONSUMERS - 1 || ++turn < turns)
+        named_arrive(1 + (wg + 1) % CONSUMERS);
+    };
+    // this warp's share of releasing Q, after the item's last S product
+    auto release_q = [&]() {
+      if (lane == 0) mbar_arrive(q_empty);
+    };
+
+    int ring = 0, round = 0;
+    for (int w = blockIdx.x; w < items; w += gridDim.x, ++round) {
+      const Item it = item(w);
+      wr0 = it.q0 + 64 * wg;                   // this warpgroup's first row
+      row[0] = wr0 + 16 * warp + g;
+      row[1] = row[0] + 8;
+#pragma unroll
+      for (int i = 0; i < H / 2; ++i) o[i] = 0.f;
+      m[0] = m[1] = -INFINITY;
+      l[0] = l[1] = 0.f;
+      turns = it.tiles + 1;
+      turn = 0;
+
+      mbar_wait(q_full, round & 1);
+      if (it.tiles <= 0) {
+        release_q();
+      } else {
+        if (wg == CONSUMERS - 1) named_arrive(1);
+        int s = ring % STAGES;
+        mbar_wait(full(s), (ring / STAGES) & 1);
+        turn_begin();
+        wgmma_fence();
+        issue_s(s);
+        turn_end();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        if (it.tiles == 1) release_q();
+        softmax(it.kt0 * BKEYS);
+        rescale_pack();
+        // tile j: S of tile j and P V of tile j - 1 in flight together,
+        // then the softmax of tile j while that P V runs
+        for (int j = 1; j < it.tiles; ++j) {
+          const int sp = s;
+          s = (ring + j) % STAGES;
+          mbar_wait(full(s), ((ring + j) / STAGES) & 1);
+          turn_begin();
+          wgmma_fence();
+          issue_s(s);
+          issue_pv(sp);
+          turn_end();
+          wgmma_wait<1>();
+          fence_regs(sc);
+          if (j == it.tiles - 1) release_q();
+          softmax((it.kt0 + j) * BKEYS);
+          wgmma_wait<0>();
+          fence_regs(o);
+          if (lane == 0) mbar_arrive(empty(sp));   // stage sp is free
+          rescale_pack();
+        }
+        turn_begin();
+        wgmma_fence();
+        issue_pv(s);
+        turn_end();
+        wgmma_wait<0>();
+        fence_regs(o);
+        if (lane == 0) mbar_arrive(empty(s));
+        ring += it.tiles;
+      }
+
+      __nv_bfloat16* op =
+          static_cast<__nv_bfloat16*>(a.o) + it.b * a.ob + it.n * a.on;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float lr = l[r];
+        lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+        lr = fmaxf(lr, 1e-30f);
+        if (row[r] < 0 || row[r] >= a.S) continue;
+        __nv_bfloat16* orow = op + (long long)row[r] * a.os + 2 * t;
+#pragma unroll
+        for (int j = 0; j < H / 8; ++j)
+          store2(orow + j * 8, o[4 * j + 2 * r] / lr,
+                 o[4 * j + 2 * r + 1] / lr);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver call: taken from the driver library
+// at run time, so the build links nothing beyond the runtime
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, rows, heads, H) bf16 operand read through its strides (elements)
+// as boxes of `box_rows` rows by 64 columns of one head: dims (H, rows,
+// heads, B), the order flash kernels on Hopper use, zero fill past rows
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int rows,
+                int heads, int H, long long sb, long long ss, long long sn,
+                int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)H, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sn * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int H>
+int launch(const Args& x, int B, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int K = x.N / x.G;
+  Params p;
+  constexpr int BQ = Layout<H>::BQ;
+  if (!tensor_map(&p.q, x.q, B, x.S, x.N, H, x.qb, x.qs, x.qn, BQ) ||
+      !tensor_map(&p.k, x.k, B, x.T, K, H, x.kb, x.ks, x.kn, BKEYS) ||
+      !tensor_map(&p.v, x.v, B, x.T, K, H, x.vb, x.vs, x.vn, BKEYS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.o = x.o;
+  p.B = B;
+  p.S = x.S;
+  p.T = x.T;
+  p.N = x.N;
+  p.G = x.G;
+  p.causal = x.causal;
+  p.window = x.window;
+  p.scale_log2 = x.scale * 1.4426950408889634f;
+  p.ob = x.ob;
+  p.os = x.os;
+  p.on = x.on;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma<H>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Layout<H>::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one persistent block per SM, or one per item where there are fewer
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long items = (long long)B * x.N * ((x.S + BQ - 1) / BQ);
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  flash_fwd_wgmma<H>
+      <<<grid, Layout<H>::THREADS, Layout<H>::SMEM, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace hopper
+
 template <typename T>
-int dispatch(const Args& a, int H, int BH, int device, cudaStream_t stream) {
-  switch (H) {
-    case 64: return launch<T, 64>(a, BH, device, stream);
-    case 128: return launch<T, 128>(a, BH, device, stream);
-    case 256: return launch<T, 256>(a, BH, device, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+int dispatch(const Args& a, int H, int B, int device, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {
+    switch (H) {
+      case 64: return hopper::launch<64>(a, B, device, stream);
+      case 128: return hopper::launch<128>(a, B, device, stream);
+      case 256: return launch<T, 256>(a, B * a.N, device, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (H) {
+      case 64: return launch<T, 64>(a, B * a.N, device, stream);
+      case 128: return launch<T, 128>(a, B * a.N, device, stream);
+      case 256: return launch<T, 256>(a, B * a.N, device, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
@@ -369,6 +1088,6 @@ extern "C" int flash_attention_fwd(
   const Args a{q, k, v, o, S, T, N, N / K, causal, window, scale,
                qb, qs, qn, kb, ks, kn, vb, vs, vn, ob, os, on};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(a, H, B * N, device, st)
-              : dispatch<float>(a, H, B * N, device, st);
+  return bf16 ? dispatch<__nv_bfloat16>(a, H, B, device, st)
+              : dispatch<float>(a, H, B, device, st);
 }

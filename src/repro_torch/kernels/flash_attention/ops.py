@@ -6,10 +6,14 @@ tensors, the plain version (`ref.py`) for CPU tensors. Nothing on CUDA
 routes to the plain version: ragged S and T are masked in the kernel.
 Shapes and types the kernel does not take raise on both paths, so that
 the CPU and the card refuse the same calls.
+
+`launch_plan` says which of the .cu's two designs a call takes and its
+launch shape; it is plain Python, so the CPU tests check it.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -19,9 +23,48 @@ from repro_torch.kernels.common import LAUNCHES, resolve_use_kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 HEAD_DIMS = (64, 128, 256)                 # the kernel's template instances
+WGMMA_HEAD_DIMS = (64, 128)                # bf16 heads of the Hopper design
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+class LaunchPlan(NamedTuple):
+    design: str          # "wgmma" (TMA, wgmma) or "mma_sync" / "fma"
+    rows: int            # query rows per work item
+    keys: int            # keys per tile
+    stages: int          # K/V tiles in shared memory at once
+    threads: int         # per block
+    smem_bytes: int      # dynamic shared memory per block
+    items: int           # B N ceil(S / rows): one block each, or walked
+                         # by one persistent block per SM ("wgmma")
+
+
+def launch_plan(B: int, S: int, N: int, H: int,
+                dtype: torch.dtype) -> LaunchPlan:
+    """The launch of `flash_attention_fwd` for q (B, S, N, H): the
+    constants of `kernels/csrc/flash_attention.cu`. bf16 at H = 64 and
+    128 takes the Hopper design (consumer warpgroups of 64 rows, three at
+    H = 64 and two at 128, and a producer warpgroup; Q and a ring of
+    three K/V stages in 128-byte swizzled panels, mbarriers, 1024 bytes
+    to align the base); the rest the first design (4 warps, 64 rows, K
+    and V tiles with padded rows)."""
+    if dtype == torch.bfloat16 and H in WGMMA_HEAD_DIMS:
+        consumers = 3 if H == 64 else 2
+        rows, keys, stages = 64 * consumers, 128, 3
+        panels = H // 64
+        smem = (panels * rows * 128 + 2 * stages * panels * keys * 128
+                + 8 * (2 * stages + 2) + 1024)
+        return LaunchPlan("wgmma", rows, keys, stages, 128 * (consumers + 1),
+                          smem, B * N * -(-S // rows))
+    size = 2 if dtype == torch.bfloat16 else 4
+    rows, keys = 64, (64 if H <= 128 else 32)
+    ld = H + (8 if size == 2 else 4)
+    smem = (rows + 2 * keys) * ld * size
+    if size == 4:
+        smem += 4 * 16 * (keys + 4) * 4          # the per-warp f32 P tiles
+    return LaunchPlan("mma_sync" if size == 2 else "fma", rows, keys, 1, 128,
+                      smem, B * N * -(-S // rows))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

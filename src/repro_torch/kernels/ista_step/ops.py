@@ -10,10 +10,15 @@ batched matrix-vector product) and r > 1 (a batched matrix product).
   `ista_solve`, a whole proximal-gradient solve with it as the body.
 
 `use_kernel` follows `kernels/common.py`.
+
+`gemm_plan` is the r > 1 kernel's choice of block tile, plain Python so
+that the CPU tests check it; the kernel's launcher applies the same rule
+(`fista_gemm_plan` in the .cu returns its choice).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -35,6 +40,48 @@ _ISTA_GEMV_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + \
     [ctypes.c_void_p]
 _ISTA_GEMM_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
     [ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+
+# the SGEMM's block tiles, larger first (PLAN_TILES in the .cu), and its
+# ring: k per stage and stages (BK, STAGES in the .cu)
+GEMM_TILES = ((128, 64), (64, 64))
+GEMM_BK = 16
+GEMM_STAGES = 4
+
+
+class GemmPlan(NamedTuple):
+    bm: int              # output rows (i) per block
+    bn: int              # output columns (j) per block
+    blocks: int          # m * ceil(p / bm) * ceil(r / bn)
+    threads: int         # one 8 x 8 register tile each
+    smem_bytes: int      # the ring of stages, dynamic shared memory
+
+
+def gemm_plan(m: int, p: int, r: int, sms: int) -> GemmPlan:
+    """Block tile of the r > 1 kernel for (m, p, r) on a card with `sms`
+    SMs: the larger of GEMM_TILES where its grid has at least one block
+    per SM, else the smaller. No split-K, so every tile gives the same
+    bits."""
+    def blocks(bm: int, bn: int) -> int:
+        return m * -(-p // bm) * -(-r // bn)
+
+    bm, bn = GEMM_TILES[0]
+    if blocks(bm, bn) < sms:
+        bm, bn = GEMM_TILES[1]
+    return GemmPlan(bm, bn, blocks(bm, bn), bm * bn // 64,
+                    4 * GEMM_STAGES * GEMM_BK * (bm + bn))
+
+
+def kernel_gemm_plan(m: int, p: int, r: int,
+                     device: torch.device) -> tuple[int, int, int]:
+    """(bm, bn, SMs) as the kernel's launcher chooses them on `device`."""
+    fn = _build.function("fista_step", "fista_gemm_plan", _PLAN_ARGTYPES)
+    bm, bn, sms = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    _build.call(fn, m, p, r, index, ctypes.byref(bm), ctypes.byref(bn),
+                ctypes.byref(sms))
+    return bm.value, bn.value, sms.value
 
 
 def _check_batch(name: str, Sigmas: torch.Tensor, etas: torch.Tensor,

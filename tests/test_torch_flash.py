@@ -14,7 +14,8 @@ The same inputs, made with numpy from a seed, go to both packages:
 * bf16 against the f32 result of the same inputs, within 2e-2 absolute
   per element (the reference's own test of its kernel in bf16 allows
   atol = rtol = 2e-2);
-* the wrapper's `use_kernel` rules on the CPU.
+* the wrapper's `use_kernel` rules on the CPU, and the kernel's launch
+  plan (`launch_plan`: which design, blocks, shared memory).
 
 The CUDA kernel itself runs only on the card (`tests/test_torch_gpu.py`).
 """
@@ -31,7 +32,9 @@ from repro.kernels.flash_attention.ref import (
 )
 from repro.models.attention_core import flash_attention as jax_flash
 from repro_torch.kernels.common import LAUNCHES
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention, launch_plan,
+)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models.attention_core import flash_attention as port_flash
 
@@ -166,3 +169,41 @@ def test_wrapper_use_kernel_rules_on_cpu():
                         v[:, :, :1].expand(1, 32, 3, 64).contiguous())
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention(q.half(), kk.half(), v.half())
+
+
+# ---- the kernel's launch plan (the card tests run the kernel) ---------------
+
+SMEM_PER_BLOCK = 232448        # 227 KB, the opt-in limit of one block
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b, s, n, h", [(4, 2048, 32, 64), (1, 200, 4, 128),
+                                        (1, 512, 4, 256), (1, 300, 4, 64),
+                                        (2, 1, 8, 128)])
+def test_launch_plan_covers_the_queries_and_fits_a_block(b, s, n, h, dtype):
+    pl = launch_plan(b, s, n, h, dtype)
+    tiles = -(-s // pl.rows)
+    assert tiles * pl.rows >= s and (tiles - 1) * pl.rows < s
+    assert pl.items == b * n * tiles
+    assert pl.smem_bytes <= SMEM_PER_BLOCK and pl.threads % 32 == 0
+    hopper = dtype == torch.bfloat16 and h in (64, 128)
+    assert (pl.design == "wgmma") == hopper
+    if hopper:
+        # consumer warpgroups of 64 rows (three at H = 64, two at 128)
+        # and a producer warpgroup; every Q, K and V panel is a whole
+        # number of 1024-byte swizzle atoms
+        consumers = 3 if h == 64 else 2
+        assert pl.rows == 64 * consumers and pl.stages >= 2
+        assert pl.threads == 128 * (consumers + 1)
+        assert pl.rows * 128 % 1024 == 0 and pl.keys * 128 % 1024 == 0
+
+
+def test_launch_plan_at_the_serving_shape():
+    """granite-3-2b's prefill: the Hopper design, 4 x 32 x 11 work items
+    of 192 rows (about 11 for each of 132 persistent blocks), Q and a
+    three-stage K/V ring in 121 KB."""
+    pl = launch_plan(4, 2048, 32, 64, torch.bfloat16)
+    assert pl.design == "wgmma" and pl.items == 1408 and pl.stages == 3
+    assert pl.smem_bytes == 24576 + 3 * 2 * 16384 + 64 + 1024
+    assert launch_plan(4, 2048, 32, 64, torch.float32).design == "fma"
+    assert launch_plan(1, 512, 4, 256, torch.bfloat16).design == "mma_sync"

@@ -11,7 +11,9 @@ against the plain version on the f32 upcast of its inputs, query row by
 query row: each row's output within a relative l2 error of 1e-4 in f32
 and 1e-2 in bf16 of the plain row (a row's scale falls as
 1 / sqrt(row + 1), so a bar on max|plain|, set by row 0, would not follow
-it), and in f32 also within 2e-5 * max|plain|.
+it), and in f32 also within 2e-5 * max|plain|. The last flash shape has
+T = 300, not a multiple of the 128-key tile of the bf16 kernel, and a
+window of 40 that cuts its tiles.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from repro_torch.kernels.common import LAUNCHES
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.group_threshold.ops import group_threshold
 from repro_torch.kernels.ista_step.ops import (
-    fista_step_batched, ista_solve, ista_step, ista_step_batched,
+    fista_step_batched, gemm_plan, ista_solve, ista_step, ista_step_batched,
+    kernel_gemm_plan,
 )
 from repro_torch.kernels.logistic_grad.ops import (
     logistic_grad, logistic_grad_unfused,
@@ -94,6 +97,42 @@ def test_fista_step_kernel_matches_plain(cuda, m, p, r):
     assert LAUNCHES[key] == before + 1
     assert got[0].data_ptr() not in (z.data_ptr(), x.data_ptr())
     _assert_close(got, fista_step_batched(*args, use_kernel=False))
+
+
+@pytest.mark.parametrize("momentum", [True, False])
+@pytest.mark.parametrize("m, p, r", [(1, 1024, 1024), (16, 1024, 1024),
+                                     (3, 129, 7), (2, 1001, 1001)])
+def test_fista_gemm_kernel_matches_plain_on_every_tile(cuda, m, p, r,
+                                                       momentum):
+    """The r > 1 kernel at shapes that between them take every tile of
+    `gemm_plan` (the launcher's own choice is held to the Python rule),
+    the 16-byte and the 4-byte copies, with and without momentum; two
+    launches give the same bits."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = gemm_plan(m, p, r, sms)
+    assert kernel_gemm_plan(m, p, r, cuda) == (plan.bm, plan.bn, sms)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    X = torch.randn((m, 2 * p, p), generator=g, device=cuda)
+    Sig = torch.einsum("tni,tnj->tij", X, X) / (2 * p)
+    etas = 1.0 / power_iteration_batched(Sig)
+    z = 0.3 * torch.randn((m, p, r), generator=g, device=cuda)
+    x = z + 0.1 * torch.randn((m, p, r), generator=g, device=cuda)
+    c = 0.5 * torch.randn((m, p, r), generator=g, device=cuda)
+    lams = torch.full((m,), 0.05, device=cuda)
+    if momentum:
+        args = (Sig, z, x, c, etas, lams, np.float32(0.6))
+        key, fn = "fista_step_gemm", fista_step_batched
+    else:
+        args = (Sig, z, c, etas, lams)
+        key, fn = "ista_step_batched_gemm", ista_step_batched
+    before = LAUNCHES[key]
+    got, again = fn(*args), fn(*args)
+    assert LAUNCHES[key] == before + 2
+    want = fn(*args, use_kernel=False)
+    got, again, want = ((t,) if not momentum else t
+                        for t in (got, again, want))
+    _assert_close(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_dsml_fit_kernels_match_plain_path(cuda):
@@ -276,7 +315,7 @@ def test_grid_solve_kernels_match_plain_path(cuda):
     (2, 256, 256, 8, 2, 64, True, 0), (1, 200, 200, 4, 1, 128, True, 0),
     (1, 512, 512, 4, 1, 256, True, 64), (2, 256, 256, 8, 2, 64, False, 0),
     (1, 64, 200, 4, 2, 64, True, 0), (1, 200, 333, 4, 1, 128, False, 16),
-    (4, 2048, 2048, 32, 8, 64, True, 0)])
+    (4, 2048, 2048, 32, 8, 64, True, 0), (1, 300, 300, 4, 2, 64, True, 40)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, t, n, k, h,
                                               causal, window):
     g = torch.Generator(device=cuda).manual_seed(6)

@@ -22,7 +22,7 @@ from repro.kernels.ista_step.ops import (
 )
 from repro_torch.kernels.common import LAUNCHES
 from repro_torch.kernels.ista_step.ops import (
-    ista_solve, ista_step, ista_step_batched,
+    GEMM_TILES, gemm_plan, ista_solve, ista_step, ista_step_batched,
 )
 from repro_torch.kernels.ista_step.ref import (
     ista_step_batched_ref, ista_step_ref,
@@ -194,3 +194,41 @@ def test_float64_raises():
     with pytest.raises(TypeError, match="float32"):
         ista_step(_t(Sig[0]), _t(b[0]), _t(c[0]),
                   torch.tensor(0.3, dtype=torch.float64), 0.1)
+
+
+# ---- the r > 1 kernel's tile plan (the card tests run the kernel) -----------
+
+H100_SMS = 132
+SMEM_PER_BLOCK = 232448        # 227 KB, the opt-in limit of one block
+
+
+@pytest.mark.parametrize("m, p, r", [(1, 1024, 1024), (16, 1024, 1024),
+                                     (3, 129, 7), (2, 1001, 1001),
+                                     (1, 64, 5000), (128, 1024, 1024)])
+def test_gemm_plan_covers_the_output_and_fits_a_block(m, p, r):
+    pl = gemm_plan(m, p, r, H100_SMS)
+    assert (pl.bm, pl.bn) in GEMM_TILES
+    rows, cols = -(-p // pl.bm), -(-r // pl.bn)
+    assert rows * pl.bm >= p and cols * pl.bn >= r
+    assert (rows - 1) * pl.bm < p and (cols - 1) * pl.bn < r
+    assert pl.blocks == m * rows * cols
+    assert pl.threads == pl.bm * pl.bn // 64 and pl.threads % 32 == 0
+    assert pl.smem_bytes <= SMEM_PER_BLOCK
+    # the larger tile where it gives every SM a block, else the smaller
+    larger = GEMM_TILES[:GEMM_TILES.index((pl.bm, pl.bn))]
+    assert all(m * -(-p // bm) * -(-r // bn) < H100_SMS
+               for bm, bn in larger)
+    assert pl.blocks >= H100_SMS or (pl.bm, pl.bn) == GEMM_TILES[-1]
+
+
+def test_gemm_plan_fills_the_card_at_one_task():
+    """At m = 1, p = r = 1024 a 128 x 128 tile gives 64 blocks for 132
+    SMs; the plan takes a tile that gives at least one block per SM, and
+    the larger tile at the debias solve's m = 16."""
+    one = gemm_plan(1, 1024, 1024, H100_SMS)
+    assert one.blocks >= H100_SMS and (one.bm, one.bn) == (64, 64)
+    many = gemm_plan(16, 1024, 1024, H100_SMS)
+    assert (many.bm, many.bn) == (128, 64) and many.blocks == 2048
+    # the four card-test shapes reach every tile
+    shapes = [(1, 1024, 1024), (16, 1024, 1024), (3, 129, 7), (2, 1001, 1001)]
+    assert {gemm_plan(*s, H100_SMS)[:2] for s in shapes} == set(GEMM_TILES)
