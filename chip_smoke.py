@@ -8,11 +8,16 @@ Phases, each of which raises on failure (exit code != 0):
 1. the card: name, count, and `nvidia-smi` name and power limit;
 2. build the CUDA kernels from `src/repro_torch/kernels/csrc` (nvcc, with
    `-Xptxas -v`: registers, shared memory and spills per kernel); the
-   r > 1 FISTA/ISTA SGEMM (`fista_gemm_kernel`) and the bf16 Hopper flash
-   forward (`flash_fwd_wgmma`) must not spill;
+   r > 1 FISTA/ISTA SGEMM (`fista_gemm_kernel`), the rank-n update
+   (`rank_update_kernel`) and the bf16 Hopper flash forward
+   (`flash_fwd_wgmma`) must not spill;
 3. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at ragged ones, max abs error <= 1e-5 * max|plain|
-   per output (both accumulate in f32, in another order); the logistic
+   per output (both accumulate in f32, in another order); the rank-n
+   update also at the streaming ingest's (8, 1024, 256), with Sigma
+   exactly symmetric, the unfused pair's Sigma bitwise the fused one's,
+   and its block tile as its launcher chooses it held to
+   `ops.rank_plan`; the logistic
    gradient also at the large-p point m = 4, n = 256, p = 8192, and twice,
    to show that its sample reduction gives the same bits every run; the
    ISTA steps (batched and single-task), the unfused rank pair and the
@@ -23,7 +28,8 @@ Phases, each of which raises on failure (exit code != 0):
    the flash-attention forward in f32 at (B, S, N, K, H) = (2, 256, 8, 2,
    64), a ragged (1, 200, 4, 1, 128), (1, 512, 4, 1, 256) with window 64
    and a non-causal case, within 2e-5 * max|plain|, and in bf16 at the
-   serving path's (4, 2048, 32, 8, 64), at the ragged and windowed
+   serving path's (4, 2048, 32, 8, 64), at minitron-4b's H = 128
+   (4, 2048, 24, 8, 128), at the ragged and windowed
    shapes and at (1, 300, 4, 2, 64) with window 40 (T not a multiple of
    the bf16 kernel's 128-key tile, the window cutting its tiles),
    against the plain version on the f32 upcast of the same
@@ -61,9 +67,11 @@ Phases, each of which raises on failure (exit code != 0):
    L2 cache flushed before each launch, since back to back an input of up
    to 50 MB stays in L2, as it does in the solver loops) beside its bound,
    its plain version, the nearest PyTorch call, and the wrapper as the
-   main path calls it (checks and allocation included), and for the SGEMM
-   rows and flash the achieved TFLOP/s; and each fit's wall time on both
-   paths;
+   main path calls it (checks and allocation included), and for the SGEMM,
+   rank-n and flash rows the achieved TFLOP/s; the rank-n update also
+   weighted (the logistic fit's Hessian launch) and at the streaming
+   ingest's (8, 1024, 256), and flash also at H = 128, each beside its
+   PyTorch call; and each fit's wall time on both paths;
 6. the serving path at full width, the cell of
    `repro_torch/serving/cell.py`: granite-3-2b (40 layers, d 2048, 32/8
    heads of 64, bf16) from a seeded `torch.Generator`, `greedy_generate`
@@ -104,6 +112,10 @@ PEAK_BYTES = 3.35e12
 
 M, N, P, S = 16, 512, 1024, 16          # the main path's configuration
 LARGE_P = (4, 256, 8192)                # benchmarks/largep_logistic.py
+INGEST = (8, 1024, 256)                 # benchmarks/stream_bench.py
+# (B, S, N, K, H): minitron-4b's attention (configs/registry.py) at the
+# serving cell's batch and prompt
+FLASH_H128 = (4, 2048, 24, 8, 128)
 TOL_KERNEL = 1e-5                       # x max|plain|, per output
 TOL_FIT = 1e-4                          # x max|.|, after chained FISTA steps
 TOL_FLASH = 2e-5                        # x max|plain|, f32
@@ -256,7 +268,9 @@ def main() -> None:
         print(f"ptxas {src}.cu:")
         for line in ptxas_lines(log):
             print(line)
-            if "fista_gemm_kernel" in line or "flash_fwd_wgmma" in line:
+            if any(k in line for k in ("fista_gemm_kernel",
+                                       "rank_update_kernel",
+                                       "flash_fwd_wgmma")):
                 check(" 0 bytes spill stores" in line,
                       f"a redesigned kernel spills: {line}")
 
@@ -270,9 +284,20 @@ def main() -> None:
         w = 0.5 + torch.rand((m, n), generator=g, device=dev)
         return X, y, w
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
     def check_rank(label, X, y, w):
+        """The fused kernel against its plain version; Sigma exactly
+        symmetric and the unfused pair's Sigma bitwise the fused one's;
+        the launcher's tile held to `rank_plan`."""
+        m, _, p = X.shape
+        plan = rank_ops.rank_plan(m, p, sms)
+        check(rank_ops.kernel_rank_plan(m, p, dev) ==
+              (plan.tile, plan.blocks, sms), f"rank_update tile at {label}: "
+              f"the launcher's differs from rank_plan's {plan}")
         got = rank_update(X, y, w, use_kernel=True)
         ref = rank_update(X, y, w, use_kernel=False)
+        unf = rank_update_unfused(X, y, w, use_kernel=True)
         torch.cuda.synchronize()
         worst = 0.0
         for name, a, b in zip(("Sigma", "c"), got, ref):
@@ -281,15 +306,27 @@ def main() -> None:
                   f"rank_update {label} {name}: err {err} > "
                   f"{TOL_KERNEL} * {scale}")
             worst = max(worst, err)
-        print(f"check rank_update {label}: max abs err {worst:.3g}")
+        check(bool(torch.equal(got[0], got[0].mT)),
+              f"rank_update {label}: Sigma not exactly symmetric")
+        check(bool(torch.equal(unf[0], got[0])), f"rank_update {label}: the "
+              "unfused Sigma differs from the fused one")
+        print(f"check rank_update {label}: max abs err {worst:.3g}; Sigma "
+              f"exactly symmetric, the unfused Sigma the same bits; "
+              f"{plan.tile} x {plan.tile} tiles, {plan.blocks} blocks of "
+              f"{plan.threads} threads on {sms} SMs")
         return worst
 
     X, y, w = rank_inputs(M, N, P)
     errs["rank_update"] = check_rank(f"({M},{N},{P})", X, y, None)
-    check_rank(f"({M},{N},{P}) weighted", X, y, w)
+    errs["rank_update_weighted"] = check_rank(f"({M},{N},{P}) weighted",
+                                              X, y, w)
     Xr, yr, wr = rank_inputs(3, 500, 1000)
     check_rank("(3,500,1000)", Xr, yr, None)
     check_rank("(3,500,1000) weighted", Xr, yr, wr)
+    Xi, yi, _ = rank_inputs(*INGEST)
+    errs["rank_update_ingest"] = check_rank("({},{},{})".format(*INGEST), Xi,
+                                            yi, None)
+    check_rank("(2,7,129) weighted", *rank_inputs(2, 7, 129))
 
     def fista_inputs(Sigmas, r, lam):
         m, p, _ = Sigmas.shape
@@ -325,7 +362,6 @@ def main() -> None:
     Sig_r, _ = rank_update(Xr, yr, use_kernel=False)
     check_fista("r=1 p=1000", fista_inputs(Sig_r, 1, 0.5 * lam))
     check_fista("r=p=1000", fista_inputs(Sig_r, 1000, mu))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for shape in ((M, P, P), (1, P, P), (3, 1000, 1000), (3, 129, 7)):
         plan = ista_ops.gemm_plan(*shape, sms)
         check(ista_ops.kernel_gemm_plan(*shape, dev) == (plan.bm, plan.bn,
@@ -495,6 +531,7 @@ def main() -> None:
     check_flash((1, 512, 4, 1, 256), f32, window=64)
     check_flash((2, 256, 8, 2, 64), f32, causal=False)
     errs["flash_attention"], flash_qkv = check_flash(flash_path, bf16)
+    errs["flash_attention_h128"], flash_qkv128 = check_flash(FLASH_H128, bf16)
     check_flash((1, 200, 4, 1, 128), bf16)
     check_flash((1, 512, 4, 1, 256), bf16, window=64)
     check_flash((1, 300, 4, 2, 64), bf16, window=40)
@@ -656,6 +693,8 @@ def main() -> None:
               f"rank_update: err {err} > {TOL_KERNEL} * {scale}")
         print(f"rank_update_unfused {name} vs rank_update at ({M},{N},{P}): "
               f"max abs err {err:.3g} (max {scale:.3g})")
+    check(bool(torch.equal(unf[0], fused[0])),
+          "rank_update_unfused Sigma differs from rank_update's")
     check(bool(torch.equal(keep, res.support)),
           "group_threshold keep differs from dsml_fit's support")
     check(bool(torch.equal(filtered.T, res.beta_tilde)),
@@ -730,8 +769,13 @@ def main() -> None:
     # Sigma is symmetric by construction: its least work is the upper
     # triangle (p (p + 1) / 2 dot products of length n per task) plus c;
     # the output bytes are the whole of Sigma
-    rank_bound = bound(m * n * p * (p + 1) + 2 * m * n * p,
-                       4 * (m * n * p + m * n + m * p * p + m * p))
+    def rank_work(m, n, p, weighted=False):
+        """The least work of the fused update (Sigma's upper triangle, c,
+        and w x where weighted) and its bytes (X, y, w in; Sigma, c out)."""
+        return (m * n * p * (p + 1) + 2 * m * n * p + weighted * m * n * p,
+                4 * (m * n * p + (1 + weighted) * m * n + m * p * p + m * p))
+
+    rank_bound = bound(*rank_work(m, n, p))
     gemv_bound = bound(2 * m * p * p,
                        4 * (m * p * p + 3 * m * p + 2 * m + 2 * m * p))
     gemm_bound = bound(2 * m * p * p * p,
@@ -740,29 +784,58 @@ def main() -> None:
     S_out, c_out = torch.empty_like(Sig), torch.empty((m, p), device=dev)
     gemv_out = (torch.empty_like(gemv_args[1]), torch.empty_like(gemv_args[1]))
     gemm_out = (torch.empty_like(gemm_args[1]), torch.empty_like(gemm_args[1]))
-    fb, fs, fn, fk, fh = flash_path
-    fq, fkk, fv = flash_qkv
-    f_out = torch.empty_like(fq)
+    def flash_flops(shape):
+        fb, fs, fn, _, fh = shape
+        return 4 * fb * fn * (fs * (fs + 1) // 2) * fh
+
+    def flash_row(name, shape, qkv):
+        """The causal triangle on the bf16 tensor cores; q, k, v and out
+        once each."""
+        fb, fs, fn, fk, fh = shape
+        fq, fkk, fv = qkv
+        f_out = torch.empty_like(fq)
+        return (name, "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention/kernel.py:83",
+                bound(flash_flops(shape),
+                      2 * (2 * fb * fs * fn * fh + 2 * fb * fs * fk * fh),
+                      PEAK_BF16_FLOPS),
+                lambda: flash_ops.launch(fq, fkk, fv, f_out),
+                lambda: flash_attention(fq, fkk, fv),
+                lambda: flash_attention(fq, fkk, fv, use_kernel=False),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    fq.transpose(1, 2), fkk.transpose(1, 2),
+                    fv.transpose(1, 2), is_causal=True, enable_gqa=True))
+
+    # the weighted launch's yardstick: one bmm on (w X)' computed aside
+    Xwt = (X * w[..., None]).transpose(1, 2)
+    Xit = Xi.transpose(1, 2)
+    Si_out = torch.empty((INGEST[0], INGEST[2], INGEST[2]), device=dev)
+    ci_out = torch.empty((INGEST[0], INGEST[2]), device=dev)
     rows = [
-        # the causal triangle on the bf16 tensor cores; q, k, v and out
-        # once each
-        ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention/kernel.py:83",
-         bound(4 * fb * fn * (fs * (fs + 1) // 2) * fh,
-               2 * (2 * fb * fs * fn * fh + 2 * fb * fs * fk * fh),
-               PEAK_BF16_FLOPS),
-         lambda: flash_ops.launch(fq, fkk, fv, f_out),
-         lambda: flash_attention(fq, fkk, fv),
-         lambda: flash_attention(fq, fkk, fv, use_kernel=False),
-         lambda: torch.nn.functional.scaled_dot_product_attention(
-             fq.transpose(1, 2), fkk.transpose(1, 2), fv.transpose(1, 2),
-             is_causal=True, enable_gqa=True)),
+        flash_row("flash_attention", flash_path, flash_qkv),
+        flash_row("flash_attention_h128", FLASH_H128, flash_qkv128),
         ("rank_update", "src/repro_torch/kernels/csrc/rank_update.cu",
          "src/repro/kernels/rank_update/kernel.py:121", rank_bound,
          lambda: rank_ops.launch(X, y, None, S_out, c_out),
          lambda: rank_update(X, y),
          lambda: rank_update_ref(X, y),
          lambda: torch.bmm(Xt, X)),
+        # the logistic fit's Hessian launch: Sigma = X'WX/n, c = X'Wy/n
+        ("rank_update_weighted", "src/repro_torch/kernels/csrc/rank_update.cu",
+         "src/repro/kernels/rank_update/kernel.py:121",
+         bound(*rank_work(m, n, p, weighted=True)),
+         lambda: rank_ops.launch(X, y, w, S_out, c_out),
+         lambda: rank_update(X, y, w),
+         lambda: rank_update_ref(X, y, w),
+         lambda: torch.bmm(Xwt, X)),
+        # one chunk of the streaming service's ingest
+        ("rank_update_ingest", "src/repro_torch/kernels/csrc/rank_update.cu",
+         "src/repro/kernels/rank_update/kernel.py:121",
+         bound(*rank_work(*INGEST)),
+         lambda: rank_ops.launch(Xi, yi, None, Si_out, ci_out),
+         lambda: rank_update(Xi, yi),
+         lambda: rank_update_ref(Xi, yi),
+         lambda: torch.bmm(Xit, Xi)),
         ("fista_step_gemv", "src/repro_torch/kernels/csrc/fista_step.cu",
          "src/repro/kernels/ista_step/kernel.py:108", gemv_bound,
          lambda: ista_ops.launch(*gemv_args, *gemv_out),
@@ -888,11 +961,19 @@ def main() -> None:
               "ista_step_batched_gemm": (m, p, p),
               "ista_step_gemv": (1, p, 1), "ista_step_gemm": (1, p, p),
               "rank_update_sigma": (m, n, p), "rank_update_c": (m, n, p),
-              "group_threshold": (pg, mg), "flash_attention": flash_path}
-    # the redesigned kernels' work, for their achieved rate
-    row_flops = {"flash_attention": 4 * fb * fn * (fs * (fs + 1) // 2) * fh,
+              "group_threshold": (pg, mg), "flash_attention": flash_path,
+              "rank_update_weighted": (m, n, p),
+              "rank_update_ingest": INGEST,
+              "flash_attention_h128": FLASH_H128}
+    # the redesigned kernels' least work, for their achieved rate
+    row_flops = {"flash_attention": flash_flops(flash_path),
+                 "flash_attention_h128": flash_flops(FLASH_H128),
                  "fista_step_gemm": 2 * m * p * p * p,
-                 "ista_step_gemm": 2 * p * p * p}
+                 "ista_step_gemm": 2 * p * p * p,
+                 "rank_update": rank_work(m, n, p)[0],
+                 "rank_update_weighted": rank_work(m, n, p, True)[0],
+                 "rank_update_ingest": rank_work(*INGEST)[0],
+                 "rank_update_sigma": m * n * p * (p + 1)}
     kernels = []              # launches per run are added after phase 6
     for (name, source, replaces, (bound_ms, bound_by), kern, wrapper, plain,
          lib) in rows:
@@ -1017,8 +1098,12 @@ def main() -> None:
 
     # launches per run: the regression rows from phase 4, the logistic
     # rows from phase 4b (the unfused pair is not on either path), the
-    # rows of the third slice from phase 4c, flash from phase 6
+    # rows of the third slice from phase 4c, flash from phase 6; a row at
+    # another shape than its path's takes its kernel's count
     run_launches = {**launches,
+                    "rank_update_weighted": claunches["rank_update"],
+                    "rank_update_ingest": launches["rank_update"],
+                    "flash_attention_h128": serve_launches["flash_attention"],
                     "logistic_grad": claunches["logistic_grad"],
                     "logistic_grad_p8192": claunches["logistic_grad"],
                     "logistic_grad_unfused": claunches["logistic_z"],

@@ -5,10 +5,17 @@ of `sufficient_stats`; `rank_update_unfused` is the two-dispatch pair
 (Sigma alone, then c alone), the fused kernel's yardstick. `use_kernel`
 follows `kernels/common.py`: the CUDA kernels for CUDA tensors, the plain
 version (`ref.py`) for CPU tensors.
+
+`rank_plan` is the Sigma kernel's choice of square block tile and
+`triangle_tile` its map from a block to the tile of Sigma's upper
+triangle it computes, plain Python so that the CPU tests check them; the
+kernel's launcher applies the same rule (`rank_update_plan` in the .cu
+returns its choice).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -22,6 +29,67 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _SIGMA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
     [ctypes.c_void_p]
 _C_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_PLAN_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
+
+# the Sigma kernel's square tiles, larger first, each with the side of its
+# threads' register tiles (PLAN_TILES and launch_plan in the .cu), and its
+# ring: samples per stage and stages (BK, STAGES)
+RANK_TILES = ((128, 8), (32, 4))
+RANK_BK = 16
+RANK_STAGES = 4
+
+
+class RankPlan(NamedTuple):
+    tile: int            # BT: the block's output tile is BT x BT
+    tiles: int           # T = ceil(p / BT) tiles a side
+    blocks: int          # m * T * (T + 1) / 2: the upper tiles of m tasks
+    threads: int         # (BT / RT)^2, one RT x RT register tile each
+    smem_bytes: int      # the ring, or the staged output tile if larger
+
+
+def _triangle(p: int, tile: int) -> int:
+    tiles = -(-p // tile)
+    return tiles * (tiles + 1) // 2
+
+
+def rank_plan(m: int, p: int, sms: int) -> RankPlan:
+    """Block tile of the Sigma kernel for (m, p) on a card with `sms`
+    SMs: the larger of RANK_TILES where its triangle grid has at least
+    one block per SM, else the smaller. The samples n do not enter: no
+    split-K, so every tile gives the same bits."""
+    (tile, rt), small = RANK_TILES
+    if m * _triangle(p, tile) < sms:
+        tile, rt = small
+    ring = RANK_STAGES * (2 * RANK_BK * tile + RANK_BK)
+    return RankPlan(tile, -(-p // tile), m * _triangle(p, tile),
+                    (tile // rt) ** 2, 4 * max(ring, tile * tile))
+
+
+def triangle_tile(block: int, tiles: int) -> tuple[int, int, int]:
+    """(t, I, J), I <= J: the task and tile of Sigma that block `block`
+    of the kernel's grid computes, T = `tiles` tiles a side; row I of the
+    triangle holds T - I tiles. Block (t, I, I) also writes c's rows of
+    tile I."""
+    per_task = tiles * (tiles + 1) // 2
+    t, u = divmod(block, per_task)
+    i = 0
+    while u >= tiles - i:
+        u -= tiles - i
+        i += 1
+    return t, i, i + u
+
+
+def kernel_rank_plan(m: int, p: int,
+                     device: torch.device) -> tuple[int, int, int]:
+    """(tile, blocks, SMs) as the kernel's launcher chooses them on
+    `device`."""
+    fn = _build.function("rank_update", "rank_update_plan", _PLAN_ARGTYPES)
+    tile, blocks, sms = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    _build.call(fn, m, p, index, ctypes.byref(tile), ctypes.byref(blocks),
+                ctypes.byref(sms))
+    return tile.value, blocks.value, sms.value
 
 
 def _checked(name: str, Xs: torch.Tensor, ys: torch.Tensor,

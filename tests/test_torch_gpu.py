@@ -39,7 +39,7 @@ from repro_torch.kernels.logistic_grad.ops import (
     logistic_grad, logistic_grad_unfused,
 )
 from repro_torch.kernels.rank_update.ops import (
-    rank_update, rank_update_unfused,
+    kernel_rank_plan, rank_plan, rank_update, rank_update_unfused,
 )
 from repro_torch.models import Batch, forward_decode, forward_prefill
 from repro_torch.models import init_params
@@ -76,6 +76,32 @@ def test_rank_update_kernel_matches_plain(cuda, m, n, p, weighted):
     got = rank_update(X, y, w)
     assert LAUNCHES["rank_update"] == before + 1
     _assert_close(got, rank_update(X, y, w, use_kernel=False))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("m, n, p", [(16, 512, 1024), (8, 1024, 256),
+                                     (3, 500, 1000), (2, 7, 129),
+                                     (1, 7, 7), (3, 100, 130)])
+def test_rank_update_kernel_on_every_tile(cuda, m, n, p, weighted):
+    """The Sigma kernel at shapes that between them take every tile of
+    `rank_plan` (the launcher's own choice is held to the Python rule),
+    the 16-byte and the 4-byte copies, n not a multiple of the ring's 16
+    samples: within the bar of the plain version, Sigma exactly
+    symmetric, the same bits on a second launch, and the unfused pair's
+    Sigma bitwise the fused kernel's."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = rank_plan(m, p, sms)
+    assert kernel_rank_plan(m, p, cuda) == (plan.tile, plan.blocks, sms)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    X = torch.randn((m, n, p), generator=g, device=cuda)
+    y = torch.randn((m, n), generator=g, device=cuda)
+    w = 0.5 + torch.rand((m, n), generator=g, device=cuda) if weighted \
+        else None
+    got, again = rank_update(X, y, w), rank_update(X, y, w)
+    _assert_close(got, rank_update(X, y, w, use_kernel=False))
+    assert torch.equal(got[0], got[0].mT)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(rank_update_unfused(X, y, w)[0], got[0])
 
 
 @pytest.mark.parametrize("m, p, r", [(4, 256, 1), (4, 256, 256),
