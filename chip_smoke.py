@@ -8,9 +8,10 @@ Phases, each of which raises on failure (exit code != 0):
 1. the card: name, count, and `nvidia-smi` name and power limit;
 2. build the CUDA kernels from `src/repro_torch/kernels/csrc` (nvcc, with
    `-Xptxas -v`: registers, shared memory and spills per kernel); the
-   r > 1 FISTA/ISTA SGEMM (`fista_gemm_kernel`), the rank-n update
-   (`rank_update_kernel`) and the bf16 Hopper flash forward
-   (`flash_fwd_wgmma`) must not spill;
+   FISTA/ISTA GEMV and SGEMM (`fista_gemv_kernel`, `fista_gemm_kernel`),
+   the rank-n update (`rank_update_kernel`), the unfused logistic pair
+   (`logistic_residual_kernel`, `logistic_backproject_kernel`) and the
+   bf16 Hopper flash forward (`flash_fwd_wgmma`) must not spill;
 3. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at ragged ones, max abs error <= 1e-5 * max|plain|
    per output (both accumulate in f32, in another order); the rank-n
@@ -19,12 +20,15 @@ Phases, each of which raises on failure (exit code != 0):
    and its block tile as its launcher chooses it held to
    `ops.rank_plan`; the logistic
    gradient also at the large-p point m = 4, n = 256, p = 8192, and twice,
-   to show that its sample reduction gives the same bits every run; the
+   to show that its sample reduction gives the same bits every run, the
+   unfused pair's launch plan as its launcher chooses it held to
+   `ops.unfused_plan` and one call of the pair launching each of its two
+   kernels once; the
    ISTA steps (batched and single-task), the unfused rank pair and the
    group threshold at their path shapes and at ragged ones (p = 129,
    r = 7, m = 3; (2, 7, 129); (1001, 5)), each twice for the same bits,
-   and the SGEMM's block tile as its launcher chooses it held to
-   `ops.gemm_plan`;
+   and the GEMV's plan and the SGEMM's block tile as their launchers
+   choose them held to `ops.gemv_plan` and `ops.gemm_plan`;
    the flash-attention forward in f32 at (B, S, N, K, H) = (2, 256, 8, 2,
    64), a ragged (1, 200, 4, 1, 128), (1, 512, 4, 1, 256) with window 64
    and a non-causal case, within 2e-5 * max|plain|, and in bf16 at the
@@ -71,7 +75,12 @@ Phases, each of which raises on failure (exit code != 0):
    rank-n and flash rows the achieved TFLOP/s; the rank-n update also
    weighted (the logistic fit's Hessian launch) and at the streaming
    ingest's (8, 1024, 256), and flash also at H = 128, each beside its
-   PyTorch call; and each fit's wall time on both paths;
+   PyTorch call; for every row also the device time alone of the kernel
+   and of its PyTorch call (`graph_ms`, `library_graph_ms`: 20 launches
+   captured in one CUDA graph and replayed between CUDA events, so that
+   no host issue is timed; `torch.profiler`'s device time where a launch
+   cannot be captured, with the reason); and each fit's wall time on
+   both paths;
 6. the serving path at full width, the cell of
    `repro_torch/serving/cell.py`: granite-3-2b (40 layers, d 2048, 32/8
    heads of 64, bf16) from a seeded `torch.Generator`, `greedy_generate`
@@ -135,41 +144,6 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
             torch.max(torch.abs(b)).item())
 
 
-def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Mean device time of `fn` over `reps` calls, by CUDA events."""
-    for _ in range(warm):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def time_ms_cold(fn, reps: int = 20, warm: int = 3) -> float:
-    """Mean device time of `fn` with the 50 MB L2 cache flushed before
-    each call (a 64 MB buffer is overwritten), by one pair of CUDA events
-    per call."""
-    flush = torch.empty(16 * 2**20, device="cuda")
-    for _ in range(warm):
-        fn()
-    total = 0.0
-    for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
-
-
 def row_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     """max over rows of ||got_r - ref_r|| / ||ref_r||, a row being the
     last axis."""
@@ -215,6 +189,7 @@ def main() -> None:
     )
     from repro_torch.kernels import _build
     from repro_torch.configs import get_config
+    from repro_torch.launch.timing import graph_ms, time_ms, time_ms_cold
     from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -269,7 +244,10 @@ def main() -> None:
         for line in ptxas_lines(log):
             print(line)
             if any(k in line for k in ("fista_gemm_kernel",
+                                       "fista_gemv_kernel",
                                        "rank_update_kernel",
+                                       "logistic_residual_kernel",
+                                       "logistic_backproject_kernel",
                                        "flash_fwd_wgmma")):
                 check(" 0 bytes spill stores" in line,
                       f"a redesigned kernel spills: {line}")
@@ -362,6 +340,13 @@ def main() -> None:
     Sig_r, _ = rank_update(Xr, yr, use_kernel=False)
     check_fista("r=1 p=1000", fista_inputs(Sig_r, 1, 0.5 * lam))
     check_fista("r=p=1000", fista_inputs(Sig_r, 1000, mu))
+    for shape in ((M, P), (1, P), (3, 1000), (8 * M, P)):
+        plan = ista_ops.gemv_plan(*shape, sms)
+        check(ista_ops.kernel_gemv_plan(*shape, dev) ==
+              (plan.rows_per_warp, plan.warps, sms),
+              f"GEMV plan at {shape}: the launcher's differs from "
+              f"gemv_plan's {plan}")
+        print(f"GEMV plan at {shape}: {plan} on {sms} SMs")
     for shape in ((M, P, P), (1, P, P), (3, 1000, 1000), (3, 129, 7)):
         plan = ista_ops.gemm_plan(*shape, sms)
         check(ista_ops.kernel_gemm_plan(*shape, dev) == (plan.bm, plan.bn,
@@ -379,10 +364,25 @@ def main() -> None:
         return X, y, B
 
     def check_logistic(label, args):
+        """Both kernels against their plain version, twice for the same
+        bits; the unfused pair's plan held to `unfused_plan`, and one call
+        of it launching each of its two kernels once."""
+        m_, n_, p_ = args[0].shape
+        plan = logistic_ops.unfused_plan(m_, n_, p_, sms)
+        check(logistic_ops.kernel_unfused_plan(m_, n_, p_, dev) ==
+              (plan.rows_per_warp, plan.warps_per_row, plan.cols, sms),
+              f"unfused plan at "
+              f"{label}: the launcher's differs from unfused_plan's {plan}")
+        print(f"unfused plan at {label}: {plan}")
         worst = []
         for name, fn in (("logistic_grad", logistic_grad),
                          ("logistic_grad_unfused", logistic_grad_unfused)):
+            before = dict(LAUNCHES)
             got = fn(*args, use_kernel=True)
+            if name == "logistic_grad_unfused":
+                check(all(LAUNCHES[k] == before[k] + 1 for k in (
+                    "logistic_z", "logistic_backproject")),
+                    f"{name} {label}: not one launch of each kernel")
             again = fn(*args, use_kernel=True)
             ref = fn(*args, use_kernel=False)
             torch.cuda.synchronize()
@@ -856,7 +856,7 @@ def main() -> None:
         G = torch.empty((lm, lp), device=dev)
         work = torch.empty((lm, pl.chunks, lp), device=dev)
         counters = torch.zeros(lm, dtype=torch.int32, device=dev)
-        zbuf = torch.empty((lm, ln), device=dev)
+        rbuf = torch.empty((lm, ln), device=dev)
         rl = yl * torch.sigmoid(-yl * torch.bmm(Xl, Bl[..., None])[..., 0])
         Xlt = Xl.transpose(1, 2)
         # no PyTorch call computes this function: the library row is
@@ -874,14 +874,14 @@ def main() -> None:
              lambda a=(Xl, yl, Bl): logistic_grad(*a),
              lambda a=(Xl, yl, Bl): logistic_grad_ref(*a),
              lib),
-            # its own two-dispatch contract: X read twice, z and r through
-            # device memory
+            # its own two-dispatch contract: X read twice, r written and
+            # read back through device memory
             ("logistic_grad_unfused" + suffix,
              "src/repro_torch/kernels/csrc/logistic_grad.cu",
              "src/repro/kernels/logistic_grad/kernel.py:198",
              bound(4 * lm * ln * lp,
-                   4 * (2 * lm * ln * lp + 2 * lm * lp + 5 * lm * ln)),
-             lambda a=(Xl, yl, Bl, zbuf, G): logistic_ops.launch_unfused(*a),
+                   4 * (2 * lm * ln * lp + 2 * lm * lp + 3 * lm * ln)),
+             lambda a=(Xl, yl, Bl, rbuf, G): logistic_ops.launch_unfused(*a),
              lambda a=(Xl, yl, Bl): logistic_grad_unfused(*a),
              lambda a=(Xl, yl, Bl): logistic_grad_unfused(*a,
                                                           use_kernel=False),
@@ -980,16 +980,20 @@ def main() -> None:
         ms, wrap_ms = time_ms(kern), time_ms(wrapper)
         plain_ms, lib_ms = time_ms(plain), time_ms(lib)
         cold_ms = time_ms_cold(kern)
+        (g_ms, g_how), (lg_ms, lg_how) = graph_ms(kern), graph_ms(lib)
         print(f"time {name}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), plain {plain_ms:.4f} ms, library {lib_ms:.4f} "
               f"ms, wrapper {wrap_ms:.4f} ms, kernel with L2 flushed "
-              f"{cold_ms:.4f} ms {card}")
+              f"{cold_ms:.4f} ms; device only: kernel {g_ms:.4f} ms "
+              f"({g_how}), library {lg_ms:.4f} ms ({lg_how}) {card}")
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "shape": list(shapes[name]),
                "max_abs_err": errs[name], "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": lib_ms,
-               "cold_ms": cold_ms, "wrapper_ms": wrap_ms}
+               "cold_ms": cold_ms, "wrapper_ms": wrap_ms,
+               "graph_ms": g_ms, "library_graph_ms": lg_ms,
+               "graph_method": g_how, "library_graph_method": lg_how}
         if name in row_flops:
             row["tflops"] = row_flops[name] / ms / 1e9
             print(f"rate {name}: kernel {row['tflops']:.1f} TFLOP/s, library "

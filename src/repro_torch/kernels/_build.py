@@ -98,6 +98,10 @@ def call(fn: ctypes._CFuncPtr, *args) -> None:
 
 
 def stream(device: torch.device) -> int:
-    """PyTorch's current stream on `device`, as the handle the C entries
-    take."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream on `device` (the capture stream while a
+    CUDA graph is captured), as the handle the C entries take. Read
+    straight from PyTorch's C layer, with no Python `Stream` object, since
+    each launch asks for it."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -25,7 +25,8 @@ LAUNCHES: dict[str, int] = {
     "fista_step_gemv": 0,    # kernels/ista_step, r == 1 path
     "fista_step_gemm": 0,    # kernels/ista_step, r > 1 path
     "logistic_grad": 0,      # kernels/logistic_grad: the fused gradient
-    "logistic_z": 0,         # kernels/logistic_grad, unfused: z = X b
+    "logistic_z": 0,         # kernels/logistic_grad, unfused: z = X b and
+                             # the residual y sigmoid(-y z)
     "logistic_backproject": 0,  # kernels/logistic_grad, unfused: -X'r/n
     "ista_step_batched_gemv": 0,  # kernels/ista_step, no momentum, r == 1
     "ista_step_batched_gemm": 0,  # kernels/ista_step, no momentum, r > 1

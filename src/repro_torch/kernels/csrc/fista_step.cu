@@ -23,14 +23,28 @@
 // entry with momentum (fista_step_*) and one without (ista_step_*); the
 // wrapper chooses by r.
 //
-// * r == 1 (the m local lassos): a batched matrix-vector product, bound by
-//   bytes. At (m, p) = (16, 1024) Sigma is 67 MB, more than the 50 MB L2,
-//   so it streams from HBM on every iteration: 20 us at 3.35 TB/s against
-//   33.5 MFLOP of work. Design: one warp per row, four rows per warp in
-//   flight at once; each Sigma row is read once, coalesced, as float4 where
-//   p % 4 == 0 (scalar otherwise); z_t is staged in shared memory in 16 KB
-//   chunks and read by all eight warps of the block; a shuffle reduction
-//   ends each row and lane 0 applies the epilogue.
+// * r == 1 (the m local lassos, `ista_solve`): a batched matrix-vector
+//   product, bound by bytes. At (m, p) = (16, 1024) Sigma is 67 MB, more
+//   than the 50 MB L2, so it streams from HBM on every iteration: 20 us at
+//   3.35 TB/s against 33.5 MFLOP of work; at m = 1 Sigma_t (4 MB) stays in
+//   L2 across `ista_solve`'s steps and the launch is the cost. Design: each
+//   output row is one warp's FMA chains; lane l reads z_t and the row at
+//   float4 q = l, l + 32, ... (scalars where p % 4 != 0 or a pointer is
+//   not 16-byte aligned), a shuffle tree adds the lanes, and a lane
+//   applies the epilogue. A warp takes 1, 2 or 4 rows at once and a block
+//   2, 4 or 8 warps: `gemv_plan` takes the largest that still gives every
+//   SM four blocks, else the smallest: 2 rows x 8 warps, 1024 blocks, at
+//   m = 16 (faster there than 4 x 8 in 512 blocks); 1 row x 2 warps,
+//   512 blocks, at m = 1 (4 x 8 left 100 of the 132 SMs idle); 4 x 8 from
+//   m = 17, as for the lambda grid's 128 tasks. Whatever the plan, a
+//   row's chains and their order are the same, so every plan gives the
+//   same bits. Each lane issues the loads of 8 float4 (2 steps of 4 rows,
+//   4 of 2, or 8 of one) before their FMAs: 128 bytes a lane, about 160 KB
+//   in flight per SM at m = 16, where 3.35 TB/s at about 0.8 us of latency
+//   needs some 20 KB. z_t is read through L1 (4 KB at p = 1024, shared by
+//   the SM's warps) and Sigma's loads skip L1, so that they do not evict
+//   it; no shared memory and no barrier. The epilogue's operands are
+//   loaded before the loop.
 //
 // * r > 1 (the debias solve, r = p, c = I): a batched matrix product, bound
 //   by operations. At (m, p) = (16, 1024) one step is 2 m p^3 = 34.4 GFLOP
@@ -78,7 +92,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+// Sigma's rows are read once per launch: their loads skip L1 (they still
+// go through L2), so that they do not push z_t, which every warp of the
+// SM reads, out of it.
+__device__ __forceinline__ float4 ld_stream(const float4* p) {
+  float4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float ld_stream(const float* p) {
+  float v;
+  asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
 
 // The proximal step of one output, x' = soft(z - eta (acc - c), tau), and
 // the momentum z' = x' + theta (x' - x), each operation rounded on its own.
@@ -108,82 +140,111 @@ __device__ __forceinline__ void epilogue(float acc, float c, float z,
 
 // ---- r == 1: batched GEMV ---------------------------------------------------
 
-constexpr int GV_WARPS = 8;
-constexpr int GV_THREADS = 32 * GV_WARPS;
-constexpr int GV_ROWS = 4;           // rows per warp, streamed together
-constexpr int GV_CHUNK = 4096;       // floats of z_t staged per pass (16 KB)
+constexpr int GV_MAX_THREADS = 256;
+constexpr int GV_LOADS = 8;          // float4 (or float) loads a lane has in
+                                     // flight: GV_LOADS / ROWS steps ahead
 
-template <bool VEC, bool MOMENTUM>
-__global__ void __launch_bounds__(GV_THREADS)
+// The launch plans, first choice first (GV_PLANS in ops.py agrees): rows
+// per warp and warps per block. `gemv_plan` takes the first whose grid
+// gives every SM GV_BLOCKS_PER_SM blocks, else the last.
+constexpr int GV_PLANS[][2] = {{4, 8}, {2, 8}, {1, 8}, {1, 4}, {1, 2}};
+constexpr int GV_NPLANS = sizeof(GV_PLANS) / sizeof(GV_PLANS[0]);
+constexpr int GV_BLOCKS_PER_SM = 4;
+
+// s + <a, b>, four FMAs in order
+__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+
+// Each warp owns ROWS consecutive rows of Sigma_t; the block is blockDim.x
+// / 32 such warps and shares nothing, so no barrier. Lane l reads z_t and
+// the rows at float4 q = l, l + 32, ... (floats where !VEC) and runs one
+// FMA chain per row in that order; the loads of GV_LOADS / ROWS steps are
+// issued before their FMAs. A shuffle tree ends each row (every lane ends
+// with the same sum) and lane rr applies the epilogue of row rr, whose c,
+// z, x, eta and lam it loaded before the loop.
+template <int ROWS, bool VEC, bool MOMENTUM>
+__global__ void __launch_bounds__(GV_MAX_THREADS)
 fista_gemv_kernel(const float* __restrict__ Sig, const float* __restrict__ Z,
                   const float* __restrict__ Xp, const float* __restrict__ C,
                   const float* __restrict__ eta, const float* __restrict__ lam,
                   float theta, float* __restrict__ Xn, float* __restrict__ Zn,
                   int p) {
+  constexpr int U = GV_LOADS / ROWS;   // steps whose loads go out together
+  constexpr int W = VEC ? 4 : 1;
+  using V = typename std::conditional<VEC, float4, float>::type;
   const int t = blockIdx.y;
-  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int row0 = (blockIdx.x * GV_WARPS + warp) * GV_ROWS;
-  const int nrows = min(GV_ROWS, p - row0);   // <= 0 past the last row
-  const float* St = Sig + (size_t)t * p * p;
-  const float* Zt = Z + (size_t)t * p;
-
-  __shared__ __align__(16) float zs[GV_CHUNK];
-  float acc[GV_ROWS] = {};
-
-  for (int kc = 0; kc < p; kc += GV_CHUNK) {
-    const int len = min(GV_CHUNK, p - kc);
-    __syncthreads();
-    for (int q = threadIdx.x; q < len; q += GV_THREADS) zs[q] = Zt[kc + q];
-    __syncthreads();
-    if (VEC) {
-      const float4* z4 = reinterpret_cast<const float4*>(zs);
-      for (int q = lane; q < len / 4; q += 32) {
-        const float4 b = z4[q];
+  const int row0 = (blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32) * ROWS;
+  if (row0 >= p) return;                      // whole warps only
+  const int nrows = min(ROWS, p - row0);
+  const V* zv = reinterpret_cast<const V*>(Z + (size_t)t * p);
+  const V* rows[ROWS];
 #pragma unroll
-        for (int rr = 0; rr < GV_ROWS; ++rr) {
-          if (rr < nrows) {
-            const float4 a = reinterpret_cast<const float4*>(
-                St + (size_t)(row0 + rr) * p + kc)[q];
-            float s = acc[rr];
-            s = fmaf(a.x, b.x, s);
-            s = fmaf(a.y, b.y, s);
-            s = fmaf(a.z, b.z, s);
-            s = fmaf(a.w, b.w, s);
-            acc[rr] = s;
-          }
-        }
-      }
-    } else {
-      for (int q = lane; q < len; q += 32) {
-        const float b = zs[q];
+  for (int rr = 0; rr < ROWS; ++rr)
+    rows[rr] = reinterpret_cast<const V*>(
+        Sig + ((size_t)t * p + row0 + min(rr, nrows - 1)) * p);
+
+  // the epilogue's operands, early: lane rr holds row rr's
+  const size_t o = (size_t)t * p + row0 + min(lane, nrows - 1);
+  float c_o = 0.f, z_o = 0.f, x_o = 0.f, e = 0.f, l = 0.f;
+  if (lane < nrows) {
+    c_o = C[o];
+    z_o = Z[o];
+    if constexpr (MOMENTUM) x_o = Xp[o];
+    e = eta[t];
+    l = lam[t];
+  }
+
+  const int pv = p / W;
+  float acc[ROWS] = {};
+  int q = lane;
+  for (; q + 32 * (U - 1) < pv; q += 32 * U) {
+    V a[U][ROWS], b[U];
 #pragma unroll
-        for (int rr = 0; rr < GV_ROWS; ++rr)
-          if (rr < nrows)
-            acc[rr] = fmaf(St[(size_t)(row0 + rr) * p + kc + q], b, acc[rr]);
+    for (int u = 0; u < U; ++u) {
+      b[u] = zv[q + 32 * u];
+#pragma unroll
+      for (int rr = 0; rr < ROWS; ++rr)
+        a[u][rr] = ld_stream(rows[rr] + q + 32 * u);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int rr = 0; rr < ROWS; ++rr) {
+        if constexpr (VEC) acc[rr] = dot4(a[u][rr], b[u], acc[rr]);
+        else acc[rr] = fmaf(a[u][rr], b[u], acc[rr]);
       }
+  }
+  for (; q < pv; q += 32) {
+    const V b = zv[q];
+#pragma unroll
+    for (int rr = 0; rr < ROWS; ++rr) {
+      if constexpr (VEC) acc[rr] = dot4(ld_stream(rows[rr] + q), b, acc[rr]);
+      else acc[rr] = fmaf(ld_stream(rows[rr] + q), b, acc[rr]);
     }
   }
 
 #pragma unroll
-  for (int rr = 0; rr < GV_ROWS; ++rr)
+  for (int rr = 0; rr < ROWS; ++rr)
 #pragma unroll
     for (int off = 16; off > 0; off /= 2)
       acc[rr] += __shfl_xor_sync(0xffffffffu, acc[rr], off);
 
-  if (lane == 0) {
-    const float e = eta[t];
-    const float tau = __fmul_rn(e, lam[t]);
+  if (lane < nrows) {
+    float a = acc[0];
 #pragma unroll
-    for (int rr = 0; rr < GV_ROWS; ++rr) {
-      if (rr < nrows) {
-        const size_t o = (size_t)t * p + row0 + rr;
-        epilogue<MOMENTUM>(acc[rr], C[o], Z[o], Xp, e, tau, theta, Xn, Zn,
-                           o);
-      }
-    }
+    for (int rr = 1; rr < ROWS; ++rr)
+      if (lane == rr) a = acc[rr];
+    const float xv = prox(a, c_o, z_o, e, __fmul_rn(e, l));
+    Xn[o] = xv;
+    if constexpr (MOMENTUM) Zn[o] = momentum(xv, x_o, theta);
   }
 }
+
 // ---- r > 1: batched SGEMM ---------------------------------------------------
 
 constexpr int BK = 16;             // contraction depth per stage
@@ -420,29 +481,57 @@ cudaError_t launch_plan(int tile, const float* const* in, float theta,
                                                         p, r, s);
 }
 
+// The GEMV's plan for (m, p) on a card with `sms` SMs: an index into
+// GV_PLANS (`gemv_plan` in ops.py is the same rule).
+int gemv_plan(int m, int p, int sms) {
+  for (int i = 0; i < GV_NPLANS; ++i) {
+    const int rows_per_block = GV_PLANS[i][0] * GV_PLANS[i][1];
+    const long long blocks =
+        (long long)m * ((p + rows_per_block - 1) / rows_per_block);
+    if (blocks >= (long long)GV_BLOCKS_PER_SM * sms) return i;
+  }
+  return GV_NPLANS - 1;
+}
+
+template <int ROWS, bool MOMENTUM>
+void launch_gemv_rows(bool vec, int warps, const float* const* in,
+                      float theta, float* Xn, float* Zn, int m, int p,
+                      cudaStream_t s) {
+  const int rows_per_block = ROWS * warps;
+  const dim3 grid((p + rows_per_block - 1) / rows_per_block, m);
+  if (vec)
+    fista_gemv_kernel<ROWS, true, MOMENTUM><<<grid, 32 * warps, 0, s>>>(
+        in[0], in[1], in[2], in[3], in[4], in[5], theta, Xn, Zn, p);
+  else
+    fista_gemv_kernel<ROWS, false, MOMENTUM><<<grid, 32 * warps, 0, s>>>(
+        in[0], in[1], in[2], in[3], in[4], in[5], theta, Xn, Zn, p);
+}
+
 template <bool MOMENTUM>
 int launch_gemv(const void* Sig, const void* Z, const void* Xp,
                 const void* C, const void* eta, const void* lam, float theta,
                 void* Xn, void* Zn, int m, int p, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int rows_per_block = GV_WARPS * GV_ROWS;
-  const dim3 grid((p + rows_per_block - 1) / rows_per_block, m);
+  const int sms = device_sms(device);
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int plan = gemv_plan(m, p, sms);
+  const int rows = GV_PLANS[plan][0], warps = GV_PLANS[plan][1];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(Sig) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(Z) % 16 == 0;
-  const float* args[6] = {
+  const float* in[6] = {
       static_cast<const float*>(Sig), static_cast<const float*>(Z),
       static_cast<const float*>(Xp), static_cast<const float*>(C),
       static_cast<const float*>(eta), static_cast<const float*>(lam)};
-  if (vec)
-    fista_gemv_kernel<true, MOMENTUM><<<grid, GV_THREADS, 0, s>>>(
-        args[0], args[1], args[2], args[3], args[4], args[5], theta,
-        static_cast<float*>(Xn), static_cast<float*>(Zn), p);
+  float* xn = static_cast<float*>(Xn);
+  float* zn = static_cast<float*>(Zn);
+  if (rows == 4)
+    launch_gemv_rows<4, MOMENTUM>(vec, warps, in, theta, xn, zn, m, p, s);
+  else if (rows == 2)
+    launch_gemv_rows<2, MOMENTUM>(vec, warps, in, theta, xn, zn, m, p, s);
   else
-    fista_gemv_kernel<false, MOMENTUM><<<grid, GV_THREADS, 0, s>>>(
-        args[0], args[1], args[2], args[3], args[4], args[5], theta,
-        static_cast<float*>(Xn), static_cast<float*>(Zn), p);
+    launch_gemv_rows<1, MOMENTUM>(vec, warps, in, theta, xn, zn, m, p, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -529,5 +618,18 @@ extern "C" int fista_gemm_plan(int m, int p, int r, int device, int* bm,
   const int tile = gemm_plan(m, p, r, *sms);
   *bm = PLAN_TILES[tile][0];
   *bn = PLAN_TILES[tile][1];
+  return 0;
+}
+
+// The GEMV's plan for (m, p) on `device`: rows per warp, warps per block
+// and the SM count the rule saw, so that a test can hold `ops.gemv_plan`
+// to it.
+extern "C" int fista_gemv_plan(int m, int p, int device, int* rows,
+                               int* warps, int* sms) {
+  *sms = device_sms(device);
+  if (*sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int plan = gemv_plan(m, p, *sms);
+  *rows = GV_PLANS[plan][0];
+  *warps = GV_PLANS[plan][1];
   return 0;
 }

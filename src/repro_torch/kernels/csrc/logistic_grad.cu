@@ -7,8 +7,9 @@
 // Replaces `logistic_grad_pallas` (src/repro/kernels/logistic_grad/
 // kernel.py, bodies `_resident_grad_kernel` and `_tiled_grad_kernel`) with
 // one fused kernel, and `logistic_grad_unfused_pallas` (bodies
-// `_logistic_z_kernel` and `_backproject_kernel`) with two kernels whose
-// residual is computed between them by the caller.
+// `_logistic_z_kernel` and `_backproject_kernel`) with two kernels: the
+// first writes the residual r (its plain version computes z, then r), the
+// second reads it back.
 //
 // What bounds it on the H100: bytes. The work is 4 m n p FLOP against
 // 4 (m n p + m n + 2 m p) bytes, one FLOP per byte, far below the card's
@@ -47,12 +48,28 @@
 //   from run to run (deterministic). The host caps chunks * p so that this
 //   one-block tail stays short (512 KB of partial rows per task).
 //
-// Unfused design. `logistic_z_kernel` is a batched matrix-vector product,
-// one warp per sample row. `logistic_backproject_kernel` gives each block 32
-// column vectors of one task; its eight warps take every eighth sample and
-// their sums are added in warp order through shared memory, so it too is
-// deterministic and needs no second pass. X is read once by each kernel,
-// twice in all.
+// Unfused design: two launches, X read by each, and one (m, n) vector, r,
+// through device memory: the fused kernel's yardstick, kept apart on
+// purpose. Both are streaming matrix-vector products, and their plan
+// (`unfused_plan`, a copy in kernels/logistic_grad/ops.py) gives each grid
+// at least two blocks per SM at (16, 512, 1024) and (4, 256, 8192).
+// * `logistic_residual_kernel`: r_k = y_k sigmoid(-y_k <x_k, b_t>), the
+//   sigmoid in the fused kernel's stable form. A warp takes two rows, one,
+//   or a share of one beside 1, 3 or 7 other warps: two at the first shape
+//   (512 blocks of 16 rows, b_t read once for both; at one row a warp,
+//   1024 blocks of 8 warps with 40-odd registers a thread need 1.3 waves
+//   of the card's resident blocks, and ran slower), a quarter at the
+//   second (512 blocks; one warp a row gave 128 blocks for 132 SMs). Each
+//   lane has four X vectors in flight (two steps of two rows, or four of
+//   one), X's loads skip L1, so that b_t stays there for the block's
+//   other warps, and the chains are added in a fixed order.
+// * `logistic_backproject_kernel`: a block owns a slice of 32 to 128
+//   columns of one task and all n samples, split over its threads (32
+//   floats and 512 blocks at the first shape, where 128 floats gave 128
+//   blocks; 64 and 512 at the second). The sample axis stays inside the
+//   block, so the slice's sum ends in the block in a fixed order, with no
+//   workspace, counters or second pass.
+// Both reductions run in a fixed order: deterministic.
 //
 // Every edge is masked, so any n and p work; float4 loads where p % 4 == 0
 // and the pointers are 16-byte aligned, scalar loads otherwise. All products
@@ -101,6 +118,14 @@ __device__ __forceinline__ float4 fma_axpy(float4 x, float r, float4 acc) {
 __device__ __forceinline__ float add(float a, float b) { return a + b; }
 __device__ __forceinline__ float4 add(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float shfl_xor(float v, int off) {
+  return __shfl_xor_sync(0xffffffffu, v, off);
+}
+__device__ __forceinline__ float4 shfl_xor(float4 v, int off) {
+  return make_float4(shfl_xor(v.x, off), shfl_xor(v.y, off),
+                     shfl_xor(v.z, off), shfl_xor(v.w, off));
 }
 
 // -s / n, elementwise
@@ -223,59 +248,199 @@ logistic_grad_kernel(const float* __restrict__ X, const float* __restrict__ y,
   if (tid == 0) counters[t] = 0u;
 }
 
-// ---- unfused: z = X b --------------------------------------------------------
+// ---- unfused: r = y sigmoid(-y X b) ------------------------------------------
 
-template <typename T>
+constexpr int Z_LOADS = 4;         // X vectors a lane has in flight
+
+// The unfused launch plans (ops.py UNFUSED_* agree). The forward kernel's
+// (rows per warp, warps per row), first choice first: a warp takes two
+// rows (reading b_t once for both), one, or a half, quarter or eighth of
+// one. `unfused_plan` takes the first that gives the grid
+// UNFUSED_BLOCKS_PER_SM blocks an SM, and the back-projection the widest
+// column slice of UNFUSED_COLS that does; else the last of each.
+constexpr int UNFUSED_BLOCKS_PER_SM = 2;
+constexpr int Z_PLANS[][2] = {{2, 1}, {1, 1}, {1, 2}, {1, 4}, {1, 8}};
+constexpr int UNFUSED_COLS[] = {128, 64, 32};
+
+void unfused_plan(int m, int n, int p, int sms, int* rows_per_warp,
+                  int* warps_per_row, int* cols) {
+  const long long want = (long long)UNFUSED_BLOCKS_PER_SM * sms;
+  *rows_per_warp = 1;
+  *warps_per_row = WARPS;
+  for (const auto& zp : Z_PLANS) {
+    const int rows = WARPS * zp[0] / zp[1];
+    if ((long long)m * ((n + rows - 1) / rows) >= want) {
+      *rows_per_warp = zp[0];
+      *warps_per_row = zp[1];
+      break;
+    }
+  }
+  *cols = UNFUSED_COLS[2];
+  for (int c : UNFUSED_COLS) {
+    if ((long long)m * ((p + c - 1) / c) >= want) {
+      *cols = c;
+      break;
+    }
+  }
+}
+
+// Skips L1: X is read once, and b_t, which every warp of the block reads,
+// stays there.
+__device__ __forceinline__ float4 ld_stream(const float4* p) {
+  float4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float ld_stream(const float* p) {
+  float v;
+  asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// Warp w of block b takes ROWS rows from row0 = (b (WARPS / wpr) + w /
+// wpr) ROWS, itself (wpr = 1) or with the wpr - 1 warps beside it (ROWS =
+// 1). Its lane l reads vectors q = 32 s + l, 32 s + l + 32 wpr, ... (s =
+// w % wpr) into ACC = Z_LOADS / ROWS chains a row, taken in turn, whose
+// loads go out together. The chains, then the lanes (shuffle tree), then
+// a row's warps (in warp order, through shared memory) are added in a
+// fixed order, so two launches give the same bits. Lane rr of the row's
+// first warp writes row row0 + rr's residual.
+template <int ROWS, typename T>
 __global__ void __launch_bounds__(THREADS)
-logistic_z_kernel(const float* __restrict__ X, const float* __restrict__ B,
-                  float* __restrict__ Z, int n, int p) {
+logistic_residual_kernel(const float* __restrict__ X,
+                         const float* __restrict__ y,
+                         const float* __restrict__ B,
+                         float* __restrict__ Rv, int n, int p, int wpr) {
   constexpr int W = sizeof(T) / sizeof(float);
+  constexpr int ACC = Z_LOADS / ROWS;
   const int t = blockIdx.y;
+  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * WARPS + threadIdx.x / 32;
-  if (row >= n) return;                  // whole warps only
+  const int row0 = (blockIdx.x * (WARPS / wpr) + warp / wpr) * ROWS;
+  const int seg = warp % wpr;
   const int pv = p / W;
-  const T* xr = reinterpret_cast<const T*>(X + ((size_t)t * n + row) * p);
-  const T* b = reinterpret_cast<const T*>(B + (size_t)t * p);
-  float s = 0.f;
-  for (int q = lane; q < pv; q += 32) s = fma_dot(xr[q], b[q], s);
+  const int stride = 32 * wpr;
+  __shared__ float red[WARPS][ROWS];
+
+  float s[ROWS] = {};
+  if (row0 < n) {
+    const T* xr[ROWS];
 #pragma unroll
-  for (int off = 16; off > 0; off /= 2)
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) Z[(size_t)t * n + row] = s;
+    for (int rr = 0; rr < ROWS; ++rr)        // past n: a copy of row n - 1
+      xr[rr] = reinterpret_cast<const T*>(
+          X + ((size_t)t * n + min(row0 + rr, n - 1)) * p);
+    const T* b = reinterpret_cast<const T*>(B + (size_t)t * p);
+    float a[ACC][ROWS] = {};
+    int q = 32 * seg + lane;
+    for (; q + (ACC - 1) * stride < pv; q += ACC * stride) {
+      T xv[ACC][ROWS], bv[ACC];
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) {
+        bv[i] = b[q + i * stride];
+#pragma unroll
+        for (int rr = 0; rr < ROWS; ++rr)
+          xv[i][rr] = ld_stream(xr[rr] + q + i * stride);
+      }
+#pragma unroll
+      for (int i = 0; i < ACC; ++i)
+#pragma unroll
+        for (int rr = 0; rr < ROWS; ++rr)
+          a[i][rr] = fma_dot(xv[i][rr], bv[i], a[i][rr]);
+    }
+#pragma unroll
+    for (int i = 0; i < ACC - 1; ++i) {      // fewer than ACC steps left
+      if (q < pv) {
+        const T bq = b[q];
+#pragma unroll
+        for (int rr = 0; rr < ROWS; ++rr)
+          a[i][rr] = fma_dot(ld_stream(xr[rr] + q), bq, a[i][rr]);
+      }
+      q += stride;
+    }
+#pragma unroll
+    for (int rr = 0; rr < ROWS; ++rr) {
+      float v = a[0][rr];
+#pragma unroll
+      for (int i = 1; i < ACC; ++i) v += a[i][rr];
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      s[rr] = v;
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int rr = 0; rr < ROWS; ++rr) red[warp][rr] = s[rr];
+  }
+  __syncthreads();
+  if (seg == 0 && lane < ROWS && row0 + lane < n) {
+    float z = red[warp][lane];
+    for (int w = 1; w < wpr; ++w) z += red[warp + w][lane];
+    const size_t o = (size_t)t * n + row0 + lane;
+    const float yk = y[o];
+    Rv[o] = yk * sigmoid(-yk * z);
+  }
 }
 
 // ---- unfused: g = -X' r / n --------------------------------------------------
 
+// Block b of task t owns cv = cols / W column vectors q = b cv + c; thread
+// (c, s) = (tid % cv, tid / cv) adds r_k x_k over samples k = s, s + S,
+// ... (S = THREADS / cv) in order, four loads ahead. The S partials of a
+// column are added in a fixed order: by a shuffle tree within each warp
+// where cv < 32, then the warps' (or, where cv >= 32, the threads')
+// partials in order through shared memory. So a column is one block's
+// sum, with no second pass and no atomics, and two launches give the same
+// bits.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 logistic_backproject_kernel(const float* __restrict__ X,
                             const float* __restrict__ Rv,
-                            float* __restrict__ G, int n, int p) {
+                            float* __restrict__ G, int n, int p, int cv) {
   constexpr int W = sizeof(T) / sizeof(float);
   const int t = blockIdx.y;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int c = tid % cv;
+  const int s = tid / cv;
+  const int groups = THREADS / cv;
   const int pv = p / W;
-  const int q = blockIdx.x * 32 + lane;
+  const int q = blockIdx.x * cv + c;
   const bool in = q < pv;
-  const T* xt = reinterpret_cast<const T*>(X + (size_t)t * n * p);
+  const T* xt = reinterpret_cast<const T*>(X + (size_t)t * n * p) + q;
   const float* rt = Rv + (size_t)t * n;
 
-  __shared__ T red[WARPS][32];
+  __shared__ T red[THREADS];
   T a = zero<T>();
   if (in) {
-#pragma unroll 4
-    for (int k = warp; k < n; k += WARPS)
-      a = fma_axpy(xt[(size_t)k * pv + q], rt[k], a);
-  }
-  red[warp][lane] = a;
-  __syncthreads();
-  if (warp == 0 && in) {
-    T s = red[0][lane];
+    int k = s;
+    for (; k + 3 * groups < n; k += 4 * groups) {
+      T xv[4];
+      float rv[4];
 #pragma unroll
-    for (int w = 1; w < WARPS; ++w) s = add(s, red[w][lane]);
-    reinterpret_cast<T*>(G + (size_t)t * p)[q] = neg_div(s, (float)n);
+      for (int i = 0; i < 4; ++i) {
+        xv[i] = xt[(size_t)(k + i * groups) * pv];
+        rv[i] = rt[k + i * groups];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a = fma_axpy(xv[i], rv[i], a);
+    }
+    for (; k < n; k += groups) a = fma_axpy(xt[(size_t)k * pv], rt[k], a);
+  }
+  int part = s;                       // which partial of column c
+  if (cv < 32) {
+    for (int off = cv; off < 32; off *= 2) a = add(a, shfl_xor(a, off));
+    part = tid / 32;
+  }
+  if (cv >= 32 || lane < cv) red[part * cv + c] = a;
+  __syncthreads();
+  if (tid < cv && in) {
+    const int parts = cv < 32 ? WARPS : groups;
+    T sum = red[c];
+    for (int i = 1; i < parts; ++i) sum = add(sum, red[i * cv + c]);
+    reinterpret_cast<T*>(G + (size_t)t * p)[q] = neg_div(sum, (float)n);
   }
 }
 
@@ -297,6 +462,28 @@ cudaError_t launch_grad(const float* X, const float* y, const float* B,
   kern<<<dim3(chunks, m), THREADS, smem_bytes, s>>>(
       X, y, B, work, counters, G, n, p, rows_per_chunk, slab);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_residual(int rows_per_warp, dim3 grid, cudaStream_t s,
+                            const float* X, const float* y, const float* B,
+                            float* R, int n, int p, int wpr) {
+  if (rows_per_warp == 2)
+    logistic_residual_kernel<2, T><<<grid, THREADS, 0, s>>>(X, y, B, R, n, p,
+                                                            wpr);
+  else
+    logistic_residual_kernel<1, T><<<grid, THREADS, 0, s>>>(X, y, B, R, n, p,
+                                                            wpr);
+  return cudaGetLastError();
+}
+
+int device_sms(int device) {
+  static int sms[64] = {};
+  if (device < 0 || device >= 64) return 0;
+  if (sms[device] == 0)
+    cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount,
+                           device);
+  return sms[device];
 }
 
 }  // namespace
@@ -348,41 +535,54 @@ extern "C" int logistic_grad_f32(const void* X, const void* y, const void* B,
   return static_cast<int>(err);
 }
 
-// X (m, n, p), B (m, p) -> Z (m, n).
-extern "C" int logistic_z_f32(const void* X, const void* B, void* Z, int m,
-                              int n, int p, int device, void* stream) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const dim3 grid((n + WARPS - 1) / WARPS, m);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* Xf = static_cast<const float*>(X);
-  const float* Bf = static_cast<const float*>(B);
-  float* Zf = static_cast<float*>(Z);
-  if (p % 4 == 0 && aligned16(X) && aligned16(B))
-    logistic_z_kernel<float4><<<grid, THREADS, 0, s>>>(Xf, Bf, Zf, n, p);
-  else
-    logistic_z_kernel<float><<<grid, THREADS, 0, s>>>(Xf, Bf, Zf, n, p);
-  return static_cast<int>(cudaGetLastError());
+// The unfused pair's plan for (m, n, p) on `device`: rows per warp and
+// warps per row of the forward kernel, floats per column slice of the
+// back-projection, and
+// the SM count the rule saw, so that a test can hold `ops.unfused_plan`
+// to it.
+extern "C" int logistic_unfused_plan(int m, int n, int p, int device,
+                                     int* rows_per_warp, int* warps_per_row,
+                                     int* cols, int* sms) {
+  *sms = device_sms(device);
+  if (*sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  unfused_plan(m, n, p, *sms, rows_per_warp, warps_per_row, cols);
+  return 0;
 }
 
-// X (m, n, p), r (m, n) -> G (m, p) = -X' r / n.
-extern "C" int logistic_backproject_f32(const void* X, const void* Rv,
-                                        void* G, int m, int n, int p,
-                                        int device, void* stream) {
+// The unfused pair, two launches on one stream from one host call:
+// X (m, n, p), y (m, n), B (m, p) -> R (m, n) = y sigmoid(-y X b), then
+// X, R -> G (m, p) = -X' R / n.
+extern "C" int logistic_unfused_f32(const void* X, const void* y,
+                                    const void* B, void* R, void* G, int m,
+                                    int n, int p, int device, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
+  const int sms = device_sms(device);
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  int rpw = 0, wpr = 0, cols = 0;
+  unfused_plan(m, n, p, sms, &rpw, &wpr, &cols);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* Xf = static_cast<const float*>(X);
-  const float* Rf = static_cast<const float*>(Rv);
+  const float* yf = static_cast<const float*>(y);
+  const float* Bf = static_cast<const float*>(B);
+  float* Rf = static_cast<float*>(R);
   float* Gf = static_cast<float*>(G);
-  if (p % 4 == 0 && aligned16(X) && aligned16(G)) {
-    const dim3 grid((p / 4 + 31) / 32, m);
-    logistic_backproject_kernel<float4><<<grid, THREADS, 0, s>>>(Xf, Rf, Gf,
-                                                                 n, p);
-  } else {
-    const dim3 grid((p + 31) / 32, m);
-    logistic_backproject_kernel<float><<<grid, THREADS, 0, s>>>(Xf, Rf, Gf,
-                                                                n, p);
-  }
+  const bool vec = p % 4 == 0 && aligned16(X) && aligned16(B) &&
+                   aligned16(G);
+  const int rows = WARPS * rpw / wpr;
+  const dim3 zgrid((n + rows - 1) / rows, m);
+  const dim3 ggrid((p + cols - 1) / cols, m);
+  cudaError_t err;
+  if (vec)
+    err = launch_residual<float4>(rpw, zgrid, s, Xf, yf, Bf, Rf, n, p, wpr);
+  else
+    err = launch_residual<float>(rpw, zgrid, s, Xf, yf, Bf, Rf, n, p, wpr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (vec)
+    logistic_backproject_kernel<float4><<<ggrid, THREADS, 0, s>>>(
+        Xf, Rf, Gf, n, p, cols / 4);
+  else
+    logistic_backproject_kernel<float><<<ggrid, THREADS, 0, s>>>(
+        Xf, Rf, Gf, n, p, cols);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,9 +11,11 @@ batched matrix-vector product) and r > 1 (a batched matrix product).
 
 `use_kernel` follows `kernels/common.py`.
 
-`gemm_plan` is the r > 1 kernel's choice of block tile, plain Python so
-that the CPU tests check it; the kernel's launcher applies the same rule
-(`fista_gemm_plan` in the .cu returns its choice).
+`gemm_plan` is the r > 1 kernel's choice of block tile and `gemv_plan`
+the r == 1 kernel's rows per warp and warps per block, plain Python so
+that the CPU tests check them; the kernels' launchers apply the same
+rules (`fista_gemm_plan` and `fista_gemv_plan` in the .cu return their
+choices).
 """
 from __future__ import annotations
 
@@ -41,12 +43,17 @@ _ISTA_GEMV_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + \
 _ISTA_GEMM_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
     [ctypes.c_void_p]
 _PLAN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+_GEMV_PLAN_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
 
 # the SGEMM's block tiles, larger first (PLAN_TILES in the .cu), and its
 # ring: k per stage and stages (BK, STAGES in the .cu)
 GEMM_TILES = ((128, 64), (64, 64))
 GEMM_BK = 16
 GEMM_STAGES = 4
+# the GEMV's (rows per warp, warps per block), first choice first, and
+# the blocks per SM its plan asks for (GV_PLANS, GV_BLOCKS_PER_SM)
+GEMV_PLANS = ((4, 8), (2, 8), (1, 8), (1, 4), (1, 2))
+GEMV_BLOCKS_PER_SM = 4
 
 
 class GemmPlan(NamedTuple):
@@ -70,6 +77,40 @@ def gemm_plan(m: int, p: int, r: int, sms: int) -> GemmPlan:
         bm, bn = GEMM_TILES[1]
     return GemmPlan(bm, bn, blocks(bm, bn), bm * bn // 64,
                     4 * GEMM_STAGES * GEMM_BK * (bm + bn))
+
+
+class GemvPlan(NamedTuple):
+    rows_per_warp: int   # output rows a warp streams at once
+    warps: int           # warps per block
+    blocks: int          # m * ceil(p / (rows_per_warp * warps))
+    threads: int         # 32 * warps
+
+
+def gemv_plan(m: int, p: int, sms: int) -> GemvPlan:
+    """Rows per warp and warps per block of the r == 1 kernel for (m, p)
+    on a card with `sms` SMs: the first of GEMV_PLANS whose grid gives
+    every SM GEMV_BLOCKS_PER_SM blocks, else the last. Warp w of block b
+    of task t owns rows (b * warps + w) * rows_per_warp onwards; a row is
+    one warp's FMA chains in the same order under every plan, so every
+    plan gives the same bits."""
+    for rows, warps in GEMV_PLANS:
+        blocks = m * -(-p // (rows * warps))
+        if blocks >= GEMV_BLOCKS_PER_SM * sms:
+            break
+    return GemvPlan(rows, warps, blocks, 32 * warps)
+
+
+def kernel_gemv_plan(m: int, p: int,
+                     device: torch.device) -> tuple[int, int, int]:
+    """(rows per warp, warps per block, SMs) as the r == 1 kernel's
+    launcher chooses them on `device`."""
+    fn = _build.function("fista_step", "fista_gemv_plan", _GEMV_PLAN_ARGTYPES)
+    rows, warps, sms = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    _build.call(fn, m, p, index, ctypes.byref(rows), ctypes.byref(warps),
+                ctypes.byref(sms))
+    return rows.value, warps.value, sms.value
 
 
 def kernel_gemm_plan(m: int, p: int, r: int,

@@ -1,13 +1,16 @@
 """Wrappers of the logistic-gradient kernels (`kernels/csrc/logistic_grad.cu`).
 
 `logistic_grad` is the fused kernel: the whole gradient in one launch.
-`logistic_grad_unfused` is its two-kernel twin (forward product, residual
-in PyTorch, back-projection), the yardstick the fusion is measured
-against. `use_kernel` follows `kernels/common.py`: the CUDA kernels for
-CUDA tensors, the plain versions (`ref.py`) for CPU tensors.
+`logistic_grad_unfused` is its two-kernel twin (the forward product and
+its residual, then the back-projection), the yardstick the fusion is
+measured against. `use_kernel` follows `kernels/common.py`: the CUDA
+kernels for CUDA tensors, the plain versions (`ref.py`) for CPU tensors.
 
 `plan` chooses the fused kernel's launch shape from the card's SM count
-and shared-memory limit; it is plain Python, so the CPU tests check it.
+and shared-memory limit, `unfused_plan` the two unfused kernels' from the
+SM count; they are plain Python, so the CPU tests check them (the .cu
+applies the same rule for the unfused pair, `logistic_unfused_plan`
+returns its choice).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from repro_torch.kernels.common import (
     LAUNCHES, check_f32, resolve_use_kernel,
 )
 from repro_torch.kernels.logistic_grad.ref import (
-    logistic_backproject_ref, logistic_grad_ref, logistic_z_ref,
+    logistic_backproject_ref, logistic_grad_ref, logistic_residual_ref,
 )
 
 SLAB_MAX = 8                 # rows per shared-memory slab (SLAB_MAX in the .cu)
@@ -30,8 +33,20 @@ TAIL_BYTES = 512 * 1024      # partial rows per task the last block reduces
 _STATIC_SMEM = 512           # the kernel's static shared memory, rounded up
 _SM_RESERVED = 1024          # shared memory the card reserves per block
 
+# the unfused pair: the blocks per SM its plan asks for, the warps of a
+# block, the forward kernel's (rows per warp, warps per row) and the
+# back-projection's column slices in floats, first choice first
+# (UNFUSED_BLOCKS_PER_SM, WARPS, Z_PLANS, UNFUSED_COLS in the .cu)
+UNFUSED_BLOCKS_PER_SM = 2
+UNFUSED_WARPS = 8
+UNFUSED_Z_PLANS = ((2, 1), (1, 1), (1, 2), (1, 4), (1, 8))
+UNFUSED_COLS = (128, 64, 32)
+
 _GRAD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_HALF_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_UNFUSED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
+    [ctypes.c_void_p]
+_UNFUSED_PLAN_ARGTYPES = [ctypes.c_int] * 4 + \
+    [ctypes.POINTER(ctypes.c_int)] * 4
 _DEVICE: dict[int, tuple[int, int]] = {}
 
 
@@ -68,6 +83,51 @@ def plan(m: int, n: int, p: int, sms: int, smem_optin: int) -> Plan:
     if slab < 1:
         return Plan(chunks, rows, SLAB_MAX, 0)
     return Plan(chunks, rows, slab, (slab + 2) * row_bytes)
+
+
+class UnfusedPlan(NamedTuple):
+    rows_per_warp: int   # forward kernel: sample rows a warp takes
+    warps_per_row: int   # forward kernel: warps that share a sample row
+    rows_per_block: int  # UNFUSED_WARPS * rows_per_warp / warps_per_row
+    z_blocks: int        # m * ceil(n / rows_per_block)
+    cols: int            # back-projection: floats of p per block
+    bp_blocks: int       # m * ceil(p / cols)
+
+
+def unfused_plan(m: int, n: int, p: int, sms: int) -> UnfusedPlan:
+    """Launch shapes of the unfused pair for (m, n, p) on a card with
+    `sms` SMs, each grid aiming at UNFUSED_BLOCKS_PER_SM blocks an SM.
+    The forward kernel takes the first (rows per warp, warps per row) of
+    UNFUSED_Z_PLANS whose grid reaches it (the most rows a block first);
+    the back-projection the widest column slice of UNFUSED_COLS that
+    does, with all n samples in the block. Where none does, the last of
+    each."""
+    want = UNFUSED_BLOCKS_PER_SM * sms
+
+    def rows_per_block(zp):
+        return UNFUSED_WARPS * zp[0] // zp[1]
+
+    rpw, wpr = next((zp for zp in UNFUSED_Z_PLANS
+                     if m * -(-n // rows_per_block(zp)) >= want),
+                    UNFUSED_Z_PLANS[-1])
+    rows = rows_per_block((rpw, wpr))
+    cols = next((c for c in UNFUSED_COLS if m * -(-p // c) >= want),
+                UNFUSED_COLS[-1])
+    return UnfusedPlan(rpw, wpr, rows, m * -(-n // rows), cols,
+                       m * -(-p // cols))
+
+
+def kernel_unfused_plan(m: int, n: int, p: int,
+                        device: torch.device) -> tuple[int, int, int, int]:
+    """(rows per warp, warps per row, floats per column slice, SMs) as
+    the unfused kernels' launcher chooses them on `device`."""
+    fn = _build.function("logistic_grad", "logistic_unfused_plan",
+                         _UNFUSED_PLAN_ARGTYPES)
+    out = [ctypes.c_int(0) for _ in range(4)]
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    _build.call(fn, m, n, p, index, *(ctypes.byref(v) for v in out))
+    return tuple(v.value for v in out)
 
 
 def _device_limits(device: torch.device) -> tuple[int, int]:
@@ -143,12 +203,11 @@ def launch(Xs: torch.Tensor, ys: torch.Tensor, B: torch.Tensor,
 def logistic_grad_unfused(Xs: torch.Tensor, ys: torch.Tensor,
                           B: torch.Tensor, *,
                           use_kernel: bool | None = None) -> torch.Tensor:
-    """The same gradient in two kernels: z = X b, then the residual
-    r = y sigmoid(-y z) in PyTorch, then -X' r / n. The fused kernel's
-    baseline; X is read twice and z and r pass through device memory."""
+    """The same gradient in two kernels: the residual r = y sigmoid(-y X
+    b), then -X' r / n. The fused kernel's baseline; X is read twice and
+    r passes through device memory."""
     if not _check("logistic_grad_unfused", Xs, ys, B, use_kernel):
-        z = logistic_z_ref(Xs, B)
-        return logistic_backproject_ref(Xs, ys * torch.sigmoid(-ys * z))
+        return logistic_backproject_ref(Xs, logistic_residual_ref(Xs, ys, B))
     m, n, p = Xs.shape
     z = torch.empty((m, n), dtype=torch.float32, device=Xs.device)
     G = torch.empty((m, p), dtype=torch.float32, device=Xs.device)
@@ -158,18 +217,17 @@ def logistic_grad_unfused(Xs: torch.Tensor, ys: torch.Tensor,
 
 def launch_unfused(Xs: torch.Tensor, ys: torch.Tensor, B: torch.Tensor,
                    z: torch.Tensor, G: torch.Tensor) -> None:
-    """Both unfused kernels and the residual between them, into the given
-    outputs (z (m, n), G (m, p)), with no checks: the operands are what
-    `logistic_grad_unfused` passes."""
+    """Both unfused kernels into the given outputs, with no checks: the
+    operands are what `logistic_grad_unfused` passes. `z` (m, n) is the
+    vector between them: it receives the residual r = y sigmoid(-y X b),
+    which the second kernel reads to write G (m, p). One host call
+    launches the two kernels on the current stream, each with its launch
+    shape from `unfused_plan`'s rule."""
     m, n, p = Xs.shape
-    dev, stream = Xs.device.index, _build.stream(Xs.device)
-    fn = _build.function("logistic_grad", "logistic_z_f32", _HALF_ARGTYPES)
-    _build.call(fn, Xs.data_ptr(), B.data_ptr(), z.data_ptr(), m, n, p,
-                dev, stream)
+    fn = _build.function("logistic_grad", "logistic_unfused_f32",
+                         _UNFUSED_ARGTYPES)
+    _build.call(fn, Xs.data_ptr(), ys.data_ptr(), B.data_ptr(), z.data_ptr(),
+                G.data_ptr(), m, n, p, Xs.device.index,
+                _build.stream(Xs.device))
     LAUNCHES["logistic_z"] += 1
-    rs = ys * torch.sigmoid(-ys * z)
-    fn = _build.function("logistic_grad", "logistic_backproject_f32",
-                         _HALF_ARGTYPES)
-    _build.call(fn, Xs.data_ptr(), rs.data_ptr(), G.data_ptr(), m, n, p,
-                dev, stream)
     LAUNCHES["logistic_backproject"] += 1

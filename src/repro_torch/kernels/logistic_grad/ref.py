@@ -10,8 +10,9 @@ batched`) spends each iteration on
 for all m tasks at once: the einsum pair of the reference's oracle
 (`repro/kernels/logistic_grad/ref.py`). `logistic_grad_ref` is the CPU
 path of `logistic_grad` and what the fused CUDA kernel is held against on
-the card; `logistic_z_ref` and `logistic_backproject_ref` are the two
-halves the unfused kernels compute.
+the card; `logistic_residual_ref` (through `logistic_z_ref`) and
+`logistic_backproject_ref` are the two halves the unfused kernels
+compute.
 """
 from __future__ import annotations
 
@@ -31,6 +32,15 @@ def logistic_grad_ref(Xs: torch.Tensor, ys: torch.Tensor,
 def logistic_z_ref(Xs: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """The forward half: z_t = X_t b_t. Xs (m, n, p), B (m, p) -> (m, n)."""
     return torch.einsum("tnp,tp->tn", Xs, B)
+
+
+def logistic_residual_ref(Xs: torch.Tensor, ys: torch.Tensor,
+                          B: torch.Tensor) -> torch.Tensor:
+    """The first unfused kernel: z_t = X_t b_t, then the residual
+    r_t = y_t sigmoid(-y_t z_t). Xs (m, n, p), ys (m, n), B (m, p) ->
+    (m, n)."""
+    z = logistic_z_ref(Xs, B)
+    return ys * torch.sigmoid(-ys * z)
 
 
 def logistic_backproject_ref(Xs: torch.Tensor,

@@ -32,12 +32,14 @@ from repro_torch.kernels.common import LAUNCHES
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.group_threshold.ops import group_threshold
 from repro_torch.kernels.ista_step.ops import (
-    fista_step_batched, gemm_plan, ista_solve, ista_step, ista_step_batched,
-    kernel_gemm_plan,
+    fista_step_batched, gemm_plan, gemv_plan, ista_solve, ista_step,
+    ista_step_batched, kernel_gemm_plan, kernel_gemv_plan,
 )
 from repro_torch.kernels.logistic_grad.ops import (
-    logistic_grad, logistic_grad_unfused,
+    kernel_unfused_plan, launch_unfused, logistic_grad, logistic_grad_unfused,
+    unfused_plan,
 )
+from repro_torch.kernels.logistic_grad.ref import logistic_residual_ref
 from repro_torch.kernels.rank_update.ops import (
     kernel_rank_plan, rank_plan, rank_update, rank_update_unfused,
 )
@@ -161,6 +163,64 @@ def test_fista_gemm_kernel_matches_plain_on_every_tile(cuda, m, p, r,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _gemv_inputs(device, m, p, seed=9):
+    g = torch.Generator(device=device).manual_seed(seed)
+    X = torch.randn((m, 2 * p, p), generator=g, device=device)
+    Sig = torch.einsum("tni,tnj->tij", X, X) / (2 * p)
+    etas = 1.0 / power_iteration_batched(Sig)
+    z = 0.3 * torch.randn((m, p, 1), generator=g, device=device)
+    x = z + 0.1 * torch.randn((m, p, 1), generator=g, device=device)
+    c = 0.5 * torch.randn((m, p, 1), generator=g, device=device)
+    lams = torch.full((m,), 0.05, device=device)
+    return Sig, z, x, c, etas, lams
+
+
+@pytest.mark.parametrize("momentum", [True, False])
+@pytest.mark.parametrize("m, p", [(1, 1024), (1, 1023), (128, 1024)])
+def test_fista_gemv_kernel_matches_plain_on_every_plan(cuda, m, p,
+                                                       momentum):
+    """The r == 1 kernel at one task (1 row a warp, 2 warps a block; the
+    4-byte loads at p = 1023) and at 128 (4 rows a warp, 8 warps), with
+    and without momentum; the launcher's plan is held to `gemv_plan`, and
+    two launches give the same bits."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = gemv_plan(m, p, sms)
+    assert kernel_gemv_plan(m, p, cuda) == (plan.rows_per_warp, plan.warps,
+                                            sms)
+    Sig, z, x, c, etas, lams = _gemv_inputs(cuda, m, p)
+    if momentum:
+        args = (Sig, z, x, c, etas, lams, np.float32(0.6))
+        key, fn = "fista_step_gemv", fista_step_batched
+    else:
+        args = (Sig, z, c, etas, lams)
+        key, fn = "ista_step_batched_gemv", ista_step_batched
+    before = LAUNCHES[key]
+    got, again = fn(*args), fn(*args)
+    assert LAUNCHES[key] == before + 2
+    want = fn(*args, use_kernel=False)
+    got, again, want = ((t,) if not momentum else t
+                        for t in (got, again, want))
+    _assert_close(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("p", [1024, 1023])
+def test_fista_gemv_gives_the_same_bits_under_every_plan(cuda, p):
+    """A row is one warp's FMA chains in the same order whatever the plan:
+    task 0 alone (m = 1, one row a warp) gives the bits of task 0 within
+    16 tasks (four rows a warp)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert gemv_plan(1, p, sms)[:2] != gemv_plan(16, p, sms)[:2]
+    Sig, z, x, c, etas, lams = _gemv_inputs(cuda, 16, p, seed=10)
+    theta = np.float32(0.6)
+    many = fista_step_batched(Sig, z, x, c, etas, lams, theta)
+    one = fista_step_batched(*(t[:1].contiguous()
+                               for t in (Sig, z, x, c, etas, lams)), theta)
+    assert all(torch.equal(a[:1], b) for a, b in zip(many, one))
+    assert torch.equal(ista_step_batched(Sig, z, c, etas, lams)[:1],
+                       ista_step(Sig[0], z[0], c[0], etas[0], lams[0])[None])
+
+
 def test_dsml_fit_kernels_match_plain_path(cuda):
     d = gen_regression(0, m=4, n=100, p=120, s=6, signal_low=0.3,
                        device=cuda)
@@ -208,6 +268,23 @@ def test_logistic_unfused_kernels_match_plain(cuda, m, n, p):
     assert LAUNCHES["logistic_backproject"] == \
         before["logistic_backproject"] + 1
     _assert_close((got,), (logistic_grad_unfused(X, y, B, use_kernel=False),))
+    # both reductions run in a fixed order: the same bits every run
+    assert torch.equal(got, logistic_grad_unfused(X, y, B))
+
+
+@pytest.mark.parametrize("m, n, p", _LOGISTIC_SHAPES)
+def test_logistic_unfused_plan_and_residual_match(cuda, m, n, p):
+    """The launchers' plan is `unfused_plan`'s, and the vector the first
+    kernel leaves between the two is the plain residual."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = unfused_plan(m, n, p, sms)
+    assert kernel_unfused_plan(m, n, p, cuda) == (
+        plan.rows_per_warp, plan.warps_per_row, plan.cols, sms)
+    X, y, B = _logistic_inputs(cuda, m, n, p)
+    r = torch.empty((m, n), device=cuda)
+    G = torch.empty((m, p), device=cuda)
+    launch_unfused(X, y, B, r, G)
+    _assert_close((r,), (logistic_residual_ref(X, y, B),))
 
 
 def test_dsml_logistic_fit_kernels_match_plain_path(cuda):

@@ -22,7 +22,8 @@ from repro.kernels.ista_step.ops import (
 )
 from repro_torch.kernels.common import LAUNCHES
 from repro_torch.kernels.ista_step.ops import (
-    GEMM_TILES, gemm_plan, ista_solve, ista_step, ista_step_batched,
+    GEMM_TILES, GEMV_BLOCKS_PER_SM, GEMV_PLANS, gemm_plan, gemv_plan,
+    ista_solve, ista_step, ista_step_batched,
 )
 from repro_torch.kernels.ista_step.ref import (
     ista_step_batched_ref, ista_step_ref,
@@ -232,3 +233,60 @@ def test_gemm_plan_fills_the_card_at_one_task():
     # the four card-test shapes reach every tile
     shapes = [(1, 1024, 1024), (16, 1024, 1024), (3, 129, 7), (2, 1001, 1001)]
     assert {gemm_plan(*s, H100_SMS)[:2] for s in shapes} == set(GEMM_TILES)
+
+
+# ---- the r == 1 kernel's launch plan (the card tests run the kernel) --------
+
+def _gemv_rows(m: int, p: int, plan) -> np.ndarray:
+    """How often the kernel's warps take each row of each task: warp w of
+    block (b, t) owns rows (b * warps + w) * rows_per_warp onwards, those
+    below p."""
+    count = np.zeros((m, p), dtype=np.int64)
+    per_task = plan.blocks // m
+    for t in range(m):
+        for b in range(per_task):
+            for w in range(plan.warps):
+                row0 = (b * plan.warps + w) * plan.rows_per_warp
+                count[t, row0:min(p, row0 + plan.rows_per_warp)] += 1
+    return count
+
+
+@pytest.mark.parametrize("m, p", [(1, 1024), (16, 1024), (128, 1024),
+                                  (1, 1023), (3, 129), (2, 7)])
+def test_gemv_plan_covers_every_row_once(m, p):
+    pl = gemv_plan(m, p, H100_SMS)
+    assert (pl.rows_per_warp, pl.warps) in GEMV_PLANS
+    rows_per_block = pl.rows_per_warp * pl.warps
+    assert pl.blocks == m * -(-p // rows_per_block)
+    assert pl.threads == 32 * pl.warps <= 256
+    assert np.all(_gemv_rows(m, p, pl) == 1)
+    # a lane reads k (or float4 q) = lane, lane + 32, ...: every column
+    # of a row once, whatever the plan
+    width = p // 4 if p % 4 == 0 else p
+    cols = np.concatenate([np.arange(lane, width, 32) for lane in range(32)])
+    assert np.array_equal(np.sort(cols), np.arange(width))
+    # the first plan that gives every SM GEMV_BLOCKS_PER_SM blocks, else
+    # the last
+    want = GEMV_BLOCKS_PER_SM * H100_SMS
+    earlier = GEMV_PLANS[:GEMV_PLANS.index((pl.rows_per_warp, pl.warps))]
+    assert all(m * -(-p // (r * w)) < want for r, w in earlier)
+    assert pl.blocks >= want or \
+        (pl.rows_per_warp, pl.warps) == GEMV_PLANS[-1]
+
+
+def test_gemv_plan_fills_the_card_at_one_and_sixteen_tasks():
+    """At m = 1, p = 1024 four rows a warp and eight warps a block give 32
+    blocks for 132 SMs; the plan gives at least two blocks an SM at one
+    task and at the lasso's m = 16 (two rows a warp there, four from
+    m = 17)."""
+    one = gemv_plan(1, 1024, H100_SMS)
+    assert one.blocks >= 2 * H100_SMS
+    assert (one.rows_per_warp, one.warps, one.blocks) == (1, 2, 512)
+    many = gemv_plan(16, 1024, H100_SMS)
+    assert many.blocks >= 2 * H100_SMS
+    assert (many.rows_per_warp, many.warps, many.blocks) == (2, 8, 1024)
+    grid = gemv_plan(128, 1024, H100_SMS)
+    assert (grid.rows_per_warp, grid.warps, grid.blocks) == (4, 8, 4096)
+    # the card tests' shapes take a plan of one row a warp and of four
+    shapes = [(1, 1024), (1, 1023), (128, 1024)]
+    assert {gemv_plan(*s, H100_SMS).rows_per_warp for s in shapes} == {1, 4}

@@ -42,7 +42,8 @@ from repro_torch.core import engine, logistic, metrics, prox, synth
 from repro_torch.kernels.common import LAUNCHES
 from repro_torch.kernels.logistic_grad import ops
 from repro_torch.kernels.logistic_grad.ref import (
-    logistic_backproject_ref, logistic_grad_ref, logistic_z_ref,
+    logistic_backproject_ref, logistic_grad_ref, logistic_residual_ref,
+    logistic_z_ref,
 )
 
 ATOL = 1e-5
@@ -121,6 +122,83 @@ def test_unfused_plain_versions_match_pallas_interpret(bp):
     _close_rel(z, jnp.einsum("tnp,tp->tn", X, B))
     r = _t(y) * torch.sigmoid(-_t(y) * z)
     _close_rel(logistic_backproject_ref(_t(X), r), want)
+
+
+@pytest.mark.parametrize("m, n, p", [(3, 40, 24), (2, 64, 64), (1, 7, 13)])
+def test_unfused_first_half_matches_jax(m, n, p):
+    """The plain version of the first unfused kernel: z = X b and the
+    residual it returns, against the same two steps in JAX on the same
+    numpy inputs."""
+    X, y, B = _grad_inputs(m, n, p, seed=3)
+    z_want = jnp.matmul(jnp.asarray(X), jnp.asarray(B)[..., None])[..., 0]
+    r_want = y * jax.nn.sigmoid(-y * z_want)
+    _close_rel(logistic_z_ref(_t(X), _t(B)), z_want)
+    _close(logistic_residual_ref(_t(X), _t(y), _t(B)), r_want)
+    # and the back-projection of that residual is the whole gradient
+    _close_rel(logistic_backproject_ref(
+        _t(X), logistic_residual_ref(_t(X), _t(y), _t(B))),
+        jax_logistic_grad_ref(X, y, B))
+
+
+# ---- the unfused pair's launch plan -----------------------------------------
+
+def _unfused_counts(m: int, n: int, p: int, pl) -> tuple[np.ndarray,
+                                                         np.ndarray]:
+    """How often the two kernels of one task read each (row, vector) of X
+    (p / 4 float4 per row where p % 4 == 0, else p floats), as their
+    index maps take them: (forward, back-projection), each (n, width)."""
+    width = p // 4 if p % 4 == 0 else p
+    fwd = np.zeros((n, width), dtype=np.int64)
+    wpr = pl.warps_per_row
+    for b in range(pl.z_blocks // m):
+        for w in range(ops.UNFUSED_WARPS):
+            row0 = (b * (ops.UNFUSED_WARPS // wpr) + w // wpr) \
+                * pl.rows_per_warp
+            for row in range(row0, min(n, row0 + pl.rows_per_warp)):
+                for lane in range(32):
+                    fwd[row, 32 * (w % wpr) + lane::32 * wpr] += 1
+    back = np.zeros((n, width), dtype=np.int64)
+    cv = pl.cols // 4 if p % 4 == 0 else pl.cols
+    groups = 256 // cv
+    for b in range(pl.bp_blocks // m):
+        for tid in range(256):
+            q = b * cv + tid % cv
+            if q < width:
+                back[tid // cv::groups, q] += 1
+    return fwd, back
+
+
+@pytest.mark.parametrize("m, n, p", [
+    (16, 512, 1024), (4, 256, 8192), (3, 500, 1000), (2, 7, 129),
+    (1, 1, 1), (10, 350, 200),
+])
+def test_unfused_plan_covers_every_sample_and_column_once(m, n, p):
+    pl = ops.unfused_plan(m, n, p, H100["sms"])
+    assert (pl.rows_per_warp, pl.warps_per_row) in ops.UNFUSED_Z_PLANS
+    assert pl.rows_per_block * pl.warps_per_row == \
+        ops.UNFUSED_WARPS * pl.rows_per_warp
+    assert pl.z_blocks == m * -(-n // pl.rows_per_block)
+    assert pl.cols in ops.UNFUSED_COLS
+    assert pl.bp_blocks == m * -(-p // pl.cols)
+    fwd, back = _unfused_counts(m, n, p, pl)
+    assert np.all(fwd == 1) and np.all(back == 1)
+
+
+def test_unfused_plan_fills_the_card_at_both_shapes():
+    """One warp a row gives 128 blocks at (4, 256, 8192), and 128-float
+    column slices 128 blocks at (16, 512, 1024): the plan gives both
+    kernels at least two blocks an SM at both shapes."""
+    want = ops.UNFUSED_BLOCKS_PER_SM * H100["sms"]
+    main = ops.unfused_plan(16, 512, 1024, H100["sms"])
+    assert main == ops.UnfusedPlan(rows_per_warp=2, warps_per_row=1,
+                                   rows_per_block=16, z_blocks=512, cols=32,
+                                   bp_blocks=512)
+    largep = ops.unfused_plan(4, 256, 8192, H100["sms"])
+    assert largep == ops.UnfusedPlan(rows_per_warp=1, warps_per_row=4,
+                                     rows_per_block=2, z_blocks=512, cols=64,
+                                     bp_blocks=512)
+    for pl in (main, largep):
+        assert pl.z_blocks >= want and pl.bp_blocks >= want
 
 
 # ---- the fused kernel's launch plan -------------------------------------------
