@@ -9,9 +9,11 @@ Phases, each of which raises on failure (exit code != 0):
 2. build the CUDA kernels from `src/repro_torch/kernels/csrc` (nvcc, with
    `-Xptxas -v`: registers, shared memory and spills per kernel); the
    FISTA/ISTA GEMV and SGEMM (`fista_gemv_kernel`, `fista_gemm_kernel`),
-   the rank-n update (`rank_update_kernel`), the unfused logistic pair
-   (`logistic_residual_kernel`, `logistic_backproject_kernel`) and the
-   bf16 Hopper flash forward (`flash_fwd_wgmma`) must not spill;
+   the rank-n update (`rank_update_kernel`), the logistic gradient
+   (`logistic_grad_kernel`, `logistic_grad_rows_kernel`) and its unfused
+   pair (`logistic_residual_kernel`, `logistic_backproject_kernel`), the
+   group threshold (`group_threshold_kernel`) and the bf16 Hopper flash
+   forward (`flash_fwd_wgmma`) must not spill;
 3. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at ragged ones, max abs error <= 1e-5 * max|plain|
    per output (both accumulate in f32, in another order); the rank-n
@@ -21,12 +23,19 @@ Phases, each of which raises on failure (exit code != 0):
    `ops.rank_plan`; the logistic
    gradient also at the large-p point m = 4, n = 256, p = 8192, and twice,
    to show that its sample reduction gives the same bits every run, the
-   unfused pair's launch plan as its launcher chooses it held to
+   fused kernel's plan as its launcher chooses and launches it held to
+   `ops.plan` and printed (a cluster launch where its cluster is above 1),
+   its ticket counters at zero after the calls, and also in its two modes
+   above p = 19,328, at (4, 256, 19329) (a shared-memory ring) and
+   (1, 8, 100003) (X read twice); the unfused pair's launch plan as its
+   launcher chooses it held to
    `ops.unfused_plan` and one call of the pair launching each of its two
    kernels once; the
    ISTA steps (batched and single-task), the unfused rank pair and the
    group threshold at their path shapes and at ragged ones (p = 129,
-   r = 7, m = 3; (2, 7, 129); (1001, 5)), each twice for the same bits,
+   r = 7, m = 3; (2, 7, 129); (1001, 5)), each twice for the same bits
+   (the threshold's lanes a row as its launcher chooses them held to
+   `ops.row_lanes`),
    and the GEMV's plan and the SGEMM's block tile as their launchers
    choose them held to `ops.gemv_plan` and `ops.gemm_plan`;
    the flash-attention forward in f32 at (B, S, N, K, H) = (2, 256, 8, 2,
@@ -79,8 +88,9 @@ Phases, each of which raises on failure (exit code != 0):
    and of its PyTorch call (`graph_ms`, `library_graph_ms`: 20 launches
    captured in one CUDA graph and replayed between CUDA events, so that
    no host issue is timed; `torch.profiler`'s device time where a launch
-   cannot be captured, with the reason); and each fit's wall time on
-   both paths;
+   cannot be captured, with the reason); an empty kernel's `graph_ms`,
+   the floor of any launch, beside the group threshold's row; and each
+   fit's wall time on both paths;
 6. the serving path at full width, the cell of
    `repro_torch/serving/cell.py`: granite-3-2b (40 layers, d 2048, 32/8
    heads of 64, bf16) from a seeded `torch.Generator`, `greedy_generate`
@@ -246,8 +256,11 @@ def main() -> None:
             if any(k in line for k in ("fista_gemm_kernel",
                                        "fista_gemv_kernel",
                                        "rank_update_kernel",
+                                       "logistic_grad_kernel",
+                                       "logistic_grad_rows_kernel",
                                        "logistic_residual_kernel",
                                        "logistic_backproject_kernel",
+                                       "group_threshold_kernel",
                                        "flash_fwd_wgmma")):
                 check(" 0 bytes spill stores" in line,
                       f"a redesigned kernel spills: {line}")
@@ -263,6 +276,8 @@ def main() -> None:
         return X, y, w
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smem_optin = torch.cuda.get_device_properties(
+        dev).shared_memory_per_block_optin
 
     def check_rank(label, X, y, w):
         """The fused kernel against its plain version; Sigma exactly
@@ -365,9 +380,26 @@ def main() -> None:
 
     def check_logistic(label, args):
         """Both kernels against their plain version, twice for the same
-        bits; the unfused pair's plan held to `unfused_plan`, and one call
-        of it launching each of its two kernels once."""
+        bits; the fused kernel's plan held to `plan` as its launcher
+        chooses it and as it launched it; the unfused pair's plan held to
+        `unfused_plan`, and one call of it launching each of its two
+        kernels once."""
         m_, n_, p_ = args[0].shape
+        vec = logistic_ops.vectorized(args[0], args[2])
+        fplan = logistic_ops.plan(m_, n_, p_, sms, smem_optin, vec=vec)
+        check(logistic_ops.kernel_plan(m_, n_, p_, vec, dev) ==
+              (fplan, sms), f"fused plan at {label}: the launcher's "
+              f"differs from plan's {fplan}")
+        G_ = torch.empty((m_, p_), device=dev)
+        ran = logistic_ops.launch(
+            *args, G_, torch.empty((m_, fplan.chunks, p_), device=dev),
+            logistic_ops.ticket_counters(dev, m_ * fplan.cluster))
+        check(ran == fplan, f"fused kernel at {label} ran {ran}, not the "
+              f"plan {fplan}")
+        print(f"fused plan at {label}: {ran} ("
+              + (f"a cluster launch of {ran.cluster} blocks a cluster, "
+                 if ran.cluster > 1 else "no cluster, ")
+              + f"{m_ * ran.chunks * ran.cluster} blocks)")
         plan = logistic_ops.unfused_plan(m_, n_, p_, sms)
         check(logistic_ops.kernel_unfused_plan(m_, n_, p_, dev) ==
               (plan.rows_per_warp, plan.warps_per_row, plan.cols, sms),
@@ -406,6 +438,12 @@ def main() -> None:
          "({},{},{})".format(*LARGE_P), lg_large)
     check_logistic("(3,500,1000)", logistic_inputs(3, 500, 1000))
     check_logistic("(2,7,129)", logistic_inputs(2, 7, 129))
+    # the fused kernel's other modes: a shared-memory ring, X read twice
+    check_logistic("(4,256,19329)", logistic_inputs(4, 256, 19329))
+    check_logistic("(1,8,100003)", logistic_inputs(1, 8, 100003))
+    torch.cuda.synchronize()
+    check(int(logistic_ops.ticket_counters(dev, 1).abs().sum()) == 0,
+          "the fused kernel left a ticket counter above zero")
 
     def check_kernel(name, label, fn, *args):
         """`fn` launched twice and on its plain path; every float output
@@ -477,6 +515,10 @@ def main() -> None:
         B = torch.randn((p, m), generator=g, device=dev) * scale
         return (B / float(np.sqrt(m))).to(dtype)
 
+    check(all(threshold_ops.kernel_row_lanes(v) == threshold_ops.row_lanes(v)
+              for v in range(1, 70)),
+          "group_threshold: the launcher's lanes a row differ from "
+          "row_lanes'")
     B_gt = threshold_input(P, M)
     errs["group_threshold"] = check_kernel(
         "group_threshold", f"({P},{M})", group_threshold, B_gt, 0.8)
@@ -851,11 +893,11 @@ def main() -> None:
     ]
     for suffix, (Xl, yl, Bl) in (("", lg_args), ("_p8192", lg_large)):
         lm, ln, lp = Xl.shape
-        pl = logistic_ops.plan(lm, ln, lp,
-                               *logistic_ops._device_limits(Xl.device))
+        pl = logistic_ops.plan(lm, ln, lp, sms, smem_optin)
         G = torch.empty((lm, lp), device=dev)
         work = torch.empty((lm, pl.chunks, lp), device=dev)
-        counters = torch.zeros(lm, dtype=torch.int32, device=dev)
+        counters = torch.zeros(lm * pl.cluster, dtype=torch.int32,
+                               device=dev)
         rbuf = torch.empty((lm, ln), device=dev)
         rl = yl * torch.sigmoid(-yl * torch.bmm(Xl, Bl[..., None])[..., 0])
         Xlt = Xl.transpose(1, 2)
@@ -869,7 +911,7 @@ def main() -> None:
              "src/repro/kernels/logistic_grad/kernel.py:149",
              bound(4 * lm * ln * lp,
                    4 * (lm * ln * lp + lm * ln + 2 * lm * lp)),
-             lambda a=(Xl, yl, Bl, G, work, counters, pl):
+             lambda a=(Xl, yl, Bl, G, work, counters):
                  logistic_ops.launch(*a),
              lambda a=(Xl, yl, Bl): logistic_grad(*a),
              lambda a=(Xl, yl, Bl): logistic_grad_ref(*a),
@@ -999,6 +1041,14 @@ def main() -> None:
             print(f"rate {name}: kernel {row['tflops']:.1f} TFLOP/s, library "
                   f"{row_flops[name] / lib_ms / 1e9:.1f} TFLOP/s {card}")
         kernels.append(row)
+    # the floor of any launch: a kernel that does nothing, timed as the
+    # rows are, beside the group threshold (a launch-bound kernel)
+    empty = lambda: threshold_ops.launch_empty(dev)       # noqa: E731
+    floor_ms, (floor_g, floor_how) = time_ms(empty), graph_ms(empty)
+    print(f"time empty kernel (the launch floor): events {floor_ms:.4f} ms; "
+          f"device only {floor_g:.4f} ms ({floor_how}) {card}")
+    next(r for r in kernels if r["name"] == "group_threshold").update(
+        launch_floor_ms=floor_ms, launch_floor_graph_ms=floor_g)
 
     # ---- 6. the serving path at full width -------------------------------
     def prefill(params, cfg, prompt, steps, use_kernel=None):

@@ -245,11 +245,16 @@ def solve_logistic_lasso_batched(Xs: torch.Tensor, ys: torch.Tensor, lam, *,
     S = torch.as_tensor(etas, dtype=Xs.dtype, device=Xs.device)
     S = S.reshape(-1).expand(m)[:, None]
 
+    # x * 1.0 is x bit for bit: at the default scale the gradient is the
+    # kernel's output, with no elementwise launch after it
+    unit_scale = not isinstance(grad_scale, torch.Tensor) \
+        and float(grad_scale) == 1.0
+
     def grad(B):
         # a transposing prox (group lasso, iCAP) leaves strided iterates;
         # the kernel takes contiguous ones
-        return logistic_grad(Xs, ys, B.contiguous(),
-                             use_kernel=use_kernel) * grad_scale
+        g = logistic_grad(Xs, ys, B.contiguous(), use_kernel=use_kernel)
+        return g if unit_scale else g * grad_scale
 
     if prox is None:
         def prox(V, steps):

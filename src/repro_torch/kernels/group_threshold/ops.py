@@ -2,7 +2,10 @@
 group_threshold.cu`), the master step of DSML (paper eq. 5-6).
 
 `use_kernel` follows `kernels/common.py`: the CUDA kernel for CUDA
-tensors, the plain version (`ref.py`) for CPU tensors.
+tensors, the plain version (`ref.py`) for CPU tensors. `row_lanes` is the
+kernel's lane mapping in plain Python (the .cu applies the same rule, and
+`kernel_row_lanes` returns its choice); `launch_empty` launches a kernel
+that does nothing, the launch floor the kernel is timed against.
 """
 from __future__ import annotations
 
@@ -19,6 +22,44 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_int] * 3 \
     + [ctypes.c_void_p]
 _ENTRIES = {torch.float32: "group_threshold_f32",
             torch.bfloat16: "group_threshold_bf16"}
+VECTOR = 4                  # elements a lane loads at once where it can
+
+
+def row_vectors(m: int, aligned: bool = True) -> int:
+    """The vectors of a row of m elements: groups of VECTOR (a float4,
+    or four bf16 in 8 bytes) where m % 4 == 0 and both pointers are
+    aligned, else single elements."""
+    return m // VECTOR if aligned and m % VECTOR == 0 else m
+
+
+def row_lanes(vecs: int) -> int:
+    """The lanes of a warp that take one row of `vecs` vectors: the
+    least power of two that covers them, at most 32 (a lane then takes
+    vectors s, s + 32, ...). 32 / row_lanes rows share a warp."""
+    lanes = 1
+    while lanes < vecs and lanes < 32:
+        lanes *= 2
+    return lanes
+
+
+def kernel_row_lanes(vecs: int) -> int:
+    """`row_lanes` as the launcher computes it."""
+    fn = _build.function("group_threshold", "group_threshold_lanes",
+                         [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    lanes = ctypes.c_int(0)
+    _build.call(fn, vecs, ctypes.byref(lanes))
+    return lanes.value
+
+
+def launch_empty(device: torch.device) -> None:
+    """Launch a kernel that does nothing on the current stream of
+    `device` (a CUDA device): the floor of any launch's time. Counted
+    nowhere."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    fn = _build.function("group_threshold", "empty_launch",
+                         [ctypes.c_int, ctypes.c_void_p])
+    _build.call(fn, index, _build.stream(device))
 
 
 def group_threshold(B: torch.Tensor, Lam, *,

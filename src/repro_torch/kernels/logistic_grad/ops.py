@@ -6,11 +6,17 @@ its residual, then the back-projection), the yardstick the fusion is
 measured against. `use_kernel` follows `kernels/common.py`: the CUDA
 kernels for CUDA tensors, the plain versions (`ref.py`) for CPU tensors.
 
-`plan` chooses the fused kernel's launch shape from the card's SM count
-and shared-memory limit, `unfused_plan` the two unfused kernels' from the
-SM count; they are plain Python, so the CPU tests check them (the .cu
-applies the same rule for the unfused pair, `logistic_unfused_plan`
-returns its choice).
+`plan` chooses the fused kernel's launch shape (cluster size, chunks of
+the sample axis, where a block keeps its row slices) from the card's SM
+count and shared-memory limit, `unfused_plan` the two unfused kernels'
+from the SM count; they are plain Python, so the CPU tests check them
+(the .cu applies the same rules, and `logistic_grad_plan` and
+`logistic_unfused_plan` return its choices).
+
+The fused kernel's ticket counters stay on the device between calls (the
+kernel leaves them at zero), one buffer a device, grown when a launch
+needs more: a call issues one kernel and no fill. Launches that share a
+device therefore run one at a time, as on one stream.
 """
 from __future__ import annotations
 
@@ -27,11 +33,18 @@ from repro_torch.kernels.logistic_grad.ref import (
     logistic_backproject_ref, logistic_grad_ref, logistic_residual_ref,
 )
 
-SLAB_MAX = 8                 # rows per shared-memory slab (SLAB_MAX in the .cu)
-BLOCKS_PER_SM = 2            # blocks the plan aims to give every SM
-TAIL_BYTES = 512 * 1024      # partial rows per task the last block reduces
-_STATIC_SMEM = 512           # the kernel's static shared memory, rounded up
-_SM_RESERVED = 1024          # shared memory the card reserves per block
+# the fused kernel's plan (the constants of the same names in the .cu)
+THREADS = 256                # threads of a block
+CLUSTER_MAX = 8              # blocks of a cluster, a portable size
+V_MAX = 4                    # a thread's vectors of a row slice in registers
+GROUP_VECS = 4               # rows x vectors of a register group
+GROUP_STAGES = 3             # groups in the register kernel's ring
+STAGES = 3                   # row slices in the ring kernel's ring
+BLOCKS_PER_SM = 2            # blocks the plan gives every SM, at least
+SOLO_BLOCKS_PER_SM = 4       # what chunks aim at where the cluster is 1
+TAIL_BYTES = 512 * 1024      # partial slices a tail block adds, at most
+_STATIC_SMEM = 512           # the kernels' static shared memory, rounded up
+MODES = ("registers", "ring", "twice")    # Mode in the .cu, in order
 
 # the unfused pair: the blocks per SM its plan asks for, the warps of a
 # block, the forward kernel's (rows per warp, warps per row) and the
@@ -42,47 +55,100 @@ UNFUSED_WARPS = 8
 UNFUSED_Z_PLANS = ((2, 1), (1, 1), (1, 2), (1, 4), (1, 8))
 UNFUSED_COLS = (128, 64, 32)
 
-_GRAD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_GRAD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
+                                          ctypes.c_longlong, ctypes.c_void_p] \
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+_PLAN_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
 _UNFUSED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
     [ctypes.c_void_p]
 _UNFUSED_PLAN_ARGTYPES = [ctypes.c_int] * 4 + \
     [ctypes.POINTER(ctypes.c_int)] * 4
 _DEVICE: dict[int, tuple[int, int]] = {}
+_COUNTERS: dict[int, torch.Tensor] = {}
 
 
 class Plan(NamedTuple):
-    chunks: int          # blocks per task, each a run of consecutive samples
+    chunks: int          # clusters per task, each a run of consecutive samples
     rows_per_chunk: int
-    slab: int            # rows per shared-memory slab
-    smem_bytes: int      # dynamic shared memory; 0 = X read twice from HBM
+    cluster: int         # C: blocks of a cluster, one column slice each
+    mode: str            # where a block keeps its row slices (MODES)
+    vecs: int            # a thread's vectors of a row slice
+    smem_bytes: int      # dynamic shared memory of a block: its ring, or 0
 
 
-def plan(m: int, n: int, p: int, sms: int, smem_optin: int) -> Plan:
-    """Launch shape of the fused kernel for (m, n, p) on a card with `sms`
-    SMs and `smem_optin` bytes of shared memory per block.
-
-    Chunks: enough blocks for BLOCKS_PER_SM on every SM, but no more
-    partial rows per task than TAIL_BYTES (one block adds them up) and
-    no empty chunk. Slab: a block stages (slab + 2) p floats (rows, b and
-    its accumulator); the slab is the most rows, up to SLAB_MAX, that fit
-    in a share of the SM that leaves room for BLOCKS_PER_SM blocks, or in
-    the whole per-block limit where the grid has no more blocks than SMs
-    or one row does not fit in the share. Where one row does not fit in
-    the whole limit, smem_bytes is 0 and the kernel reads X twice."""
-    chunks = -(-BLOCKS_PER_SM * sms // m)
-    chunks = max(1, min(chunks, TAIL_BYTES // (4 * p), n))
+def _chunks(m: int, n: int, cluster: int, slice_floats: int,
+            want: int) -> tuple[int, int]:
+    """(chunks, rows a chunk): enough chunks for `want` blocks, no more
+    partial slices a tail block than TAIL_BYTES, no empty chunk."""
+    chunks = max(1, min(-(-want // (m * cluster)),
+                        TAIL_BYTES // (4 * slice_floats), n))
     rows = -(-n // chunks)
-    chunks = -(-n // rows)
-    row_bytes = 4 * p
-    usable = smem_optin - _STATIC_SMEM
-    share = smem_optin // BLOCKS_PER_SM - _SM_RESERVED - _STATIC_SMEM
-    slab = (share - 2 * row_bytes) // row_bytes
-    if slab < 1 or m * chunks <= sms:
-        slab = (usable - 2 * row_bytes) // row_bytes
-    slab = min(slab, SLAB_MAX, rows)
-    if slab < 1:
-        return Plan(chunks, rows, SLAB_MAX, 0)
-    return Plan(chunks, rows, slab, (slab + 2) * row_bytes)
+    return -(-n // rows), rows
+
+
+def plan(m: int, n: int, p: int, sms: int, smem_optin: int,
+         vec: bool | None = None) -> Plan:
+    """Launch shape of the fused kernel for (m, n, p) on a card with `sms`
+    SMs and `smem_optin` bytes of shared memory per block. The kernel
+    takes float4 vectors where p % 4 == 0 and its pointers are 16-byte
+    aligned; `vec=False` plans for unaligned pointers.
+
+    Cluster: the smallest C of 1, 2, 4, 8 (and no slice under THREADS
+    vectors) whose row slice of ceil(p / C) floats a thread holds in at
+    most V_MAX vectors of registers and whose grid of m * chunks * C
+    blocks gives BLOCKS_PER_SM blocks an SM; else the largest allowed.
+    Chunks: enough for that many blocks (SOLO_BLOCKS_PER_SM an SM where
+    C = 1, whose blocks do not wait on each other), but no more partial
+    slices a tail block than TAIL_BYTES and no empty chunk. Mode: "registers"
+    where b's and the accumulator's slices fit in registers (vecs 3 runs
+    as 4), the rows GROUP_VECS / vecs at a time through a shared-memory
+    ring of GROUP_STAGES groups; else "ring", STAGES row slices with b's
+    and the accumulator's slices in shared memory, where they fit in the
+    per-block limit; else "twice", X read from global memory twice."""
+    width = 4 if p % 4 == 0 and vec is not False else 1
+    pv = -(-p // width)
+    want = BLOCKS_PER_SM * sms
+    solo = SOLO_BLOCKS_PER_SM * sms
+    cmax = 1
+    while cmax * 2 <= CLUSTER_MAX and cmax * 2 * THREADS <= pv:
+        cmax *= 2
+    cluster = cmax
+    c = 1
+    while c <= cmax:
+        sv = -(-pv // c)
+        chunks, _ = _chunks(m, n, c, sv * width, solo if c == 1 else want)
+        if -(-sv // THREADS) <= V_MAX and m * chunks * c >= want:
+            cluster = c
+            break
+        c *= 2
+    sv = -(-pv // cluster)
+    chunks, rows = _chunks(m, n, cluster, sv * width,
+                           solo if cluster == 1 else want)
+    vecs = -(-sv // THREADS)
+    ring = (STAGES + 2) * sv * width * 4 + STAGES * 4
+    if vecs <= V_MAX:
+        vecs = 4 if vecs == 3 else vecs
+        staged = GROUP_STAGES * (GROUP_VECS // vecs)     # rows in the ring
+        return Plan(chunks, rows, cluster, "registers", vecs,
+                    staged * sv * width * 4 + staged * 4)
+    if ring + _STATIC_SMEM <= smem_optin:
+        return Plan(chunks, rows, cluster, "ring", vecs, ring)
+    return Plan(chunks, rows, cluster, "twice", vecs, 0)
+
+
+def kernel_plan(m: int, n: int, p: int, vec: bool,
+                device: torch.device) -> tuple[Plan, int]:
+    """The fused kernel's plan as its launcher chooses it on `device`, and
+    the SM count it saw."""
+    fn = _build.function("logistic_grad", "logistic_grad_plan",
+                         _PLAN_ARGTYPES)
+    out = (ctypes.c_int * 7)()
+    _build.call(fn, m, n, p, int(vec), _index(device), out)
+    return _plan_of(out), out[6]
+
+
+def _plan_of(v) -> Plan:
+    return Plan(v[0], v[1], v[2], MODES[v[3]], v[4], v[5])
 
 
 class UnfusedPlan(NamedTuple):
@@ -124,24 +190,23 @@ def kernel_unfused_plan(m: int, n: int, p: int,
     fn = _build.function("logistic_grad", "logistic_unfused_plan",
                          _UNFUSED_PLAN_ARGTYPES)
     out = [ctypes.c_int(0) for _ in range(4)]
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    _build.call(fn, m, n, p, index, *(ctypes.byref(v) for v in out))
+    _build.call(fn, m, n, p, _index(device), *(ctypes.byref(v) for v in out))
     return tuple(v.value for v in out)
+
+
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
 
 
 def _device_limits(device: torch.device) -> tuple[int, int]:
     """(SMs, opt-in shared memory per block) of a CUDA device."""
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
+    index = _index(device)
     limits = _DEVICE.get(index)
     if limits is None:
-        fn = _build.function("logistic_grad", "logistic_grad_smem_optin",
-                             [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
-        optin = ctypes.c_int(0)
-        _build.call(fn, index, ctypes.byref(optin))
-        sms = torch.cuda.get_device_properties(index).multi_processor_count
-        limits = _DEVICE[index] = (sms, optin.value)
+        props = torch.cuda.get_device_properties(index)
+        limits = _DEVICE[index] = (props.multi_processor_count,
+                                   props.shared_memory_per_block_optin)
     return limits
 
 
@@ -166,38 +231,66 @@ def _check(name: str, Xs: torch.Tensor, ys: torch.Tensor,
     return True
 
 
+def vectorized(Xs: torch.Tensor, B: torch.Tensor) -> bool:
+    """Whether the fused kernel takes float4 vectors for these operands
+    (p % 4 == 0 and 16-byte aligned; its outputs come from the allocator,
+    which aligns them)."""
+    return Xs.shape[-1] % 4 == 0 and Xs.data_ptr() % 16 == 0 \
+        and B.data_ptr() % 16 == 0
+
+
+def ticket_counters(device: torch.device, size: int) -> torch.Tensor:
+    """At least `size` zeroed int32 ticket counters on `device`, kept
+    between calls: the kernel leaves them at zero. Grown (one fill) only
+    when a launch needs more; under CUDA graph capture a buffer of the
+    graph's own."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(size, dtype=torch.int32, device=device)
+    index = _index(device)
+    buf = _COUNTERS.get(index)
+    if buf is None or buf.numel() < size:
+        buf = _COUNTERS[index] = torch.zeros(size, dtype=torch.int32,
+                                             device=device)
+    return buf
+
+
 def logistic_grad(Xs: torch.Tensor, ys: torch.Tensor, B: torch.Tensor, *,
                   use_kernel: bool | None = None) -> torch.Tensor:
     """All-tasks logistic gradient -X_t'(y_t sigmoid(-y_t X_t b_t))/n.
     Xs (m, n, p), ys (m, n) in {-1, +1}, B (m, p); float32. Returns
-    (m, p). One launch of the fused kernel on CUDA tensors."""
+    (m, p). One launch of the fused kernel on CUDA tensors, and no
+    other."""
     if not _check("logistic_grad", Xs, ys, B, use_kernel):
         return logistic_grad_ref(Xs, ys, B)
     m, n, p = Xs.shape
-    pl = plan(m, n, p, *_device_limits(Xs.device))
+    pl = plan(m, n, p, *_device_limits(Xs.device), vec=vectorized(Xs, B))
     G = torch.empty((m, p), dtype=torch.float32, device=Xs.device)
     work = torch.empty((m, pl.chunks, p), dtype=torch.float32,
                        device=Xs.device)
-    counters = torch.zeros(m, dtype=torch.int32, device=Xs.device)
-    launch(Xs, ys, B, G, work, counters, pl)
+    launch(Xs, ys, B, G, work, ticket_counters(Xs.device, m * pl.cluster))
     return G
 
 
 def launch(Xs: torch.Tensor, ys: torch.Tensor, B: torch.Tensor,
-           G: torch.Tensor, work: torch.Tensor, counters: torch.Tensor,
-           pl: Plan) -> None:
+           G: torch.Tensor, work: torch.Tensor, counters: torch.Tensor
+           ) -> Plan:
     """Launch the fused kernel into the given outputs, with no checks: the
     operands are what `logistic_grad` passes (float32, contiguous, one
-    CUDA device; Xs (m, n, p), ys (m, n), B and G (m, p), work (m,
-    pl.chunks, p), counters (m,) int32, zero). The kernel leaves the
-    counters at zero, so a timing loop reuses them."""
+    CUDA device; Xs (m, n, p), ys (m, n), B and G (m, p), work at least
+    m * chunks * p floats, counters at least m * cluster int32 zeros, for
+    `plan`'s chunks and cluster). The launcher applies the plan itself
+    and raises where work or counters fall short. The kernel leaves the
+    counters at zero, so a timing loop reuses them. Returns the plan
+    launched."""
     m, n, p = Xs.shape
     fn = _build.function("logistic_grad", "logistic_grad_f32", _GRAD_ARGTYPES)
+    ran = (ctypes.c_int * 6)()
     _build.call(fn, Xs.data_ptr(), ys.data_ptr(), B.data_ptr(),
-                work.data_ptr(), counters.data_ptr(), G.data_ptr(), m, n, p,
-                pl.chunks, pl.rows_per_chunk, pl.slab, pl.smem_bytes,
-                Xs.device.index, _build.stream(Xs.device))
+                work.data_ptr(), work.numel(), counters.data_ptr(),
+                counters.numel(), G.data_ptr(), m, n, p, _index(Xs.device),
+                _build.stream(Xs.device), ran)
     LAUNCHES["logistic_grad"] += 1
+    return _plan_of(ran)
 
 
 def logistic_grad_unfused(Xs: torch.Tensor, ys: torch.Tensor,

@@ -3,7 +3,7 @@ the same bits (or the fits' tolerance) on the DSML paths, and both times in
 one run.
 
     PYTHONPATH=src python -m repro_torch.launch.compare_sgemm \
-        [--library fista_step|rank_update|logistic_grad] \
+        [--library fista_step|rank_update|logistic_grad|group_threshold] \
         --source OLD/<library>.cu [--build-dir DIR]
 
 `--source` is an earlier `kernels/csrc/<library>.cu` (for example the
@@ -38,14 +38,26 @@ device.
   fits' (16, 512, 1024), unweighted and weighted, and at the streaming
   ingest's (8, 1024, 256), beside `bmm(X', X)`.
 * `logistic_grad`, the logistic gradient: `dsml_logistic_fit` (600 fused
-  launches) must give the same bits; the unfused pair at (16, 512, 1024)
-  and (4, 256, 8192) must be within 1e-5 * max|plain| of the earlier
-  pair and give the same bits on a second call. An earlier source with
-  the current entry (`logistic_unfused_f32`) runs through
+  launches) must give the same bits where the earlier fused kernel has
+  the current plan (its library has `logistic_grad_plan`), else beta_u
+  and beta_local within 1e-4 * max|.| with the same support; the fused
+  kernel and the unfused pair at (16, 512, 1024) and (4, 256, 8192) must
+  be within 1e-5 * max|plain| of the earlier ones and give the same bits
+  on a second call. An earlier fused kernel without `logistic_grad_plan`
+  staged slabs of rows and took its launch shape from the caller: it
+  runs with the shape its rule gives (`_slab_plan`). An earlier source
+  with the current unfused entry (`logistic_unfused_f32`) runs through
   `launch_unfused`; one whose first unfused kernel writes z
   (`logistic_z_f32`) runs as that pair was run, with the residual taken
-  in PyTorch between the two launches. Times of both pairs at both
-  shapes, beside the two products `bmm(X, b)` and `bmm(X', r)`.
+  in PyTorch between the two launches. Times of the fused kernel and of
+  both pairs at both shapes, beside the two products `bmm(X, b)` and
+  `bmm(X', r)`.
+* `group_threshold`, the master step's threshold: the keep column and
+  the rows of both kernels must be the same bits, in float32 and
+  bfloat16, at the master step's (1024, 16) and at (1001, 5). Times of
+  both at (1024, 16) in both types (three rounds of turns), beside the
+  PyTorch norm-and-mask, a copy of B (one read and one write, the floor
+  of a kernel that moves B) and an empty kernel (the launch floor).
 """
 from __future__ import annotations
 
@@ -63,16 +75,21 @@ import torch
 from repro_torch.core import (
     dsml_fit, dsml_logistic_fit, gen_classification, gen_regression,
 )
+from repro_torch.core import engine
 from repro_torch.core.engine import (
     power_iteration_batched, scaled_identity_m0,
 )
 from repro_torch.kernels import _build
+from repro_torch.kernels.group_threshold import ops as threshold_ops
 from repro_torch.kernels.ista_step import ops as ista_ops
 from repro_torch.kernels.ista_step.ops import (
     ista_solve, ista_step, ista_step_batched,
 )
 from repro_torch.kernels.logistic_grad import ops as logistic_ops
-from repro_torch.kernels.logistic_grad.ops import logistic_grad_unfused
+from repro_torch.kernels.group_threshold.ops import group_threshold
+from repro_torch.kernels.logistic_grad.ops import (
+    logistic_grad, logistic_grad_unfused,
+)
 from repro_torch.kernels.rank_update import ops as rank_ops
 from repro_torch.kernels.rank_update.ops import (
     rank_update, rank_update_unfused,
@@ -85,6 +102,8 @@ LARGE_P = (4, 256, 8192)                  # benchmarks/largep_logistic.py
 TOL_FIT = 1e-4                            # x max|.|, as chip_smoke.py
 TOL_KERNEL = 1e-5                         # x max|plain|, as chip_smoke.py
 _HALF_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
+    [ctypes.c_void_p]
+_SLAB_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + \
     [ctypes.c_void_p]
 
 
@@ -124,14 +143,14 @@ def _same(label: str, new, old) -> bool:
 
 
 def _turns(library: str, earlier: ctypes.CDLL, kernel,
-           earlier_kernel=None) -> dict:
+           earlier_kernel=None, rounds: int = 1) -> dict:
     """`kernel` timed with the earlier library and the current one in
-    turns: earlier, current, current, earlier; by CUDA events and by
-    `graph_ms`. `earlier_kernel` runs in the earlier turns where the
-    earlier library is called otherwise."""
+    turns: earlier, current, current, earlier (`rounds` times); by CUDA
+    events and by `graph_ms`. `earlier_kernel` runs in the earlier turns
+    where the earlier library is called otherwise."""
     row = {"earlier": [], "current": [], "earlier_graph": [],
            "current_graph": []}
-    for lib in (earlier, None, None, earlier):
+    for lib in (earlier, None, None, earlier) * rounds:
         if lib is None:
             ms, g = _times(kernel)
             row["current"].append(ms)
@@ -297,14 +316,96 @@ def _earlier_unfused(Xs, ys, B, z, G) -> None:
                 dev, stream)
 
 
+def _slab_plan(m: int, n: int, p: int, sms: int,
+               optin: int) -> tuple[int, int, int, int]:
+    """(chunks, rows a chunk, slab, shared memory) of an earlier fused
+    kernel that staged slabs of up to 8 rows, b and its accumulator in
+    shared memory, by that kernel's rule: chunks for two blocks an SM, at
+    most 512 KB of partial rows a task and no empty chunk; the most rows
+    a slab that fit in half an SM's shared memory (in all of it where the
+    grid has no more blocks than SMs or a row does not fit in half);
+    shared memory 0, X read twice, where one row does not fit at all."""
+    slab_max, static, reserved = 8, 512, 1024
+    chunks = max(1, min(-(-2 * sms // m), 512 * 1024 // (4 * p), n))
+    rows = -(-n // chunks)
+    chunks = -(-n // rows)
+    row_bytes = 4 * p
+    slab = (optin // 2 - reserved - static - 2 * row_bytes) // row_bytes
+    if slab < 1 or m * chunks <= sms:
+        slab = (optin - static - 2 * row_bytes) // row_bytes
+    slab = min(slab, slab_max, rows)
+    if slab < 1:
+        return chunks, rows, slab_max, 0
+    return chunks, rows, slab, (slab + 2) * row_bytes
+
+
+def _earlier_fused(X, y, B):
+    """A call of the earlier library's fused kernel on (X, y, B) into
+    buffers made here: through `launch` with the buffers its own
+    `logistic_grad_plan` asks for, where it has one, else with
+    `_slab_plan`'s shape. Call it with the earlier library in place.
+    Returns (call, G)."""
+    m, n, p = X.shape
+    G = torch.empty((m, p), device=X.device)
+    if hasattr(_build._LIBS["logistic_grad"], "logistic_grad_plan"):
+        pl, _ = logistic_ops.kernel_plan(m, n, p,
+                                         logistic_ops.vectorized(X, B),
+                                         X.device)
+        work = torch.empty((m, pl.chunks, p), device=X.device)
+        cnt = torch.zeros(m * pl.cluster, dtype=torch.int32, device=X.device)
+        return (lambda: logistic_ops.launch(X, y, B, G, work, cnt)), G
+    chunks, rows, slab, smem = _slab_plan(
+        m, n, p, *logistic_ops._device_limits(X.device))
+    work = torch.empty((m, chunks, p), device=X.device)
+    cnt = torch.zeros(m, dtype=torch.int32, device=X.device)
+    fn = _build.function("logistic_grad", "logistic_grad_f32", _SLAB_ARGTYPES)
+
+    def call():
+        _build.call(fn, X.data_ptr(), y.data_ptr(), B.data_ptr(),
+                    work.data_ptr(), cnt.data_ptr(), G.data_ptr(), m, n, p,
+                    chunks, rows, slab, smem, X.device.index,
+                    _build.stream(X.device))
+    return call, G
+
+
+@contextmanager
+def _earlier_solver_gradient():
+    """The logistic solver's gradient through the earlier fused kernel
+    (whose entry may take other arguments than the current wrapper
+    passes); inside `_library`."""
+    def grad(Xs, ys, B, use_kernel=None):
+        call, G = _earlier_fused(Xs, ys, B)
+        call()
+        return G
+    current = engine.logistic_grad
+    engine.logistic_grad = grad
+    try:
+        yield
+    finally:
+        engine.logistic_grad = current
+
+
 def _compare_logistic(earlier: ctypes.CDLL, dev: torch.device,
                       times: dict) -> list[bool]:
     _, _, cfit_args = _fits(dev)
-    new = tuple(dsml_logistic_fit(*cfit_args))
-    with _library("logistic_grad", earlier):
-        old = tuple(dsml_logistic_fit(*cfit_args))
+    new = dsml_logistic_fit(*cfit_args)
+    with _library("logistic_grad", earlier), _earlier_solver_gradient():
+        old = dsml_logistic_fit(*cfit_args)
     torch.cuda.synchronize()
-    same = [_same("phase 4b dsml_logistic_fit", new, old)]
+    fit = "phase 4b dsml_logistic_fit"
+    if hasattr(earlier, "logistic_grad_plan"):
+        same = [_same(fit, tuple(new), tuple(old))]
+    else:
+        _same(fit, tuple(new), tuple(old))
+        same = []
+        for name in ("beta_u", "beta_local"):
+            a, b = getattr(new, name), getattr(old, name)
+            err = torch.max(torch.abs(a - b)).item()
+            scale = torch.max(torch.abs(b)).item()
+            print(f"{fit} {name}: max abs err vs earlier {err:.3g} (max "
+                  f"{scale:.3g}, bar {TOL_FIT} x max)")
+            same.append(err <= TOL_FIT * scale)
+        same.append(_same(f"{fit} support", new.support, old.support))
 
     g = torch.Generator(device=dev).manual_seed(1)
     for m, n, p in ((M, N, P), LARGE_P):
@@ -314,6 +415,36 @@ def _compare_logistic(earlier: ctypes.CDLL, dev: torch.device,
         B = torch.randn((m, p), generator=g, device=dev) / float(np.sqrt(p))
         z, G = torch.empty((m, n), device=dev), torch.empty((m, p),
                                                             device=dev)
+        fused = f"logistic_grad ({m}, {n}, {p})"
+        got = logistic_grad(X, y, B)
+        again = logistic_grad(X, y, B)
+        with _library("logistic_grad", earlier):
+            call, ref = _earlier_fused(X, y, B)
+            call()
+        plain = logistic_grad(X, y, B, use_kernel=False)
+        torch.cuda.synchronize()
+        err = torch.max(torch.abs(got - ref)).item()
+        scale = torch.max(torch.abs(plain)).item()
+        print(f"{fused}: max abs err vs earlier {err:.3g} (max|plain| "
+              f"{scale:.3g}, bar {TOL_KERNEL} x max|plain|)")
+        same.append(err <= TOL_KERNEL * scale)
+        same.append(_same(f"{fused} on a second call", got, again))
+        Gk = torch.empty_like(got)
+        pl, _ = logistic_ops.kernel_plan(m, n, p,
+                                         logistic_ops.vectorized(X, B), dev)
+        work = torch.empty((m, pl.chunks, p), device=dev)
+        cnt = torch.zeros(m * pl.cluster, dtype=torch.int32, device=dev)
+        with _library("logistic_grad", earlier):
+            earlier_call, _ = _earlier_fused(X, y, B)
+        times[fused] = {
+            **_turns("logistic_grad", earlier,
+                     lambda a=(X, y, B, Gk, work, cnt):
+                     logistic_ops.launch(*a),
+                     earlier_call),
+            **_library_row(lambda X=X, B=B, y=y: (
+                torch.bmm(X, B[..., None]),
+                torch.bmm(X.transpose(1, 2), y[..., None])))}
+
         label = f"logistic_grad_unfused ({m}, {n}, {p})"
         got = logistic_grad_unfused(X, y, B)
         again = logistic_grad_unfused(X, y, B)
@@ -339,10 +470,49 @@ def _compare_logistic(earlier: ctypes.CDLL, dev: torch.device,
     return same
 
 
+def _compare_threshold(earlier: ctypes.CDLL, dev: torch.device,
+                       times: dict) -> list[bool]:
+    g = torch.Generator(device=dev).manual_seed(1)
+    same = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for p, m in ((P, M), (1001, 5)):
+            B = (torch.randn((p, m), generator=g, device=dev)
+                 * (0.1 + 2.0 * torch.rand((p, 1), generator=g, device=dev))
+                 / float(np.sqrt(m))).to(dtype)
+            label = f"group_threshold ({p}, {m}) {str(dtype)[6:]}"
+            new = group_threshold(B, 0.8)
+            with _library("group_threshold", earlier):
+                old = group_threshold(B, 0.8)
+            torch.cuda.synchronize()
+            same.append(_same(label, new, old))
+            if (p, m) != (P, M):
+                continue
+            out = torch.empty_like(B)
+            keep = torch.empty(p, dtype=torch.int8, device=dev)
+            times[label] = {
+                **_turns("group_threshold", earlier,
+                         lambda B=B, out=out, keep=keep:
+                         threshold_ops.launch(B, 0.8, out, keep),
+                         rounds=3),
+                **_library_row(lambda B=B: B * (torch.linalg.vector_norm(
+                    B.float(), dim=1, keepdim=True) > 0.8))}
+            # the floor of a kernel that reads B once and writes it once
+            times[f"copy of B ({p}, {m}) {str(dtype)[6:]}"] = {
+                **_library_row(lambda B=B, out=out: out.copy_(B)),
+                "earlier": [], "current": [], "earlier_graph": [],
+                "current_graph": []}
+    times["empty kernel (the launch floor)"] = {
+        **_library_row(lambda: threshold_ops.launch_empty(dev)),
+        "earlier": [], "current": [], "earlier_graph": [],
+        "current_graph": []}
+    return same
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--library",
-                    choices=("fista_step", "rank_update", "logistic_grad"),
+                    choices=("fista_step", "rank_update", "logistic_grad",
+                             "group_threshold"),
                     default="fista_step")
     ap.add_argument("--source", type=Path, required=True)
     ap.add_argument("--build-dir", type=Path, default=None)
@@ -359,7 +529,8 @@ def main() -> None:
     earlier = _build_earlier(args.library, args.source.resolve(), build_dir)
     times: dict = {}
     compare = {"fista_step": _compare_sgemm, "rank_update": _compare_rank,
-               "logistic_grad": _compare_logistic}[args.library]
+               "logistic_grad": _compare_logistic,
+               "group_threshold": _compare_threshold}[args.library]
     same = compare(earlier, dev, times)
     for name, row in times.items():
         print(f"time {name}: earlier {row['earlier']} ms, current "

@@ -30,14 +30,16 @@ from repro_torch.core.synth import gen_classification, gen_regression
 from repro_torch.configs import get_config
 from repro_torch.kernels.common import LAUNCHES
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.group_threshold.ops import group_threshold
+from repro_torch.kernels.group_threshold.ops import (
+    group_threshold, kernel_row_lanes, row_lanes,
+)
 from repro_torch.kernels.ista_step.ops import (
     fista_step_batched, gemm_plan, gemv_plan, ista_solve, ista_step,
     ista_step_batched, kernel_gemm_plan, kernel_gemv_plan,
 )
 from repro_torch.kernels.logistic_grad.ops import (
-    kernel_unfused_plan, launch_unfused, logistic_grad, logistic_grad_unfused,
-    unfused_plan,
+    kernel_plan, kernel_unfused_plan, launch, launch_unfused, logistic_grad,
+    logistic_grad_unfused, plan, ticket_counters, unfused_plan, vectorized,
 )
 from repro_torch.kernels.logistic_grad.ref import logistic_residual_ref
 from repro_torch.kernels.rank_update.ops import (
@@ -248,7 +250,16 @@ def _logistic_inputs(device, m, n, p):
     return X, y, B
 
 
-@pytest.mark.parametrize("m, n, p", _LOGISTIC_SHAPES)
+# the fused kernel also at m = 1, at a p that its cluster does not divide
+# (8196: slices of 257 vectors, the last 250), and in each mode above
+# p = 19,328: the ring (scalar at 19,329, float4 at 40,000) and X read
+# twice (100,003 and 100,000)
+_FUSED_SHAPES = _LOGISTIC_SHAPES + [(1, 256, 8192), (4, 64, 8196),
+                                    (4, 256, 19329), (2, 16, 40000),
+                                    (1, 8, 100003), (1, 8, 100000)]
+
+
+@pytest.mark.parametrize("m, n, p", _FUSED_SHAPES)
 def test_logistic_grad_kernel_matches_plain(cuda, m, n, p):
     X, y, B = _logistic_inputs(cuda, m, n, p)
     before = LAUNCHES["logistic_grad"]
@@ -257,6 +268,73 @@ def test_logistic_grad_kernel_matches_plain(cuda, m, n, p):
     _assert_close((got,), (logistic_grad(X, y, B, use_kernel=False),))
     # the sample reduction runs in a fixed order: the same bits every run
     assert torch.equal(got, logistic_grad(X, y, B))
+
+
+@pytest.mark.parametrize("m, n, p", _FUSED_SHAPES)
+def test_logistic_grad_plan_is_the_launchers(cuda, m, n, p):
+    """`plan` is what the launcher chooses and launches (a cluster launch
+    wherever the plan's cluster is above 1)."""
+    X, y, B = _logistic_inputs(cuda, m, n, p)
+    vec = vectorized(X, B)
+    props = torch.cuda.get_device_properties(cuda)
+    want = plan(m, n, p, props.multi_processor_count,
+                props.shared_memory_per_block_optin, vec=vec)
+    assert kernel_plan(m, n, p, vec, cuda) == (
+        want, props.multi_processor_count)
+    G = torch.empty((m, p), device=cuda)
+    work = torch.empty((m, want.chunks, p), device=cuda)
+    ran = launch(X, y, B, G, work, ticket_counters(cuda, m * want.cluster))
+    assert ran == want
+    _assert_close((G,), (logistic_grad(X, y, B, use_kernel=False),))
+
+
+def test_logistic_grad_refuses_short_scratch(cuda):
+    """A workspace or counter buffer smaller than the plan needs is
+    refused at launch, not written past."""
+    X, y, B = _logistic_inputs(cuda, 4, 256, 8192)
+    pl = plan(4, 256, 8192,
+              torch.cuda.get_device_properties(cuda).multi_processor_count,
+              torch.cuda.get_device_properties(
+                  cuda).shared_memory_per_block_optin)
+    G = torch.empty((4, 8192), device=cuda)
+    short = torch.empty((4, pl.chunks - 1, 8192), device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch(X, y, B, G, short, ticket_counters(cuda, 4 * pl.cluster))
+    work = torch.empty((4, pl.chunks, 8192), device=cuda)
+    few = torch.zeros(4 * pl.cluster - 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch(X, y, B, G, work, few)
+
+
+def test_logistic_grad_leaves_its_counters_at_zero(cuda):
+    """Calls in a row, at shapes with and without clusters, share the
+    device's counters and leave them at zero."""
+    for m, n, p in ((4, 256, 8192), (16, 512, 1024), (2, 7, 129)):
+        X, y, B = _logistic_inputs(cuda, m, n, p)
+        first = logistic_grad(X, y, B)
+        for _ in range(3):
+            assert torch.equal(logistic_grad(X, y, B), first)
+    torch.cuda.synchronize()
+    held = ticket_counters(cuda, 1)
+    assert held.numel() >= 4 * 8 and int(held.abs().sum()) == 0
+
+
+def test_logistic_grad_call_is_one_kernel(cuda):
+    """A gradient call issues the fused kernel and nothing else: no fill
+    of its counters, no scale after it (the solver skips `* 1.0`)."""
+    from torch.profiler import ProfilerActivity, profile
+    X, y, B = _logistic_inputs(cuda, 16, 512, 1024)
+    logistic_grad(X, y, B)
+    torch.cuda.synchronize()
+    before = LAUNCHES["logistic_grad"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        logistic_grad(X, y, B)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert LAUNCHES["logistic_grad"] == before + 1
+    assert len(kernels) == 1 and "logistic_grad_kernel" in kernels[0], \
+        kernels
 
 
 @pytest.mark.parametrize("m, n, p", _LOGISTIC_SHAPES)
@@ -396,6 +474,15 @@ def test_group_threshold_kernel_matches_plain(cuda, p, m, dtype):
     # a strided B is taken too (the master step passes beta_u.T)
     out_t, keep_t = group_threshold(B.T.contiguous().T, 0.8)
     assert torch.equal(keep_t, keep) and torch.equal(out_t, out)
+    # an unaligned B takes single-element lanes: the same result
+    Bu = torch.empty(p * m + 1, dtype=dtype, device=cuda)[1:].view(p, m)
+    Bu.copy_(B)
+    out_u, keep_u = group_threshold(Bu, 0.8)
+    assert torch.equal(keep_u, keep) and torch.equal(out_u, out)
+
+
+def test_group_threshold_lanes_are_the_launchers(cuda):
+    assert all(kernel_row_lanes(v) == row_lanes(v) for v in range(1, 70))
 
 
 def test_grid_solve_kernels_match_plain_path(cuda):

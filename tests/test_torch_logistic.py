@@ -203,34 +203,126 @@ def test_unfused_plan_fills_the_card_at_both_shapes():
 
 # ---- the fused kernel's launch plan -------------------------------------------
 
-@pytest.mark.parametrize("m, n, p", [
+_PLAN_SHAPES = [
     (16, 512, 1024), (4, 256, 8192), (3, 500, 1000), (2, 7, 129),
     (1, 1, 1), (4, 256, 19328), (4, 256, 19329), (10, 350, 200),
-])
+]
+
+
+def _width(p):
+    return 4 if p % 4 == 0 else 1
+
+
+def _slice(p, pl, width=None):
+    """(vectors a row, vectors a column slice) of the plan."""
+    pv = -(-p // (width or _width(p)))
+    return pv, -(-pv // pl.cluster)
+
+
+def _column_counts(p, pl, width=None):
+    """How often the kernel's threads take each vector of a row: rank k,
+    thread i, vector j < vecs reads k sv + i + THREADS j inside its
+    slice."""
+    pv, sv = _slice(p, pl, width)
+    counts = np.zeros(pv, dtype=int)
+    for k in range(pl.cluster):
+        end = min(pv, (k + 1) * sv)
+        for j in range(max(pl.vecs, 1)):
+            q = k * sv + np.arange(ops.THREADS) + j * ops.THREADS
+            np.add.at(counts, q[q < end], 1)
+    return counts
+
+
+@pytest.mark.parametrize("m, n, p", _PLAN_SHAPES)
 def test_plan_covers_every_sample_and_fits_the_card(m, n, p):
     pl = ops.plan(m, n, p, **H100)
     assert pl.chunks >= 1 and pl.rows_per_chunk >= 1
     # every sample in exactly one chunk, no chunk empty
     assert pl.chunks * pl.rows_per_chunk >= n
     assert (pl.chunks - 1) * pl.rows_per_chunk < n
-    assert 1 <= pl.slab <= ops.SLAB_MAX
-    assert pl.chunks * 4 * p <= max(ops.TAIL_BYTES, 4 * p)
-    if pl.smem_bytes:
-        assert pl.slab <= pl.rows_per_chunk
-        assert pl.smem_bytes == (pl.slab + 2) * 4 * p
-        assert pl.smem_bytes + 512 <= H100["smem_optin"]
+    # every column in exactly one rank's slice, taken by one thread once
+    assert np.all(_column_counts(p, pl) == 1)
+    assert pl.mode in ops.MODES
+    _, sv = _slice(p, pl)
+    slice_bytes = sv * _width(p) * 4
+    if pl.mode == "registers":      # a ring of row groups, and their y
+        staged = ops.GROUP_STAGES * (ops.GROUP_VECS // pl.vecs)
+        assert pl.smem_bytes == staged * (slice_bytes + 4)
+    elif pl.mode == "ring":         # row slices, b's and the accumulator's
+        assert pl.smem_bytes == (ops.STAGES + 2) * slice_bytes \
+            + ops.STAGES * 4
+    else:
+        assert pl.smem_bytes == 0
+    assert pl.smem_bytes + 512 <= H100["smem_optin"]
+
+
+@pytest.mark.parametrize("m, n, p", _PLAN_SHAPES)
+def test_plan_cluster_divides_the_grid_and_bounds_the_tail(m, n, p):
+    pl = ops.plan(m, n, p, **H100)
+    assert pl.cluster in (1, 2, 4, 8) and pl.cluster <= ops.CLUSTER_MAX
+    blocks_x = pl.chunks * pl.cluster
+    assert blocks_x % pl.cluster == 0
+    # no slice narrower than a block's threads, unless C = 1
+    pv, sv = _slice(p, pl)
+    assert pl.cluster == 1 or sv >= ops.THREADS
+    # the tail block of a (task, rank) adds `chunks` partial slices
+    slice_bytes = 4 * sv * _width(p)
+    assert pl.chunks * slice_bytes <= max(ops.TAIL_BYTES, slice_bytes)
+
+
+@pytest.mark.parametrize("m, n, p", _PLAN_SHAPES)
+def test_plan_keeps_a_slice_in_registers_where_it_fits(m, n, p):
+    pl = ops.plan(m, n, p, **H100)
+    _, sv = _slice(p, pl)
+    need = -(-sv // ops.THREADS)
+    if need <= ops.V_MAX:
+        assert pl.mode == "registers" and pl.vecs in (1, 2, 4)
+        assert pl.vecs >= need
+    else:
+        assert pl.mode in ("ring", "twice") and pl.vecs == need
 
 
 def test_plan_main_path_shapes_and_where_x_is_read_twice():
+    """Both path shapes fill the card with blocks that keep their row
+    slices in registers: 512 blocks of a whole row (four an SM, with no
+    cluster to wait on) at (16, 512, 1024), clusters of eight 4 KB
+    slices at (4, 256, 8192); the mode changes where a thread's share of
+    a slice leaves registers, and again where the ring leaves the
+    per-block limit."""
+    want = ops.BLOCKS_PER_SM * H100["sms"]
     main = ops.plan(16, 512, 1024, **H100)
-    assert main == ops.Plan(chunks=17, rows_per_chunk=31, slab=8,
-                            smem_bytes=40960)
+    assert main == ops.Plan(chunks=32, rows_per_chunk=16, cluster=1,
+                            mode="registers", vecs=1, smem_bytes=49200)
     largep = ops.plan(4, 256, 8192, **H100)
-    assert largep == ops.Plan(chunks=16, rows_per_chunk=16, slab=5,
-                              smem_bytes=229376)
-    # one row, b and the accumulator fit up to p = 19,328 on the H100
-    assert ops.plan(4, 256, 19328, **H100).smem_bytes > 0
-    assert ops.plan(4, 256, 19329, **H100).smem_bytes == 0
+    assert largep == ops.Plan(chunks=9, rows_per_chunk=29, cluster=8,
+                              mode="registers", vecs=1, smem_bytes=49200)
+    # 48 KB of ring a block: four blocks share an SM's 228 KB, so the 512
+    # and 288 blocks are resident at once
+    assert 4 * (main.smem_bytes + 1024 + 512) <= 228 * 1024
+    for (m, _, _), pl in (((16, 512, 1024), main), ((4, 256, 8192), largep)):
+        assert m * pl.chunks * pl.cluster >= want
+    # p = 19,328 still fits registers (C = 8, three float4 a thread, run
+    # as four); p = 19,329 takes scalar loads and the ring
+    assert ops.plan(4, 256, 19328, **H100).mode == "registers"
+    assert ops.plan(4, 256, 19329, **H100).mode == "ring"
+    # float4: registers up to p = 8 * 256 * 4 * V_MAX = 32,768
+    assert ops.plan(4, 256, 32768, **H100).mode == "registers"
+    assert ops.plan(4, 256, 32772, **H100).mode == "ring"
+    # the ring holds (STAGES + 2) slices and their y up to p = 92,768;
+    # then X twice
+    assert ops.plan(2, 8, 92768, **H100).mode == "ring"
+    assert ops.plan(2, 8, 92772, **H100).mode == "twice"
+
+
+@pytest.mark.parametrize("p", [1024, 1023])
+def test_plan_takes_float4_only_where_it_may(p):
+    """By default the plan counts float4 vectors where p % 4 == 0; for an
+    unaligned operand (vec=False) it counts single floats, and still
+    covers every column once."""
+    assert ops.plan(4, 64, p, **H100) == \
+        ops.plan(4, 64, p, **H100, vec=p % 4 == 0)
+    scalar = ops.plan(4, 64, p, **H100, vec=False)
+    assert np.all(_column_counts(p, scalar, width=1) == 1)
 
 
 # ---- the solver ---------------------------------------------------------------

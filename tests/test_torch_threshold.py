@@ -24,7 +24,9 @@ from repro.kernels.group_threshold.ops import (
 from repro_torch.convert import from_reference
 from repro_torch.core.dsml import dsml_fit
 from repro_torch.kernels.common import LAUNCHES
-from repro_torch.kernels.group_threshold.ops import group_threshold
+from repro_torch.kernels.group_threshold.ops import (
+    VECTOR, group_threshold, row_lanes, row_vectors,
+)
 from repro_torch.kernels.group_threshold.ref import group_threshold_ref
 
 
@@ -76,6 +78,33 @@ def test_group_threshold_bf16_matches_reference(p, m):
     np.testing.assert_allclose(out.float().numpy(),
                                np.array(out_j, np.float32), rtol=2 ** -8,
                                atol=0)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 16, 40, 64, 129, 1000])
+def test_row_lanes_take_each_vector_of_a_row_once(m, aligned):
+    """The kernel's lane mapping: a row's vectors are float4 (or four
+    bf16) only where m % 4 == 0 and the pointers are aligned; the row
+    takes the least power of two of lanes that covers them, at most 32,
+    so whole rows share a warp, and lane s takes vectors s, s + lanes,
+    ..."""
+    vecs = row_vectors(m, aligned)
+    width = VECTOR if aligned and m % VECTOR == 0 else 1
+    assert vecs * width == m
+    lanes = row_lanes(vecs)
+    assert 32 % lanes == 0 and 1 <= lanes <= 32
+    assert lanes >= min(vecs, 32) and (lanes == 1 or lanes // 2 < vecs)
+    counts = np.zeros(vecs, dtype=int)
+    for s in range(lanes):
+        counts[s::lanes] += 1
+    assert np.all(counts == 1)
+
+
+def test_row_lanes_at_the_master_steps_width():
+    """At m = 16 tasks a row is four float4 on four lanes: eight rows a
+    warp, where one warp a row left half its lanes idle."""
+    assert row_vectors(16) == 4 and row_lanes(4) == 4
+    assert row_lanes(row_vectors(5)) == 8
 
 
 def test_comparison_is_squared_sum_against_lambda_squared():
