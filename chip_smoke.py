@@ -102,15 +102,48 @@ Phases, each of which raises on failure (exit code != 0):
    times, tokens per second and peak memory; then an f32 copy of the same
    widths at 4 layers (batch 2, prompt 2048, 8 new tokens), whose kernel
    and plain paths must give identical tokens and last logits within
-   1e-4 * max|logits|.
+   1e-4 * max|logits|;
+7. the streaming service (`repro_torch.stream`), each sub-phase with the
+   launch counts zeroed just before and read just after:
+   7a. phase 4's data ingested in 4 chunks of 128 rows: Sigma and c
+       within 1e-5 * max|.| of `sufficient_stats` on all 512 rows; a cold
+       `refit` (400 + 600 iterations) with phase 4's support and beta_u
+       within 1e-4 * max|beta_u|; `rank_update` 4, GEMV 400 and SGEMM 600
+       launches and nothing else;
+   7b. `StreamingDsmlService` at m = 16, p = 1024 (refit_every 1024, the
+       guard, a checkpoint store) fed 24 chunks of 256 rows of one seeded
+       AR(0.5) regime whose support moves at chunk 12, chunk 5 poisoned
+       with a NaN row (`repro_torch.testing.apply_batch_fault`), which must
+       be quarantined with (Sigma, c, counts) bitwise unchanged, while a
+       client thread submits single rows to a `ServingFront(max_batch=64,
+       max_delay_ms=2)`: `rank_update` exactly once a chunk, a refit's
+       GEMV and SGEMM once an iteration it ran and the health check's ISTA
+       step once; the ingest p50 and rows/s, the cold and warm refit
+       times, generations and rollbacks, `serve.request_ms` p50/p99
+       overall and while a refit runs, a checkpoint save, peak memory;
+       every front result scored by a generation that was published
+       while its request was in flight, and equal to that generation's
+       model; the same chunks with `use_kernel=False` on the card: the
+       same generations, cadence and supports, beta_tilde within
+       1e-4 * max|.|; `restore()` into a fresh service: the last
+       checkpoint's generation and bits;
+   7c. `benchmarks/stream_bench.py`'s full configuration, (8, 1024, 256),
+       8 chunks, refit_every 1024: `rank_update` once a chunk (row 4i's
+       launches), ingest times;
+   7d. `refit_logistic` on phase 4b's data, generation 0 (cold) then 1
+       (warm), against its plain path on the card (beta_u within
+       1e-4 * max|.|, the same support), the cold one also against phase
+       4b's fit; `logistic_grad` 600, `rank_update` 2 (the step sizes' and
+       the weighted Hessian's), SGEMM 600 launches each.
 
-It prints one JSON line of kernels (launches per run from phases 4-4c
-and 6) and, last, the result line. With no CUDA device it raises before
+It prints one JSON line of kernels (launches per run from phases 4-4c,
+6 and 7c) and, last, the result line. With no CUDA device it raises before
 printing any result.
 """
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -184,6 +217,371 @@ def ptxas_lines(log: str) -> list[str]:
             used = line.split(":", 1)[1].strip()
             out.append(f"  {fn}: {used}; {spill}")
     return out
+
+
+def pct(values, q: float) -> float:
+    """The q-quantile (0..1) of `values`, linear between order
+    statistics, as `repro_torch.obs` computes it."""
+    return float(np.quantile(np.asarray(values, dtype=np.float64), q))
+
+
+def stream_phase(dev, card, data, res, cdata, cres, cfit_args, lam, mu,
+                 Lam) -> int:
+    """Phase 7: the streaming service (`repro_torch.stream`) on the card.
+    Returns the `rank_update` launches of 7c's run (row 4i)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch import obs
+    from repro_torch.core import sufficient_stats
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.launch.profile_serve import device_report
+    from repro_torch.launch.stream_online import draw_chunk, make_regime
+    from repro_torch.obs import torchprof
+    from repro_torch.stream import (
+        ServingFront, StreamingDsmlService, ingest, init_stream_state,
+        refit, refit_health, refit_logistic,
+    )
+    from repro_torch.testing import apply_batch_fault, make_clean_batch
+
+    def only(**counts) -> dict:
+        want = dict.fromkeys(LAUNCHES, 0)
+        want.update(counts)
+        return want
+
+    def delta(before: dict) -> dict:
+        return {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+
+    # ---- 7a. additivity at full width ---------------------------------
+    Xs, ys = data.Xs, data.ys
+    Sig_all, c_all = sufficient_stats(Xs, ys)
+    chunks_a = [(Xs[:, i:i + 128].contiguous(), ys[:, i:i + 128].contiguous())
+                for i in range(0, N, 128)]
+    torch.cuda.synchronize()
+    reset_launches()
+    st = init_stream_state(M, P, device=dev)
+    for X, y in chunks_a:
+        st = ingest(st, X, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, info = refit(st, lam, mu, Lam, lasso_iters=400, debias_iters=600,
+                     warm=False)
+    torch.cuda.synchronize()
+    refit_a_ms = (time.perf_counter() - t0) * 1e3
+    launches_a = dict(LAUNCHES)
+    check(launches_a == only(rank_update=4, fista_step_gemv=400,
+                             fista_step_gemm=600),
+          f"7a: launches {launches_a}")
+    for name, a, b in (("Sigma", st.Sigmas, Sig_all), ("c", st.cs, c_all)):
+        err, scale = max_err(a, b)
+        check(err <= TOL_KERNEL * scale, f"7a: chunked {name} err {err} > "
+              f"{TOL_KERNEL} * {scale}")
+        print(f"stream 7a: {name} of 4 chunks of 128 rows vs sufficient_stats "
+              f"of the {N} rows: max abs err {err:.3g} (max {scale:.3g})")
+    check(bool(torch.all(st.counts == N)), "7a: counts")
+    check(bool(torch.equal(st.support, res.support)),
+          "7a: the refit's support differs from phase 4's dsml_fit")
+    err, scale = max_err(st.beta_u, res.beta_u)
+    check(err <= TOL_FIT * scale, f"7a: refit beta_u err {err} > "
+          f"{TOL_FIT} * {scale}")
+    print(f"stream 7a: cold refit (400 + 600 iterations) vs phase 4's "
+          f"dsml_fit: beta_u max abs err {err:.3g} (max {scale:.3g}), the "
+          f"same support ({int(st.support.sum())}); wall {refit_a_ms:.1f} "
+          f"ms, no front running; launches {launches_a} {card}")
+
+    # ---- 7b. the service while serving --------------------------------
+    gen = torch.Generator(device=dev).manual_seed(7)
+    chol, B, _ = make_regime(gen, P, M, S, device=dev)
+    chunks = []
+    for i in range(24):
+        if i == 12:                            # the support moves
+            chol, B, _ = make_regime(gen, P, M, S, device=dev)
+        chunks.append(draw_chunk(gen, chol, B, 256))
+    chunks[5] = apply_batch_fault(*chunks[5], "nan",
+                                  np.random.default_rng(5))
+    client_rows = np.random.default_rng(11).standard_normal(
+        (4096, P)).astype(np.float32)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    kw = dict(lam=lam, mu=mu, Lam=Lam, refit_every=1024, device=dev)
+    svc = StreamingDsmlService(M, P, guard=True, ckpt_dir=ckpt_dir, **kw)
+    # each generation's publication, bracketed by the host clock
+    published = {0: (float("-inf"), float("-inf"),
+                     svc.serving().beta_tilde)}
+    publish = svc.publish_model
+
+    def timed_publish():
+        t0 = time.perf_counter()
+        snap = publish()
+        published[snap.generation] = (t0, time.perf_counter(),
+                                      snap.beta_tilde)
+        return snap
+
+    svc.publish_model = timed_publish
+    done, futures = [], []
+    stop = threading.Event()
+
+    def client(front):
+        i = 0
+        while not stop.is_set():
+            row = client_rows[i % len(client_rows)]
+            t0 = time.perf_counter()
+            fut = front.submit(row)
+            fut.add_done_callback(lambda f, t0=t0, row=row: done.append(
+                (t0, time.perf_counter(), row, f.result())))
+            futures.append(fut)
+            i += 1
+            time.sleep(0.0005)
+
+    obs.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    front = ServingFront(svc, max_batch=64, max_delay_ms=2.0).start()
+    th = threading.Thread(target=client, args=(front,))
+    th.start()
+    time.sleep(0.05)                           # traffic before chunk 0
+    trail = []                     # per chunk: kernel path's outcome
+    for i, (X, y) in enumerate(chunks):
+        if i == 5:
+            pre = (svc.state.Sigmas, svc.state.cs, svc.state.counts)
+            pre_bits = [t.clone() for t in pre]
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = svc.ingest(X, y)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        d = delta(before)
+        trail.append((t0, t1, out, svc.generation, svc._interval,
+                      svc.state.support, svc.state.beta_tilde))
+        if out is None:
+            check(d == only(rank_update=1), f"7b chunk {i}: launches {d}")
+        elif out.lasso_iters_run is not None:
+            check(d == only(rank_update=1,
+                            fista_step_gemv=out.lasso_iters_run,
+                            fista_step_gemm=out.debias_iters_run,
+                            ista_step_batched_gemv=1),
+                  f"7b chunk {i}: refit launches {d}")
+        if i == 5:
+            check(out is None and svc.guard.total_quarantined == 1
+                  and svc.guard.ledger[-1].reason == "nonfinite",
+                  "7b: the NaN chunk was not quarantined")
+            check(all(torch.equal(a, b) for a, b in zip(
+                (svc.state.Sigmas, svc.state.cs, svc.state.counts),
+                pre_bits)) and svc.state.Sigmas is pre[0],
+                  "7b: the quarantined chunk changed (Sigma, c)")
+    time.sleep(0.05)
+    stop.set()
+    th.join(30)
+    check(front.stop(timeout=30) and not th.is_alive(),
+          "7b: the front or its client did not stop")
+    launches_b = dict(LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(launches_b["rank_update"] == len(chunks),
+          f"7b: {launches_b['rank_update']} rank_update launches for "
+          f"{len(chunks)} chunks")
+    check(all(f.done() and f.exception() is None for f in futures),
+          "7b: a request failed or never resolved")
+    gens = sorted(published)
+    for t_sub, t_done, row, r in done:
+        g = r.generation
+        check(g in published, f"7b: a result of unpublished generation {g}")
+        nxt = [h for h in gens if h > g]
+        check(published[g][0] <= t_done
+              and (not nxt or published[nxt[0]][1] >= t_sub),
+              f"7b: generation {g} was not the published model while a "
+              "request was in flight")
+        want = published[g][2].cpu().numpy() @ row
+        check(np.max(np.abs(r.scores[:, 0] - want))
+              <= TOL_KERNEL * max(np.max(np.abs(want)), 1e-30),
+              f"7b: a result differs from generation {g}'s model")
+    # a request "during a refit" overlaps a `stream.refit` span (the
+    # solves and the health check; not the checkpoint after them)
+    refit_spans = [(e["ts"] / 1e6, (e["ts"] + e["dur"]) / 1e6)
+                   for e in obs.get_registry().trace_events()
+                   if e["name"] == "stream.refit"]
+    refit_ms = [(b - a) * 1e3 for a, b in refit_spans]
+    lat, lat_refit, lat_quiet = [], [], []
+    for t0, t1, _, _ in done:
+        lat.append((t1 - t0) * 1e3)
+        (lat_refit if any(t0 < b and t1 > a for a, b in refit_spans)
+         else lat_quiet).append(lat[-1])
+    check(len(lat_refit) > 0 and len(lat_quiet) > 0 and len(refit_ms) > 1,
+          "7b: no request overlapped a refit, or none did not, or no warm "
+          "refit ran")
+    ingest_ms = [(t1 - t0) * 1e3 for i, (t0, t1, out, *_) in
+                 enumerate(trail) if out is None and i != 5]
+    # with the front stopped: guarded ingests into a service that does
+    # not refit, a warm refit of the served state and its health check,
+    # then one of each under the profiler
+    quiet = StreamingDsmlService(M, P, lam=lam, mu=mu, Lam=Lam,
+                                 refit_every=10**9, device=dev)
+    quiet_ms = []
+    for X, y in chunks[6:12]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quiet.ingest(X, y)
+        torch.cuda.synchronize()
+        quiet_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def warm_refit():
+        cand, _ = refit(svc.state, lam, mu, Lam,
+                        lasso_iters=svc.warm_lasso_iters,
+                        debias_iters=svc.warm_debias_iters)
+        return refit_health(cand, lam)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(warm_refit().healthy, "7b: the quiet warm refit is unhealthy")
+    quiet_refit_ms = (time.perf_counter() - t0) * 1e3
+    prof_dir = tempfile.mkdtemp(prefix="chip_smoke_prof_")
+    for label, fn in (("a chunk's ingest", lambda: quiet.ingest(*chunks[12])),
+                      ("a warm refit and its health check", warm_refit)):
+        with torchprof.profiler_trace(prof_dir) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        device_report(f"stream 7b profile, {label} (front stopped)", prof,
+                      wall_s, 1)
+    shutil.rmtree(prof_dir)
+    t0 = time.perf_counter()
+    ckpt_path = svc.checkpoint()
+    ckpt_ms = (time.perf_counter() - t0) * 1e3
+    ckpt_mib = os.path.getsize(ckpt_path) / 2**20
+    fresh = StreamingDsmlService(M, P, ckpt_dir=ckpt_dir, **kw)
+    check(fresh.restore() == svc.generation,
+          "7b: restore() did not return the last checkpoint's generation")
+    check(all(a.device == b.device and torch.equal(a, b)
+              for a, b in zip(fresh.state, svc.state)),
+          "7b: restore() did not return the last checkpoint's bits")
+    del fresh
+    shutil.rmtree(ckpt_dir)
+    sizes = [int(s.sum()) for _, _, _, _, _, s, _ in trail]
+    print(f"stream 7b: {len(chunks)} chunks of (16, 256, 1024), the support "
+          f"moved at chunk 12, chunk 5 NaN-poisoned and quarantined with "
+          f"(Sigma, c, counts) bitwise unchanged; generations "
+          f"{svc.generation}, rollbacks {svc.rollbacks}, refits at chunks "
+          f"{[i for i, t in enumerate(trail) if t[2] is not None]}, "
+          f"intervals {[t[4] for t in trail]}, support sizes {sizes}; "
+          f"launches {launches_b} (rank_update 1 a chunk; a refit: the "
+          f"GEMV once a lasso iteration, the SGEMM once a debias "
+          f"iteration, ista_step_batched once)")
+    print(f"stream 7b times, the front serving: ingest p50 "
+          f"{pct(ingest_ms, 0.5):.3f} ms a chunk (to a synchronize; "
+          f"{len(ingest_ms)} chunks without a refit), "
+          f"{M * 256 / pct(ingest_ms, 0.5) * 1e3:.0f} rows/s; refit cold "
+          f"{refit_ms[0]:.1f} ms, warm p50 {pct(refit_ms[1:], 0.5):.1f} ms "
+          f"(max {max(refit_ms[1:]):.1f}; stream.refit spans); checkpoint "
+          f"save {ckpt_ms:.1f} ms ({ckpt_mib:.1f} MiB); peak memory "
+          f"{peak_gib:.2f} GiB {card}")
+    print(f"stream 7b times, the front stopped: ingest p50 "
+          f"{pct(quiet_ms, 0.5):.3f} ms a chunk ({len(quiet_ms)} chunks, "
+          f"{M * 256 / pct(quiet_ms, 0.5) * 1e3:.0f} rows/s); a warm refit "
+          f"and its health check {quiet_refit_ms:.1f} ms {card}")
+    print(f"stream 7b serving front (max_batch 64, max_delay 2 ms, one "
+          f"client, a row every 0.5 ms): {len(lat)} requests, "
+          f"serve.request_ms p50 {pct(lat, 0.5):.3f} p99 "
+          f"{pct(lat, 0.99):.3f}; during a refit ({len(lat_refit)}): "
+          f"p50 {pct(lat_refit, 0.5):.3f} p99 {pct(lat_refit, 0.99):.3f} "
+          f"max {max(lat_refit):.3f}; outside refits ({len(lat_quiet)}): "
+          f"p50 {pct(lat_quiet, 0.5):.3f} p99 {pct(lat_quiet, 0.99):.3f}; "
+          f"batches {obs.counter_total('serve.batches'):.0f}, mean rows "
+          f"{obs.hist_stats('serve.batch_rows')['mean']:.2f} {card}")
+
+    # the same chunks on the plain path on the card, with no front
+    ref = StreamingDsmlService(M, P, guard=True, use_kernel=False, **kw)
+    before = dict(LAUNCHES)
+    worst = 0.0
+    for i, (X, y) in enumerate(chunks):
+        out = ref.ingest(X, y)
+        _, _, got, g, interval, support, beta = trail[i]
+        check((out is None) == (got is None) and ref.generation == g
+              and ref._interval == interval,
+              f"7b chunk {i}: the plain path's cadence differs")
+        check(bool(torch.equal(ref.state.support, support)),
+              f"7b chunk {i}: the plain path's support differs")
+        err, scale = max_err(beta, ref.state.beta_tilde)
+        check(err <= TOL_FIT * scale, f"7b chunk {i}: beta_tilde err {err} "
+              f"> {TOL_FIT} * {scale}")
+        worst = max(worst, err)
+    check(dict(LAUNCHES) == before, "7b: the plain path launched a kernel")
+    print(f"stream 7b plain path (use_kernel=False, on the card): the same "
+          f"generations, cadence and supports at every chunk; beta_tilde "
+          f"max abs err {worst:.3g}")
+
+    # ---- 7c. the ingest shape of row 4i -------------------------------
+    rng = np.random.default_rng(0)
+    m_i, n_i, p_i = INGEST
+    chunks_i = [make_clean_batch(rng, m_i, n_i, p_i, device=dev)
+                for _ in range(8)]
+    svc_i = StreamingDsmlService(
+        m_i, p_i, lam=0.4, mu=0.2, Lam=1.0, guard=False, refit_every=n_i,
+        max_refit_interval=4 * n_i, lasso_iters=200, debias_iters=200,
+        refit_tol=1e-5, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    times_i, refits_i = [], []
+    for i, (X, y) in enumerate(chunks_i):
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        out = svc_i.ingest(X, y)
+        torch.cuda.synchronize()
+        (times_i if out is None else refits_i).append(
+            (time.perf_counter() - t0) * 1e3)
+        check(delta(before)["rank_update"] == 1,
+              f"7c chunk {i}: rank_update launched {delta(before)}")
+    launches_c = LAUNCHES["rank_update"]
+    check(launches_c == len(chunks_i), f"7c: {launches_c} launches")
+    print(f"stream 7c ({m_i}, {n_i}, {p_i}) x {len(chunks_i)} chunks, "
+          f"refit_every {n_i} (benchmarks/stream_bench.py's full "
+          f"configuration): rank_update {launches_c} launches, one a chunk; "
+          f"ingest without a refit p50 {pct(times_i, 0.5):.3f} ms "
+          f"({len(times_i)} chunks, {m_i * n_i / pct(times_i, 0.5) * 1e3:.0f}"
+          f" rows/s), with a refit p50 {pct(refits_i, 0.5):.1f} ms "
+          f"({len(refits_i)}); generation {svc_i.generation} {card}")
+
+    # ---- 7d. refit_logistic, cold then warm ---------------------------
+    cX, cy, lam_c, mu_c, Lam_c = cfit_args
+    st_k = st_p = init_stream_state(M, P, device=dev)
+    for g in (0, 1):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        st_k, _ = refit_logistic(st_k, cX, cy, lam_c, mu_c, Lam_c)
+        torch.cuda.synchronize()
+        k_ms = (time.perf_counter() - t0) * 1e3
+        launches_d = dict(LAUNCHES)
+        check(launches_d == only(rank_update=2, logistic_grad=600,
+                                 fista_step_gemm=600),
+              f"7d generation {g}: launches {launches_d}")
+        t0 = time.perf_counter()
+        st_p, _ = refit_logistic(st_p, cX, cy, lam_c, mu_c, Lam_c,
+                                 use_kernel=False)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        check(dict(LAUNCHES) == launches_d,
+              "7d: the plain path launched a kernel")
+        err, scale = max_err(st_k.beta_u, st_p.beta_u)
+        check(err <= TOL_FIT * scale, f"7d generation {g}: beta_u err {err} "
+              f"> {TOL_FIT} * {scale}")
+        check(bool(torch.equal(st_k.support, st_p.support)),
+              f"7d generation {g}: supports differ")
+        if g == 0:
+            e0, s0 = max_err(st_k.beta_u, cres.beta_u)
+            check(e0 <= TOL_FIT * s0 and bool(torch.equal(st_k.support,
+                                                          cres.support)),
+                  "7d: the cold refit differs from phase 4b's fit")
+        print(f"stream 7d refit_logistic generation {g} -> {g + 1} "
+              f"({'cold' if g == 0 else 'warm'}, 600 + 600 iterations): "
+              f"beta_u max abs err vs plain {err:.3g} (max {scale:.3g}), "
+              f"the same support ({int(st_k.support.sum())}); launches "
+              f"{launches_d} (rank_update: the step sizes' and the weighted "
+              f"Hessian's); wall kernels {k_ms:.1f} ms, plain {p_ms:.1f} ms "
+              f"{card}")
+    return launches_c
 
 
 def main() -> None:
@@ -1150,13 +1548,18 @@ def main() -> None:
           f"{gen32_s * 1e3:.1f} ms {card}")
     del p32
 
+    # ---- 7. the streaming service ------------------------------------------
+    launches_ingest = stream_phase(dev, card, data, res, cdata, cres,
+                                   cfit_args, lam, mu, Lam)
+
     # launches per run: the regression rows from phase 4, the logistic
     # rows from phase 4b (the unfused pair is not on either path), the
-    # rows of the third slice from phase 4c, flash from phase 6; a row at
-    # another shape than its path's takes its kernel's count
+    # rows of the third slice from phase 4c, flash from phase 6, the
+    # ingest shape's row from phase 7c's 8 chunks; a row at another
+    # shape than its path's takes its kernel's count
     run_launches = {**launches,
                     "rank_update_weighted": claunches["rank_update"],
-                    "rank_update_ingest": launches["rank_update"],
+                    "rank_update_ingest": launches_ingest,
                     "flash_attention_h128": serve_launches["flash_attention"],
                     "logistic_grad": claunches["logistic_grad"],
                     "logistic_grad_p8192": claunches["logistic_grad"],

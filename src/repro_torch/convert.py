@@ -2,8 +2,11 @@
 
 DSML has no trained weights: what crosses between the two packages is
 data (`MultiTaskData`), a fit's result (`DsmlResult`,
-`DsmlLogisticResult`) and the warm-start arrays of a refit (`beta0`,
-the local lasso solution, and `M0`, the debias matrices).
+`DsmlLogisticResult`), the warm-start arrays of a refit (`beta0`,
+the local lasso solution, and `M0`, the debias matrices) and the
+streaming service's state (`StreamState`, `WindowState`), whose
+counters (`generation`, `head`, `seen`) go to the host whatever
+`device` is, as the port keeps them.
 `from_reference` takes the reference's NamedTuples or arrays — JAX or
 numpy arrays, anything `np.array` reads — and returns the port's
 tensors and NamedTuples on `device`. The reference's types
@@ -22,9 +25,13 @@ from repro_torch.core.dsml import DsmlResult
 from repro_torch.core.logistic import DsmlLogisticResult
 from repro_torch.core.synth import MultiTaskData
 from repro_torch.models.backbone import _check_dense
+from repro_torch.stream.state import StreamState, WindowState
 
 _TUPLES = {cls.__name__: cls
-           for cls in (MultiTaskData, DsmlResult, DsmlLogisticResult)}
+           for cls in (MultiTaskData, DsmlResult, DsmlLogisticResult,
+                       StreamState, WindowState)}
+# fields the port keeps on the host: the counters the host branches on
+_HOST_FIELDS = {"generation", "head", "seen"}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -40,16 +47,18 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def from_reference(obj, device="cuda"):
-    """A reference `MultiTaskData`, `DsmlResult` or `DsmlLogisticResult`
-    -> the port's NamedTuple of tensors; any other array (e.g. `beta0`,
-    `M0`) -> one tensor. Dtypes are kept (float32 stays float32, bool stays bool)."""
+    """A reference `MultiTaskData`, `DsmlResult`, `DsmlLogisticResult`,
+    `StreamState` or `WindowState` -> the port's NamedTuple of tensors;
+    any other array (e.g. `beta0`, `M0`) -> one tensor. Dtypes are kept
+    (float32 stays float32, bool stays bool, int32 stays int32)."""
     fields = getattr(obj, "_fields", None)
     if fields is not None:
         cls = _TUPLES.get(type(obj).__name__)
         if cls is None or cls._fields != fields:
             raise TypeError(f"from_reference: no port counterpart for "
                             f"{type(obj).__name__}{fields}")
-        return cls(*(_tensor(a, device) for a in obj))
+        return cls(*(_tensor(a, "cpu" if f in _HOST_FIELDS else device)
+                     for f, a in zip(fields, obj)))
     return _tensor(obj, device)
 
 

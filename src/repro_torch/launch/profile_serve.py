@@ -28,6 +28,9 @@ from repro_torch.serving.cell import NEW_TOKENS, make_cell
 
 def _group(name: str) -> str:
     low = name.lower()
+    if any(w in low for w in ("fista_", "ista_step", "rank_update",
+                              "rank_c", "logistic_", "group_threshold")):
+        return "the port's DSML kernels"
     if "flash_fwd" in low:
         return "flash_attention kernel"
     if any(w in low for w in ("gemm", "gemv", "xmma", "cutlass", "cublas",
@@ -36,7 +39,11 @@ def _group(name: str) -> str:
     return "other (elementwise, norms, RoPE, softmax, copies)"
 
 
-def _report(label: str, prof, wall_s: float, reps: int) -> None:
+def device_report(label: str, prof, wall_s: float, reps: int) -> None:
+    """Print what a `torch.profiler` profile of `reps` runs taking
+    `wall_s` seconds on the host shows of the card: its busy time (the
+    union of the kernels' intervals) and idle share, kernels per run,
+    and device time by kernel group and by kernel name."""
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -101,13 +108,13 @@ def main() -> None:
         logits, caches = prefill()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _report(f"{cfg.name} prefill (batch {B}, prompt {S})", prof, wall, 1)
+    device_report(f"{cfg.name} prefill (batch {B}, prompt {S})", prof, wall, 1)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         decode(logits, caches)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _report(f"{cfg.name} decode step (batch {B}, cache {cache_len})",
+    device_report(f"{cfg.name} decode step (batch {B}, cache {cache_len})",
             prof, wall, steps)
     ops = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CPU

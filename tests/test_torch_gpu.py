@@ -562,3 +562,113 @@ def test_flash_attention_launches_once_per_layer_of_prefill(cuda):
     assert bool(torch.isfinite(d_logits[..., :cfg.vocab]).all())
     err = (logits.float() - plain.float()).abs().max().item()
     assert err <= 0.1 * plain.float().abs().max().item()
+
+
+# ---- the streaming service (repro_torch.stream) on the card ----------------
+
+def _stream_chunks(cuda, m, n, p, k, seed=3):
+    from repro_torch.testing import make_clean_batch
+    rng = np.random.default_rng(seed)
+    return [make_clean_batch(rng, m, n, p, device=cuda) for _ in range(k)]
+
+
+def test_stream_service_kernel_path_matches_plain(cuda):
+    """A guarded service on the card, default (kernels) against
+    `use_kernel=False` (the plain versions, on the card): one
+    `rank_update` launch a chunk and none on the plain path; the same
+    generations, cadence and supports; beta_tilde within 1e-4 · max|.|;
+    refits launch the GEMV, the SGEMM and the health check's ISTA
+    step."""
+    from repro_torch.stream import StreamingDsmlService
+    kw = dict(lam=0.3, mu=0.15, Lam=0.5, refit_every=256, device=cuda)
+    svc = StreamingDsmlService(4, 256, **kw)
+    ref = StreamingDsmlService(4, 256, use_kernel=False, **kw)
+    for X, y in _stream_chunks(cuda, 4, 128, 256, 8):
+        before = dict(LAUNCHES)
+        got = svc.ingest(X, y)
+        assert LAUNCHES["rank_update"] == before["rank_update"] + 1
+        if got is not None:
+            for key in ("fista_step_gemv", "fista_step_gemm",
+                        "ista_step_batched_gemv"):
+                assert LAUNCHES[key] > before[key], key
+        before = dict(LAUNCHES)
+        want = ref.ingest(X, y)
+        assert dict(LAUNCHES) == before         # the plain path launches none
+        assert (got is None) == (want is None)
+        assert (svc.generation, svc._interval) == (ref.generation,
+                                                   ref._interval)
+        assert torch.equal(svc.state.support, ref.state.support)
+        _assert_close((svc.state.beta_tilde,), (ref.state.beta_tilde,),
+                      tol=1e-4)
+    assert svc.generation >= 2
+    assert svc.state.generation.device.type == "cpu"
+
+
+def test_stream_guard_rejects_a_poisoned_chunk_bitwise_on_card(cuda):
+    from repro_torch.stream import IngestGuard, StreamingDsmlService
+    from repro_torch.testing import apply_batch_fault
+    svc = StreamingDsmlService(2, 64, lam=0.3, mu=0.15, Lam=0.5,
+                               refit_every=10**9, device=cuda,
+                               guard=IngestGuard(warmup_chunks=1))
+    chunks = _stream_chunks(cuda, 2, 64, 64, 4, seed=5)
+    for X, y in chunks[:3]:
+        svc.ingest(X, y)
+    before = [t.clone() for t in (svc.state.Sigmas, svc.state.cs,
+                                  svc.state.counts)]
+    for kind in ("nan", "inf", "outlier"):
+        X, y = apply_batch_fault(*chunks[3], kind,
+                                 np.random.default_rng(0))
+        assert svc.ingest(X, y) is None
+        assert all(torch.equal(b, a) for b, a in zip(
+            before, (svc.state.Sigmas, svc.state.cs, svc.state.counts)))
+    assert [r.reason for r in svc.guard.ledger] == \
+        ["nonfinite", "nonfinite", "outlier"]
+
+
+def test_stream_refit_logistic_kernel_path_matches_plain(cuda):
+    from repro_torch.stream import init_stream_state, refit_logistic
+    data = gen_classification(torch.Generator(device=cuda).manual_seed(2),
+                              m=4, n=256, p=128, s=4, device=cuda)
+    lam = float(np.sqrt(np.log(128) / 256))
+    st = ref = init_stream_state(4, 128, device=cuda)
+    for _ in range(2):                          # cold, then warm
+        before = dict(LAUNCHES)
+        st, _ = refit_logistic(st, data.Xs, data.ys, lam, 2 * lam, 0.5)
+        assert LAUNCHES["logistic_grad"] > before["logistic_grad"]
+        assert LAUNCHES["rank_update"] == before["rank_update"] + 2
+        ref, _ = refit_logistic(ref, data.Xs, data.ys, lam, 2 * lam, 0.5,
+                                use_kernel=False)
+        _assert_close((st.beta_u,), (ref.beta_u,), tol=1e-4)
+        assert torch.equal(st.support, ref.support)
+
+
+def test_stream_checkpoint_restores_on_card(cuda, tmp_path):
+    from repro_torch.stream import StreamingDsmlService
+    kw = dict(lam=0.3, mu=0.15, Lam=0.5, refit_every=128, device=cuda,
+              ckpt_dir=str(tmp_path))
+    svc = StreamingDsmlService(2, 64, **kw)
+    for X, y in _stream_chunks(cuda, 2, 128, 64, 2, seed=6):
+        svc.ingest(X, y)
+    fresh = StreamingDsmlService(2, 64, **kw)
+    assert fresh.restore() == svc.generation == 2
+    for a, b in zip(fresh.state, svc.state):
+        assert a.device == b.device and torch.equal(a, b)
+
+
+def test_stream_serving_front_on_card(cuda):
+    """The front pads into pinned host memory and scores on the card:
+    every result equals the service's own predict on the same row."""
+    from repro_torch.stream import ServingFront, StreamingDsmlService
+    svc = StreamingDsmlService(4, 64, lam=0.3, mu=0.15, Lam=0.5,
+                               refit_every=128, device=cuda)
+    for X, y in _stream_chunks(cuda, 4, 128, 64, 2, seed=7):
+        svc.ingest(X, y)
+    rows = np.random.default_rng(8).standard_normal((20, 64)).astype(
+        np.float32)
+    with ServingFront(svc, max_batch=8, max_delay_ms=1.0) as front:
+        res = [f.result(timeout=30) for f in [front.submit(r) for r in rows]]
+    want = svc.predict(rows).cpu().numpy()
+    for i, r in enumerate(res):
+        assert r.generation == svc.generation
+        np.testing.assert_allclose(r.scores[:, 0], want[:, i], rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
