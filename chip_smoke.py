@@ -6,8 +6,9 @@
 Phases, each of which raises on failure (exit code != 0):
 
 1. the card: name, count, and `nvidia-smi` name and power limit;
-2. build the CUDA kernels from `src/repro_torch/kernels/csrc` (nvcc, with
-   `-Xptxas -v`: registers, shared memory and spills per kernel); the
+2. build the CUDA kernels from `src/repro_torch/kernels/csrc` from scratch
+   (nvcc, with `-Xptxas -v`: registers, shared memory and spills per
+   kernel; the ranks of phase 8 load these libraries); the
    FISTA/ISTA GEMV and SGEMM (`fista_gemv_kernel`, `fista_gemm_kernel`),
    the rank-n update (`rank_update_kernel`), the logistic gradient
    (`logistic_grad_kernel`, `logistic_grad_rows_kernel`) and its unfused
@@ -136,9 +137,40 @@ Phases, each of which raises on failure (exit code != 0):
        4b's fit; `logistic_grad` 600, `rank_update` 2 (the step sizes' and
        the weighted Hessian's), SGEMM 600 launches each.
 
+8. the distributed path (`repro_torch.substrate`), each rank a process
+   (`run_probe`, `file://` rendezvous) that loads the kernels phase 2
+   built and fails the phase if it compiles any, with launch counts,
+   the collective ledger and a count of the `torch.distributed` calls
+   (`count_collectives`) zeroed just before each fit or ingest and read
+   just after:
+   8a. one NCCL rank: `dsml_fit_sharded` on phase 4's data, phase 4's
+       bits, one all-gather of 16 x 1024 x 4 bytes, launches 1 / 400 /
+       600;
+   8b. four gloo ranks on the one card, 4 tasks each: beta_tilde within
+       1e-5 * max|.| of phase 4's, its support, one collective a rank,
+       launches 1 / 400 / 600 a rank; whether the bits are phase 4's is
+       printed (`gemv_plan` depends on m);
+   8c. on a 2 x 2 data x task mesh, phase 7a's chunks through
+       `feed_chunk` + `ingest_sharded` (Sigma, c within 1e-5 * max|.| of
+       7a's; one `rank_update` and two all-reduces a chunk a rank), then
+       phase 7b's first 9 chunks through `StreamingDsmlService(mesh=)`:
+       7b's generations, intervals and supports at every chunk, beta_tilde
+       within 1e-4 * max|.|;
+   8d. the sparse probe on granite-3-2b unreduced (phase 6's bf16
+       weights from seed 0): `synthetic_probe_tasks` (m 4, n 96, seq 16,
+       6 active dims), `sparse_probe_fit` through the kernels against
+       `use_kernel=False` on the card (the same support, Lambda within
+       1e-4 relative, beta_tilde within 1e-4 * max|.|), then sharded
+       over 4 gloo ranks, one task each (the same support,
+       1e-5 * max|.|); the recovery
+       counts and R^2 printed;
+   with each fit's wall time, spawn and rendezvous times, the all-gather
+   alone (CUDA events) and each rank's peak memory.
+
 It prints one JSON line of kernels (launches per run from phases 4-4c,
-6 and 7c) and, last, the result line. With no CUDA device it raises before
-printing any result.
+6 and 7c; phase 8's, over its ranks and its own fits, as
+`launches_phase8`) and, last, the result line. With no CUDA device it
+raises before printing any result.
 """
 from __future__ import annotations
 
@@ -174,6 +206,7 @@ TOL_FLASH = 2e-5                        # x max|plain|, f32
 # worst relative l2 error of a query row's output
 TOL_FLASH_ROW = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 TOL_SERVE_BF16 = 0.1                    # x max|logits|; a wrong head map: O(1)
+CHUNKS_8C = 9                           # 7b's chunks through the sharded service
 
 
 def check(cond: bool, msg: str) -> None:
@@ -228,7 +261,9 @@ def pct(values, q: float) -> float:
 def stream_phase(dev, card, data, res, cdata, cres, cfit_args, lam, mu,
                  Lam) -> int:
     """Phase 7: the streaming service (`repro_torch.stream`) on the card.
-    Returns the `rank_update` launches of 7c's run (row 4i)."""
+    Returns the `rank_update` launches of 7c's run (row 4i), and 7a's
+    state statistics and 7b's first chunks with the kernel path's outcome
+    at each (for phase 8c)."""
     import shutil
     import tempfile
     import threading
@@ -535,6 +570,11 @@ def stream_phase(dev, card, data, res, cdata, cres, cfit_args, lam, mu,
               f"7c chunk {i}: rank_update launched {delta(before)}")
     launches_c = LAUNCHES["rank_update"]
     check(launches_c == len(chunks_i), f"7c: {launches_c} launches")
+    # what phase 8c holds its sharded ingest and service against
+    carried = {"Sigmas": st.Sigmas, "cs": st.cs, "chunks": chunks[:CHUNKS_8C],
+               "trail": [(out is None, g, interval, support, beta)
+                         for _, _, out, g, interval, support, beta
+                         in trail[:CHUNKS_8C]]}
     print(f"stream 7c ({m_i}, {n_i}, {p_i}) x {len(chunks_i)} chunks, "
           f"refit_every {n_i} (benchmarks/stream_bench.py's full "
           f"configuration): rank_update {launches_c} launches, one a chunk; "
@@ -581,7 +621,406 @@ def stream_phase(dev, card, data, res, cdata, cres, cfit_args, lam, mu,
               f"{launches_d} (rank_update: the step sizes' and the weighted "
               f"Hessian's); wall kernels {k_ms:.1f} ms, plain {p_ms:.1f} ms "
               f"{card}")
-    return launches_c
+    return launches_c, carried
+
+
+# the program every rank of phase 8 runs (`run_probe`: one process a
+# rank on the one card, `file://` rendezvous); `@SPEC@` is its JSON spec
+RANK_PROGRAM = r"""
+import json, time
+T0 = time.time()
+import torch
+import torch.distributed as dist
+from repro_torch import obs
+from repro_torch.core import dsml_fit_sharded
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import LAUNCHES, reset_launches
+from repro_torch.multitask import ProbeData, sparse_probe_fit
+from repro_torch.stream import (
+    StreamingDsmlService, ingest_sharded, init_stream_state,
+)
+from repro_torch.substrate import (
+    all_gather_tasks, data_task_mesh, feed_chunk, init_from_env, task_mesh,
+)
+from repro_torch.testing import count_collectives
+
+spec = json.load(open("@SPEC@"))
+dev = torch.device("cuda")
+T1 = time.time()
+rank, world = init_from_env(device=dev)
+T2 = time.time()
+_build.build()
+out = dict(rank=rank, world=world, backend=dist.get_backend(),
+           spawn_s=T0 - spec["t_spawn"], import_s=T1 - T0,
+           rendezvous_s=T2 - T1, compiled=sorted(_build.BUILD_SECONDS))
+lam, mu, Lam = spec["lam"], spec["mu"], spec["Lam"]
+data = torch.load(spec["data"])
+Xs, ys = data["Xs"].to(dev), data["ys"].to(dev)
+
+
+def counted(fn):
+    # fn() with launches, the ledger, the wrapped torch.distributed calls
+    # and the peak memory zeroed just before and read just after
+    torch.cuda.synchronize()
+    reset_launches()
+    obs.reset()
+    torch.cuda.reset_peak_memory_stats()
+    with count_collectives() as calls:
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    return r, dict(
+        wall_ms=wall * 1e3, launches={k: v for k, v in LAUNCHES.items() if v},
+        calls=dict(calls), peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+        ledger={op: [obs.counter_total("collective.calls", op=op),
+                     obs.counter_total("collective.bytes", op=op)]
+                for op in ("all_gather_tasks", "psum_stats", "pmax")})
+
+
+def gather_ms(x, mesh):
+    # the all-gather alone, CUDA events around it on this rank
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    all_gather_tasks(x, mesh)
+    torch.cuda.synchronize()
+    e0.record()
+    all_gather_tasks(x, mesh)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def save(name, obj):
+    torch.save(obj, f"{spec['out']}/{name}_rank{rank}.pt")
+
+
+if "fit" in spec["phases"]:
+    mesh = task_mesh()
+    ml = Xs.shape[0] // world
+    X = Xs[rank * ml:(rank + 1) * ml].contiguous()
+    y = ys[rank * ml:(rank + 1) * ml].contiguous()
+    dsml_fit_sharded(X, y, lam, mu, Lam, mesh, lasso_iters=2,
+                     debias_iters=2)
+    res, out["fit"] = counted(lambda: dsml_fit_sharded(X, y, lam, mu, Lam,
+                                                       mesh))
+    out["fit"]["gather_ms"] = gather_ms(res.beta_u, mesh)
+    save("fit", {k: v.cpu() for k, v in res._asdict().items()})
+
+if "ingest" in spec["phases"]:
+    mesh2 = data_task_mesh(n_task=2)
+    t = mesh2.get_coordinate()[1]
+    ml = Xs.shape[0] // 2
+    chunks = [(Xs[:, i:i + 128].contiguous(), ys[:, i:i + 128].contiguous())
+              for i in range(0, Xs.shape[1], 128)]
+    state0 = init_stream_state(ml, Xs.shape[2], device=dev)
+
+    def run():
+        st = state0
+        for X, y in chunks:
+            st = ingest_sharded(st, *feed_chunk(X, y, mesh2), mesh2)
+        return st
+
+    run()
+    st, out["ingest"] = counted(run)
+    ref = torch.load(spec["st7a"])
+    rows = slice(t * ml, (t + 1) * ml)
+    for name in ("Sigmas", "cs"):
+        want = ref[name][rows].to(dev)
+        out["ingest"][name] = [
+            torch.max(torch.abs(getattr(st, name) - want)).item(),
+            torch.max(torch.abs(want)).item()]
+    chunks7b = [(X.to(dev), y.to(dev)) for X, y in torch.load(spec["chunks7b"])]
+    svc = StreamingDsmlService(Xs.shape[0], Xs.shape[2], lam=lam, mu=mu,
+                               Lam=Lam, refit_every=1024, device=dev,
+                               guard=True, mesh=mesh2)
+    trail = []
+
+    def run_service():
+        for X, y in chunks7b:
+            info = svc.ingest(X, y)
+            trail.append((info is None, svc.generation, svc._interval,
+                          svc.state.support.cpu(),
+                          svc.state.beta_tilde.cpu()))
+
+    _, out["service"] = counted(run_service)
+    out["service"]["pmax"] = out["service"]["ledger"]["pmax"][0]
+    save("service", trail)
+
+if "probe" in spec["phases"]:
+    probe = torch.load(spec["probe"])
+    ml = probe["features"].shape[0] // world
+    pdata = ProbeData(
+        probe["features"][rank * ml:(rank + 1) * ml].to(dev).contiguous(),
+        probe["targets"][rank * ml:(rank + 1) * ml].to(dev).contiguous())
+    mesh = task_mesh()
+    sparse_probe_fit(pdata, mesh=mesh, lasso_iters=2, debias_iters=2)
+    res, out["probe"] = counted(lambda: sparse_probe_fit(pdata, mesh=mesh))
+    save("probe", {k: v.cpu() for k, v in res._asdict().items()})
+
+dist.destroy_process_group()
+print("RANK8 " + json.dumps(out))
+"""
+
+
+def distributed_phase(dev, card, data, res, carried, lam, mu, Lam) -> dict:
+    """Phase 8: the distributed path on the card, each rank a process.
+    Returns the launches per kernel of the phase (ranks and parent)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.multitask import (
+        default_threshold, probe_predict, sparse_probe_fit,
+        synthetic_probe_tasks,
+    )
+    from repro_torch.serving import cell
+    from repro_torch.substrate import run_probe
+
+    total: dict[str, int] = {}
+
+    def add(launches: dict) -> None:
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def fit_launches(gemm: int) -> dict:
+        return {"rank_update": 1, "fista_step_gemv": 400,
+                "fista_step_gemm": gemm}
+
+    def ranks(world, backend, phases, tmp):
+        """Run RANK_PROGRAM as `world` ranks; every rank's JSON line, its
+        saved tensors by name, and the wall time of the whole run."""
+        spec = dict(lam=lam, mu=mu, Lam=Lam, phases=phases, out=tmp,
+                    data=f"{tmp}/data.pt", st7a=f"{tmp}/st7a.pt",
+                    chunks7b=f"{tmp}/chunks7b.pt", probe=f"{tmp}/probe.pt",
+                    t_spawn=time.time())
+        path = f"{tmp}/spec_{backend}_{world}.json"
+        Path(path).write_text(json.dumps(spec))
+        t0 = time.perf_counter()
+        run = run_probe(RANK_PROGRAM.replace("@SPEC@", path), world=world,
+                        backend=backend, timeout=600, pg_timeout=300)
+        wall = time.perf_counter() - t0
+        check(run.ok, f"phase 8 ranks ({backend}, {world}) failed:\n"
+              f"{run.report()}")
+        lines = []
+        for i, r in enumerate(run.ranks):
+            found = [ln for ln in r.stdout.splitlines()
+                     if ln.startswith("RANK8 ")]
+            check(len(found) == 1, f"rank {i}: no result line:\n{r.stdout}")
+            line = json.loads(found[0][len("RANK8 "):])
+            check(line["compiled"] == [],
+                  f"rank {i} recompiled kernels: {line['compiled']}")
+            lines.append(line)
+        saved = {name: [torch.load(f"{tmp}/{name}_rank{i}.pt")
+                        for i in range(world)]
+                 for name in ("fit", "service", "probe")
+                 if Path(f"{tmp}/{name}_rank0.pt").exists()}
+        starts = [ln["spawn_s"] + ln["import_s"] for ln in lines]
+        rdv = [ln["rendezvous_s"] for ln in lines]
+        print(f"phase 8 {backend} x {world}: the whole run {wall:.1f} s; "
+              f"spawn to imports done {min(starts):.1f}-{max(starts):.1f} "
+              f"s, rendezvous {min(rdv):.2f}-{max(rdv):.2f} s; no rank "
+              f"compiled a kernel {card}")
+        return lines, saved
+
+    def fit_checks(label, lines, saved, world, exact):
+        ml = M // world
+        same_bits, worst = True, 0.0
+        for i, (line, got) in enumerate(zip(lines, saved)):
+            st = line["fit"]
+            check(st["launches"] == fit_launches(600),
+                  f"{label} rank {i}: launches {st['launches']}")
+            check(sum(st["calls"].values()) == 1,
+                  f"{label} rank {i}: collectives {st['calls']}")
+            check(st["ledger"]["all_gather_tasks"] ==
+                  [1, world * ml * P * 4],
+                  f"{label} rank {i}: ledger {st['ledger']}")
+            rows = slice(i * ml, (i + 1) * ml)
+            for name in ("beta_tilde", "beta_u", "beta_local"):
+                want = getattr(res, name)[rows].cpu()
+                same_bits &= bool(torch.equal(got[name], want))
+                err, scale = max_err(got[name], want)
+                check(err <= TOL_KERNEL * scale, f"{label} rank {i} {name}:"
+                      f" err {err} > {TOL_KERNEL} * {scale}")
+                if name == "beta_tilde":
+                    worst = max(worst, err)
+            same_bits &= bool(torch.equal(got["beta_u_all"],
+                                          res.beta_u.cpu()))
+            check(bool(torch.equal(got["support"], res.support.cpu())),
+                  f"{label} rank {i}: the support differs from phase 4's")
+            add(st["launches"])
+        if exact:
+            check(same_bits, f"{label}: not phase 4's bits")
+        walls = [ln["fit"]["wall_ms"] for ln in lines]
+        print(f"phase {label} dsml_fit_sharded ({world} x {ml} tasks, n {N}, "
+              f"p {P}, 400 + 600): the same support as phase 4, "
+              f"{'the same bits' if same_bits else 'not the same bits'}, "
+              f"beta_tilde max abs err {worst:.3g} (max "
+              f"{torch.max(torch.abs(res.beta_tilde)).item():.3g}); "
+              f"each rank launches {lines[0]['fit']['launches']} and issues "
+              f"one collective ({lines[0]['fit']['calls']}), ledger "
+              f"{lines[0]['fit']['ledger']['all_gather_tasks']} (calls, "
+              f"bytes); fit wall {min(walls):.1f}-{max(walls):.1f} ms; "
+              f"all-gather alone "
+              f"{[round(ln['fit']['gather_ms'], 4) for ln in lines]} ms; "
+              f"peak {[round(ln['fit']['peak_mib']) for ln in lines]} MiB "
+              f"{card}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        torch.save({"Xs": data.Xs.cpu(), "ys": data.ys.cpu()},
+                   f"{tmp}/data.pt")
+        torch.save({"Sigmas": carried["Sigmas"].cpu(),
+                    "cs": carried["cs"].cpu()}, f"{tmp}/st7a.pt")
+        torch.save([(X.cpu(), y.cpu()) for X, y in carried["chunks"]],
+                   f"{tmp}/chunks7b.pt")
+
+        # ---- 8d, this process: granite-3-2b's features and the fits ----
+        cfg, params, _ = cell.make_cell(dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        pdata, psupport = synthetic_probe_tasks(
+            torch.Generator(device=dev).manual_seed(1), params, cfg, m=4,
+            n=96, seq=16, s_active=6)
+        torch.cuda.synchronize()
+        feat_s = time.perf_counter() - t0
+        check(not any(LAUNCHES.values()), f"8d features: {dict(LAUNCHES)}")
+        del params
+        check(pdata.features.shape == (4, 96, cfg.d_model) and bool(
+            torch.isfinite(pdata.features).all()), "8d: the features")
+        sparse_probe_fit(pdata, lasso_iters=2, debias_iters=2)   # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        pk = sparse_probe_fit(pdata)
+        torch.cuda.synchronize()
+        probe_k_s = time.perf_counter() - t0
+        launches_d = {k: v for k, v in LAUNCHES.items() if v}
+        check(launches_d == fit_launches(400), f"8d launches {launches_d}")
+        add(launches_d)
+        t0 = time.perf_counter()
+        pp = sparse_probe_fit(pdata, use_kernel=False)
+        torch.cuda.synchronize()
+        probe_p_s = time.perf_counter() - t0
+        check({k: v for k, v in LAUNCHES.items() if v} == launches_d,
+              "8d: the plain path launched a kernel")
+        lam_k, lam_p = default_threshold(pk.beta_u), \
+            default_threshold(pp.beta_u)
+        # Lambda is read off beta_u, which the paths sum in another order
+        check(abs(lam_k - lam_p) <= TOL_FIT * lam_p,
+              f"8d: Lambda {lam_k} against the plain path's {lam_p}")
+        check(bool(torch.equal(pk.support, pp.support)),
+              "8d: the support differs from the plain path's")
+        err, scale = max_err(pk.beta_tilde, pp.beta_tilde)
+        check(err <= TOL_FIT * scale, f"8d beta_tilde: err {err} > "
+              f"{TOL_FIT} * {scale}")
+        tp = int(torch.sum(pk.support & psupport))
+        fp = int(torch.sum(pk.support & ~psupport))
+        pred = probe_predict(pk, pdata.features)
+        r2 = 1 - float(torch.var(pred - pdata.targets, correction=0)
+                       / torch.var(pdata.targets, correction=0))
+        print(f"phase 8d {cfg.name} unreduced ({cfg.n_layers} layers, d "
+              f"{cfg.d_model}, {cfg.compute_dtype}), 4 tasks x 96 sequences "
+              f"of 16 tokens: features {feat_s * 1e3:.1f} ms (no flash "
+              f"launch: 16 x 16 scores take the dense branch); "
+              f"sparse_probe_fit (400 + 400) kernels {probe_k_s * 1e3:.1f} "
+              f"ms, plain {probe_p_s * 1e3:.1f} ms; Lambda {lam_k!r} "
+              f"(plain {lam_p!r}), the same support "
+              f"({int(pk.support.sum())}), "
+              f"beta_tilde max abs err {err:.3g} (max {scale:.3g}); "
+              f"recovered {tp}/{int(psupport.sum())} true dims, {fp} false "
+              f"positives, R^2 {r2:.3f}; launches {launches_d} {card}")
+        torch.save({"features": pdata.features.cpu(),
+                    "targets": pdata.targets.cpu()}, f"{tmp}/probe.pt")
+
+        # ---- 8a. one rank over NCCL -------------------------------------
+        lines, saved = ranks(1, "nccl", ["fit"], tmp)
+        check(lines[0]["backend"] == "nccl", "8a backend")
+        fit_checks("8a", lines, saved["fit"], 1, exact=True)
+
+        # ---- 8b-8d. four ranks on the one card over gloo ----------------
+        lines, saved = ranks(4, "gloo", ["fit", "ingest", "probe"], tmp)
+        fit_checks("8b", lines, saved["fit"], 4, exact=False)
+
+        n_chunks = N // 128
+        ml = M // 2
+        for i, line in enumerate(lines):
+            st = line["ingest"]
+            check(st["launches"] == {"rank_update": n_chunks},
+                  f"8c rank {i}: launches {st['launches']}")
+            check(st["calls"] == {"all_reduce": 2 * n_chunks},
+                  f"8c rank {i}: collectives {st['calls']}")
+            check(st["ledger"]["psum_stats"] == [
+                2 * n_chunks, n_chunks * 2 * 4 * (ml * P * P + ml * P)],
+                f"8c rank {i}: ledger {st['ledger']}")
+            for name in ("Sigmas", "cs"):
+                err, scale = st[name]
+                check(err <= TOL_KERNEL * scale, f"8c rank {i} {name}: err "
+                      f"{err} > {TOL_KERNEL} * {scale}")
+            add(st["launches"])
+        errs = [(ln["ingest"]["Sigmas"][0], ln["ingest"]["cs"][0])
+                for ln in lines]
+        print(f"phase 8c ingest_sharded on a 2 x 2 data x task mesh, phase "
+              f"7a's {n_chunks} chunks of 128 rows: Sigma, c max abs err vs "
+              f"7a {errs} (max {lines[0]['ingest']['Sigmas'][1]:.3g}, "
+              f"{lines[0]['ingest']['cs'][1]:.3g}); each rank one "
+              f"rank_update and two all-reduces a chunk; wall "
+              f"{[round(ln['ingest']['wall_ms'], 1) for ln in lines]} ms "
+              f"for the {n_chunks} chunks {card}")
+
+        trail = carried["trail"]
+        worst = 0.0
+        for i, (line, got) in enumerate(zip(lines, saved["service"])):
+            for c, (g, w) in enumerate(zip(got, trail)):
+                check(g[:3] == w[:3], f"8c service rank {i} chunk {c}: "
+                      f"{g[:3]} != phase 7b's {w[:3]}")
+                check(bool(torch.equal(g[3], w[3].cpu())),
+                      f"8c service rank {i} chunk {c}: the support differs")
+                rows = slice((i % 2) * ml, (i % 2 + 1) * ml)
+                err, scale = max_err(g[4], w[4][rows].cpu())
+                check(err <= TOL_FIT * scale, f"8c service rank {i} chunk {c}: beta_tilde err {err} > "
+                      f"{TOL_FIT} * {scale}")
+                worst = max(worst, err)
+            st = line["service"]
+            check(st["launches"].get("rank_update") == len(trail) - 1,
+                  f"8c service rank {i}: launches {st['launches']}")
+            check(st["pmax"] == 2 * sum(not w[0] for w in trail),
+                  f"8c service rank {i}: {st['pmax']} pmax")
+            add(st["launches"])
+        print(f"phase 8c StreamingDsmlService(mesh=2 x 2) on phase 7b's "
+              f"first {len(trail)} chunks (the NaN chunk 5 quarantined, "
+              f"refits at chunks "
+              f"{[c for c, w in enumerate(trail) if not w[0]]}): phase 7b's "
+              f"generations, intervals and supports at every chunk on every "
+              f"rank, beta_tilde max abs err {worst:.3g}; wall "
+              f"{[round(ln['service']['wall_ms'], 1) for ln in lines]} ms; "
+              f"launches rank 0 {lines[0]['service']['launches']} {card}")
+
+        ml = 1
+        for i, (line, got) in enumerate(zip(lines, saved["probe"])):
+            st = line["probe"]
+            check(st["launches"] == fit_launches(400),
+                  f"8d rank {i}: launches {st['launches']}")
+            check(sum(st["calls"].values()) == 1,
+                  f"8d rank {i}: collectives {st['calls']}")
+            check(bool(torch.equal(got["support"], pk.support.cpu())),
+                  f"8d rank {i}: the support differs")
+            err, scale = max_err(got["beta_tilde"], pk.beta_tilde[i:i + 1]
+                                 .cpu())
+            check(err <= TOL_KERNEL * scale, f"8d rank {i}: beta_tilde err "
+                  f"{err} > {TOL_KERNEL} * {scale}")
+            add(st["launches"])
+        print(f"phase 8d the probe sharded over 4 ranks, one task each: the "
+              f"single-process support, beta_tilde within {TOL_KERNEL} * "
+              f"max; one collective a rank; fit wall "
+              f"{[round(ln['probe']['wall_ms'], 1) for ln in lines]} ms, "
+              f"peak {[round(ln['probe']['peak_mib']) for ln in lines]} MiB "
+              f"{card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 8 launches (ranks and this process): {total}")
+    return total
 
 
 def main() -> None:
@@ -643,8 +1082,15 @@ def main() -> None:
           f"python {sys.version.split()[0]}")
 
     # ---- 2. build ---------------------------------------------------------
+    # from scratch, so that every source compiles here and its spills are
+    # checked; the ranks of phase 8 load these libraries as they are
+    for old in _build.BUILD_DIR.glob("lib*"):
+        old.unlink()
     t0 = time.perf_counter()
     _build.build()
+    check(sorted(_build.BUILD_LOG) == sorted(
+        src.stem for src in _build.CSRC.glob("*.cu")),
+        f"phase 2 compiled {sorted(_build.BUILD_LOG)}")
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc per source: {_build.BUILD_SECONDS})")
     for src, log in _build.BUILD_LOG.items():
@@ -1549,8 +1995,12 @@ def main() -> None:
     del p32
 
     # ---- 7. the streaming service ------------------------------------------
-    launches_ingest = stream_phase(dev, card, data, res, cdata, cres,
-                                   cfit_args, lam, mu, Lam)
+    launches_ingest, carried = stream_phase(dev, card, data, res, cdata,
+                                            cres, cfit_args, lam, mu, Lam)
+
+    # ---- 8. the distributed path ---------------------------------------
+    launches_8 = distributed_phase(dev, card, data, res, carried, lam, mu,
+                                   Lam)
 
     # launches per run: the regression rows from phase 4, the logistic
     # rows from phase 4b (the unfused pair is not on either path), the
@@ -1568,7 +2018,9 @@ def main() -> None:
                     **{k: launches_4c[k] for k in new_keys},
                     "flash_attention": serve_launches["flash_attention"]}
     print(json.dumps({"kernels": [
-        {**row, "launches": run_launches[row["name"]]} for row in kernels]}))
+        {**row, "launches": run_launches[row["name"]],
+         "launches_phase8": launches_8.get(row["name"], 0)}
+        for row in kernels]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -1,7 +1,9 @@
 """Carry data and solver state across from the JAX reference.
 
 DSML has no trained weights: what crosses between the two packages is
-data (`MultiTaskData`), a fit's result (`DsmlResult`,
+data (`MultiTaskData`, a probe's `ProbeData`), a fit's result
+(`DsmlResult`, also as the reference's `dsml_fit_sharded` returns it:
+global arrays laid out over its mesh, which `np.array` gathers;
 `DsmlLogisticResult`), the warm-start arrays of a refit (`beta0`,
 the local lasso solution, and `M0`, the debias matrices) and the
 streaming service's state (`StreamState`, `WindowState`), whose
@@ -25,11 +27,12 @@ from repro_torch.core.dsml import DsmlResult
 from repro_torch.core.logistic import DsmlLogisticResult
 from repro_torch.core.synth import MultiTaskData
 from repro_torch.models.backbone import _check_dense
+from repro_torch.multitask.sparse_probe import ProbeData
 from repro_torch.stream.state import StreamState, WindowState
 
 _TUPLES = {cls.__name__: cls
            for cls in (MultiTaskData, DsmlResult, DsmlLogisticResult,
-                       StreamState, WindowState)}
+                       StreamState, WindowState, ProbeData)}
 # fields the port keeps on the host: the counters the host branches on
 _HOST_FIELDS = {"generation", "head", "seen"}
 
@@ -48,7 +51,8 @@ def _tensor(a, device) -> torch.Tensor:
 
 def from_reference(obj, device="cuda"):
     """A reference `MultiTaskData`, `DsmlResult`, `DsmlLogisticResult`,
-    `StreamState` or `WindowState` -> the port's NamedTuple of tensors;
+    `StreamState`, `WindowState` or `ProbeData` -> the port's NamedTuple
+    of tensors;
     any other array (e.g. `beta0`, `M0`) -> one tensor. Dtypes are kept
     (float32 stays float32, bool stays bool, int32 stays int32)."""
     fields = getattr(obj, "_fields", None)

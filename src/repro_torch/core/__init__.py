@@ -2,7 +2,9 @@
 Section-4 logistic extension, and the paper's comparison estimators."""
 from repro_torch.core.debias import coherence, debias_lasso, inverse_hessian_m
 from repro_torch.core.dirty import dirty_model
-from repro_torch.core.dsml import DsmlResult, dsml_fit
+from repro_torch.core.dsml import (
+    DsmlResult, ShardedDsmlResult, dsml_fit, dsml_fit_sharded, dsml_sharded_fn,
+)
 from repro_torch.core.engine import (
     debias_batched,
     inverse_hessian_batched,
@@ -60,7 +62,8 @@ from repro_torch.core.synth import (
 
 __all__ = [
     "coherence", "debias_lasso", "inverse_hessian_m", "dirty_model",
-    "DsmlResult", "dsml_fit",
+    "DsmlResult", "ShardedDsmlResult", "dsml_fit", "dsml_fit_sharded",
+    "dsml_sharded_fn",
     "debias_batched", "inverse_hessian_batched", "power_iteration_batched",
     "scaled_identity_m0", "solve_lasso_batched", "solve_lasso_eq2",
     "solve_lasso_eq2_grid", "solve_lasso_grid",

@@ -1,7 +1,17 @@
-"""DSML — Distributed debiased Sparse Multi-task Lasso (paper Algorithm 1),
-single-host (`dsml_fit`).
+"""DSML — Distributed debiased Sparse Multi-task Lasso (paper Algorithm 1).
 
-Steps 1-2 run through the batched sufficient-statistics engine
+Two implementations of the same algorithm:
+
+  * `dsml_fit`          — single-host.
+  * `dsml_fit_sharded`  — one rank per group of tasks on
+    `torch.distributed` (a `DeviceMesh` dim named "task", or a process
+    group). Each rank plays one worker (or a group of workers); the ONLY
+    communication is a single all-gather of the debiased p-vectors of
+    its tasks — O(p) per task, exactly the paper's one round. The
+    master's group hard threshold is computed replicated (identical on
+    every rank), which is equivalent to master + broadcast.
+
+Both run steps 1-2 through the batched sufficient-statistics engine
 (core/engine.py): the m local lassos are ONE batched solve, and the m
 debias M-matrix estimations are ONE batched multi-RHS solve, each
 iteration one launch of the fused FISTA kernel on CUDA tensors.
@@ -21,6 +31,7 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.prox import support_from_rows
 from repro_torch.core.solvers import refit_ols_masked_stats
+from repro_torch.substrate.collectives import all_gather_tasks
 
 
 class DsmlResult(NamedTuple):
@@ -28,6 +39,17 @@ class DsmlResult(NamedTuple):
     beta_u: torch.Tensor       # (m, p) debiased estimates (communicated)
     support: torch.Tensor      # (p,) bool, \hat S(Lambda)
     beta_local: torch.Tensor   # (m, p) local lasso estimates (step 1)
+
+
+class ShardedDsmlResult(NamedTuple):
+    """One rank's share of a sharded fit: its own tasks' rows, the
+    replicated support, and the gathered debiased rows of all tasks (what
+    the one round moved, the same on every rank)."""
+    beta_tilde: torch.Tensor   # (m_local, p) this rank's filtered rows
+    beta_u: torch.Tensor       # (m_local, p) this rank's debiased rows
+    support: torch.Tensor      # (p,) bool, replicated
+    beta_local: torch.Tensor   # (m_local, p) this rank's lasso rows
+    beta_u_all: torch.Tensor   # (m, p) every task's debiased rows
 
 
 def _local_work_stats(Sigmas, cs, lam, mu, lasso_iters, debias_iters, *,
@@ -72,3 +94,56 @@ def dsml_fit(
     else:
         beta_tilde = beta_u * support[None, :]            # workers: eq. (6)
     return DsmlResult(beta_tilde, beta_u, support, beta_hat)
+
+
+def dsml_sharded_fn(lam, mu, Lam, mesh, axis: str = "task",
+                    lasso_iters: int = 400, debias_iters: int = 600, *,
+                    use_kernel: bool | None = None):
+    """The rank's SPMD worker as a callable (X_blk, y_blk) ->
+    ShardedDsmlResult, exposed apart from `dsml_fit_sharded` as in the
+    reference, so probes can wrap and inspect the actual implementation.
+    `mesh` is a `DeviceMesh` with a dim `axis`, a process group, or None
+    for the default group."""
+
+    def worker(X_blk, y_blk) -> ShardedDsmlResult:
+        # X_blk: (m_local, n, p) — the tasks this rank owns
+        Sigmas, cs = sufficient_stats(X_blk, y_blk, use_kernel=use_kernel)
+        beta_hat, beta_u = _local_work_stats(Sigmas, cs, lam, mu,
+                                             lasso_iters, debias_iters,
+                                             use_kernel=use_kernel)
+        # ---- the ONE communication round of Algorithm 1 ----
+        B_all = all_gather_tasks(beta_u, mesh, axis)        # (m, p) everywhere
+        # ---- master step, replicated (== master + broadcast) ----
+        support = support_from_rows(B_all.T, Lam)
+        beta_tilde = beta_u * support[None, :]
+        return ShardedDsmlResult(beta_tilde, beta_u, support, beta_hat,
+                                 B_all)
+
+    return worker
+
+
+def dsml_fit_sharded(
+    X_local: torch.Tensor,
+    y_local: torch.Tensor,
+    lam,
+    mu,
+    Lam,
+    mesh=None,
+    axis: str = "task",
+    lasso_iters: int = 400,
+    debias_iters: int = 600,
+    *,
+    use_kernel: bool | None = None,
+) -> ShardedDsmlResult:
+    """SPMD DSML, called by every rank of `mesh[axis]` with its own block
+    of tasks, X_local (m_local, n, p) and y_local (m_local, n), in rank
+    order (rank r owns tasks r*m_local .. (r+1)*m_local - 1).
+
+    Communication: exactly one all-gather of the (m_local, p) debiased
+    estimates per rank — O(p) numbers per task, the paper's budget.
+    Returns this rank's rows, the replicated support and the gathered
+    (m, p) debiased rows. `use_kernel` as in `kernels/common.py`.
+    """
+    return dsml_sharded_fn(lam, mu, Lam, mesh, axis, lasso_iters,
+                           debias_iters, use_kernel=use_kernel)(X_local,
+                                                                y_local)

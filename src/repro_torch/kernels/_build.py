@@ -3,9 +3,12 @@
 Each `csrc/*.cu` is compiled by its own `nvcc` into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds, not
 minutes). All compilers start together, so the build takes as long as
-its slowest source however many sources the port gains. Every process
-builds anew at its first launch, into `build/repro_torch/` at the root
-of the checkout, and loads the libraries with `ctypes`.
+its slowest source however many sources the port gains. The libraries
+go to `build/repro_torch/` at the root of the checkout, once per tree:
+a process skips a source whose `lib<stem>.so` is newer than the source
+and was built with the same `NVCC_FLAGS` (recorded beside it in
+`lib<stem>.flags`), so the ranks of a distributed run load what their
+parent built. Every library is loaded with `ctypes`.
 
 Every C entry point takes its pointers and the stream as `void *`,
 launches on that stream and returns `cudaGetLastError()`; `call`
@@ -15,6 +18,7 @@ later synchronize does not report it.
 from __future__ import annotations
 
 import ctypes
+import json
 import os
 import shutil
 import subprocess
@@ -30,8 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[str, ctypes._CFuncPtr] = {}
-# what the last build printed per source (`-Xptxas -v`: registers,
-# shared memory, spills) and how long it took, for chip_smoke.py
+# what this process's build printed per source it compiled (`-Xptxas -v`:
+# registers, shared memory, spills) and how long it took, for
+# chip_smoke.py; a source that was up to date has no entry
 BUILD_LOG: dict[str, str] = {}
 BUILD_SECONDS: dict[str, float] = {}
 
@@ -44,19 +49,40 @@ def _nvcc() -> str:
     return found
 
 
+def _flags_text(flags=NVCC_FLAGS) -> str:
+    return json.dumps(list(flags))
+
+
+def up_to_date(src: Path, build_dir: Path = BUILD_DIR,
+               flags=NVCC_FLAGS) -> bool:
+    """Whether `build_dir/lib<stem>.so` may be loaded for `src` as it
+    is: the library is newer than the source and its recorded flags are
+    `flags`."""
+    out = build_dir / f"lib{src.stem}.so"
+    record = out.with_suffix(".flags")
+    try:
+        fresh = out.stat().st_mtime_ns > src.stat().st_mtime_ns
+        return fresh and record.read_text() == _flags_text(flags)
+    except FileNotFoundError:
+        return False
+
+
 def build() -> dict[str, ctypes.CDLL]:
-    """Compile every source in parallel, then load all libraries.
-    Returns {source stem: library}."""
+    """Compile every source that is not up to date, in parallel, then
+    load all libraries. Returns {source stem: library}."""
     if _LIBS:
         return _LIBS
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    stale = [src for src in sources if not up_to_date(src)]
     t0 = time.perf_counter()
     jobs = {}
-    for src in sorted(CSRC.glob("*.cu")):
+    if stale:
+        nvcc = _nvcc()
+    for src in stale:
         out = BUILD_DIR / f"lib{src.stem}.so"
         # written aside and renamed, so that a process building at the
-        # same time never loads a half-written library
+        # same time never loads a half-written library or record
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         jobs[src.stem] = (out, tmp, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
@@ -68,12 +94,15 @@ def build() -> dict[str, ctypes.CDLL]:
         BUILD_SECONDS[stem] = time.perf_counter() - t0
         if proc.returncode:
             failed.append(f"{stem}.cu:\n{log}")
-        else:
-            os.replace(tmp, out)
+            continue
+        record = out.with_suffix(f".{os.getpid()}.flags")
+        record.write_text(_flags_text())
+        os.replace(tmp, out)
+        os.replace(record, out.with_suffix(".flags"))
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    for stem, (out, _, _) in jobs.items():
-        _LIBS[stem] = ctypes.CDLL(str(out))
+    for src in sources:
+        _LIBS[src.stem] = ctypes.CDLL(str(BUILD_DIR / f"lib{src.stem}.so"))
     return _LIBS
 
 

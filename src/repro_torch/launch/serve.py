@@ -7,7 +7,7 @@ The same flags and defaults as the JAX package's launcher, plus
 `--device` (the card unless told otherwise). As there, `--reduced` is
 `store_true` with `default=True`, so the smoke-sized model always runs.
 Parameters and prompt come from seeded `torch.Generator`s (seeds 0 and 1).
-The port serves dense stacks only (ROADMAP queue A item 10).
+The port serves dense stacks only (ROADMAP queue A item 7).
 """
 from __future__ import annotations
 

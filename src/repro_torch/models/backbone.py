@@ -5,7 +5,7 @@ whose layers are all attention (`layer_kinds() == ("attn",) * n_layers`)
 with no encoder and no modality frontend: granite-3-2b, minitron-4b,
 nemotron-4-15b and deepseek-67b. Any other layer kind, `encdec` or a
 `frontend` raises NotImplementedError: MoE, SSD, RG-LRU, enc-dec and VLM
-are ROADMAP queue A item 10, still to port.
+are ROADMAP queue A item 7, still to port.
 
 The stack is a Python loop over a list of per-layer parameter dicts, not
 a scan over a stacked layer axis (`convert.params_from_reference` splits
@@ -32,7 +32,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.mlp import init_mlp_params, mlp_apply
 
-_PENDING = ("ROADMAP queue A item 10: the port runs dense stacks only "
+_PENDING = ("ROADMAP queue A item 7: the port runs dense stacks only "
             "(every layer 'attn', no encoder, no frontend)")
 
 

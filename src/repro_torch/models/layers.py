@@ -7,7 +7,7 @@ parameters are plain dicts of tensors in the reference's layouts (`wq`
 Matmuls run in the config compute dtype; softmax and norms accumulate in
 float32, in the reference's op order. Cross attention (`kv_override`,
 `kv_mask` of the reference's `attention_train`) comes with the enc-dec
-stack, ROADMAP queue A item 10.
+stack, ROADMAP queue A item 7.
 
 The long-sequence branch of `attention_train` (S·T >= FLASH_THRESHOLD,
 S > 1, no `kv_override`) runs `kernels/flash_attention`, the port of the

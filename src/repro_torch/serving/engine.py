@@ -44,7 +44,7 @@ def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor,
     returns the prompt unchanged (the prefill still runs, as in the
     reference). `use_kernel` goes to the prefill's flash kernel; decode
     runs no kernel. The reference's `frontend` (VLM patches) comes with
-    the VLM stack, ROADMAP queue A item 10.
+    the VLM stack, ROADMAP queue A item 7.
     """
     B, S = prompt.shape
     cache_len = S + steps + cache_extra

@@ -7,8 +7,12 @@ pipeline runs online: minibatches fold into a fixed-size `StreamState`
 the card, and `refit` re-runs Algorithm 1 from the state with warm
 starts. `StreamingDsmlService` is the serving driver. The sharded
 accumulator (`accumulate_stats_fn`, `accumulate_stats_sharded`,
-`ingest_sharded`) is not ported yet.
+`ingest_sharded`) runs the ingest over a data x task `DeviceMesh` on
+`torch.distributed`, and the service takes it with `mesh=`.
 """
+from repro_torch.stream.accumulate import (
+    accumulate_stats_fn, accumulate_stats_sharded, ingest_sharded,
+)
 from repro_torch.stream.guard import IngestGuard, QuarantineRecord
 from repro_torch.stream.health import RefitHealth, refit_health
 from repro_torch.stream.refit import (
@@ -24,6 +28,7 @@ from repro_torch.stream.state import (
 )
 
 __all__ = [
+    "accumulate_stats_fn", "accumulate_stats_sharded", "ingest_sharded",
     "IngestGuard", "QuarantineRecord",
     "RefitHealth", "refit_health",
     "RefitInfo", "jaccard_support", "refit", "refit_logistic",

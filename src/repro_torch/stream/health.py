@@ -20,7 +20,10 @@ three invariants on a *candidate* state before the service adopts it:
 
 The residual's prox-gradient step is one `ista_step_batched` call: on
 CUDA tensors one launch of the ISTA step kernel at r = 1. The three
-statistics come back to the host in one read.
+statistics come back to the host in one read. On a sharded service
+(`mesh=`) each rank judges its own tasks, and the verdict is the max
+over the mesh (one `pmax` per mesh dim, before the read), so every rank
+reaches the same one.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 from repro_torch.core.engine import power_iteration_batched
 from repro_torch.kernels.ista_step.ops import ista_step_batched
 from repro_torch.stream.state import StreamState
+from repro_torch.substrate.collectives import pmax
 
 
 class RefitHealth(NamedTuple):
@@ -68,7 +72,8 @@ def _model_health(candidate: StreamState, lam,
 def refit_health(candidate: StreamState, lam, *,
                  kkt_ceiling: float = 1.0,
                  max_support: Optional[int] = None,
-                 use_kernel: bool | None = None) -> RefitHealth:
+                 use_kernel: bool | None = None,
+                 mesh=None) -> RefitHealth:
     """Judge a candidate refit against the serve-fitness invariants.
 
     `kkt_ceiling` bounds the eq.-2 prox-gradient residual of the
@@ -76,10 +81,21 @@ def refit_health(candidate: StreamState, lam, *,
     converged-ish refit on standardized traffic sits orders of
     magnitude below 1.0, while a diverged one is non-finite or huge.
     `max_support=None` disables the support ceiling. `use_kernel` as in
-    `kernels/common.py`.
+    `kernels/common.py`. With `mesh` (a `DeviceMesh`) the candidate is
+    this rank's tasks and the statistics are taken over every rank of
+    the mesh: all finite, the largest residual (a NaN one counts as
+    infinite), the support size (replicated).
     """
-    finite, kkt, support_size = _model_health(candidate, lam,
-                                              use_kernel).tolist()
+    stats = _model_health(candidate, lam, use_kernel)
+    if mesh is not None:
+        # as maxima: [not finite, residual, support size]
+        flags = torch.stack([1.0 - stats[0],
+                             torch.nan_to_num(stats[1], nan=float("inf")),
+                             stats[2]])
+        for axis in mesh.mesh_dim_names:
+            flags = pmax(flags, mesh, axis)
+        stats = torch.stack([1.0 - flags[0], flags[1], flags[2]])
+    finite, kkt, support_size = stats.tolist()
     finite, support_size = bool(finite), int(support_size)
     if not finite:
         return RefitHealth(False, "nonfinite_model", kkt, support_size)

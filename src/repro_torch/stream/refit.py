@@ -31,6 +31,7 @@ from repro_torch.core.engine import (
 from repro_torch.core.logistic import debias_logistic_batched
 from repro_torch.core.prox import support_from_rows
 from repro_torch.stream.state import StreamState
+from repro_torch.substrate.collectives import all_gather_tasks
 
 
 class RefitInfo(NamedTuple):
@@ -51,9 +52,13 @@ def jaccard_support(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(union > 0, ratio, torch.ones_like(ratio))
 
 
-def _advance(state: StreamState, beta_hat, Ms, beta_u, Lam):
-    """The master's threshold and the new generation's state and info."""
-    support = support_from_rows(beta_u.T, Lam)
+def _advance(state: StreamState, beta_hat, Ms, beta_u, Lam, mesh=None,
+             axis: str = "task"):
+    """The master's threshold and the new generation's state and info.
+    With `mesh`, `state` holds this rank's tasks, and the threshold reads
+    every task's debiased rows: one all-gather over `axis`."""
+    B_all = beta_u if mesh is None else all_gather_tasks(beta_u, mesh, axis)
+    support = support_from_rows(B_all.T, Lam)
     beta_tilde = beta_u * support[None, :]
     new_state = state._replace(
         beta_local=beta_hat, Ms=Ms, beta_u=beta_u, beta_tilde=beta_tilde,
@@ -67,7 +72,8 @@ def _advance(state: StreamState, beta_hat, Ms, beta_u, Lam):
 
 def refit(state: StreamState, lam, mu, Lam, lasso_iters: int = 400,
           debias_iters: int = 600, warm: bool = True, tol=None, *,
-          use_kernel: bool | None = None) -> Tuple[StreamState, RefitInfo]:
+          use_kernel: bool | None = None, mesh=None,
+          axis: str = "task") -> Tuple[StreamState, RefitInfo]:
     """One DSML refresh on the state's statistics.
 
     Returns the new state (updated beta/M/support, generation + 1) and
@@ -84,6 +90,12 @@ def refit(state: StreamState, lam, mu, Lam, lasso_iters: int = 400,
     statistics drift demands. The iterations run come back on the info
     (`lasso_iters_run`/`debias_iters_run`). `use_kernel` as in
     `kernels/common.py`.
+
+    With `mesh` (a `DeviceMesh` with a dim `axis`, or a process group)
+    the refit is the sharded fit's on statistics: `state` holds this
+    rank's tasks, the solves run on them, and the master's threshold
+    reads the rows of every task through one all-gather, so the support
+    is global.
     """
     beta0 = state.beta_local if warm else None
     M0 = None
@@ -98,7 +110,7 @@ def refit(state: StreamState, lam, mu, Lam, lasso_iters: int = 400,
         state.Sigmas, mu, iters=debias_iters, M0=M0, lam_max=lam_max,
         tol=tol, return_iters=True, use_kernel=use_kernel)
     beta_u = debias_batched(state.Sigmas, state.cs, beta_hat, Ms)
-    new_state, info = _advance(state, beta_hat, Ms, beta_u, Lam)
+    new_state, info = _advance(state, beta_hat, Ms, beta_u, Lam, mesh, axis)
     return new_state, info._replace(lasso_iters_run=lasso_run,
                                     debias_iters_run=debias_run)
 

@@ -5,8 +5,10 @@ on the card by default (`device="cuda"`). Ties the streaming pieces
 together around one `StreamState`:
 
     ingest loop     raw minibatches fold into the state (host path,
-                    decayed, or sliding-window); each chunk is one
-                    launch of the `rank_update` kernel on the card;
+                    decayed, sliding-window, or sharded over a data x
+                    task mesh via `stream.accumulate`); each chunk is
+                    one launch of the `rank_update` kernel on the card
+                    (on each rank, for its block, when sharded);
     guarded ingest  an `IngestGuard` in front of the fold quarantines
                     non-finite / magnitude-outlier chunks BEFORE they
                     can poison the irreversible `(Sigma, c)` statistics
@@ -44,10 +46,20 @@ together around one `StreamState`:
                     generations, `restore()` falling back past a
                     corrupted head.
 
-Not ported: the JAX package's `mesh=` branch (SPMD ingest over a data x
-task mesh) waits for the port's sharded paths, and the autotune cache
-warm-up has no counterpart (the port's kernels choose their tiles by
-plan functions).
+With `mesh=` (a `DeviceMesh` with dims `data_axis` and `task_axis`, on
+`torch.distributed`) every rank of the mesh runs the service over its
+block of tasks, m / size(task) of them, and is fed every chunk whole:
+the guard probes the whole chunk (the same verdict on every rank, with
+no communication), `feed_chunk` takes the rank's block and
+`ingest_sharded` sums it over `data` (two all-reduces a chunk). A refit
+runs on the rank's statistics and gathers the debiased rows over `task`
+once (`refit(mesh=...)`), so the support is global; its health verdict
+is the max over the mesh (one `pmax` per mesh dim), so all ranks
+adopt or roll back together and their generations never part.
+`predict` scores this rank's tasks; checkpoints hold this rank's state.
+
+Not ported: the autotune cache warm-up (the port's kernels choose
+their tiles by plan functions).
 """
 from __future__ import annotations
 
@@ -60,10 +72,12 @@ from repro_torch.checkpoint.io import (
     CheckpointError, load_npz, npz_safe_dtype, restore_pytree, save_pytree,
 )
 from repro_torch.checkpoint.manifest import CheckpointStore
+from repro_torch.stream.accumulate import ingest_sharded
 from repro_torch.stream.guard import IngestGuard, _guarded_fold
 from repro_torch.stream.health import RefitHealth, refit_health
 from repro_torch.stream.refit import RefitInfo, refit
 from repro_torch.stream.serve import ModelGeneration
+from repro_torch.substrate.feed import feed_chunk
 from repro_torch.stream.state import (
     init_stream_state, init_window, ingest, window_ingest, window_stats,
 )
@@ -147,16 +161,24 @@ class StreamingDsmlService:
                  ckpt_dir: Optional[str] = None,
                  ckpt_keep: int = 3,
                  checkpoint_on_refit: bool = True,
-                 mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: the sharded ingest over a data x task mesh is not "
-                "ported yet (ROADMAP queue A item 6, the sharded paths)")
+                 mesh=None, data_axis: str = "data",
+                 task_axis: str = "task"):
+        if window is not None and mesh is not None:
+            raise ValueError("sliding-window ingestion is host-only; "
+                             "pass decay= for sharded non-stationarity")
         if window is not None and decay != 1.0:
             raise ValueError("decay and window are alternative forgetting "
                              "schemes; the window path aggregates its "
                              "chunks unweighted, so pass one or the other")
         self.m, self.p = m, p
+        self.mesh, self.data_axis, self.task_axis = mesh, data_axis, task_axis
+        self.m_local = m
+        if mesh is not None:
+            n_task = mesh.size(mesh.mesh_dim_names.index(task_axis))
+            if m % n_task:
+                raise ValueError(f"m={m} tasks not divisible by "
+                                 f"{task_axis}={n_task}")
+            self.m_local = m // n_task
         self.dtype = dtype
         self.device = torch.device(device)
         self.use_kernel = use_kernel
@@ -191,7 +213,7 @@ class StreamingDsmlService:
         self.ckpt_store = CheckpointStore(ckpt_dir, keep=ckpt_keep) \
             if ckpt_dir is not None else None
         self.checkpoint_on_refit = checkpoint_on_refit
-        self.state = init_stream_state(m, p, dtype, self.device)
+        self.state = init_stream_state(self.m_local, p, dtype, self.device)
         self.window = init_window(window, m, p, dtype, self.device) \
             if window else None
         self._interval = refit_every
@@ -233,11 +255,13 @@ class StreamingDsmlService:
         """
         X_batch, y_batch = self._on_device(X_batch), self._on_device(y_batch)
         # dense path: probe fused into the fold (one rank_update launch,
-        # one host read); the window path — and a guard with an
-        # absolute max_abs ceiling, which the fused statistics-derived
-        # probe cannot evaluate — probe standalone in front of the fold
+        # one host read); the window and sharded paths — and a guard
+        # with an absolute max_abs ceiling, which the fused
+        # statistics-derived probe cannot evaluate — probe standalone in
+        # front of the fold (sharded: every rank probes the whole chunk,
+        # so all ranks reach the same verdict)
         fused = (self.guard is not None and self.window is None
-                 and self.guard.max_abs is None)
+                 and self.mesh is None and self.guard.max_abs is None)
         if self.guard is not None and not fused:
             ok, _reason = self.guard.admit(X_batch, y_batch)
             if not ok:
@@ -259,6 +283,15 @@ class StreamingDsmlService:
                 self.state = folded
             elif self.window is not None:
                 self.window = window_ingest(self.window, X_batch, y_batch,
+                                            use_kernel=self.use_kernel)
+            elif self.mesh is not None:
+                Xd, yd = feed_chunk(X_batch, y_batch, self.mesh,
+                                    data_axis=self.data_axis,
+                                    task_axis=self.task_axis)
+                self.state = ingest_sharded(self.state, Xd, yd, self.mesh,
+                                            decay=self.decay,
+                                            data_axis=self.data_axis,
+                                            task_axis=self.task_axis,
                                             use_kernel=self.use_kernel)
             else:
                 self.state = ingest(self.state, X_batch, y_batch,
@@ -312,12 +345,14 @@ class StreamingDsmlService:
             candidate, info = self._refit_impl(
                 self.state, self.lam, self.mu, self.Lam,
                 lasso_iters=l_iters, debias_iters=d_iters, warm=warm,
-                tol=self.refit_tol, use_kernel=self.use_kernel)
+                tol=self.refit_tol, use_kernel=self.use_kernel,
+                mesh=self.mesh, axis=self.task_axis)
             if self.refit_health_checks:
                 health = refit_health(candidate, self.lam,
                                       kkt_ceiling=self.refit_kkt_ceiling,
                                       max_support=self.max_support,
-                                      use_kernel=self.use_kernel)
+                                      use_kernel=self.use_kernel,
+                                      mesh=self.mesh)
             else:
                 health = RefitHealth(True, None, float("nan"), -1)
             self.last_health = health
@@ -419,9 +454,9 @@ class StreamingDsmlService:
                                  f"got {tuple(X.shape)}")
             return X, True
         if X.ndim == 3:
-            if X.shape[0] != self.m or X.shape[2] != self.p:
+            if X.shape[0] != self.m_local or X.shape[2] != self.p:
                 raise ValueError(f"per-task designs must be "
-                                 f"({self.m}, n, {self.p}); got "
+                                 f"({self.m_local}, n, {self.p}); got "
                                  f"{tuple(X.shape)}")
             return X, False
         raise ValueError(f"predict input must be rank 1, 2, or 3; "
@@ -487,7 +522,7 @@ class StreamingDsmlService:
                 f"{where} is not a StreamingDsmlService checkpoint "
                 f"(no '{key}' leaf; found e.g. {list(data.files)[:3]})")
         arr = data[key]
-        want = (self.m, self.p, self.p)
+        want = (self.m_local, self.p, self.p)
         if arr.shape != want:
             raise CheckpointError(
                 f"{where} was saved by an incompatible service: "

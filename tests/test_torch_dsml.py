@@ -74,6 +74,11 @@ missing = sorted({"repro_torch.core.dirty",
                   "repro_torch.obs.registry",
                   "repro_torch.checkpoint.manifest",
                   "repro_torch.stream.service",
+                  "repro_torch.stream.accumulate",
+                  "repro_torch.substrate.collectives",
+                  "repro_torch.substrate.probes",
+                  "repro_torch.multitask.sparse_probe",
+                  "repro_torch.launch.multitask_probes",
                   "repro_torch.testing.faults"} - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 64 else 0)

@@ -17,6 +17,8 @@ window of 40 that cuts its tiles.
 """
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -672,3 +674,97 @@ def test_stream_serving_front_on_card(cuda):
         assert r.generation == svc.generation
         np.testing.assert_allclose(r.scores[:, 0], want[:, i], rtol=0,
                                    atol=1e-5 * np.abs(want).max())
+
+
+# ---- the distributed path (repro_torch.substrate) on the card --------------
+
+_SHARDED_ON_CARD = r"""
+import json
+import torch
+from repro_torch.core import dsml_fit_sharded, gen_regression
+from repro_torch.substrate import init_from_env, task_mesh
+from repro_torch.testing import count_collectives
+
+dev = torch.device("cuda")
+rank, world = init_from_env(device=dev)
+data = gen_regression(torch.Generator(device=dev).manual_seed(0), m=8,
+                      n=128, p=256, s=8, device=dev)
+ml = 8 // world
+rows = slice(rank * ml, (rank + 1) * ml)
+with count_collectives() as calls:
+    res = dsml_fit_sharded(data.Xs[rows].contiguous(),
+                           data.ys[rows].contiguous(), 0.3, 0.15, 0.5,
+                           task_mesh(), lasso_iters=100, debias_iters=100)
+torch.save({k: v.cpu() for k, v in res._asdict().items()},
+           "@OUT@" + f"/rank{rank}.pt")
+print("RESULT " + json.dumps(dict(calls)))
+"""
+
+
+def _sharded_on_card(cuda, tmp_path, world, backend):
+    """(each rank's result, its collective counts, dsml_fit's result on
+    the same data in this process)."""
+    from repro_torch.substrate import run_probe
+    run = run_probe(_SHARDED_ON_CARD.replace("@OUT@", str(tmp_path)),
+                    world=world, backend=backend, timeout=300,
+                    pg_timeout=120)
+    assert run.ok, run.report()
+    calls = [json.loads([s for s in r.stdout.splitlines()
+                         if s.startswith("RESULT ")][0][7:])
+             for r in run.ranks]
+    got = [torch.load(tmp_path / f"rank{i}.pt") for i in range(world)]
+    data = gen_regression(torch.Generator(device=cuda).manual_seed(0), m=8,
+                          n=128, p=256, s=8, device=cuda)
+    ref = dsml_fit(data.Xs, data.ys, 0.3, 0.15, 0.5, lasso_iters=100,
+                   debias_iters=100)
+    return got, calls, ref
+
+
+def test_dsml_fit_sharded_gloo_on_card_matches_dsml_fit(cuda, tmp_path):
+    """Two gloo ranks on the card (gloo taking the CUDA operand):
+    every rank's rows within 1e-5 · max|.| of `dsml_fit`, the same
+    support, one collective a rank."""
+    got, calls, ref = _sharded_on_card(cuda, tmp_path, 2, "gloo")
+    for rank, (res, c) in enumerate(zip(got, calls)):
+        assert sum(c.values()) == 1, c
+        rows = slice(rank * 4, (rank + 1) * 4)
+        assert torch.equal(res["support"], ref.support.cpu())
+        _assert_close([res["beta_tilde"], res["beta_u_all"]],
+                      [ref.beta_tilde[rows].cpu(), ref.beta_u.cpu()])
+
+
+def test_dsml_fit_sharded_nccl_world_one_gives_the_same_bits(cuda,
+                                                             tmp_path):
+    """One NCCL rank: the same kernels on the same tensors, and the
+    gather of one rank a copy, so `dsml_fit`'s bits."""
+    got, calls, ref = _sharded_on_card(cuda, tmp_path, 1, "nccl")
+    assert sum(calls[0].values()) == 1
+    for name in ("beta_tilde", "beta_u", "support", "beta_local"):
+        assert torch.equal(got[0][name], getattr(ref, name).cpu()), name
+
+
+def test_sparse_probe_kernels_match_plain(cuda):
+    """The probe through the kernels against `use_kernel=False` on the
+    card, on a reduced granite's features: the same support, Λ and
+    beta_tilde within 1e-4 · max|.| (Λ is read off the debiased rows,
+    which the two paths sum in another order)."""
+    from repro_torch.configs import smoke
+    from repro_torch.multitask import (
+        default_threshold, sparse_probe_fit, synthetic_probe_tasks,
+    )
+    cfg = smoke(get_config("granite-3-2b")).replace(
+        compute_dtype="float32", param_dtype="float32")
+    params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    data, _ = synthetic_probe_tasks(
+        torch.Generator(device=cuda).manual_seed(1), params, cfg, m=4, n=96,
+        s_active=6)
+    before = dict(LAUNCHES)
+    got = sparse_probe_fit(data)
+    assert LAUNCHES["rank_update"] == before["rank_update"] + 1
+    assert LAUNCHES["fista_step_gemm"] == before["fista_step_gemm"] + 400
+    want = sparse_probe_fit(data, use_kernel=False)
+    lam_k, lam_p = default_threshold(got.beta_u), \
+        default_threshold(want.beta_u)
+    assert abs(lam_k - lam_p) <= 1e-4 * lam_p
+    assert torch.equal(got.support, want.support)
+    _assert_close([got.beta_tilde], [want.beta_tilde], tol=1e-4)

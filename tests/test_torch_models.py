@@ -356,9 +356,9 @@ def test_registry_matches_reference():
 def test_non_dense_configs_raise(arch):
     cfg = tconfigs.smoke(tconfigs.get_config(arch))
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
         t_init_params(gen, cfg)
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
         t_init_caches(cfg, 1, 8, device="cpu")
 
 

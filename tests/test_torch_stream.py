@@ -1,8 +1,8 @@
 """The port's streaming DSML (`repro_torch.stream`) against the JAX
 reference's `repro.stream`, on the CPU.
 
-Case for case the reference's `tests/test_stream.py` (without the
-sharded cases, which are not ported) and the guard and rollback cases
+Case for case the reference's `tests/test_stream.py` (its sharded
+cases run on gloo ranks in `tests/test_torch_substrate.py`) and the guard and rollback cases
 of `tests/test_chaos.py`, run on the port; and each port function held
 against its reference counterpart on the same state: `ingest` (plain,
 decayed, weighted), `merge`, `window_stats`, `refit` (cold, warm and
@@ -537,9 +537,12 @@ def test_service_rejects_decay_with_window():
 
 
 def test_service_mesh_waits_for_the_sharded_paths():
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
+    """The sharded branch is host-only for the window, as the
+    reference's; it runs on gloo ranks in `test_torch_substrate.py`."""
+    with pytest.raises(ValueError, match="sliding-window ingestion is "
+                                         "host-only"):
         StreamingDsmlService(2, 8, lam=LAM, mu=MU, Lam=THR, device=CPU,
-                             mesh=object())
+                             window=2, mesh=object())
 
 
 def test_service_rejects_window_ckpt_in_plain_service(tmp_path):
