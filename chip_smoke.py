@@ -45,7 +45,10 @@ Phases, each of which raises on failure (exit code != 0):
    serving path's (4, 2048, 32, 8, 64), at minitron-4b's H = 128
    (4, 2048, 24, 8, 128), at the ragged and windowed
    shapes and at (1, 300, 4, 2, 64) with window 40 (T not a multiple of
-   the bf16 kernel's 128-key tile, the window cutting its tiles),
+   the bf16 kernel's 128-key tile, the window cutting its tiles), and at
+   phase 9's prefill shapes: (4, 2048, 16, 16, 128), (4, 3072, 16, 8,
+   128), (4, 2048, 16, 1, 256) with window 2048, and (4, 4096, 16, 16, 64)
+   not causal,
    against the plain version on the f32 upcast of the same
    inputs; in both dtypes each query row's output within a relative l2
    error of the plain row (1e-4 in f32, 1e-2 in bf16: the output's
@@ -153,9 +156,12 @@ Phases, each of which raises on failure (exit code != 0):
    8c. on a 2 x 2 data x task mesh, phase 7a's chunks through
        `feed_chunk` + `ingest_sharded` (Sigma, c within 1e-5 * max|.| of
        7a's; one `rank_update` and two all-reduces a chunk a rank), then
-       phase 7b's first 9 chunks through `StreamingDsmlService(mesh=)`:
-       7b's generations, intervals and supports at every chunk, beta_tilde
-       within 1e-4 * max|.|;
+       phase 7b's first 9 chunks through `StreamingDsmlService(mesh=,
+       ckpt_dir=)`: 7b's generations, intervals and supports at every
+       chunk, beta_tilde within 1e-4 * max|.|; the checkpoint's gather
+       over task timed, one global file written by rank (0, 0), and a
+       fresh service on every rank restoring its own block bit for bit
+       at one agreed generation (one `pmin` a mesh dim);
    8d. the sparse probe on granite-3-2b unreduced (phase 6's bf16
        weights from seed 0): `synthetic_probe_tasks` (m 4, n 96, seq 16,
        6 active dims), `sparse_probe_fit` through the kernels against
@@ -165,21 +171,55 @@ Phases, each of which raises on failure (exit code != 0):
        1e-5 * max|.|); the recovery
        counts and R^2 printed;
    with each fit's wall time, spawn and rendezvous times, the all-gather
-   alone (CUDA events) and each rank's peak memory.
+   alone (CUDA events) and each rank's peak memory;
+9. the rest of the model zoo at full width, random weights from seeded
+   generators on the card, each family as phase 6's cell (4 prompts of
+   2048 random ids, 16 new tokens, launch counts zeroed just before and
+   read just after, against `use_kernel=False` on the card: the prefill's
+   last logits within 0.1 * max|logits|, the shared tokens counted; for
+   the MoE families against the plain path making the kernel path's
+   routing choices, since a bf16 rounding moves tokens across a top-k
+   or capacity boundary; the free plain path may route at most a tenth
+   of the tokens otherwise at the first MoE layer, and its error and
+   its routing flips per layer are printed beside it), each after the
+   last one's memory is freed:
+   9a. deepseek-moe-16b unreduced (28 layers, the first dense, 64 routed
+       experts top-6 and 2 shared, 16.4 B parameters in bf16):
+       `flash_attention` 28 times and nothing else; prefill and decode
+       times, tokens/s, peak memory, the MoE drop fraction at the prefill
+       (C = 960) and at decode (C = 1); an f32 copy at 4 layers (the
+       dense head and 3 MoE layers, routing free; batch 2, 8 tokens)
+       with identical tokens and last logits within 1e-4 * max|logits|
+       on both paths;
+   9b. recurrentgemma-9b (flash 12 times: H = 256, one kv head, window
+       2048, decode wrapping the ring), internvl2-2b (24 times at S =
+       3072: 1024 stub patches ahead of the prompt), seamless-m4t-medium
+       (12 non-causal over 4096 stub frames, counted inside the encoder
+       on their own, 12 causal; cross attention plain), qwen3-moe-30b-a3b cut to 12 of its 48 layers (12 times);
+       mamba2-1.3b (48 layers, no kernel), and its f32 copy at 2 layers
+       (batch 1, prompt 256, 8 tokens) with the card's tokens the CPU's
+       and last logits within 1e-4 * max|logits|;
+   9c. `moe_apply_a2a` on 4 gloo ranks on the card (a 2 x 2 data x model
+       mesh, one MoE layer at deepseek-moe-16b's widths, 32 experts a
+       rank, f32, capacity_factor 8): each rank within 1e-5 * max|.| of
+       `moe_apply` on the whole batch, one `all_to_all_experts` out and
+       one back and no other collective, the all-to-all's time.
 
 It prints one JSON line of kernels (launches per run from phases 4-4c,
-6 and 7c; phase 8's, over its ranks and its own fits, as
+6, 7c and 9; phase 8's, over its ranks and its own fits, as
 `launches_phase8`) and, last, the result line. With no CUDA device it
 raises before printing any result.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -206,7 +246,22 @@ TOL_FLASH = 2e-5                        # x max|plain|, f32
 # worst relative l2 error of a query row's output
 TOL_FLASH_ROW = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 TOL_SERVE_BF16 = 0.1                    # x max|logits|; a wrong head map: O(1)
+# x tokens: the bf16 plain path's rounding moves this share of the first
+# MoE layer's top-k sets at most (H100 80GB HBM3, 700 W: deepseek-moe-16b
+# 452, qwen3-moe-30b-a3b 413 of 8192); a routing fault moves most of them
+TOL_ROUTE_FLIPS = 0.1
 CHUNKS_8C = 9                           # 7b's chunks through the sharded service
+# phase 9: the other families at full width, each serving phase 6's
+# request batch (`serving/cell.py`: 4 prompts of 2048 ids, 16 new tokens)
+ZOO_MOE = "deepseek-moe-16b"            # 9a, unreduced
+ZOO_MOE_F32_LAYERS = 4                  # 9a's f32 copy: dense head + 3 MoE
+# 9b, each with its depth cut: qwen3-moe-30b-a3b at 12 of its 48 layers
+# (its 61 GB in bf16 leave no room for the plain path's activations)
+ZOO_OTHERS = (("recurrentgemma-9b", {}), ("internvl2-2b", {}),
+              ("seamless-m4t-medium", {}), ("qwen3-moe-30b-a3b",
+                                            {"n_layers": 12}))
+ZOO_SSM = "mamba2-1.3b"                 # reaches no kernel
+A2A_TOKENS = 512                        # 9c: a sequence's tokens, 4 of them
 
 
 def check(cond: bool, msg: str) -> None:
@@ -256,6 +311,99 @@ def pct(values, q: float) -> float:
     """The q-quantile (0..1) of `values`, linear between order
     statistics, as `repro_torch.obs` computes it."""
     return float(np.quantile(np.asarray(values, dtype=np.float64), q))
+
+
+def device_kernel_names(fn) -> list[str]:
+    """The names of the kernels one call of `fn` runs on the card, by
+    `torch.profiler`."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name[:120] for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def flash_pairs(s: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs a flash call over s positions computes."""
+    if not causal:
+        return s * s
+    seen = np.arange(1, s + 1, dtype=np.int64)
+    return int(np.minimum(seen, window or s).sum())
+
+
+def zoo_flash_shapes(get_config) -> dict:
+    """The flash calls of phase 9's prefills: name -> ((B, S, N, K, H),
+    causal, window), from the configurations (the VLM's patches ahead of
+    its prompt; the enc-dec's encoder over its frames)."""
+    from repro_torch.serving import cell
+
+    def shape(arch, s):
+        c = get_config(arch)
+        return (cell.BATCH, s, c.n_heads, c.n_kv_heads, c.resolved_head_dim)
+
+    vlm, rg = get_config("internvl2-2b"), get_config("recurrentgemma-9b")
+    audio = get_config("seamless-m4t-medium")
+    return {
+        "flash_attention_moe": (shape(ZOO_MOE, cell.PROMPT), True, 0),
+        "flash_attention_vlm": (shape(vlm.name, cell.PROMPT
+                                      + vlm.n_frontend_tokens), True, 0),
+        "flash_attention_h256": (shape(rg.name, cell.PROMPT), True,
+                                 rg.window),
+        "flash_attention_noncausal": (shape(audio.name,
+                                            audio.n_frontend_tokens),
+                                      False, 0),
+    }
+
+
+def prefill_logits(params, cfg, prompt, steps, frontend=None,
+                   use_kernel=None):
+    """One prefill, as `greedy_generate` runs it: its last logits (f32)
+    and its wall time."""
+    from repro_torch.models import Batch, forward_prefill
+    from repro_torch.serving.engine import frontend_offset
+    off = frontend_offset(cfg, frontend)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = forward_prefill(
+        params, cfg, Batch(tokens=prompt, frontend=frontend),
+        cache_len=prompt.shape[1] + off + steps, use_kernel=use_kernel)
+    torch.cuda.synchronize()
+    del caches
+    return logits.float(), time.perf_counter() - t0
+
+
+def generate(params, cfg, prompt, steps, frontend=None, use_kernel=None):
+    """`greedy_generate` with the launch counts zeroed just before and
+    read just after; (tokens, wall seconds, launches)."""
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.serving.engine import greedy_generate
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = greedy_generate(params, cfg, prompt, steps=steps,
+                          frontend=frontend, use_kernel=use_kernel)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(LAUNCHES)
+
+
+def serve_checks(label, cfg, out, prompt, steps, got, want_flash):
+    """The generated tokens' shape, the prompt kept, the vocabulary, and
+    `flash_attention` launched `want_flash` times and nothing else."""
+    from repro_torch.kernels.common import LAUNCHES
+    b, s = prompt.shape
+    check(out.shape == (b, s + steps) and out.dtype == prompt.dtype,
+          f"{label}: generated shape {tuple(out.shape)}")
+    check(bool(torch.equal(out[:, :s], prompt)),
+          f"{label}: the prompt changed")
+    check(bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+          f"{label}: a token outside the vocabulary")
+    want = dict.fromkeys(LAUNCHES, 0)
+    want["flash_attention"] = want_flash
+    check(got == want, f"{label}: launches {got}, expected "
+          f"flash_attention={want_flash} and nothing else")
 
 
 def stream_phase(dev, card, data, res, cdata, cres, cfit_args, lam, mu,
@@ -675,7 +823,8 @@ def counted(fn):
         calls=dict(calls), peak_mib=torch.cuda.max_memory_allocated() / 2**20,
         ledger={op: [obs.counter_total("collective.calls", op=op),
                      obs.counter_total("collective.bytes", op=op)]
-                for op in ("all_gather_tasks", "psum_stats", "pmax")})
+                for op in ("all_gather_tasks", "psum_stats", "pmax",
+                           "pmin")})
 
 
 def gather_ms(x, mesh):
@@ -731,9 +880,9 @@ if "ingest" in spec["phases"]:
             torch.max(torch.abs(getattr(st, name) - want)).item(),
             torch.max(torch.abs(want)).item()]
     chunks7b = [(X.to(dev), y.to(dev)) for X, y in torch.load(spec["chunks7b"])]
-    svc = StreamingDsmlService(Xs.shape[0], Xs.shape[2], lam=lam, mu=mu,
-                               Lam=Lam, refit_every=1024, device=dev,
-                               guard=True, mesh=mesh2)
+    svc_args = dict(lam=lam, mu=mu, Lam=Lam, refit_every=1024, device=dev,
+                    guard=True, mesh=mesh2, ckpt_dir=spec["ckpt"])
+    svc = StreamingDsmlService(Xs.shape[0], Xs.shape[2], **svc_args)
     trail = []
 
     def run_service():
@@ -746,6 +895,24 @@ if "ingest" in spec["phases"]:
     _, out["service"] = counted(run_service)
     out["service"]["pmax"] = out["service"]["ledger"]["pmax"][0]
     save("service", trail)
+    # the checkpoint a refit writes: the gather of the task blocks over
+    # task (data-coordinate-0 ranks), rank (0, 0) writing, the agreement;
+    # then a fresh service on every rank restores its block
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    svc._global_tree()
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t
+    _, ck = counted(svc.checkpoint)
+    fresh = StreamingDsmlService(Xs.shape[0], Xs.shape[2], **svc_args)
+    restored, rs = counted(fresh.restore)
+    out["ckpt"] = dict(
+        gather_ms=gather_s * 1e3, checkpoint_ms=ck["wall_ms"],
+        restore_ms=rs["wall_ms"], gathers=ck["ledger"]["all_gather_tasks"],
+        pmin=[ck["ledger"]["pmin"][0], rs["ledger"]["pmin"][0]],
+        generation=svc.generation, restored=restored,
+        same=all(torch.equal(getattr(fresh.state, f), getattr(svc.state, f))
+                 for f in svc.state._fields))
 
 if "probe" in spec["phases"]:
     probe = torch.load(spec["probe"])
@@ -793,6 +960,7 @@ def distributed_phase(dev, card, data, res, carried, lam, mu, Lam) -> dict:
         spec = dict(lam=lam, mu=mu, Lam=Lam, phases=phases, out=tmp,
                     data=f"{tmp}/data.pt", st7a=f"{tmp}/st7a.pt",
                     chunks7b=f"{tmp}/chunks7b.pt", probe=f"{tmp}/probe.pt",
+                    ckpt=f"{tmp}/ckpt8c",
                     t_spawn=time.time())
         path = f"{tmp}/spec_{backend}_{world}.json"
         Path(path).write_text(json.dumps(spec))
@@ -988,6 +1156,28 @@ def distributed_phase(dev, card, data, res, carried, lam, mu, Lam) -> dict:
             check(st["pmax"] == 2 * sum(not w[0] for w in trail),
                   f"8c service rank {i}: {st['pmax']} pmax")
             add(st["launches"])
+        for i, line in enumerate(lines):
+            ck = line["ckpt"]
+            check(ck["same"] and ck["restored"] == ck["generation"],
+                  f"8c rank {i}: restored generation {ck['restored']} of "
+                  f"{ck['generation']}, the same bits: {ck['same']}")
+            check(ck["pmin"] == [2, 2], f"8c rank {i}: pmin {ck['pmin']}")
+            # 7 task fields: Sigmas and Ms (m_local, p, p) each
+            check(ck["gathers"][0] == (7 if i < 2 else 0),
+                  f"8c rank {i}: checkpoint gathers {ck['gathers']}")
+        gathered = lines[0]["ckpt"]["gathers"][1]
+        print(f"phase 8c the sharded service's checkpoint in one shared "
+              f"directory (global (16, 1024, 1024) layout, rank (0, 0) "
+              f"writes): the gather over task on the data-0 ranks "
+              f"({gathered / 2**20:.0f} MiB by the ledger, Sigma 64 MiB of "
+              f"it) {[round(ln['ckpt']['gather_ms'], 1) for ln in lines]} "
+              f"ms, the whole checkpoint "
+              f"{[round(ln['ckpt']['checkpoint_ms'], 1) for ln in lines]} "
+              f"ms; a fresh service on every rank restored generation "
+              f"{lines[0]['ckpt']['restored']} (one pmin a mesh dim), its "
+              f"own block bit for bit, in "
+              f"{[round(ln['ckpt']['restore_ms'], 1) for ln in lines]} ms "
+              f"{card}")
         print(f"phase 8c StreamingDsmlService(mesh=2 x 2) on phase 7b's "
               f"first {len(trail)} chunks (the NaN chunk 5 quarantined, "
               f"refits at chunks "
@@ -1021,6 +1211,420 @@ def distributed_phase(dev, card, data, res, carried, lam, mu, Lam) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 8 launches (ranks and this process): {total}")
     return total
+
+
+# the program every rank of phase 9c runs (`run_probe`, gloo, the one
+# card): one MoE layer at deepseek-moe-16b's widths in f32, its experts
+# split over `model`, its tokens over `data`; `@OUT@` is a directory
+A2A_PROGRAM = r"""
+import dataclasses, json, time
+import torch
+from repro_torch import obs
+from repro_torch.configs import get_config
+from repro_torch.models.moe import init_moe_params, moe_apply
+from repro_torch.models.moe_shard_map import moe_apply_a2a
+from repro_torch.substrate import (
+    all_to_all_experts, data_model_mesh, init_from_env,
+)
+from repro_torch.testing import count_collectives
+
+dev = torch.device("cuda")
+rank, world = init_from_env(device=dev)
+mesh = data_model_mesh(2)               # (data, model) = divmod(rank, 2)
+cfg = get_config("@ARCH@").replace(param_dtype="float32",
+                                   compute_dtype="float32")
+cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+# every rank draws the same layer and batch from the same seeds
+p = init_moe_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                    torch.float32)
+x = torch.randn((4, @TOKENS@, cfg.d_model), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(1))
+ref, _ = moe_apply(p, x, cfg)
+dc, mc = mesh.get_coordinate()
+E_loc = cfg.moe.n_experts // 2
+mine = {**p, "experts": {k: v[mc * E_loc:(mc + 1) * E_loc].contiguous()
+                         for k, v in p["experts"].items()}}
+xb = x[2 * dc:2 * dc + 2].contiguous()
+moe_apply_a2a(mine, xb, cfg, mesh)          # warm-up
+torch.cuda.synchronize()
+obs.reset()
+with count_collectives() as calls:
+    t = time.perf_counter()
+    out, _ = moe_apply_a2a(mine, xb, cfg, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+ledger = [obs.counter_total("collective.calls", op="all_to_all_experts"),
+          obs.counter_total("collective.calls")]
+want = ref[2 * dc:2 * dc + 2]
+T = xb.shape[0] * xb.shape[1]
+C = -(-T * cfg.moe.top_k * 8 // cfg.moe.n_experts)
+send = torch.zeros((2, E_loc, C, cfg.d_model), device=dev)
+all_to_all_experts(send, mesh, "model")
+torch.cuda.synchronize()
+t = time.perf_counter()
+all_to_all_experts(send, mesh, "model")
+torch.cuda.synchronize()
+a2a_ms = (time.perf_counter() - t) * 1e3
+print("RANK9 " + json.dumps({
+    "err": (out - want).abs().max().item(), "scale": want.abs().max().item(),
+    "calls": dict(calls), "wall_ms": wall * 1e3, "a2a_ms": a2a_ms,
+    "a2a_mib": send.numel() * 4 / 2**20, "C": C, "ledger": ledger}))
+"""
+
+
+def zoo_model(arch, dev, **changes):
+    """(cfg, params, prompt, frontend) of a phase-9 family: the serving
+    cell's request batch (`serving/cell.py`) for `get_config(arch)` with
+    `changes`, and its stub frontend where it has one."""
+    from repro_torch.serving import cell
+    cfg, params, prompt = cell.make_cell(dev, arch, **changes)
+    return cfg, params, prompt, cell.make_frontend(cfg, dev)
+
+
+def param_gib(params) -> tuple[float, int]:
+    """(GiB, count) of a parameter tree."""
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+        else:
+            leaves.append(t)
+
+    walk(params)
+    return (sum(t.numel() * t.element_size() for t in leaves) / 2**30,
+            sum(t.numel() for t in leaves))
+
+
+def moe_drop_fractions(params, cfg, prompt):
+    """The MoE layers' drop fractions (mean over layers) in the prefill
+    and the decode step of a 2-token `greedy_generate`: its `moe_apply`
+    calls are recorded (the phase's warm-up)."""
+    from repro_torch.models import backbone
+    seen, inner = [], backbone.moe_apply
+
+    def recording(p, x, c):
+        out, aux = inner(p, x, c)
+        seen.append((x.shape[0] * x.shape[1], aux["moe_drop_frac"]))
+        return out, aux
+
+    backbone.moe_apply = recording
+    try:
+        generate(params, cfg, prompt, 2)
+    finally:
+        backbone.moe_apply = inner
+    b = prompt.shape[0]
+    pre = [float(f) for t, f in seen if t > b]
+    dec = [float(f) for t, f in seen if t == b]
+    return sum(pre) / len(pre), sum(dec) / len(dec)
+
+
+@contextmanager
+def moe_routes(routes: list, replay: bool = False):
+    """Within the block, every `moe.route` call appends its top-k experts
+    to `routes`, or, with `replay`, takes the next of `routes` instead
+    (weighted by its own probabilities, renormalised over them), so that
+    a run makes another run's routing choices and capacity drops."""
+    from repro_torch.models import moe
+    inner, recorded = moe.route, iter(list(routes))
+
+    def hooked(logits, K):
+        probs, top_w, top_e = inner(logits, K)
+        if replay:
+            top_e = next(recorded)
+            top_w = torch.gather(probs, 1, top_e)
+            top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+        else:
+            routes.append(top_e)
+        return probs, top_w, top_e
+
+    moe.route = hooked
+    try:
+        yield routes
+    finally:
+        moe.route = inner
+
+
+@contextmanager
+def encoder_launches(counts: list):
+    """Within the block, each `_encoder_forward` call appends the
+    `flash_attention` launches made inside it (the count read just
+    before and just after it) to `counts`."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.models import backbone
+    inner = backbone._encoder_forward
+
+    def counted(*args, **kwargs):
+        before = LAUNCHES["flash_attention"]
+        out = inner(*args, **kwargs)
+        counts.append(LAUNCHES["flash_attention"] - before)
+        return out
+
+    backbone._encoder_forward = counted
+    try:
+        yield counts
+    finally:
+        backbone._encoder_forward = inner
+
+
+def route_flips(a: list, b: list) -> list[int]:
+    """Per MoE layer, the tokens whose top-k expert sets differ."""
+    return [int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+            for x, y in zip(a, b)]
+
+
+def serve_family(card, label, cfg, params, prompt, fe, want_flash,
+                 warm=True):
+    """Phase 6's serving check for one family: `greedy_generate` through
+    the kernels (launch counts zeroed just before, read just after) and
+    with `use_kernel=False` on the card, the prefill's last logits within
+    TOL_SERVE_BF16 · max|logits|, the shared tokens counted, and the
+    times. Returns (launches, the encoder's flash launches within them).
+
+    MoE routing is discontinuous: in bf16 the two attention paths'
+    rounding moves some tokens across a top-k or capacity boundary, and
+    such a token's output changes by O(1), which later layers carry on.
+    So for an MoE family the bar holds the kernel path against the plain
+    path making the kernel path's routing choices (`moe_routes`); the
+    free plain path's routing may differ at the first MoE layer for at
+    most TOL_ROUTE_FLIPS of the tokens, and its last logits' error and
+    its flips per layer are printed beside it."""
+    from repro_torch.serving import cell
+    steps = cell.NEW_TOKENS
+    if warm:
+        generate(params, cfg, prompt, 2, fe)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with encoder_launches([]) as enc:
+        out, gen_s, launches = generate(params, cfg, prompt, steps, fe)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    serve_checks(f"{label} kernels", cfg, out, prompt, steps, launches,
+                 want_flash)
+    enc_launches = sum(enc)
+    check(enc_launches == (cfg.n_encoder_layers
+                           if cfg.arch_type == "encdec" else 0),
+          f"{label}: the encoder launched flash {enc_launches} times")
+    out_p, gen_p_s, launches_p = generate(params, cfg, prompt, steps, fe,
+                                          use_kernel=False)
+    serve_checks(f"{label} plain", cfg, out_p, prompt, steps, launches_p, 0)
+    with moe_routes([]) as routes_k:
+        logits_k, pre_s = prefill_logits(params, cfg, prompt, steps, fe)
+    with moe_routes([]) as routes_p:
+        logits_p, pre_p_s = prefill_logits(params, cfg, prompt, steps, fe,
+                                           use_kernel=False)
+    check(bool(torch.isfinite(logits_k).all()),
+          f"{label}: prefill logits not finite")
+    err, scale = max_err(logits_k, logits_p)
+    held = "the plain path"
+    if cfg.moe is not None:
+        free = err / scale
+        with moe_routes(routes_k, replay=True):
+            logits_pin, _ = prefill_logits(params, cfg, prompt, steps, fe,
+                                           use_kernel=False)
+        err, scale = max_err(logits_k, logits_pin)
+        flips = route_flips(routes_k, routes_p)
+        tokens = routes_k[0].shape[0]
+        check(flips[0] <= TOL_ROUTE_FLIPS * tokens, f"{label}: the plain "
+              f"path routed {flips[0]} of {tokens} tokens otherwise at the "
+              f"first MoE layer > {TOL_ROUTE_FLIPS} of them")
+        held = (f"the plain path routed as the kernel path (free: "
+                f"{free:.4g} of max|logits|; tokens routed otherwise per "
+                f"MoE layer {flips} of {routes_k[0].shape[0]})")
+    check(err <= TOL_SERVE_BF16 * scale, f"{label} prefill logits vs "
+          f"{held}: err {err} > {TOL_SERVE_BF16} * {scale}")
+    b, s = prompt.shape
+    shared = int((out[:, s:] == out_p[:, s:]).sum())
+    decode_ms = (gen_s - pre_s) / (steps - 1) * 1e3
+    gib, count = param_gib(params)
+    print(f"phase {label} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}"
+          f", {cfg.compute_dtype}, {count / 1e9:.2f} B parameters, "
+          f"{gib:.2f} GiB), batch {b}, prompt {s}"
+          f"{'' if fe is None else f' + {fe.shape[1]} stub {cfg.frontend}'}"
+          f", {steps} new tokens: launches "
+          f"{ {k: v for k, v in launches.items() if v} }"
+          f"{f' ({enc_launches} in the encoder)' if enc_launches else ''}"
+          f"; prefill last "
+          f"logits vs {held}: max abs err {err:.4g} = {err / scale:.4g} of "
+          f"max|logits| {scale:.4g}; {shared} of {b * steps} generated "
+          f"tokens shared with the plain path; generate {gen_s * 1e3:.1f} ms "
+          f"(plain {gen_p_s * 1e3:.1f}), prefill {pre_s * 1e3:.1f} ms "
+          f"(plain {pre_p_s * 1e3:.1f}), decode {decode_ms:.2f} ms per "
+          f"token step, {b * steps / gen_s:.1f} tokens/s; peak "
+          f"{peak:.2f} GiB ({base / 2**30:.2f} before) {card}")
+    return launches, enc_launches
+
+
+def f32_copy_check(card, label, cfg, params, prompt, steps, want_flash):
+    """An f32 copy: the kernel and plain paths give identical tokens and
+    last logits within TOL_FIT · max|logits|."""
+    out, gen_s, launches = generate(params, cfg, prompt, steps)
+    serve_checks(f"{label} f32", cfg, out, prompt, steps, launches,
+                 want_flash)
+    out_p, _, _ = generate(params, cfg, prompt, steps, use_kernel=False)
+    check(bool(torch.equal(out, out_p)),
+          f"{label} f32: kernel and plain paths gave different tokens")
+    with moe_routes([]) as routes_k:
+        lk, _ = prefill_logits(params, cfg, prompt, steps)
+    with moe_routes([]) as routes_p:
+        lp, _ = prefill_logits(params, cfg, prompt, steps, use_kernel=False)
+    err, scale = max_err(lk, lp)
+    check(err <= TOL_FIT * scale, f"{label} f32 prefill logits: err {err} "
+          f"> {TOL_FIT} * {scale}")
+    flips = (f"; routing free, tokens routed otherwise per MoE layer "
+             f"{route_flips(routes_k, routes_p)} of {routes_k[0].shape[0]}"
+             if routes_k else "")
+    print(f"phase {label} f32 at {cfg.n_layers} layers (batch "
+          f"{prompt.shape[0]}, prompt {prompt.shape[1]}, {steps} new "
+          f"tokens): identical tokens on both paths; prefill last logits "
+          f"max abs err {err:.3g} (max|logits| {scale:.3g}){flips}; launches "
+          f"{launches['flash_attention']} flash; generate "
+          f"{gen_s * 1e3:.1f} ms {card}")
+
+
+def zoo_phase(dev, card) -> dict:
+    """Phase 9: the non-dense families served at full width. Returns the
+    flash launches of each phase-9 kernel row's run."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import cell
+    from repro_torch.substrate import run_probe
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    runs = {}
+    # ---- 9a. deepseek-moe-16b, unreduced --------------------------------
+    free()
+    cfg, params, prompt, fe = zoo_model(ZOO_MOE, dev)
+    drop_pre, drop_dec = moe_drop_fractions(params, cfg, prompt)
+    b = prompt.shape[0]
+    mc = cfg.moe
+    c_pre = math.ceil(b * cell.PROMPT * mc.top_k * mc.capacity_factor
+                      / mc.n_experts)
+    print(f"phase 9a {cfg.name} MoE drop fraction (mean over its "
+          f"{cfg.n_layers - mc.first_k_dense} MoE layers): prefill "
+          f"{drop_pre:.4f} (C = {c_pre}), decode {drop_dec:.4f} (C = 1 at "
+          f"{b} tokens) {card}")
+    launches, _ = serve_family(card, f"9a {cfg.name}", cfg, params, prompt,
+                               fe, cfg.n_layers, warm=False)
+    runs["flash_attention_moe"] = launches["flash_attention"]
+    del params
+    free()
+    cfg32, p32, _, _ = zoo_model(ZOO_MOE, dev, n_layers=ZOO_MOE_F32_LAYERS,
+                                 param_dtype="float32",
+                                 compute_dtype="float32")
+    f32_copy_check(card, f"9a {cfg.name}", cfg32, p32, prompt[:2], 8,
+                   ZOO_MOE_F32_LAYERS)
+    del p32
+
+    # ---- 9b. the other families, each after the last one's memory -------
+    for arch, cut in ZOO_OTHERS:
+        free()
+        cfg, params, prompt, fe = zoo_model(arch, dev, **cut)
+        n_attn = sum(k in ("attn", "local_attn", "moe")
+                     for k in cfg.layer_kinds())
+        want = n_attn + (cfg.n_encoder_layers if cfg.arch_type == "encdec"
+                         else 0)
+        launches, enc_launches = serve_family(
+            card, f"9b {cfg.name}" + (f" (cut to {cut['n_layers']} of "
+                                      f"{get_config(arch).n_layers} layers)"
+                                      if cut else ""),
+            cfg, params, prompt, fe, want)
+        runs[arch] = launches["flash_attention"]
+        if cfg.arch_type == "encdec":
+            runs["flash_attention_noncausal"] = enc_launches
+        del params
+    free()
+    cfg, params, prompt, fe = zoo_model(ZOO_SSM, dev)
+    t0 = time.perf_counter()
+    out, gen_s, launches = generate(params, cfg, prompt, cell.NEW_TOKENS)
+    serve_checks(f"9b {cfg.name}", cfg, out, prompt, cell.NEW_TOKENS,
+                 launches, 0)
+    _, pre_s = prefill_logits(params, cfg, prompt, cell.NEW_TOKENS)
+    gib, count = param_gib(params)
+    print(f"phase 9b {cfg.name} ({cfg.n_layers} SSD layers, d "
+          f"{cfg.d_model}, {cfg.compute_dtype}, {count / 1e9:.2f} B "
+          f"parameters, {gib:.2f} GiB), batch {cell.BATCH}, prompt "
+          f"{cell.PROMPT}, {cell.NEW_TOKENS} new tokens: no kernel "
+          f"launched; "
+          f"generate {gen_s * 1e3:.1f} ms, prefill {pre_s * 1e3:.1f} ms, "
+          f"decode {(gen_s - pre_s) / (cell.NEW_TOKENS - 1) * 1e3:.2f} ms "
+          f"per "
+          f"token step {card}")
+    del params
+    free()
+    cfg32, p32, prompt32, _ = zoo_model(ZOO_SSM, dev, n_layers=2,
+                                        param_dtype="float32",
+                                        compute_dtype="float32")
+    prompt32 = prompt32[:1, :256]
+    out, _, launches = generate(p32, cfg32, prompt32, 8)
+    serve_checks(f"9b {cfg.name} f32", cfg32, out, prompt32, 8, launches, 0)
+    lk, _ = prefill_logits(p32, cfg32, prompt32, 8)
+    cpu = torch.device("cpu")
+
+    def to_cpu(t):
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to_cpu(v) for v in t]
+        return t.to(cpu)
+
+    from repro_torch.models import Batch, forward_prefill
+    from repro_torch.serving.engine import greedy_generate
+    p_cpu = to_cpu(p32)
+    out_cpu = greedy_generate(p_cpu, cfg32, prompt32.cpu(), steps=8)
+    lc, _ = forward_prefill(p_cpu, cfg32, Batch(tokens=prompt32.cpu()),
+                            cache_len=256 + 8)
+    check(bool(torch.equal(out.cpu(), out_cpu)),
+          f"9b {cfg.name} f32: the card's tokens differ from the CPU's")
+    err, scale = max_err(lk.cpu(), lc.float())
+    check(err <= TOL_FIT * scale, f"9b {cfg.name} f32 prefill logits vs "
+          f"the CPU: err {err} > {TOL_FIT} * {scale}")
+    print(f"phase 9b {cfg.name} f32 at 2 layers (batch 1, prompt 256, 8 "
+          f"new tokens): the card's tokens are the CPU's; prefill last "
+          f"logits max abs err {err:.3g} (max|logits| {scale:.3g}) {card}")
+    del p32, p_cpu
+    free()
+
+    # ---- 9c. moe_apply_a2a on 4 gloo ranks ------------------------------
+    t0 = time.perf_counter()
+    run = run_probe(A2A_PROGRAM.replace("@ARCH@", ZOO_MOE).replace(
+        "@TOKENS@", str(A2A_TOKENS)), world=4, timeout=300, pg_timeout=120)
+    wall = time.perf_counter() - t0
+    check(run.ok, f"phase 9c ranks failed:\n{run.report()}")
+    lines = []
+    for i, r in enumerate(run.ranks):
+        found = [ln for ln in r.stdout.splitlines() if ln.startswith("RANK9 ")]
+        check(len(found) == 1, f"9c rank {i}: no result line:\n{r.stdout}")
+        line = json.loads(found[0][len("RANK9 "):])
+        check(line["err"] <= TOL_KERNEL * line["scale"], f"9c rank {i}: "
+              f"err {line['err']} > {TOL_KERNEL} * {line['scale']}")
+        check(line["calls"] == {"all_to_all_single": 2} and
+              line["ledger"] == [2, 2], f"9c rank {i}: collectives "
+              f"{line['calls']}, ledger {line['ledger']}")
+        lines.append(line)
+    print(f"phase 9c moe_apply_a2a on a 2 x 2 data x model mesh of gloo "
+          f"ranks on the one card ({ZOO_MOE}'s widths, 32 experts a rank, "
+          f"f32, capacity_factor 8, {2 * A2A_TOKENS} tokens a data rank, "
+          f"C_loc {lines[0]['C']}): each rank within "
+          f"{max(ln['err'] / ln['scale'] for ln in lines):.3g} of max|.| of "
+          f"moe_apply on the whole batch; one all_to_all_experts out and one "
+          f"back, no other collective; the layer "
+          f"{[round(ln['wall_ms'], 1) for ln in lines]} ms, one "
+          f"all-to-all of {lines[0]['a2a_mib']:.0f} MiB a rank "
+          f"{[round(ln['a2a_ms'], 1) for ln in lines]} ms; the whole run "
+          f"{wall:.1f} s {card}")
+    # the seamless encoder's launches, counted on their own; its
+    # decoder's causal ones run the H = 64 body of row flash_attention
+    return {"flash_attention_moe": runs["flash_attention_moe"],
+            "flash_attention_vlm": runs["internvl2-2b"],
+            "flash_attention_h256": runs["recurrentgemma-9b"],
+            "flash_attention_noncausal": runs["flash_attention_noncausal"]}
 
 
 def main() -> None:
@@ -1062,9 +1666,7 @@ def main() -> None:
     from repro_torch.kernels.rank_update.ref import (
         rank_c_ref, rank_sigma_ref, rank_update_ref,
     )
-    from repro_torch.models import Batch, forward_prefill
     from repro_torch.serving import cell
-    from repro_torch.serving.engine import greedy_generate
 
     dev = torch.device("cuda")
 
@@ -1418,6 +2020,12 @@ def main() -> None:
     check_flash((2, 256, 8, 2, 64), f32, causal=False)
     errs["flash_attention"], flash_qkv = check_flash(flash_path, bf16)
     errs["flash_attention_h128"], flash_qkv128 = check_flash(FLASH_H128, bf16)
+    # the shapes of phase 9's prefills: H = 128 with G = 1 and 2, H = 256
+    # with one kv head and a window, and the encoder's non-causal H = 64
+    zoo_flash, zoo_qkv = zoo_flash_shapes(get_config), {}
+    for name, (shape, causal, window) in zoo_flash.items():
+        errs[name], zoo_qkv[name] = check_flash(shape, bf16, causal=causal,
+                                                window=window)
     check_flash((1, 200, 4, 1, 128), bf16)
     check_flash((1, 512, 4, 1, 256), bf16, window=64)
     check_flash((1, 300, 4, 2, 64), bf16, window=40)
@@ -1670,27 +2278,32 @@ def main() -> None:
     S_out, c_out = torch.empty_like(Sig), torch.empty((m, p), device=dev)
     gemv_out = (torch.empty_like(gemv_args[1]), torch.empty_like(gemv_args[1]))
     gemm_out = (torch.empty_like(gemm_args[1]), torch.empty_like(gemm_args[1]))
-    def flash_flops(shape):
+    def flash_flops(shape, causal=True, window=0):
         fb, fs, fn, _, fh = shape
-        return 4 * fb * fn * (fs * (fs + 1) // 2) * fh
+        return 4 * fb * fn * flash_pairs(fs, causal, window) * fh
 
-    def flash_row(name, shape, qkv):
-        """The causal triangle on the bf16 tensor cores; q, k, v and out
-        once each."""
+    def flash_row(name, shape, qkv, causal=True, window=0):
+        """The pairs the mask keeps (the causal triangle, or all) on the
+        bf16 tensor cores; q, k, v and out once each. SDPA has no window:
+        a row's window covers its whole prompt (window >= S)."""
         fb, fs, fn, fk, fh = shape
+        check(window == 0 or window >= fs, f"{name}: SDPA has no window")
         fq, fkk, fv = qkv
         f_out = torch.empty_like(fq)
         return (name, "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention/kernel.py:83",
-                bound(flash_flops(shape),
+                bound(flash_flops(shape, causal, window),
                       2 * (2 * fb * fs * fn * fh + 2 * fb * fs * fk * fh),
                       PEAK_BF16_FLOPS),
-                lambda: flash_ops.launch(fq, fkk, fv, f_out),
-                lambda: flash_attention(fq, fkk, fv),
-                lambda: flash_attention(fq, fkk, fv, use_kernel=False),
+                lambda: flash_ops.launch(fq, fkk, fv, f_out, causal=causal,
+                                         window=window),
+                lambda: flash_attention(fq, fkk, fv, causal=causal,
+                                        window=window),
+                lambda: flash_attention(fq, fkk, fv, causal=causal,
+                                        window=window, use_kernel=False),
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     fq.transpose(1, 2), fkk.transpose(1, 2),
-                    fv.transpose(1, 2), is_causal=True, enable_gqa=True))
+                    fv.transpose(1, 2), is_causal=causal, enable_gqa=True))
 
     # the weighted launch's yardstick: one bmm on (w X)' computed aside
     Xwt = (X * w[..., None]).transpose(1, 2)
@@ -1700,6 +2313,8 @@ def main() -> None:
     rows = [
         flash_row("flash_attention", flash_path, flash_qkv),
         flash_row("flash_attention_h128", FLASH_H128, flash_qkv128),
+        *(flash_row(name, shape, zoo_qkv[name], causal, window)
+          for name, (shape, causal, window) in zoo_flash.items()),
         ("rank_update", "src/repro_torch/kernels/csrc/rank_update.cu",
          "src/repro/kernels/rank_update/kernel.py:121", rank_bound,
          lambda: rank_ops.launch(X, y, None, S_out, c_out),
@@ -1850,10 +2465,12 @@ def main() -> None:
               "group_threshold": (pg, mg), "flash_attention": flash_path,
               "rank_update_weighted": (m, n, p),
               "rank_update_ingest": INGEST,
-              "flash_attention_h128": FLASH_H128}
+              "flash_attention_h128": FLASH_H128,
+              **{name: z[0] for name, z in zoo_flash.items()}}
     # the redesigned kernels' least work, for their achieved rate
     row_flops = {"flash_attention": flash_flops(flash_path),
                  "flash_attention_h128": flash_flops(FLASH_H128),
+                 **{name: flash_flops(*z) for name, z in zoo_flash.items()},
                  "fista_step_gemm": 2 * m * p * p * p,
                  "ista_step_gemm": 2 * p * p * p,
                  "rank_update": rank_work(m, n, p)[0],
@@ -1880,6 +2497,10 @@ def main() -> None:
                "cold_ms": cold_ms, "wrapper_ms": wrap_ms,
                "graph_ms": g_ms, "library_graph_ms": lg_ms,
                "graph_method": g_how, "library_graph_method": lg_how}
+        if name.startswith("flash_attention"):
+            # the backend SDPA picks, by the kernels it runs on the card
+            row["library_kernels"] = device_kernel_names(lib)
+            print(f"library {name}: SDPA runs {row['library_kernels']}")
         if name in row_flops:
             row["tflops"] = row_flops[name] / ms / 1e9
             print(f"rate {name}: kernel {row['tflops']:.1f} TFLOP/s, library "
@@ -1895,42 +2516,6 @@ def main() -> None:
         launch_floor_ms=floor_ms, launch_floor_graph_ms=floor_g)
 
     # ---- 6. the serving path at full width -------------------------------
-    def prefill(params, cfg, prompt, steps, use_kernel=None):
-        """One prefill, as `greedy_generate` runs it: its last logits (f32)
-        and its wall time."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, caches = forward_prefill(params, cfg, Batch(tokens=prompt),
-                                         cache_len=prompt.shape[1] + steps,
-                                         use_kernel=use_kernel)
-        torch.cuda.synchronize()
-        del caches
-        return logits.float(), time.perf_counter() - t0
-
-    def generate(params, cfg, prompt, steps, use_kernel=None):
-        """`greedy_generate` with the launch counts zeroed just before and
-        read just after; (tokens, wall seconds, launches)."""
-        torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
-        out = greedy_generate(params, cfg, prompt, steps=steps,
-                              use_kernel=use_kernel)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, dict(LAUNCHES)
-
-    def serve_checks(label, cfg, out, prompt, steps, got, want_flash):
-        b, s = prompt.shape
-        check(out.shape == (b, s + steps) and out.dtype == prompt.dtype,
-              f"{label}: generated shape {tuple(out.shape)}")
-        check(bool(torch.equal(out[:, :s], prompt)),
-              f"{label}: the prompt changed")
-        check(bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
-              f"{label}: a token outside the vocabulary")
-        want = dict.fromkeys(LAUNCHES, 0)
-        want["flash_attention"] = want_flash
-        check(got == want, f"{label}: launches {got}, expected "
-              f"flash_attention={want_flash} and nothing else")
-
     steps = cell.NEW_TOKENS
     base_mem = torch.cuda.memory_allocated()
     cfg, params, prompt = cell.make_cell(dev)
@@ -1948,9 +2533,9 @@ def main() -> None:
                                                   use_kernel=False)
     serve_checks(f"{cfg.name} plain", cfg, out_p, prompt, steps,
                  plain_launches, 0)
-    logits_k, pre_s = prefill(params, cfg, prompt, steps)
-    logits_p, pre_plain_s = prefill(params, cfg, prompt, steps,
-                                    use_kernel=False)
+    logits_k, pre_s = prefill_logits(params, cfg, prompt, steps)
+    logits_p, pre_plain_s = prefill_logits(params, cfg, prompt, steps,
+                                           use_kernel=False)
     check(bool(torch.isfinite(logits_k).all()), "prefill logits not finite")
     err, scale = max_err(logits_k, logits_p)
     check(err <= TOL_SERVE_BF16 * scale, f"{cfg.name} prefill logits: err "
@@ -1983,8 +2568,8 @@ def main() -> None:
     out32_p, _, _ = generate(p32, cfg32, prompt32, 8, use_kernel=False)
     check(bool(torch.equal(out32, out32_p)),
           "f32 4 layers: kernel and plain paths gave different tokens")
-    l32, _ = prefill(p32, cfg32, prompt32, 8)
-    l32_p, _ = prefill(p32, cfg32, prompt32, 8, use_kernel=False)
+    l32, _ = prefill_logits(p32, cfg32, prompt32, 8)
+    l32_p, _ = prefill_logits(p32, cfg32, prompt32, 8, use_kernel=False)
     err, scale = max_err(l32, l32_p)
     check(err <= TOL_FIT * scale, f"f32 4 layers prefill logits: err {err} "
           f"> {TOL_FIT} * {scale}")
@@ -2002,21 +2587,27 @@ def main() -> None:
     launches_8 = distributed_phase(dev, card, data, res, carried, lam, mu,
                                    Lam)
 
+    # ---- 9. the rest of the model zoo at full width ----------------------
+    launches_9 = zoo_phase(dev, card)
+
     # launches per run: the regression rows from phase 4, the logistic
     # rows from phase 4b (the unfused pair is not on either path), the
     # rows of the third slice from phase 4c, flash from phase 6, the
-    # ingest shape's row from phase 7c's 8 chunks; a row at another
-    # shape than its path's takes its kernel's count
+    # ingest shape's row from phase 7c's 8 chunks, the zoo's flash rows
+    # from phase 9; a row at another shape than its path's takes its
+    # kernel's count, but minitron-4b's H = 128 shape, which no path
+    # serves (9a's H = 128 launches are row flash_attention_moe's), 0
     run_launches = {**launches,
                     "rank_update_weighted": claunches["rank_update"],
                     "rank_update_ingest": launches_ingest,
-                    "flash_attention_h128": serve_launches["flash_attention"],
+                    "flash_attention_h128": 0,
                     "logistic_grad": claunches["logistic_grad"],
                     "logistic_grad_p8192": claunches["logistic_grad"],
                     "logistic_grad_unfused": claunches["logistic_z"],
                     "logistic_grad_unfused_p8192": claunches["logistic_z"],
                     **{k: launches_4c[k] for k in new_keys},
-                    "flash_attention": serve_launches["flash_attention"]}
+                    "flash_attention": serve_launches["flash_attention"],
+                    **launches_9}
     print(json.dumps({"kernels": [
         {**row, "launches": run_launches[row["name"]],
          "launches_phase8": launches_8.get(row["name"], 0)}

@@ -152,8 +152,10 @@ class CheckpointStore:
         """Retained generations, newest first."""
         return [g for g, _, _ in self._candidates()]
 
-    def load(self, template):
-        """Restore the newest loadable generation into `template`.
+    def load(self, template, max_generation: Optional[int] = None):
+        """Restore the newest loadable generation into `template`, of
+        those up to `max_generation` where it is given (the generation a
+        sharded service's ranks agreed on).
 
         Returns `(tree, generation)`. A corrupted head — missing file,
         checksum mismatch, torn npz, template mismatch — is skipped
@@ -161,7 +163,8 @@ class CheckpointStore:
         retained generation is tried; `CheckpointError` is raised only
         when no retained generation restores.
         """
-        candidates = self._candidates()
+        candidates = [c for c in self._candidates()
+                      if max_generation is None or c[0] <= max_generation]
         tried, tracebacks = [], []
         for generation, name, sha in candidates:
             path = os.path.join(self.dirpath, name)

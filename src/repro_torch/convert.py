@@ -16,7 +16,7 @@ are matched by name and fields, so nothing of the reference is imported.
 
 The model stack has parameters: `params_from_reference` carries the
 reference's parameter tree (random, from a seed: no trained weights are
-in the repository) across for a dense configuration.
+in the repository) across for every family of the zoo.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ import torch
 from repro_torch.core.dsml import DsmlResult
 from repro_torch.core.logistic import DsmlLogisticResult
 from repro_torch.core.synth import MultiTaskData
-from repro_torch.models.backbone import _check_dense
+from repro_torch.models.backbone import stack_plan
 from repro_torch.multitask.sparse_probe import ProbeData
 from repro_torch.stream.state import StreamState, WindowState
 
@@ -75,24 +75,43 @@ def _leaves(tree, fn):
     return fn(tree)
 
 
-def params_from_reference(params: dict, cfg, device="cuda") -> dict:
-    """The reference's parameter tree for a dense `cfg` (nested dicts,
-    the layers stacked along a leading axis under `"layers"` as
-    `{"p0": {...}}`, an optional `"head"`), as JAX or numpy arrays -> the
-    port's parameters (`models.backbone.init_params`'s layout: a list of
-    per-layer dicts under `"layers"`) on `device`, dtypes and bits kept."""
-    _check_dense(cfg)
-    stacked = params["layers"]
-    if set(stacked) != {"p0"}:
-        raise ValueError(f"params_from_reference: a dense stack has one "
-                         f"layer per group, got groups {sorted(stacked)}")
+def _unstack(groups: dict, pattern, n_groups: int, device) -> list:
+    """The reference's scanned groups `{"p0": ..., "p1": ...}` (each leaf
+    with a leading axis of n_groups) -> one dict per layer, group by
+    group, `p0` first within a group."""
+    if set(groups) != {f"p{i}" for i in range(len(pattern))}:
+        raise ValueError(f"params_from_reference: groups {sorted(groups)} "
+                         f"for the pattern {pattern}")
     # split the stacked axis on the host, one copy of each layer
-    host = _leaves(stacked["p0"], np.array)
-    if host["norm1"].shape[0] != cfg.n_layers:
-        raise ValueError(f"params_from_reference: {host['norm1'].shape[0]} "
-                         f"stacked layers, config has {cfg.n_layers}")
-    out = {k: _tensor(v, device) for k, v in params.items()
-           if k != "layers"}
-    out["layers"] = [_leaves(host, lambda a, i=i: _tensor(a[i], device))
-                     for i in range(cfg.n_layers)]
+    host = {k: _leaves(v, np.array) for k, v in groups.items()}
+    got = host["p0"]["norm1"].shape[0]
+    if got != n_groups:
+        raise ValueError(f"params_from_reference: {got} stacked groups, "
+                         f"the config has {n_groups}")
+    return [_leaves(host[f"p{i}"], lambda a, g=g: _tensor(a[g], device))
+            for g in range(n_groups) for i in range(len(pattern))]
+
+
+def params_from_reference(params: dict, cfg, device="cuda") -> dict:
+    """The reference's parameter tree for `cfg` (nested dicts; the scanned
+    layers stacked along a leading axis under `"layers"` as
+    `{"p0": {...}, ...}` groups of `stack_plan(cfg)`'s pattern; the
+    unrolled `"tail"` list, which is the MoE head; the encoder's stacked
+    `"layers"` and `"final_norm"`; an optional `"head"`), as JAX or numpy
+    arrays -> the port's parameters (`models.backbone.init_params`'s
+    layout: lists of per-layer dicts) on `device`, dtypes and bits
+    kept."""
+    pattern, n_groups, tail = stack_plan(cfg)
+    if len(params.get("tail", [])) != len(tail):
+        raise ValueError(f"params_from_reference: {len(params.get('tail', []))}"
+                         f" tail layers, the config has {len(tail)}")
+    out = {k: _leaves(v, lambda a: _tensor(a, device))
+           for k, v in params.items() if k not in ("layers", "encoder")}
+    out["layers"] = _unstack(params["layers"], pattern, n_groups, device)
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "layers": _unstack(enc["layers"], ("attn",),
+                               cfg.n_encoder_layers, device),
+            "final_norm": _tensor(enc["final_norm"], device)}
     return out

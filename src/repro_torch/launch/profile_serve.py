@@ -1,12 +1,14 @@
 """Where the serving path's time goes on the card: one prefill and a few
 decode steps of a configuration at full width, under `torch.profiler`.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--arch NAME]
 
 The configuration is the serving cell of `serving/cell.py`, the one that
 `chip_smoke.py`'s phase 6 gates (granite-3-2b, batch 4, prompts of 2048
-tokens, 16 new tokens): one prefill and the 15 decode steps that
-`greedy_generate` runs after it are profiled.
+tokens, 16 new tokens), or with `--arch` another configuration of the
+zoo serving the same batch unreduced (with its stub frontend), as
+`chip_smoke.py`'s phase 9 does: one prefill and the 15 decode steps
+that `greedy_generate` runs after it are profiled.
 
 For each phase it prints the host wall time (ending in a synchronize),
 the device's busy time (the union of its kernels' intervals) and so its
@@ -16,6 +18,7 @@ needs a CUDA device and raises without one.
 """
 from __future__ import annotations
 
+import argparse
 import time
 from collections import defaultdict
 
@@ -23,7 +26,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.models import Batch, forward_decode, forward_prefill
-from repro_torch.serving.cell import NEW_TOKENS, make_cell
+from repro_torch.configs import ASSIGNED
+from repro_torch.serving.cell import (
+    ARCH, NEW_TOKENS, make_cell, make_frontend,
+)
+from repro_torch.serving.engine import frontend_offset
 
 
 def _group(name: str) -> str:
@@ -72,22 +79,28 @@ def device_report(label: str, prof, wall_s: float, reps: int) -> None:
         print(f"    {us / 1e3 / reps:9.3f} ms  {name[:110]}")
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=ARCH, choices=ASSIGNED)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
-    cfg, params, prompt = make_cell("cuda")
+    cfg, params, prompt = make_cell("cuda", args.arch)
+    fe = make_frontend(cfg, "cuda")
     B, S = prompt.shape
     steps = NEW_TOKENS - 1                 # greedy_generate's decode steps
-    cache_len = S + NEW_TOKENS
+    off = frontend_offset(cfg, fe)
+    cache_len = S + off + NEW_TOKENS
 
     def prefill():
-        return forward_prefill(params, cfg, Batch(tokens=prompt),
+        return forward_prefill(params, cfg, Batch(tokens=prompt, frontend=fe),
                                cache_len=cache_len)
 
     def decode(logits, caches):
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         for i in range(steps):
-            logits, caches = forward_decode(params, cfg, tok, S + i, caches)
+            logits, caches = forward_decode(params, cfg, tok, S + off + i,
+                                            caches)
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         return tok
 

@@ -6,8 +6,13 @@
 The same flags and defaults as the JAX package's launcher, plus
 `--device` (the card unless told otherwise). As there, `--reduced` is
 `store_true` with `default=True`, so the smoke-sized model always runs.
-Parameters and prompt come from seeded `torch.Generator`s (seeds 0 and 1).
-The port serves dense stacks only (ROADMAP queue A item 7).
+Parameters, prompt and the stub frontend of the enc-dec and VLM
+families (0.1 · N(0, 1) frames or patches) come from seeded
+`torch.Generator`s (seeds 0, 1 and 2). Every configuration of `ASSIGNED`
+runs:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+        --device cpu
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 
 from repro_torch.configs import ASSIGNED, get_config, smoke
 from repro_torch.models import init_params
+from repro_torch.serving.cell import make_frontend
 from repro_torch.serving.engine import greedy_generate
 
 
@@ -39,8 +45,10 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=dev, dtype=torch.int32)
+    fe = make_frontend(cfg, dev, args.batch)
     t0 = time.time()
-    out = greedy_generate(params, cfg, prompt, steps=args.new_tokens)
+    out = greedy_generate(params, cfg, prompt, steps=args.new_tokens,
+                          frontend=fe)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     print(f"{cfg.name}: generated {args.batch}x{args.new_tokens} tokens "

@@ -1,4 +1,4 @@
-"""Backbone model zoo, dense stacks (the JAX package's `repro.models`)."""
+"""Backbone model zoo (the JAX package's `repro.models`)."""
 from repro_torch.models.backbone import (
     forward_features,
     Batch,

@@ -1,23 +1,32 @@
-"""Backbone assembly for dense decoder stacks.
+"""Backbone assembly: decoder-only / enc-dec / hybrid / SSM model stacks.
 
-The port of the JAX package's `models/backbone.py` for the configurations
-whose layers are all attention (`layer_kinds() == ("attn",) * n_layers`)
-with no encoder and no modality frontend: granite-3-2b, minitron-4b,
-nemotron-4-15b and deepseek-67b. Any other layer kind, `encdec` or a
-`frontend` raises NotImplementedError: MoE, SSD, RG-LRU, enc-dec and VLM
-are ROADMAP queue A item 7, still to port.
+The port of the JAX package's `models/backbone.py`, for every family of
+the zoo: dense and MoE decoders, the audio encoder-decoder, the VLM
+decoder (stub patches prepended), Griffin's RG-LRU / local-attention
+hybrid and Mamba-2's SSD stack.
 
-The stack is a Python loop over a list of per-layer parameter dicts, not
-a scan over a stacked layer axis (`convert.params_from_reference` splits
-the reference's stack). Everything runs forward only, under
-`torch.no_grad`.
+The reference stacks its parameters along a leading layer axis and scans
+repeating *groups* (`stack_plan`: Griffin's 3-layer pattern, one layer
+elsewhere), with the remainder (Griffin) or the leading dense layers
+(MoE, applied FIRST) unrolled as a *tail*. The port keeps that order
+as plain lists: `params["layers"]` holds the groups' layers one after
+another (layer j has kind `pattern[j % len(pattern)]`), `params["tail"]`
+the tail's, `params["encoder"]["layers"]` the encoder's, and a Python
+loop runs them (`convert.params_from_reference` splits the reference's
+stacks). The caches follow the same lists. Everything runs forward only,
+under `torch.no_grad`.
 
 Three entry points per model:
-  forward_train   — full-sequence logits (+ the MoE aux, here 0)
+  forward_train   — full-sequence logits (+ the MoE aux)
   forward_prefill — causal forward that also returns per-layer caches
   forward_decode  — one-token step against the caches
-`use_kernel` (on the entry points that reach the flash kernel) is passed
-to its wrapper and changes nothing else.
+and `forward_features`, the final-norm hidden states. `use_kernel` (on
+the entry points that reach the flash kernel) is passed to its wrapper
+and changes nothing else.
+
+Run a family on the CPU with `python -m repro_torch.launch.serve --arch
+<name> --device cpu` (the smoke size); `chip_smoke.py` phase 9 serves
+the non-dense families at full width on the card.
 """
 from __future__ import annotations
 
@@ -27,13 +36,20 @@ import torch
 
 from repro_torch.models.config import LayerKind, ModelConfig
 from repro_torch.models.layers import (
-    KVCache, attention_decode, attention_prefill, attention_train,
+    attention_decode, attention_prefill, attention_train,
     init_attention_params, init_kv_cache, normal, rms_norm,
 )
 from repro_torch.models.mlp import init_mlp_params, mlp_apply
-
-_PENDING = ("ROADMAP queue A item 7: the port runs dense stacks only "
-            "(every layer 'attn', no encoder, no frontend)")
+from repro_torch.models.moe import init_moe_params, moe_apply
+from repro_torch.models.rglru import (
+    RecurrentCache, _causal_depthwise_conv, init_recurrent_cache,
+    init_recurrent_params, recurrent_block_decode, recurrent_block_train,
+    rglru_scan,
+)
+from repro_torch.models.ssd import (
+    SsdCache, _split_proj, init_ssd_cache, init_ssd_params,
+    ssd_block_decode, ssd_block_train,
+)
 
 
 class Batch(NamedTuple):
@@ -43,15 +59,6 @@ class Batch(NamedTuple):
     tokens: torch.Tensor                      # (B, S) integer
     labels: Optional[torch.Tensor] = None     # (B, S), -1 = masked
     frontend: Optional[torch.Tensor] = None   # (B, F, d) modality embeddings
-
-
-def _check_dense(cfg: ModelConfig) -> None:
-    kinds = cfg.layer_kinds()
-    if kinds != ("attn",) * cfg.n_layers or cfg.arch_type == "encdec" \
-            or cfg.cross_attention or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.arch_type}, kinds {sorted(set(kinds))}, "
-            f"frontend {cfg.frontend}): {_PENDING}")
 
 
 def stack_plan(cfg: ModelConfig) -> Tuple[Tuple[LayerKind, ...], int,
@@ -76,40 +83,149 @@ def stack_plan(cfg: ModelConfig) -> Tuple[Tuple[LayerKind, ...], int,
     return (kinds[0],), len(kinds), ()
 
 
+def _moe_head_first(cfg: ModelConfig) -> bool:
+    return cfg.arch_type == "moe" and bool(cfg.moe.first_k_dense)
+
+
+def _stack_kinds(cfg: ModelConfig) -> Tuple[LayerKind, ...]:
+    """The kind of each layer of `params["layers"]`, in order."""
+    pat, n_groups, _ = stack_plan(cfg)
+    return pat * n_groups
+
+
+def _run_order(cfg: ModelConfig):
+    """(kinds, parameter key, cache key) of the two layer lists in the
+    order they run: the tail first where it is the MoE head, else last."""
+    stack = (_stack_kinds(cfg), "layers", "stack")
+    tail = (stack_plan(cfg)[2], "tail", "tail")
+    return (tail, stack) if _moe_head_first(cfg) else (stack, tail)
+
+
 # ---------------------------------------------------------------------------
 # per-layer bodies
 # ---------------------------------------------------------------------------
 
-def _layer_train(p: dict, x, cfg: ModelConfig, positions, use_kernel):
-    h = attention_train(p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps),
-                        cfg, positions=positions, window=cfg.window,
-                        use_kernel=use_kernel)
-    x = x + h
-    return x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps),
-                         cfg.mlp_act)
+def _cross(p: dict, x, cfg: ModelConfig, positions, enc_out):
+    """The decoder layer's cross attention over the encoder output (the
+    dense branch, `kv_override`)."""
+    return x + attention_train(p["cross"], rms_norm(x, p["norm_x"],
+                                                    cfg.norm_eps),
+                               cfg, positions=positions, kv_override=enc_out)
 
 
-def _layer_prefill(p: dict, x, cfg: ModelConfig, positions, cache_len,
-                   use_kernel):
-    h, cache = attention_prefill(p["attn"],
-                                 rms_norm(x, p["norm1"], cfg.norm_eps), cfg,
-                                 positions=positions, window=cfg.window,
-                                 cache_len=cache_len, use_kernel=use_kernel)
-    x = x + h
-    x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps),
-                      cfg.mlp_act)
-    return x, cache
+def _layer_train(kind: LayerKind, p: dict, x, cfg: ModelConfig, positions,
+                 enc_out, use_kernel):
+    """Returns (x, aux_loss_scalar)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in ("attn", "local_attn"):
+        x = x + attention_train(p["attn"], rms_norm(x, p["norm1"],
+                                                    cfg.norm_eps),
+                                cfg, positions=positions, window=cfg.window,
+                                use_kernel=use_kernel)
+        if enc_out is not None:
+            x = _cross(p, x, cfg, positions, enc_out)
+        x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps),
+                          cfg.mlp_act)
+    elif kind == "moe":
+        x = x + attention_train(p["attn"], rms_norm(x, p["norm1"],
+                                                    cfg.norm_eps),
+                                cfg, positions=positions, window=cfg.window,
+                                use_kernel=use_kernel)
+        h, moe_aux = moe_apply(p["moe"], rms_norm(x, p["norm2"], cfg.norm_eps),
+                               cfg)
+        aux = aux + cfg.moe.router_aux_weight * moe_aux["moe_aux_loss"] \
+            + cfg.moe.router_z_weight * moe_aux["moe_z_loss"]
+        x = x + h
+    elif kind == "recurrent":
+        x = x + recurrent_block_train(p["rec"], rms_norm(x, p["norm1"],
+                                                         cfg.norm_eps), cfg)
+        x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps),
+                          cfg.mlp_act)
+    elif kind == "ssd":
+        x = x + ssd_block_train(p["ssd"], rms_norm(x, p["norm1"],
+                                                   cfg.norm_eps), cfg)
+    else:
+        raise ValueError(kind)
+    return x, aux
 
 
-def _layer_decode(p: dict, x, cfg: ModelConfig, pos, cache: KVCache):
-    h, new_cache = attention_decode(p["attn"],
-                                    rms_norm(x, p["norm1"], cfg.norm_eps),
-                                    cfg, position=pos, cache=cache,
-                                    window=cfg.window)
-    x = x + h
-    h = mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps),
-                  cfg.mlp_act)
-    return x + h, new_cache
+def _ffn(kind: LayerKind, p: dict, x, cfg: ModelConfig):
+    """The second half of an attention or MoE layer."""
+    xn = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if kind == "moe":
+        return x + moe_apply(p["moe"], xn, cfg)[0]
+    return x + mlp_apply(p["mlp"], xn, cfg.mlp_act)
+
+
+def _layer_prefill(kind: LayerKind, p: dict, x, cfg: ModelConfig, positions,
+                   cache_len, enc_out, use_kernel):
+    """Returns (x, cache) — the cache's type depends on the layer kind."""
+    if kind in ("attn", "local_attn", "moe"):
+        h, cache = attention_prefill(p["attn"],
+                                     rms_norm(x, p["norm1"], cfg.norm_eps),
+                                     cfg, positions=positions,
+                                     window=cfg.window, cache_len=cache_len,
+                                     use_kernel=use_kernel)
+        x = x + h
+        if enc_out is not None:
+            x = _cross(p, x, cfg, positions, enc_out)
+        return _ffn(kind, p, x, cfg), cache
+    if kind == "recurrent":
+        xn = rms_norm(x, p["norm1"], cfg.norm_eps)
+        x = x + recurrent_block_train(p["rec"], xn, cfg)
+        x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps),
+                          cfg.mlp_act)
+        return x, _recurrent_state_from_sequence(p["rec"], xn, cfg)
+    if kind == "ssd":
+        xn = rms_norm(x, p["norm1"], cfg.norm_eps)
+        h, state = ssd_block_train(p["ssd"], xn, cfg, return_state=True)
+        # the conv window's inputs, from the projection computed again
+        # (the reference's order)
+        _, xin, Bc, Cc, _ = _split_proj(p["ssd"], xn, cfg)
+        xbc = torch.cat([xin, Bc, Cc], dim=-1)
+        conv = xbc[:, -(cfg.ssd.conv_kernel - 1):]
+        return x + h, SsdCache(state=state, conv=conv)
+    raise ValueError(kind)
+
+
+def _recurrent_state_from_sequence(p: dict, xn: torch.Tensor,
+                                   cfg: ModelConfig) -> RecurrentCache:
+    """Final RG-LRU hidden state + conv window after a prefill sequence,
+    rebuilt from the sequence as the reference does."""
+    rc = cfg.rglru
+    u_in = torch.einsum("bsd,de->bse", xn, p["w_x"].to(xn.dtype))
+    u = _causal_depthwise_conv(u_in, p["conv_w"])
+    h = rglru_scan(p, u, rc.c)
+    return RecurrentCache(h=h[:, -1].to(torch.float32),
+                          conv=u_in[:, -(rc.conv_kernel - 1):])
+
+
+def _layer_decode(kind: LayerKind, p: dict, x, cfg: ModelConfig, pos, cache,
+                  enc_out):
+    if kind in ("attn", "local_attn", "moe"):
+        h, new_cache = attention_decode(p["attn"],
+                                        rms_norm(x, p["norm1"], cfg.norm_eps),
+                                        cfg, position=pos, cache=cache,
+                                        window=cfg.window)
+        x = x + h
+        if enc_out is not None:
+            # k and v from the whole encoder output again at every step,
+            # positions unused (no RoPE across), as the reference does
+            x = _cross(p, x, cfg, torch.zeros((1,), device=x.device),
+                       enc_out)
+        return _ffn(kind, p, x, cfg), new_cache
+    if kind == "recurrent":
+        h, new_cache = recurrent_block_decode(
+            p["rec"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, cache)
+        x = x + h
+        x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps),
+                          cfg.mlp_act)
+        return x, new_cache
+    if kind == "ssd":
+        h, new_cache = ssd_block_decode(
+            p["ssd"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, cache)
+        return x + h, new_cache
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -120,40 +236,97 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def _init_layer(gen: torch.Generator, kind: LayerKind, cfg: ModelConfig,
+                dtype, cross: bool = False) -> dict:
+    d, dev = cfg.d_model, gen.device
+
+    def zeros():
+        return torch.zeros((d,), dtype=dtype, device=dev)
+
+    p: dict = {"norm1": zeros()}
+    if kind in ("attn", "local_attn"):
+        p["attn"] = init_attention_params(gen, cfg, dtype)
+        p["mlp"] = init_mlp_params(gen, cfg, cfg.d_ff, dtype)
+        p["norm2"] = zeros()
+    elif kind == "moe":
+        p["attn"] = init_attention_params(gen, cfg, dtype)
+        p["moe"] = init_moe_params(gen, cfg, dtype)
+        p["norm2"] = zeros()
+    elif kind == "recurrent":
+        p["rec"] = init_recurrent_params(gen, cfg, dtype)
+        p["mlp"] = init_mlp_params(gen, cfg, cfg.d_ff, dtype)
+        p["norm2"] = zeros()
+    elif kind == "ssd":
+        p["ssd"] = init_ssd_params(gen, cfg, dtype)
+    else:
+        raise ValueError(kind)
+    if cross:
+        p["cross"] = init_attention_params(gen, cfg, dtype)
+        p["norm_x"] = zeros()
+    return p
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters from `gen`, on its device: the reference's
     distributions and scales (N(0, 1) · d^-1/2 for the embedding and the
-    head, zeros for the norm scales), not its random bits.
+    head, zeros for the norm scales; each block's as its `init_*`), not
+    its random bits.
 
-    {"embed": (V_pad, d), "final_norm": (d,), "layers": [per-layer
-    {"norm1", "attn", "mlp", "norm2"}], "head": (d, V_pad) unless tied}."""
-    _check_dense(cfg)
+    {"embed": (V_pad, d), "final_norm": (d,), "layers": [per-layer dicts
+    of the stack, in order], "tail": [...] where the plan has one,
+    "head": (d, V_pad) unless tied, "encoder": {"layers": [...],
+    "final_norm"} for enc-dec}."""
     dtype = _dtype(cfg.param_dtype)
     d, dev = cfg.d_model, gen.device
+    _, _, tail = stack_plan(cfg)
     params = {
         "embed": normal(gen, (cfg.padded_vocab, d), d ** -0.5, dtype),
         "final_norm": torch.zeros((d,), dtype=dtype, device=dev),
-        "layers": [{
-            "norm1": torch.zeros((d,), dtype=dtype, device=dev),
-            "attn": init_attention_params(gen, cfg, dtype),
-            "mlp": init_mlp_params(gen, cfg, cfg.d_ff, dtype),
-            "norm2": torch.zeros((d,), dtype=dtype, device=dev),
-        } for _ in range(cfg.n_layers)],
+        "layers": [_init_layer(gen, kind, cfg, dtype,
+                               cross=cfg.cross_attention)
+                   for kind in _stack_kinds(cfg)],
     }
     if not cfg.tie_embeddings:
         params["head"] = normal(gen, (d, cfg.padded_vocab), d ** -0.5, dtype)
+    if tail:
+        params["tail"] = [_init_layer(gen, kind, cfg, dtype,
+                                      cross=cfg.cross_attention)
+                          for kind in tail]
+    if cfg.arch_type == "encdec":
+        params["encoder"] = {
+            "layers": [_init_layer(gen, "attn", cfg, dtype)
+                       for _ in range(cfg.n_encoder_layers)],
+            "final_norm": torch.zeros((d,), dtype=dtype, device=dev),
+        }
     return params
+
+
+def _init_layer_cache(kind: LayerKind, cfg: ModelConfig, batch: int,
+                      cache_len: int, device):
+    if kind in ("attn", "local_attn", "moe"):
+        L = min(cache_len, cfg.window) if cfg.window else cache_len
+        return init_kv_cache(batch, L, cfg.n_kv_heads, cfg.resolved_head_dim,
+                             dtype=_dtype(cfg.compute_dtype), device=device)
+    if kind == "recurrent":
+        return init_recurrent_cache(batch, cfg, device)
+    if kind == "ssd":
+        return init_ssd_cache(batch, cfg, device)
+    raise ValueError(kind)
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 device="cuda") -> dict:
     """Decode caches shaped like forward_prefill's output (fresh/empty)."""
-    _check_dense(cfg)
-    L = min(cache_len, cfg.window) if cfg.window else cache_len
-    stack = [init_kv_cache(batch, L, cfg.n_kv_heads, cfg.resolved_head_dim,
-                           dtype=_dtype(cfg.compute_dtype), device=device)
-             for _ in range(cfg.n_layers)]
-    return {"stack": stack, "tail": [], "enc_out": None}
+    _, _, tail = stack_plan(cfg)
+    enc_out = None
+    if cfg.arch_type == "encdec":
+        enc_out = torch.zeros((batch, cfg.n_frontend_tokens, cfg.d_model),
+                              dtype=_dtype(cfg.compute_dtype), device=device)
+    return {"stack": [_init_layer_cache(k, cfg, batch, cache_len, device)
+                      for k in _stack_kinds(cfg)],
+            "tail": [_init_layer_cache(k, cfg, batch, cache_len, device)
+                     for k in tail],
+            "enc_out": enc_out}
 
 
 # ---------------------------------------------------------------------------
@@ -173,19 +346,57 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(x.shape[1], device=x.device)
 
 
+def _encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor,
+                     use_kernel):
+    """Bidirectional encoder over stub audio-frame embeddings (B, F, d)."""
+    x = frames.to(_dtype(cfg.compute_dtype))
+    positions = _positions(x)
+    enc = params["encoder"]
+    for lp in enc["layers"]:
+        x = x + attention_train(lp["attn"],
+                                rms_norm(x, lp["norm1"], cfg.norm_eps), cfg,
+                                positions=positions, causal=False,
+                                use_kernel=use_kernel)
+        x = x + mlp_apply(lp["mlp"], rms_norm(x, lp["norm2"], cfg.norm_eps),
+                          cfg.mlp_act)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _inputs(params, cfg: ModelConfig, batch: Batch, use_kernel):
+    """(x, enc_out): the token embeddings, the VLM's patches prepended,
+    and the encoder's output for enc-dec (else None)."""
+    x = _embed(params, cfg, batch.tokens)
+    enc_out = None
+    if cfg.arch_type == "encdec":
+        enc_out = _encoder_forward(params, cfg, batch.frontend, use_kernel)
+    elif cfg.arch_type == "vlm" and batch.frontend is not None:
+        x = torch.cat([batch.frontend.to(x.dtype), x], dim=1)
+    return x, enc_out
+
+
+def _decoder_stack_train(params, cfg: ModelConfig, x, enc_out, use_kernel):
+    positions = _positions(x)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kinds, key, _ in _run_order(cfg):
+        for lp, kind in zip(params.get(key, []), kinds):
+            x, aux = _layer_train(kind, lp, x, cfg, positions, enc_out,
+                                  use_kernel)
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
 @torch.no_grad()
 def forward_train(params, cfg: ModelConfig, batch: Batch, *,
                   remat: bool = True, use_kernel: bool | None = None):
-    """Full-sequence forward. Returns (logits (B,S,V), aux_loss). `remat`
-    is accepted for the reference's signature and has no effect here (no
-    backward)."""
-    _check_dense(cfg)
-    x = _embed(params, cfg, batch.tokens)
-    positions = _positions(x)
-    for lp in params["layers"]:
-        x = _layer_train(lp, x, cfg, positions, use_kernel)
+    """Full-sequence forward. Returns (logits (B,S,V), aux_loss): the
+    MoE layers' router_aux_weight · balance loss + router_z_weight ·
+    z-loss, summed (0 without MoE). `remat` is accepted for the
+    reference's signature and has no effect here (no backward)."""
+    x, enc_out = _inputs(params, cfg, batch, use_kernel)
+    x, aux = _decoder_stack_train(params, cfg, x, enc_out, use_kernel)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.arch_type == "vlm" and batch.frontend is not None:
+        x = x[:, batch.frontend.shape[1]:]    # loss only on token positions
     return _unembed(params, cfg, x), aux
 
 
@@ -194,13 +405,11 @@ def forward_features(params, cfg: ModelConfig, batch: Batch, *,
                      remat: bool = False,
                      use_kernel: bool | None = None) -> torch.Tensor:
     """Final-norm hidden states (B, S, d) — the feature interface used by
-    multitask.sparse_probe (DSML heads on any backbone). `remat` has no
+    multitask.sparse_probe (DSML heads on any backbone); for the VLM the
+    patches' positions come first, as in the reference. `remat` has no
     effect here."""
-    _check_dense(cfg)
-    x = _embed(params, cfg, batch.tokens)
-    positions = _positions(x)
-    for lp in params["layers"]:
-        x = _layer_train(lp, x, cfg, positions, use_kernel)
+    x, enc_out = _inputs(params, cfg, batch, use_kernel)
+    x, _ = _decoder_stack_train(params, cfg, x, enc_out, use_kernel)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -211,17 +420,17 @@ def forward_prefill(params, cfg: ModelConfig, batch: Batch, *,
     """Causal prompt pass. Returns (last-position logits, caches). As in
     the reference, these logits are not masked for the padded vocabulary
     (decode's are)."""
-    _check_dense(cfg)
-    x = _embed(params, cfg, batch.tokens)
+    x, enc_out = _inputs(params, cfg, batch, use_kernel)
     positions = _positions(x)
     cl = cache_len or x.shape[1]
-    stack = []
-    for lp in params["layers"]:
-        x, c = _layer_prefill(lp, x, cfg, positions, cl, use_kernel)
-        stack.append(c)
+    caches = {"stack": [], "tail": [], "enc_out": enc_out}
+    for kinds, key, name in _run_order(cfg):
+        for lp, kind in zip(params.get(key, []), kinds):
+            x, c = _layer_prefill(kind, lp, x, cfg, positions, cl, enc_out,
+                                  use_kernel)
+            caches[name].append(c)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _unembed(params, cfg, x[:, -1:])
-    return logits, {"stack": stack, "tail": [], "enc_out": None}
+    return _unembed(params, cfg, x[:, -1:]), caches
 
 
 @torch.no_grad()
@@ -229,16 +438,18 @@ def forward_decode(params, cfg: ModelConfig, token: torch.Tensor, pos,
                    caches: dict):
     """One decode step. token: (B, 1) integer; pos: an int.
 
-    Returns (logits (B,1,V), new caches). The caches' tensors are updated
-    in place (`layers.attention_decode`)."""
-    _check_dense(cfg)
+    Returns (logits (B,1,V), new caches). The attention caches' tensors
+    are updated in place (`layers.attention_decode`); the recurrent and
+    SSD caches are new, as the reference's."""
     x = _embed(params, cfg, token)
-    stack = []
-    for lp, c in zip(params["layers"], caches["stack"]):
-        x, nc = _layer_decode(lp, x, cfg, pos, c)
-        stack.append(nc)
+    enc_out = caches.get("enc_out")
+    new = {"stack": [], "tail": [], "enc_out": enc_out}
+    for kinds, key, name in _run_order(cfg):
+        for lp, kind, c in zip(params.get(key, []), kinds, caches[name]):
+            x, nc = _layer_decode(kind, lp, x, cfg, pos, c, enc_out)
+            new[name].append(nc)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _unembed(params, cfg, x)
     if cfg.padded_vocab != cfg.vocab:
         logits[..., cfg.vocab:] = torch.finfo(logits.dtype).min
-    return logits, {"stack": stack, "tail": [], "enc_out": None}
+    return logits, new

@@ -1,18 +1,18 @@
-"""Shared transformer layers: RMSNorm, RoPE, GQA attention (full and
-sliding-window) with training, prefill and single-token decode paths.
+"""Shared transformer layers: RMSNorm, RoPE, GQA attention (full,
+sliding-window, cross) with training, prefill and single-token decode
+paths.
 
 The port of the JAX package's `models/layers.py`. Functions on tensors;
 parameters are plain dicts of tensors in the reference's layouts (`wq`
 (d, N, H), `wk`/`wv` (d, K, H), `wo` (N, H, d); activations (B, S, N, H)).
 Matmuls run in the config compute dtype; softmax and norms accumulate in
-float32, in the reference's op order. Cross attention (`kv_override`,
-`kv_mask` of the reference's `attention_train`) comes with the enc-dec
-stack, ROADMAP queue A item 7.
+float32, in the reference's op order.
 
 The long-sequence branch of `attention_train` (S·T >= FLASH_THRESHOLD,
 S > 1, no `kv_override`) runs `kernels/flash_attention`, the port of the
 TPU flash kernel: the kernel on CUDA tensors, its plain version on the
-CPU, as `use_kernel` says (`kernels/common.py`).
+CPU, as `use_kernel` says (`kernels/common.py`). Cross attention
+(`kv_override`) always takes the dense branch, as in the reference.
 """
 from __future__ import annotations
 
@@ -116,33 +116,44 @@ def _proj(x: torch.Tensor, w: torch.Tensor, spec: str) -> torch.Tensor:
 
 
 def _attend(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-            positions: torch.Tensor, causal: bool, window: int, use_kernel):
-    """`attention_train`'s body; also returns its roped k and its v, which
-    `attention_prefill` keeps as the cache (the reference computes them a
-    second time, with the same result)."""
-    q = rope(_proj(x, p["wq"], "bsd,dnh->bsnh"), positions, cfg.rope_theta)
-    k = rope(_proj(x, p["wk"], "btd,dkh->btkh"), positions, cfg.rope_theta)
-    v = _proj(x, p["wv"], "btd,dkh->btkh")
+            positions: torch.Tensor, causal: bool, window: int, use_kernel,
+            kv_override: Optional[torch.Tensor] = None,
+            kv_mask: Optional[torch.Tensor] = None):
+    """`attention_train`'s body; also returns its k (roped unless
+    `kv_override`) and its v, which `attention_prefill` keeps as the
+    cache (the reference computes them a second time, with the same
+    result)."""
+    q = _proj(x, p["wq"], "bsd,dnh->bsnh")
+    src = x if kv_override is None else kv_override.to(x.dtype)
+    k = _proj(src, p["wk"], "btd,dkh->btkh")
+    v = _proj(src, p["wv"], "btd,dkh->btkh")
+    if kv_override is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     # Long sequences: blockwise (flash) attention — O(S) memory instead of
     # materializing the (S, T) score matrix. The kernel masks by position
     # index, which is the reference's positional mask for the arange
     # positions every caller in the stack passes.
     S_q, T_k = q.shape[1], k.shape[1]
-    if S_q * T_k >= FLASH_THRESHOLD and S_q > 1:
+    if kv_override is None and S_q * T_k >= FLASH_THRESHOLD and S_q > 1:
         out = flash_ops.flash_attention(q, k, v, causal=causal,
                                         window=window, use_kernel=use_kernel)
         return _proj(out, p["wo"], "bsnh,nhd->bsd"), k, v
 
     scores = _gqa_scores(q, k)                                  # (B,K,G,S,T)
     S, T = scores.shape[-2], scores.shape[-1]
-    i = torch.arange(S, device=x.device)[:, None]
-    j = torch.arange(T, device=x.device)[None, :]
-    mask = torch.ones((S, T), dtype=torch.bool, device=x.device)
-    if causal:
-        mask &= j <= i
-    if window:
-        mask &= j > i - window
+    if kv_override is not None:
+        mask = torch.ones((S, T), dtype=torch.bool, device=x.device) \
+            if kv_mask is None else kv_mask[:, None, None, None, :]
+    else:
+        i = torch.arange(S, device=x.device)[:, None]
+        j = torch.arange(T, device=x.device)[None, :]
+        mask = torch.ones((S, T), dtype=torch.bool, device=x.device)
+        if causal:
+            mask &= j <= i
+        if window:
+            mask &= j > i - window
     probs = _masked_softmax(scores, mask).to(x.dtype)
     out = _gqa_out(probs, v)
     return _proj(out, p["wo"], "bsnh,nhd->bsd"), k, v
@@ -151,14 +162,19 @@ def _attend(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, causal: bool = True,
                     window: int = 0,
+                    kv_override: Optional[torch.Tensor] = None,
+                    kv_mask: Optional[torch.Tensor] = None,
                     use_kernel: bool | None = None) -> torch.Tensor:
     """Full-sequence attention (training / encoder / prefill compute).
 
-    `use_kernel` is passed to the flash kernel's wrapper on the
-    long-sequence branch and changes nothing else.
+    kv_override: (B, T, d) encoder output for cross-attention (then
+    causal and window are ignored, no RoPE is applied, and kv_mask (B, T)
+    masks padding). `use_kernel` is passed to the flash kernel's wrapper
+    on the long-sequence branch and changes nothing else.
     """
     return _attend(p, x, cfg, positions=positions, causal=causal,
-                   window=window, use_kernel=use_kernel)[0]
+                   window=window, use_kernel=use_kernel,
+                   kv_override=kv_override, kv_mask=kv_mask)[0]
 
 
 def attention_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, *,

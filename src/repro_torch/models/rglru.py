@@ -1,0 +1,156 @@
+"""Griffin-style recurrent block: temporal conv + RG-LRU (RecurrentGemma).
+
+The port of the JAX package's `models/rglru.py`. The RG-LRU recurrence
+(Griffin, arXiv:2402.19427):
+
+    r_t = sigmoid(W_a u_t + b_a)            recurrence gate
+    i_t = sigmoid(W_i u_t + b_i)            input gate
+    a_t = exp(-c * softplus(Lambda) * r_t)
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
+
+Training/prefill evaluates the linear recurrence with a log-depth scan
+(the reference's `jax.lax.associative_scan`; here Hillis–Steele steps
+over the sequence axis with the same combine, ceil(log2 S) of them);
+decode carries (h, conv window) state and returns a new cache.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import normal
+
+
+class RecurrentCache(NamedTuple):
+    h: torch.Tensor          # (B, d_rnn) RG-LRU hidden state, float32
+    conv: torch.Tensor       # (B, kernel-1, d_rnn) trailing conv inputs
+
+
+def _causal_depthwise_conv(u: torch.Tensor, w: torch.Tensor,
+                           carry: torch.Tensor | None = None) -> torch.Tensor:
+    """u: (B, S, D), w: (k, D) depthwise causal conv; carry: (B, k-1, D).
+
+    A cross-correlation, as the reference's: w[0] multiplies the oldest
+    input of the window. The k products are summed in the reference's
+    order, in u's dtype."""
+    k = w.shape[0]
+    if carry is None:
+        carry = torch.zeros((u.shape[0], k - 1, u.shape[2]), dtype=u.dtype,
+                            device=u.device)
+    ext = torch.cat([carry.to(u.dtype), u], dim=1)
+    S = u.shape[1]
+    out = ext[:, 0:S] * w[0].to(u.dtype)
+    for i in range(1, k):
+        out = out + ext[:, i:i + S] * w[i].to(u.dtype)
+    return out
+
+
+def _rglru_gates(p: dict, u: torch.Tensor, c: float):
+    f32 = torch.float32
+    uf = u.to(f32)
+    r = torch.sigmoid(torch.einsum("...d,de->...e", uf, p["w_a"].to(f32))
+                      + p["b_a"].to(f32))
+    i = torch.sigmoid(torch.einsum("...d,de->...e", uf, p["w_i"].to(f32))
+                      + p["b_i"].to(f32))
+    log_a = -c * F.softplus(p["lam"].to(f32)) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * uf)
+    return a, b
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t from h_{-1} = 0, along dim 1, in
+    ceil(log2 S) Hillis–Steele steps of the reference's combine
+    ((a_l, b_l), (a_r, b_r)) -> (a_r a_l, a_r b_l + b_r)."""
+    S = a.shape[1]
+    step = 1
+    while step < S:
+        a_prev, b_prev = a[:, :-step], b[:, :-step]
+        a_new = torch.cat([a[:, :step], a[:, step:] * a_prev], dim=1)
+        b = torch.cat([b[:, :step], a[:, step:] * b_prev + b[:, step:]],
+                      dim=1)
+        a = a_new
+        step *= 2
+    return b
+
+
+def rglru_scan(p: dict, u: torch.Tensor, c: float) -> torch.Tensor:
+    """Full-sequence RG-LRU. u: (B, S, D) -> h (B, S, D) in u's dtype."""
+    a, b = _rglru_gates(p, u, c)
+    return _linear_scan(a, b).to(u.dtype)
+
+
+def rglru_step(p: dict, u: torch.Tensor, h: torch.Tensor, c: float):
+    """One decode step. u: (B, 1, D), h: (B, D) -> (y (B,1,D), h')."""
+    a, b = _rglru_gates(p, u, c)
+    h_new = a[:, 0] * h.to(torch.float32) + b[:, 0]
+    return h_new[:, None].to(u.dtype), h_new
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
+
+
+def recurrent_block_train(p: dict, x: torch.Tensor,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """Griffin recurrent block, full sequence. x: (B, S, d_model)."""
+    cdt = x.dtype
+    gate = _gelu(torch.einsum("bsd,de->bse", x, p["w_gate"].to(cdt)))
+    u = torch.einsum("bsd,de->bse", x, p["w_x"].to(cdt))
+    u = _causal_depthwise_conv(u, p["conv_w"])
+    h = rglru_scan(p, u, cfg.rglru.c)
+    return torch.einsum("bse,ed->bsd", h * gate, p["w_o"].to(cdt))
+
+
+def recurrent_block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                           cache: RecurrentCache
+                           ) -> Tuple[torch.Tensor, RecurrentCache]:
+    """One-token decode. x: (B, 1, d_model). Returns a new cache; the one
+    given is not written."""
+    cdt = x.dtype
+    gate = _gelu(torch.einsum("bsd,de->bse", x, p["w_gate"].to(cdt)))
+    u_in = torch.einsum("bsd,de->bse", x, p["w_x"].to(cdt))
+    u = _causal_depthwise_conv(u_in, p["conv_w"], carry=cache.conv)
+    conv_new = torch.cat([cache.conv[:, 1:], u_in.to(cache.conv.dtype)],
+                         dim=1)
+    y, h_new = rglru_step(p, u, cache.h, cfg.rglru.c)
+    out = torch.einsum("bse,ed->bsd", y * gate, p["w_o"].to(cdt))
+    return out, RecurrentCache(h=h_new, conv=conv_new)
+
+
+def init_recurrent_cache(batch: int, cfg: ModelConfig,
+                         device="cuda") -> RecurrentCache:
+    rc = cfg.rglru
+    dr = rc.d_rnn or cfg.d_model
+    return RecurrentCache(
+        h=torch.zeros((batch, dr), dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, rc.conv_kernel - 1, dr),
+                         dtype=getattr(torch, cfg.compute_dtype),
+                         device=device),
+    )
+
+
+def init_recurrent_params(gen: torch.Generator, cfg: ModelConfig,
+                          dtype) -> dict:
+    """The reference's distributions and scales, drawn from `gen` on its
+    device; Lambda spaced on [0.1, 2.0] so that a ~ U[0.9, 0.999]^c at
+    r = 1 (Griffin appendix)."""
+    rc = cfg.rglru
+    d = cfg.d_model
+    dr = rc.d_rnn or d
+    dev = gen.device
+    return {
+        "w_gate": normal(gen, (d, dr), d ** -0.5, dtype),
+        "w_x": normal(gen, (d, dr), d ** -0.5, dtype),
+        "conv_w": normal(gen, (rc.conv_kernel, dr), rc.conv_kernel ** -0.5,
+                         dtype),
+        "w_a": normal(gen, (dr, dr), dr ** -0.5, dtype),
+        "b_a": torch.zeros((dr,), dtype=dtype, device=dev),
+        "w_i": normal(gen, (dr, dr), dr ** -0.5, dtype),
+        "b_i": torch.zeros((dr,), dtype=dtype, device=dev),
+        "lam": torch.linspace(0.1, 2.0, dr, device=dev).to(dtype),
+        "w_o": normal(gen, (dr, d), dr ** -0.5, dtype),
+    }

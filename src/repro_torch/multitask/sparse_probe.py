@@ -3,8 +3,8 @@ frozen backbone features.
 
 The port's counterpart of the JAX package's `repro/multitask/sparse_probe.py`.
 Each task (one per machine / data-parallel group) owns its own labelled
-data; features come from a zoo backbone's `forward_features` (the dense
-stacks the port serves). Tasks run the paper's Algorithm 1 on (features,
+data; features come from any zoo backbone's `forward_features` (dense,
+MoE, hybrid, SSM, enc-dec or VLM). Tasks run the paper's Algorithm 1 on (features,
 targets): local lasso -> debias -> ONE all-gather of the debiased
 d-vector -> group hard threshold -> filter. The result is a set of
 per-task linear heads that share a common sparse support over the

@@ -56,13 +56,20 @@ runs on the rank's statistics and gathers the debiased rows over `task`
 once (`refit(mesh=...)`), so the support is global; its health verdict
 is the max over the mesh (one `pmax` per mesh dim), so all ranks
 adopt or roll back together and their generations never part.
-`predict` scores this rank's tasks; checkpoints hold this rank's state.
+`predict` scores this rank's tasks. Checkpoints hold the whole state in
+the reference's global (m, ...) layout: the data-coordinate-0 ranks
+gather their task blocks over `task` (ranks on one task coordinate hold
+the same block), rank (0, 0) alone writes, and the mesh then agrees on
+the generation (one `pmin` per mesh dim), so no rank returns before the
+file is there. A restore reads the same global file on every rank,
+agrees the generation with `pmin`, and takes the rank's task block.
 
 Not ported: the autotune cache warm-up (the port's kernels choose
 their tiles by plan functions).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -77,10 +84,17 @@ from repro_torch.stream.guard import IngestGuard, _guarded_fold
 from repro_torch.stream.health import RefitHealth, refit_health
 from repro_torch.stream.refit import RefitInfo, refit
 from repro_torch.stream.serve import ModelGeneration
+from repro_torch.substrate.collectives import all_gather_tasks, pmin
 from repro_torch.substrate.feed import feed_chunk
 from repro_torch.stream.state import (
-    init_stream_state, init_window, ingest, window_ingest, window_stats,
+    StreamState, init_stream_state, init_window, ingest, window_ingest,
+    window_stats,
 )
+
+# the StreamState fields with one row per task: a sharded service holds
+# its block of them, a checkpoint all of them
+_TASK_FIELDS = ("Sigmas", "cs", "counts", "beta_local", "Ms", "beta_u",
+                "beta_tilde")
 
 # consecutive-failure escalation of the retry iteration budget is
 # capped: past 2 failures more iterations stop being the cure and the
@@ -508,21 +522,88 @@ class StreamingDsmlService:
             return {"state": self.state, "window": self.window}
         return {"state": self.state}
 
+    def _coord(self, axis: str) -> int:
+        return self.mesh.get_coordinate()[
+            self.mesh.mesh_dim_names.index(axis)]
+
+    def _global_tree(self):
+        """The tree a checkpoint holds. Sharded, the whole state: the
+        data-coordinate-0 ranks gather their task blocks over `task` (one
+        `all_gather_tasks` a field); None on the other ranks."""
+        if self.mesh is None:
+            return self._ckpt_tree()
+        if self._coord(self.data_axis) != 0:
+            return None
+        st = self.state
+        return {"state": st._replace(**{
+            f: all_gather_tasks(getattr(st, f), self.mesh, self.task_axis)
+            for f in _TASK_FIELDS})}
+
+    def _agree(self, generation: int) -> int:
+        """The smallest `generation` over the mesh (one `pmin` a dim)."""
+        g = torch.tensor([generation], dtype=torch.int64,
+                         device=self.device)
+        for axis in self.mesh.mesh_dim_names:
+            g = pmin(g, self.mesh, axis)
+        return int(g.item())
+
+    def _write(self, write) -> None:
+        """`write(tree)` of the global tree. Sharded, rank (0, 0) alone
+        writes, after the gather; then every rank waits for it in the
+        generation's agreement, which must be this rank's generation. A
+        write that raises still takes part, agreeing on -1, so every
+        rank fails at once instead of waiting in `pmin`."""
+        tree = self._global_tree()
+        if self.mesh is None:
+            write(tree)
+            return
+        if tree is not None and self._coord(self.task_axis) == 0:
+            try:
+                write(tree)
+            except Exception:
+                self._agree(-1)
+                raise
+        agreed = self._agree(self.generation)
+        if agreed == -1:
+            raise CheckpointError("sharded checkpoint: rank (0, 0) failed "
+                                  "to write the global checkpoint")
+        if agreed != self.generation:
+            raise CheckpointError(f"sharded checkpoint: ranks at "
+                                  f"generations {agreed} and "
+                                  f"{self.generation}")
+
+    def _global_template(self):
+        if self.mesh is None:
+            return self._ckpt_tree()
+        return {"state": init_stream_state(self.m, self.p, self.dtype,
+                                           self.device)}
+
+    def _local_state(self, state: StreamState) -> StreamState:
+        """This rank's task block of a global state (itself unsharded)."""
+        if self.mesh is None:
+            return state
+        j, ml = self._coord(self.task_axis), self.m_local
+        return state._replace(**{
+            f: getattr(state, f)[j * ml:(j + 1) * ml].contiguous()
+            for f in _TASK_FIELDS})
+
     def save(self, path: str) -> None:
         """Atomic single-file snapshot (tmp + fsync + rename); see
-        `checkpoint()` for the retained-generation store."""
-        save_pytree(path, self._ckpt_tree())
+        `checkpoint()` for the retained-generation store. Sharded, every
+        rank calls it and rank (0, 0) writes the global state."""
+        self._write(lambda tree: save_pytree(path, tree))
 
     def _validate_ckpt_compat(self, data, where: str) -> None:
         """Reject a checkpoint that was not produced by a service of
-        this (m, p, dtype) BEFORE any live state is overwritten."""
+        this (m, p, dtype) BEFORE any live state is overwritten. The
+        file holds all m tasks, sharded or not."""
         key = "state/Sigmas"
         if key not in data.files:
             raise CheckpointError(
                 f"{where} is not a StreamingDsmlService checkpoint "
                 f"(no '{key}' leaf; found e.g. {list(data.files)[:3]})")
         arr = data[key]
-        want = (self.m_local, self.p, self.p)
+        want = (self.m, self.p, self.p)
         if arr.shape != want:
             raise CheckpointError(
                 f"{where} was saved by an incompatible service: "
@@ -539,7 +620,8 @@ class StreamingDsmlService:
         state is overwritten, so a wrong-path load cannot clobber a
         serving model. Loading a window-mode checkpoint into a
         non-window service (or vice versa) raises rather than silently
-        changing the forgetting semantics."""
+        changing the forgetting semantics. Sharded, each rank takes its
+        task block of the global file."""
         fname = path if path.endswith(".npz") else path + ".npz"
         with load_npz(fname) as data:
             has_window = any(k.startswith("window/") for k in data.files)
@@ -553,8 +635,8 @@ class StreamingDsmlService:
                     "ring buffer is absent — construct without window= "
                     "to restore it")
             self._validate_ckpt_compat(data, f"checkpoint '{fname}'")
-        restored = restore_pytree(path, self._ckpt_tree())
-        self.state = restored["state"]
+        restored = restore_pytree(path, self._global_template())
+        self.state = self._local_state(restored["state"])
         if self.window is not None:
             self.window = restored["window"]
         self._since_refit = 0
@@ -563,20 +645,45 @@ class StreamingDsmlService:
 
     def checkpoint(self) -> Optional[str]:
         """Persist the current generation to the crash-safe store
-        (requires `ckpt_dir=`). Returns the payload path."""
+        (requires `ckpt_dir=`). Returns the payload path (on every rank
+        when sharded)."""
         if self.ckpt_store is None:
             raise ValueError("no ckpt_dir configured on this service")
-        path = self.ckpt_store.save(self._ckpt_tree(), self.generation)
-        return path
+        generation = self.generation
+        self._write(lambda tree: self.ckpt_store.save(tree, generation))
+        return os.path.join(self.ckpt_store.dirpath,
+                            self.ckpt_store._ckpt_name(generation))
 
     def restore(self) -> int:
         """Load the newest HEALTHY retained generation from the store,
         falling back past corrupted checkpoints (requires `ckpt_dir=`).
-        Returns the restored generation."""
+        Returns the restored generation. Sharded, every rank reads the
+        global file and the ranks agree on the smallest generation any
+        of them restored (`pmin`); a rank that restored a newer one
+        loads the agreed one. A rank whose load raises agrees on -1, so
+        every rank fails at once."""
         if self.ckpt_store is None:
             raise ValueError("no ckpt_dir configured on this service")
-        tree, generation = self.ckpt_store.load(self._ckpt_tree())
-        self.state = tree["state"]
+        template = self._global_template()
+        try:
+            tree, generation = self.ckpt_store.load(template)
+        except Exception:
+            if self.mesh is not None:   # so no other rank waits in pmin
+                self._agree(-1)
+            raise
+        if self.mesh is not None:
+            agreed = self._agree(generation)
+            if agreed == -1:
+                raise CheckpointError("sharded restore: another rank "
+                                      "failed to load the checkpoint")
+            if agreed != generation:
+                tree, generation = self.ckpt_store.load(
+                    template, max_generation=agreed)
+            if generation != agreed:
+                raise CheckpointError(f"sharded restore: the agreed "
+                                      f"generation {agreed} does not "
+                                      f"restore here ({generation})")
+        self.state = self._local_state(tree["state"])
         if self.window is not None:
             self.window = tree["window"]
         self._since_refit = 0

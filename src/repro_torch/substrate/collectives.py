@@ -99,3 +99,9 @@ def pmax(x: torch.Tensor, group=None, axis: str = "task") -> torch.Tensor:
     """Elementwise max over `axis`: a verdict all ranks must share (the
     sharded stream service's refit health)."""
     return _all_reduce("pmax", dist.ReduceOp.MAX, x, group, axis)
+
+
+def pmin(x: torch.Tensor, group=None, axis: str = "task") -> torch.Tensor:
+    """Elementwise min over `axis`: a value all ranks must share (the
+    generation a sharded stream service restores)."""
+    return _all_reduce("pmin", dist.ReduceOp.MIN, x, group, axis)

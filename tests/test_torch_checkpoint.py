@@ -111,6 +111,19 @@ def test_malformed_manifest_degrades_to_directory_scan(tmp_path, doc):
                              reason="manifest_unreadable") == before + 1
 
 
+def test_store_load_stops_at_max_generation(tmp_path):
+    """The generation a sharded service's ranks agreed on: the newest at
+    or below it, and none where none is."""
+    store = CheckpointStore(str(tmp_path), keep=3)
+    svc = _service(guard=False)
+    for g in (1, 2, 4):
+        store.save(_stamped_tree(svc, g), g)
+    assert store.load(svc._ckpt_tree(), max_generation=3)[1] == 2
+    assert store.load(svc._ckpt_tree(), max_generation=4)[1] == 4
+    with pytest.raises(CheckpointError, match="no checkpoints found"):
+        store.load(svc._ckpt_tree(), max_generation=0)
+
+
 def test_store_prunes_to_keep(tmp_path):
     store = CheckpointStore(str(tmp_path), keep=2)
     svc = _service(guard=False)

@@ -350,16 +350,56 @@ def test_registry_matches_reference():
             assert tc.layer_kinds() == jc.layer_kinds()
 
 
+def _shapes(tree):
+    """The leaf shapes of a tree of dicts, lists and NamedTuples."""
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree).__name__, [_shapes(v) for v in tree]
+    return tuple(tree.shape)
+
+
+def _ref_layers(stack, n_groups):
+    """The reference's stacked groups {"p0": ..., } as one tree per
+    layer, group by group."""
+    return [jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape[1:],
+                                                        a.dtype),
+                         stack[f"p{i}"])
+            for _ in range(n_groups) for i in range(len(stack))]
+
+
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-moe-16b",
                                   "mamba2-1.3b", "recurrentgemma-9b",
                                   "seamless-m4t-medium", "internvl2-2b"])
-def test_non_dense_configs_raise(arch):
+def test_non_dense_configs_build(arch):
+    """The port's own parameters and caches have the reference's shapes,
+    layer for layer: the scanned groups split in order, the tail (the MoE
+    head), the encoder, the recurrent and SSD caches, `enc_out`."""
+    from repro.models import init_caches as jax_init_caches
+    from repro.models import stack_plan as jax_stack_plan
+    jc = smoke(get_config(arch))
     cfg = tconfigs.smoke(tconfigs.get_config(arch))
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        t_init_params(gen, cfg)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        t_init_caches(cfg, 1, 8, device="cpu")
+    _, n_groups, tail = jax_stack_plan(jc)
+    want = jax.eval_shape(lambda k: init_params(k, jc), KEY)
+    p = t_init_params(torch.Generator().manual_seed(0), cfg)
+    assert _shapes(p["layers"]) == _shapes(_ref_layers(want["layers"],
+                                                       n_groups))
+    assert _shapes(p.get("tail", [])) == _shapes(want.get("tail", []))
+    for name in ("embed", "final_norm", "head"):
+        assert _shapes(p[name]) == _shapes(want[name])
+    if "encoder" in want:
+        assert _shapes(p["encoder"]["layers"]) == _shapes(
+            _ref_layers(want["encoder"]["layers"], cfg.n_encoder_layers))
+    assert set(p) == set(want)
+    c = t_init_caches(cfg, 3, 10, device="cpu")
+    jcache = jax.eval_shape(lambda: jax_init_caches(jc, 3, 10))
+    assert _shapes(c["stack"]) == _shapes(_ref_layers(jcache["stack"],
+                                                      n_groups))
+    assert _shapes(c["tail"]) == _shapes(jcache["tail"])
+    assert len(c["tail"]) == len(tail)
+    assert (c["enc_out"] is None) == (jcache["enc_out"] is None)
+    if c["enc_out"] is not None:
+        assert c["enc_out"].shape == jcache["enc_out"].shape
 
 
 def test_init_params_and_caches_shapes():
@@ -396,3 +436,20 @@ def test_serving_cell_is_granite_at_full_width_from_its_seeds():
     assert torch.equal(prompt, prompt2)
     assert torch.equal(params["layers"][0]["attn"]["wq"],
                        params2["layers"][0]["attn"]["wq"])
+
+
+def test_serving_cell_serves_any_family_with_its_stub_frontend():
+    """Phase 9's families: the cell's batch for another configuration,
+    and the frontend of the VLM and enc-dec ones from its own seed."""
+    from repro_torch.serving import cell
+    small = dict(n_layers=1, d_model=64, n_heads=4, n_kv_heads=2,
+                 head_dim=16, d_ff=128, vocab=300, n_frontend_tokens=8)
+    cfg, params, prompt = cell.make_cell("cpu", "internvl2-2b", **small)
+    assert cfg == dataclasses.replace(tconfigs.get_config("internvl2-2b"),
+                                      **small)
+    assert prompt.shape == (cell.BATCH, cell.PROMPT)
+    fe = cell.make_frontend(cfg, "cpu")
+    assert fe.shape == (cell.BATCH, 8, 64) and fe.dtype == torch.float32
+    assert torch.equal(fe, cell.make_frontend(cfg, "cpu"))
+    assert float(fe.std()) == pytest.approx(0.1, rel=0.1)
+    assert cell.make_frontend(tconfigs.get_config("granite-3-2b")) is None

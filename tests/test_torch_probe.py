@@ -14,8 +14,10 @@ supports; the sharded branch on 2 and 4 gloo ranks (`run_probe`, one
 thread a rank), whose default Λ reads the fit's one all-gather (one
 collective a rank). The reference `tests/test_multitask.py`'s three
 dense-backbone assertions hold on the port's outputs. Its fourth case,
-the mamba2 backbone, waits for the SSD layers (ROADMAP queue A item 7):
-the port's `pool_features` refuses that configuration by name.
+the mamba2 backbone (SSD layers), runs on the reference's mamba2
+parameters and tasks: the port's features within 1e-4 · max|.|, its fit
+within 1e-5 with the reference's support, and the reference's recovery
+assertion.
 """
 from __future__ import annotations
 
@@ -154,10 +156,30 @@ def test_probe_beats_dense_local_ridge_on_support(setup, fits):
         int(hamming(local_sup, support))
 
 
-def test_probe_on_ssm_backbone_waits_for_ssd(setup):
+def test_probe_on_ssm_backbone():
+    """The reference's `test_probe_works_on_ssm_backbone`, against the
+    reference: mamba2's smoke backbone in f32, the same tokens."""
+    jcfg = jax_smoke(jax_get_config("mamba2-1.3b")).replace(**F32)
+    jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    key = jax.random.PRNGKey(1)
+    jdata, jsupport = jax_synthetic_tasks(key, jparams, jcfg, m=4, n=96,
+                                          s_active=6)
+    # the tokens `synthetic_probe_tasks` drew (its first key)
+    tokens = np.array(jax.random.randint(jax.random.split(key, 4)[0],
+                                         (4, 96, 16), 0, jcfg.vocab))
     cfg = smoke(get_config("mamba2-1.3b")).replace(**F32)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        pool_features({}, cfg, torch.zeros((1, 4), dtype=torch.int32))
+    params = params_from_reference(jparams, cfg, device=CPU)
+    feats = torch.stack([pool_features(params, cfg, torch.from_numpy(t))
+                         for t in tokens])
+    want = np.array(jdata.features)
+    assert float(np.max(np.abs(feats.numpy() - want))) <= \
+        1e-4 * float(np.max(np.abs(want)))
+    res = sparse_probe_fit(from_reference(jdata, CPU))
+    jres = jax_sparse_probe_fit(jdata)
+    assert torch.equal(res.support, torch.from_numpy(np.array(jres.support)))
+    _close(res.beta_tilde, jres.beta_tilde)
+    support = from_reference(jsupport, CPU)
+    assert int((res.support & support).sum()) >= int(support.sum()) - 1
 
 
 def test_synthetic_probe_tasks_draws_from_its_generator(setup):

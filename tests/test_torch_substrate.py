@@ -18,7 +18,12 @@ inputs built by the reference and handed over as numpy arrays:
   and a divergence forced on one rank only, against the reference's
   unsharded service: the same verdicts, generations, rollbacks,
   intervals and supports at every step, every rank's state block
-  within 1e-5.
+  within 1e-5;
+* the sharded service's checkpoints in one shared `ckpt_dir`: one global
+  (m, p, p) file a generation, written by rank (0, 0); a fresh service
+  on each rank restores its own task block at one agreed generation, and
+  the global file loads into an unsharded port service and into the
+  reference's service with the same Σ and c (within 1e-6).
 
 And without ranks: `run_probe` kills every rank when one fails or the
 time runs out, `rank_env`'s environment, and the kernel build's
@@ -379,6 +384,191 @@ def test_service_mesh_shares_one_verdict_per_refit(service_run):
         assert line["attempts"] >= 4
         assert line["gathers"] == line["attempts"]
         assert line["pmax"] == 2 * line["attempts"]
+
+
+# ---------------------------------------------------------------------------
+# the sharded service's checkpoints: one global file in a shared directory
+# ---------------------------------------------------------------------------
+
+_CKPT_STEPS = 10
+
+_CKPT = r"""
+import json, os
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from repro_torch import obs
+from repro_torch.stream import StreamingDsmlService
+from repro_torch.substrate import data_task_mesh, init_from_env
+
+rank, world = init_from_env()
+mesh = data_task_mesh(n_task=2)
+d = np.load({path!r})
+kw = dict(lam={lam}, mu={mu}, Lam={thr}, device="cpu", guard=False,
+          mesh=mesh, ckpt_dir={ckpt!r}, **{svc!r})
+svc = StreamingDsmlService({m}, {p}, **kw)
+for step in range({steps}):
+    svc.ingest(d[f"X{{step}}"], d[f"y{{step}}"])
+svc.checkpoint()        # the chunks since the last refit's checkpoint
+obs.reset()
+fresh = StreamingDsmlService({m}, {p}, **kw)
+restored = fresh.restore()
+np.savez({out_dir!r} + f"/ckpt{{rank}}.npz",
+         **{{"live_" + k: v.numpy() for k, v in svc.state._asdict().items()}},
+         **{{k: v.numpy() for k, v in fresh.state._asdict().items()}})
+print("RESULT " + json.dumps({{
+    "generation": svc.generation, "restored": restored,
+    "fresh_generation": fresh.generation,
+    "pmin": obs.counter_total("collective.calls", op="pmin")}}))
+"""
+
+
+@pytest.fixture(scope="module")
+def ckpt_run(tmp_path_factory):
+    """One world-4 run of `_CKPT` on a 2 x 2 mesh with one shared
+    `ckpt_dir`: chunks with refits (each checkpointed) and a last
+    checkpoint, then a fresh service on every rank restores."""
+    rng = np.random.default_rng(5)
+    chunks = {}
+    for step in range(_CKPT_STEPS):
+        X, y = jax_make_clean_batch(rng, M, 40, P)
+        chunks[f"X{step}"], chunks[f"y{step}"] = np.array(X), np.array(y)
+    tmp = tmp_path_factory.mktemp("ckpt")
+    np.savez(tmp / "chunks.npz", **chunks)
+    ckpt = tmp / "store"
+    ckpt.mkdir()
+    run = run_probe(_CKPT.format(
+        path=str(tmp / "chunks.npz"), out_dir=str(tmp), ckpt=str(ckpt),
+        m=M, p=P, lam=LAM, mu=MU, thr=THR, svc=_SVC, steps=_CKPT_STEPS),
+        world=4, timeout=120, pg_timeout=60)
+    return _results(run), tmp, ckpt
+
+
+def test_sharded_checkpoints_restore_each_ranks_block(ckpt_run):
+    """One global file a generation in the shared directory; every rank
+    restores the newest at one agreed generation (a `pmin` a mesh dim),
+    its own task block of it, bit for bit its live state's."""
+    lines, tmp, ckpt = ckpt_run
+    gens = {line["generation"] for line in lines}
+    assert len(gens) == 1 and gens.pop() >= 2
+    files = sorted(os.listdir(ckpt))
+    assert files == sorted(["MANIFEST.json"] + [
+        f"ckpt_{g:08d}.npz" for g in
+        range(lines[0]["generation"] - 2, lines[0]["generation"] + 1)])
+    for rank, line in enumerate(lines):
+        assert line["restored"] == line["fresh_generation"] == \
+            line["generation"]
+        assert line["pmin"] == 2
+        got = np.load(tmp / f"ckpt{rank}.npz")
+        for name in ("Sigmas", "cs", "counts", "beta_local", "Ms", "beta_u",
+                     "beta_tilde", "support", "generation"):
+            np.testing.assert_array_equal(got[name], got["live_" + name],
+                                          err_msg=f"rank {rank} {name}")
+
+
+def test_sharded_checkpoint_is_the_global_layout(ckpt_run):
+    """The newest file holds all m tasks: it loads into an unsharded port
+    service and into the reference's service with the same Σ and c, and
+    its task blocks are the ranks' restored blocks."""
+    import repro_torch.stream as tstream
+    lines, tmp, ckpt = ckpt_run
+    path = str(ckpt / f"ckpt_{lines[0]['generation']:08d}.npz")
+    kw = dict(lam=LAM, mu=MU, Lam=THR)
+    port = tstream.StreamingDsmlService(M, P, device="cpu", **kw)
+    port.load(path)
+    ref = jstream.StreamingDsmlService(M, P, **kw)
+    ref.load(path)
+    assert port.generation == ref.generation == lines[0]["generation"]
+    for name in ("Sigmas", "cs"):
+        np.testing.assert_allclose(getattr(port.state, name).numpy(),
+                                   np.array(getattr(ref.state, name)),
+                                   rtol=0, atol=1e-6, err_msg=name)
+    for rank in range(len(lines)):
+        tasks, _ = _block(rank)
+        got = np.load(tmp / f"ckpt{rank}.npz")
+        for name in ("Sigmas", "cs", "beta_tilde"):
+            np.testing.assert_array_equal(
+                got[name], getattr(port.state, name).numpy()[tasks])
+
+
+_CKPT_FAIL = r"""
+import json, time
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from repro_torch.checkpoint.io import CheckpointError
+from repro_torch.stream import StreamingDsmlService
+from repro_torch.substrate import data_task_mesh, init_from_env
+
+rank, world = init_from_env()
+mesh = data_task_mesh(n_task=2)
+d = np.load({path!r})
+kw = dict(lam={lam}, mu={mu}, Lam={thr}, device="cpu", guard=False,
+          mesh=mesh, ckpt_dir={ckpt!r}, **{svc!r})
+svc = StreamingDsmlService({m}, {p}, **kw)
+svc.ingest(d["X0"], d["y0"])
+svc.checkpoint()
+out = {{}}
+
+
+def attempt(key, fn):
+    t0 = time.monotonic()
+    try:
+        fn()
+        out[key] = None
+    except Exception as e:
+        out[key] = [type(e).__name__, str(e)]
+    out[key + "_s"] = time.monotonic() - t0
+
+
+def broken_save(tree, generation):
+    raise OSError("disk full")
+
+
+def broken_load(template, max_generation=None):
+    raise CheckpointError("corrupt")
+
+
+if rank == 0:
+    svc.ckpt_store.save = broken_save
+attempt("write", svc.checkpoint)
+fresh = StreamingDsmlService({m}, {p}, **kw)
+if rank == 3:
+    fresh.ckpt_store.load = broken_load
+attempt("restore", fresh.restore)
+again = StreamingDsmlService({m}, {p}, **kw)
+out["again"] = again.restore()
+out["generation"] = svc.generation
+print("RESULT " + json.dumps(out))
+"""
+
+
+def test_sharded_checkpoint_failure_fails_every_rank_at_once(
+        tmp_path_factory):
+    """Rank (0, 0)'s write raises, then rank 3's load: every rank raises
+    at once (none waits in `pmin` for the process group's timeout), and
+    the mesh stays in step for the next restore."""
+    rng = np.random.default_rng(6)
+    X, y = jax_make_clean_batch(rng, M, 40, P)
+    tmp = tmp_path_factory.mktemp("ckpt_fail")
+    np.savez(tmp / "chunks.npz", X0=np.array(X), y0=np.array(y))
+    ckpt = tmp / "store"
+    ckpt.mkdir()
+    run = run_probe(_CKPT_FAIL.format(
+        path=str(tmp / "chunks.npz"), ckpt=str(ckpt), m=M, p=P, lam=LAM,
+        mu=MU, thr=THR, svc=_SVC), world=4, timeout=120, pg_timeout=60)
+    lines = _results(run)
+    for rank, line in enumerate(lines):
+        assert line["write"] == (
+            ["OSError", "disk full"] if rank == 0 else
+            ["CheckpointError", "sharded checkpoint: rank (0, 0) failed to "
+                                "write the global checkpoint"]), line
+        assert line["restore"] == (
+            ["CheckpointError", "corrupt"] if rank == 3 else
+            ["CheckpointError", "sharded restore: another rank failed to "
+                                "load the checkpoint"]), line
+        assert line["write_s"] < 30 and line["restore_s"] < 30, line
+        assert line["again"] == line["generation"]
 
 
 # ---------------------------------------------------------------------------
