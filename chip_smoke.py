@@ -14,7 +14,9 @@ Phases, each of which raises on failure (exit code != 0):
    (`logistic_grad_kernel`, `logistic_grad_rows_kernel`) and its unfused
    pair (`logistic_residual_kernel`, `logistic_backproject_kernel`), the
    group threshold (`group_threshold_kernel`) and the bf16 Hopper flash
-   forward (`flash_fwd_wgmma`) must not spill;
+   forward (`flash_fwd_wgmma`, one instance at each of H = 64, 128 and
+   256, and no bf16 instance of the f32 body `flash_fwd_kernel`) must not
+   spill;
 3. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at ragged ones, max abs error <= 1e-5 * max|plain|
    per output (both accumulate in f32, in another order); the rank-n
@@ -48,13 +50,15 @@ Phases, each of which raises on failure (exit code != 0):
    the bf16 kernel's 128-key tile, the window cutting its tiles), and at
    phase 9's prefill shapes: (4, 2048, 16, 16, 128), (4, 3072, 16, 8,
    128), (4, 2048, 16, 1, 256) with window 2048, and (4, 4096, 16, 16, 64)
-   not causal,
+   not causal, and at H = 256 (64-key tiles) also a ragged non-causal
+   (1, 300, 4, 1) against T = 333 and (1, 700, 4, 2) with window 96,
    against the plain version on the f32 upcast of the same
    inputs; in both dtypes each query row's output within a relative l2
    error of the plain row (1e-4 in f32, 1e-2 in bf16: the output's
    scale falls with the row, as 1 / sqrt(row + 1), so a bar on
    max|plain|, set by row 0, would not follow it), each twice for the
-   same bits;
+   same bits; and the kernels a bf16 call runs on the card at H = 64,
+   128 and 256 (`torch.profiler`): `flash_fwd_wgmma` of its H alone;
 4. the regression path at full width: `dsml_fit` (DSML Algorithm 1) on
    m = 16 tasks, n = 512 samples, p = 1024 features, through the kernels
    (launch counts zeroed just before, read just after), then with
@@ -1710,6 +1714,14 @@ def main() -> None:
                                        "flash_fwd_wgmma")):
                 check(" 0 bytes spill stores" in line,
                       f"a redesigned kernel spills: {line}")
+    flash_log = "\n".join(ptxas_lines(_build.BUILD_LOG["flash_attention"]))
+    wgmma = sorted(set(re.findall(r"flash_fwd_wgmmaILi(\d+)E", flash_log)),
+                   key=int)
+    check(wgmma == ["64", "128", "256"] and
+          "flash_fwd_kernelI13__nv_bfloat16" not in flash_log,
+          f"flash_attention.cu built flash_fwd_wgmma at H = {wgmma} and "
+          f"a bf16 flash_fwd_kernel: "
+          f"{'flash_fwd_kernelI13__nv_bfloat16' in flash_log}")
 
     # ---- 3. kernel vs plain -----------------------------------------------
     g = torch.Generator(device=dev).manual_seed(1)
@@ -1975,16 +1987,17 @@ def main() -> None:
     check_kernel("group_threshold", "(1001,5) bf16", group_threshold,
                  threshold_input(1001, 5, torch.bfloat16), 0.8)
 
-    def flash_inputs(b, s, n, k, h, dtype):
+    def flash_inputs(b, s, n, k, h, dtype, t=None):
+        t = s if t is None else t
         return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
-                     for shape in ((b, s, n, h), (b, s, k, h), (b, s, k, h)))
+                     for shape in ((b, s, n, h), (b, t, k, h), (b, t, k, h)))
 
-    def check_flash(shape, dtype, causal=True, window=0):
+    def check_flash(shape, dtype, causal=True, window=0, t=None):
         """The kernel twice and the plain version on the f32 upcast of the
-        same inputs; every query row within TOL_FLASH_ROW[dtype] of the
-        plain row (relative l2) and, in f32, max abs error <= TOL_FLASH *
-        max|plain|."""
-        qkv = flash_inputs(*shape, dtype)
+        same inputs (T = t keys, S by default); every query row within
+        TOL_FLASH_ROW[dtype] of the plain row (relative l2) and, in f32,
+        max abs error <= TOL_FLASH * max|plain|."""
+        qkv = flash_inputs(*shape, dtype, t)
         got = flash_attention(*qkv, causal=causal, window=window,
                               use_kernel=True)
         again = flash_attention(*qkv, causal=causal, window=window,
@@ -1993,7 +2006,7 @@ def main() -> None:
                               window=window, use_kernel=False)
         torch.cuda.synchronize()
         label = (f"{shape} {str(dtype).split('.')[-1]} causal={causal} "
-                 f"window={window}")
+                 f"window={window}" + (f" T={t}" if t is not None else ""))
         check(got.shape == ref.shape and got.dtype == dtype,
               f"flash_attention {label}: shape or dtype")
         err, scale = max_err(got.float(), ref)
@@ -2029,9 +2042,26 @@ def main() -> None:
     check_flash((1, 200, 4, 1, 128), bf16)
     check_flash((1, 512, 4, 1, 256), bf16, window=64)
     check_flash((1, 300, 4, 2, 64), bf16, window=40)
-    fb_, fs_, fn_, _, fh_ = flash_path
-    print(f"flash launch at {flash_path} bf16: "
-          f"{flash_ops.launch_plan(fb_, fs_, fn_, fh_, bf16)}")
+    # H = 256 (64-key tiles) beside the zoo's recurrentgemma-9b row above:
+    # a ragged non-causal S against T, and a window cutting the tiles
+    check_flash((1, 300, 4, 1, 256), bf16, causal=False, t=333)
+    check_flash((1, 700, 4, 2, 256), bf16, window=96)
+    # every bf16 call runs the Hopper design of its head dim, and nothing
+    # of the f32 body
+    h256_shape, _, h256_window = zoo_flash["flash_attention_h256"]
+    for shape, qkv, window in ((flash_path, flash_qkv, 0),
+                               (FLASH_H128, flash_qkv128, 0),
+                               (h256_shape, zoo_qkv["flash_attention_h256"],
+                                h256_window)):
+        names = device_kernel_names(
+            lambda: flash_attention(*qkv, window=window))
+        check([n for n in names if "flash" in n] == [
+            n for n in names if f"flash_fwd_wgmma<{shape[4]}>" in n] != [],
+            f"flash_attention {shape} bf16 ran {names}")
+        fb_, fs_, fn_, _, fh_ = shape
+        print(f"flash launch at {shape} bf16: "
+              f"{flash_ops.launch_plan(fb_, fs_, fn_, fh_, bf16)}; runs "
+              f"{[n for n in names if 'flash' in n]}")
 
     # ---- 4. the main path at full width -----------------------------------
     data = gen_regression(torch.Generator(device=dev).manual_seed(0),
@@ -2503,8 +2533,13 @@ def main() -> None:
             print(f"library {name}: SDPA runs {row['library_kernels']}")
         if name in row_flops:
             row["tflops"] = row_flops[name] / ms / 1e9
-            print(f"rate {name}: kernel {row['tflops']:.1f} TFLOP/s, library "
-                  f"{row_flops[name] / lib_ms / 1e9:.1f} TFLOP/s {card}")
+            row["graph_tflops"] = row_flops[name] / g_ms / 1e9
+            print(f"rate {name}: kernel {row['tflops']:.1f} TFLOP/s by "
+                  f"events, {row['graph_tflops']:.1f} by graph ("
+                  f"{bound_ms / g_ms:.1%} of the bound's rate); library "
+                  f"{row_flops[name] / lib_ms / 1e9:.1f} TFLOP/s by events, "
+                  f"{row_flops[name] / lg_ms / 1e9:.1f} by graph; graph "
+                  f"kernel / library {g_ms / lg_ms:.3f} {card}")
         kernels.append(row)
     # the floor of any launch: a kernel that does nothing, timed as the
     # rows are, beside the group threshold (a launch-bound kernel)

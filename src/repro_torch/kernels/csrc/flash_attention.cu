@@ -32,48 +32,66 @@
 // cores (989 TFLOP/s), against 84 MB of q, k, v and out, 0.025 ms at
 // 3.35 TB/s. Two designs:
 //
-// * bf16 at H = 64 and 128 (`hopper::flash_fwd_wgmma`), the serving
-//   path's kernel. A persistent grid (one block per SM) walks work items
-//   of 64 x CONSUMERS query rows of one (batch, head), the longest first,
-//   aligned to S's end (a partial item is the first, the shortest under a
-//   causal mask). A block has CONSUMERS warpgroups of 64 rows each (three
-//   at H = 64, two at H = 128, where three would not fit shared memory)
-//   and a producer warpgroup, whose first thread loads each item's Q
-//   once and then K and V tile by tile (128 keys) by TMA into a ring of
-//   three stages, with a full and an empty mbarrier per stage (and a pair
-//   for Q); the ring runs on across items, so the next item's loads
-//   overlap this item's end.
-//   The tensor maps are built on the host over the operands' own strides,
-//   128-byte swizzled, zero-filled past T. setmaxnreg gives the producer's
+// * bf16 at every H (`hopper::flash_fwd_wgmma`): the serving path's
+//   kernel, and recurrentgemma's local attention at H = 256. A persistent
+//   grid (one block per SM) walks work items of 64 x CONSUMERS query rows
+//   of one (batch, head), the longest first, aligned to S's end (a
+//   partial item is the first, the shortest under a causal mask), each
+//   block one item a round in a snake over the grid, so that the causal
+//   triangle's lengths even out over the blocks. A block has CONSUMERS
+//   warpgroups of 64 rows each (three at H = 64, two at H = 128 and 256)
+//   and a producer warpgroup, whose first thread loads each item's Q once
+//   and then K and V tile by tile by TMA into a ring of stages, with full
+//   and empty mbarriers (and a pair for Q); the ring runs on across
+//   items, so the next item's loads overlap this item's end. The tensor
+//   maps are built on the host over the operands' own strides, 128-byte
+//   swizzled, zero-filled past T. setmaxnreg gives the producer's
 //   registers to the consumers. Each consumer computes S = Q K' with
-//   `wgmma` m64n128k16 from shared memory (Q stays there for the whole key
-//   loop), the online softmax in registers (exp2 with log2(e) folded into
-//   the scale; row maxima and sums as four interleaved chains), and
+//   `wgmma` from shared memory (Q stays there for the whole key loop),
+//   the online softmax in registers (exp2 with log2(e) folded into the
+//   scale; row maxima and sums as four interleaved chains), and
 //   O += P V with `wgmma` m64nHk16, P rounded to bf16 as the register A
 //   operand and V read from shared memory through the transpose bit. The
 //   S product of tile j and the P V of tile j - 1 are in flight together
 //   while tile j's softmax runs, and the warpgroups take turns at issuing
 //   (round robin on named barriers), so the others' softmaxes run under
-//   one's products. The mask is evaluated only on tiles that
-//   cross T's end, the diagonal or the window's edge for some row of the
+//   one's products. The mask is evaluated only on tiles that cross T's
+//   end, the diagonal or the window's edge for some row of the
 //   warpgroup, branch-free from each row's first and last visible key;
-//   interior tiles skip it. What bounds it: at the serving shape it runs
-//   at about a third of the bf16 peak (`chip_smoke.py` phase 5). The
-//   softmax's instructions (about 6 per score) are not fully hidden under
-//   the products at H = 64, where a tile's two products are short: on
-//   the H100 a build without the softmax ran much faster, and one that
-//   moved a share of the exp2 onto an FMA polynomial ran slower, so the
-//   issue slots, not the MUFU unit, are the limit.
-// * float32 at every H, and bf16 at H = 256, keep the first design
-//   (`flash_fwd_kernel`): one block of 4 warps per 64 query rows, each
-//   tile loaded with 16-byte loads and then computed behind two
-//   barriers. In bf16 both products run on `mma.sync` m16n8k16 (bf16 in,
-//   f32 accumulate) with P re-packed in registers; in f32 there is no
-//   tensor-core path that keeps full f32 (TF32 keeps about three digits),
-//   so the same fragment layout is filled by FP32 FMA and P goes through a
-//   per-warp shared tile. At H = 256 the wgmma accumulators of O (128
-//   floats a thread) and S do not fit the register file beside each
-//   other.
+//   interior tiles skip it. The output leaves in 16-byte stores (a quad
+//   transposes its words), O / l by a reciprocal and one exact
+//   correction, which gives the division's bits.
+//   The tile is laid out per H (`Layout<H>`). At H = 64 and 128: 128 keys
+//   a tile (S m64n128k16) in three stages. At H = 256 the accumulator of
+//   O is 128 floats a consumer thread (one m64n256k16 a 16-key step of
+//   P V), so the tile is 64 keys: S (m64n64k16, 16 k-steps over Q's 4
+//   panels) is 32 floats and P's bf16 fragments 16, and O, S and P live
+//   together in the overlap above within the consumer's 240 registers.
+//   The overlap is kept: ptxas reports 0 bytes spilled (80 keys, the
+//   other candidate, spilled 16 bytes; 128 would need 64 + 32 more
+//   registers). There shared memory bounds the ring: Q takes 64 KiB (4
+//   panels of 128 rows) and a stage of K and V 64 KiB, so two stages fit
+//   (193 KiB of 227) and three do not. With two stages a stage freed
+//   only after its P V would leave the next tile's load no lead, so K and
+//   V are released apart (`SPLIT_KV`): K after the S product, V after the
+//   P V. K = 1 needs no head packing: the 16 query heads of a batch read
+//   one kv head's 8 MiB from the 50 MB L2.
+//   What bounds it: at the serving shape it runs at about two fifths of
+//   the bf16 peak, at H = 256 at about three fifths (`chip_smoke.py`
+//   phase 5). The softmax's instructions (about 6 per score) are not
+//   fully hidden under the products at H = 64, where a tile's two
+//   products are short: on the H100 a build without the softmax ran much
+//   faster, and one that moved a share of the exp2 onto an FMA polynomial
+//   ran slower, so the issue slots, not the MUFU unit, are the limit. At
+//   H = 256 a score carries four times the products, and a build without
+//   the softmax ran about a sixth faster, one without the output stores
+//   within the spread (`PERF.md`).
+// * float32 at every H keeps the first design (`flash_fwd_kernel`): one
+//   block of 4 warps per 64 query rows, each tile loaded with 16-byte
+//   loads and then computed behind two barriers. No tensor-core path
+//   keeps full f32 (TF32 keeps about three digits), so both products are
+//   FP32 FMA in `mma.sync`'s m16n8 fragment layout, and P goes through a
+//   per-warp shared tile.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,43 +117,32 @@ struct Args {
   long long qb, qs, qn, kb, ks, kn, vb, vs, vn, ob, os, on;
 };
 
-template <typename T, int H>
+template <int H>
 struct Tile {
-  static constexpr int BK = H <= 128 ? 64 : 32;               // key rows
-  static constexpr int LD = H + (sizeof(T) == 2 ? 8 : 4);      // smem row
-  static constexpr int LDP = BK + 4;                           // f32 P row
+  static constexpr int BK = H <= 128 ? 64 : 32;   // key rows
+  static constexpr int LD = H + 4;                 // smem row
+  static constexpr int LDP = BK + 4;               // P row
   static constexpr size_t smem() {
-    return (size_t)(BQ + 2 * BK) * LD * sizeof(T) +
-           (sizeof(T) == 4 ? (size_t)WARPS * 16 * LDP * sizeof(float) : 0);
+    return (size_t)(BQ + 2 * BK) * LD * sizeof(float) +
+           (size_t)WARPS * 16 * LDP * sizeof(float);
   }
 };
 
 // rows [row0, row0 + ROWS) of a (rows, H) slab with row stride `stride`
 // into shared memory at row stride LD; rows at or past `nrows` are zeros
-template <typename T, int H, int ROWS, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
+template <int H, int ROWS, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long stride, int row0,
                                           int nrows) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = H / VEC;                 // 16-byte chunks per row
+  constexpr int CPR = H / 4;                   // 16-byte chunks per row
   for (int i = threadIdx.x; i < ROWS * CPR; i += 32 * WARPS) {
-    const int r = i / CPR, c = (i % CPR) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    const int r = i / CPR, c = (i % CPR) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + r < nrows)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) *
-                                                      stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+      val = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) *
+                                                       stride + c);
+    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
   }
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
-                                          __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -143,42 +150,11 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Fragment layout of one warp's 16 rows (the m16n8 accumulator of
-// mma.sync): lane = 4 g + t holds, per 8-column tile j, the entries
-// (g, 8j + 2t), (g, 8j + 2t + 1), (g + 8, 8j + 2t), (g + 8, 8j + 2t + 1).
-// Scores S = Q K' over one key tile, in that layout, unscaled.
-template <int H, int BK, int LD>
-__device__ __forceinline__ void scores(float (&s)[BK / 8][4],
-                                       const __nv_bfloat16* Qw,
-                                       const __nv_bfloat16* Ks, int g,
-                                       int t) {
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j)
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < H / 16; ++kc) {
-    const int c = kc * 16 + 2 * t;
-    const uint32_t a[4] = {ld32(Qw + g * LD + c), ld32(Qw + (g + 8) * LD + c),
-                           ld32(Qw + g * LD + c + 8),
-                           ld32(Qw + (g + 8) * LD + c + 8)};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const __nv_bfloat16* kr = Ks + (j * 8 + g) * LD + c;
-      mma_bf16(s[j], a, ld32(kr), ld32(kr + 8));
-    }
-  }
-}
-
+// mma.sync, filled here by FP32 FMA): lane = 4 g + t holds, per 8-column
+// tile j, the entries (g, 8j + 2t), (g, 8j + 2t + 1), (g + 8, 8j + 2t),
+// (g + 8, 8j + 2t + 1). Scores S = Q K' over one key tile, in that
+// layout, unscaled.
 template <int H, int BK, int LD>
 __device__ __forceinline__ void scores(float (&s)[BK / 8][4],
                                        const float* Qw, const float* Ks,
@@ -205,31 +181,8 @@ __device__ __forceinline__ void scores(float (&s)[BK / 8][4],
 }
 
 // acc += P V over one key tile; acc in the fragment layout over H / 8
-// column tiles. bf16: p rounded to bf16 and fed back as the A operand
-// straight from the score fragments.
-template <int H, int BK, int LD, int LDP>
-__device__ __forceinline__ void pv(float (&acc)[H / 8][4],
-                                   const float (&p)[BK / 8][4],
-                                   const __nv_bfloat16* Vs, float*, int g,
-                                   int t) {
-#pragma unroll
-  for (int kc = 0; kc < BK / 16; ++kc) {
-    const uint32_t a[4] = {pack2(p[2 * kc][0], p[2 * kc][1]),
-                           pack2(p[2 * kc][2], p[2 * kc][3]),
-                           pack2(p[2 * kc + 1][0], p[2 * kc + 1][1]),
-                           pack2(p[2 * kc + 1][2], p[2 * kc + 1][3])};
-    const __nv_bfloat16* v0 = Vs + (kc * 16 + 2 * t) * LD + g;
-#pragma unroll
-    for (int j = 0; j < H / 8; ++j) {
-      const __nv_bfloat16* vj = v0 + j * 8;
-      mma_bf16(acc[j], a, pack2(vj[0], vj[LD]),
-               pack2(vj[8 * LD], vj[9 * LD]));
-    }
-  }
-}
-
-// f32: the warp's P tile goes through shared memory (16 x BK) so that
-// every lane reads whole rows of it
+// column tiles. The warp's P tile goes through shared memory (16 x BK) so
+// that every lane reads whole rows of it
 template <int H, int BK, int LD, int LDP>
 __device__ __forceinline__ void pv(float (&acc)[H / 8][4],
                                    const float (&p)[BK / 8][4],
@@ -263,33 +216,28 @@ __device__ __forceinline__ void store2(float* o, float a, float b) {
   *reinterpret_cast<float2*>(o) = make_float2(a, b);
 }
 
-__device__ __forceinline__ void store2(__nv_bfloat16* o, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
-}
-
-template <typename T, int H>
+template <int H>
 __global__ void __launch_bounds__(32 * WARPS)
 flash_fwd_kernel(const Args a) {
-  using TL = Tile<T, H>;
+  using TL = Tile<H>;
   constexpr int BK = TL::BK, LD = TL::LD, LDP = TL::LDP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + BQ * LD;
-  T* Vs = Ks + BK * LD;
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Ks = Qs + BQ * LD;
+  float* Vs = Ks + BK * LD;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  float* Pw = reinterpret_cast<float*>(Vs + BK * LD) + warp * 16 * LDP;
+  float* Pw = Vs + BK * LD + warp * 16 * LDP;
 
   const int b = blockIdx.x / a.N, n = blockIdx.x % a.N, kvh = n / a.G;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest tiles first
-  const T* qp = static_cast<const T*>(a.q) + b * a.qb + n * a.qn;
-  const T* kp = static_cast<const T*>(a.k) + b * a.kb + kvh * a.kn;
-  const T* vp = static_cast<const T*>(a.v) + b * a.vb + kvh * a.vn;
-  T* op = static_cast<T*>(a.o) + b * a.ob + n * a.on;
+  const float* qp = static_cast<const float*>(a.q) + b * a.qb + n * a.qn;
+  const float* kp = static_cast<const float*>(a.k) + b * a.kb + kvh * a.kn;
+  const float* vp = static_cast<const float*>(a.v) + b * a.vb + kvh * a.vn;
+  float* op = static_cast<float*>(a.o) + b * a.ob + n * a.on;
 
-  load_tile<T, H, BQ, LD>(Qs, qp, a.qs, q0, a.S);
-
+  load_tile<H, BQ, LD>(Qs, qp, a.qs, q0, a.S);
   // the key tiles any row of this block can see
   const int q_last = min(q0 + BQ, a.S) - 1;
   const int k_end = a.causal ? min(a.T, q_last + 1) : a.T;
@@ -306,8 +254,8 @@ flash_fwd_kernel(const Args a) {
   for (int kt = k_begin / BK; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();                  // every warp is done with the last tile
-    load_tile<T, H, BK, LD>(Ks, kp, a.ks, k0, a.T);
-    load_tile<T, H, BK, LD>(Vs, vp, a.vs, k0, a.T);
+    load_tile<H, BK, LD>(Ks, kp, a.ks, k0, a.T);
+    load_tile<H, BK, LD>(Vs, vp, a.vs, k0, a.T);
     __syncthreads();
 
     float s[BK / 8][4];
@@ -359,51 +307,59 @@ flash_fwd_kernel(const Args a) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = fmaxf(l[i], 1e-30f);
     if (row[i] >= a.S) continue;
-    T* orow = op + (long long)row[i] * a.os + 2 * t;
+    float* orow = op + (long long)row[i] * a.os + 2 * t;
 #pragma unroll
     for (int j = 0; j < H / 8; ++j)
       store2(orow + j * 8, acc[j][2 * i] / l[i], acc[j][2 * i + 1] / l[i]);
   }
 }
 
-template <typename T, int H>
+template <int H>
 int launch(const Args& a, int BH, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = Tile<T, H>::smem();
-  err = cudaFuncSetAttribute(flash_fwd_kernel<T, H>,
+  const size_t smem = Tile<H>::smem();
+  err = cudaFuncSetAttribute(flash_fwd_kernel<H>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(BH, (a.S + BQ - 1) / BQ);
-  flash_fwd_kernel<T, H><<<grid, 32 * WARPS, smem, stream>>>(a);
+  flash_fwd_kernel<H><<<grid, 32 * WARPS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- bf16 at H = 64 and 128: TMA, mbarriers and wgmma --------------------
+// ---- bf16: TMA, mbarriers and wgmma ---------------------------------------
 
 namespace hopper {
 
-constexpr int BKEYS = 128;                      // keys per tile
-constexpr int STAGES = 3;                       // K/V ring
-constexpr int PANEL_KV = BKEYS * 128;           // bytes of a 64-column panel
 constexpr int PRODUCER_REGS = 24;
 
 // Consumer warpgroups of 64 query rows each: three at H = 64 (two
-// softmaxes run under the third's products), two at H = 128 (three would
-// not fit shared memory), and a producer warpgroup. Registers per thread
-// after setmaxnreg: an SM sub-partition holds one warp of each
-// warpgroup, and 24 + CONSUMERS x CONSUMER_REGS <= 512 of its 16384 / 32.
-// Shared memory: Q, then the K stages, then the V stages, each a run of
-// H / 64 panels of (rows, 64) bf16, 128-byte rows swizzled as TMA writes
-// them and wgmma reads them; then the mbarriers
+// softmaxes run under the third's products), two at H = 128 and 256
+// (three would not fit shared memory, nor, at 256, the register file),
+// and a producer warpgroup. Registers per thread after setmaxnreg: an SM
+// sub-partition holds one warp of each warpgroup, and 24 + CONSUMERS x
+// CONSUMER_REGS <= 512 of its 16384 / 32.
+// Keys per tile and stages: 128 keys in three stages at H = 64 and 128,
+// 64 keys in two at H = 256 (the registers of O and shared memory; see
+// the header). Shared memory: Q, then the K stages, then the V stages,
+// each a run of H / 64 panels of (rows, 64) bf16, 128-byte rows swizzled
+// as TMA writes them and wgmma reads them; then the mbarriers
 template <int H>
 struct Layout {
   static constexpr int CONSUMERS = H == 64 ? 3 : 2;
   static constexpr int BQ = 64 * CONSUMERS;     // query rows per item
   static constexpr int THREADS = 128 * (CONSUMERS + 1);
   static constexpr int CONSUMER_REGS = CONSUMERS == 3 ? 160 : 240;
-  static constexpr int PANEL_Q = BQ * 128;
+  static constexpr int BKEYS = H == 256 ? 64 : 128;    // keys per tile
+  static constexpr int STAGES = H == 256 ? 2 : 3;      // K/V ring
+  // K and V of a stage released apart (K after the S product, V after the
+  // P V), where two stages would otherwise leave the next tile's load no
+  // lead on the tile being computed; with three the load has a tile of
+  // lead, and the second pair of barriers only costs issue slots
+  static constexpr bool SPLIT_KV = STAGES == 2;
+  static constexpr int PANEL_Q = BQ * 128;      // bytes of a 64-column panel
+  static constexpr int PANEL_KV = BKEYS * 128;
   static constexpr int PANELS = H / 64;
   static constexpr int Q_BYTES = PANELS * PANEL_Q;
   static constexpr int KV_BYTES = PANELS * PANEL_KV;   // K or V, one stage
@@ -411,9 +367,11 @@ struct Layout {
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
   // the barriers, and room to align the base to 1024 bytes
-  static constexpr int SMEM = BAR_OFF + 8 * (2 * STAGES + 2) + 1024;
+  static constexpr int BARS = (SPLIT_KV ? 4 : 2) * STAGES + 2;
+  static constexpr int SMEM = BAR_OFF + 8 * BARS + 1024;
 };
-static_assert(Layout<64>::SMEM <= 232448 && Layout<128>::SMEM <= 232448,
+static_assert(Layout<64>::SMEM <= 232448 && Layout<128>::SMEM <= 232448 &&
+                  Layout<256>::SMEM <= 232448,
               "over a block's shared memory");
 
 struct Params {
@@ -520,6 +478,26 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// A 4 x 4 transpose of 32-bit words across a quad (lanes 4 g .. 4 g + 3):
+// lane t holds a[c] = A[t][c] and ends with a[u] = A[u][t], by two
+// butterfly exchanges (with lane t ^ 1, then t ^ 2) in which each lane
+// sends the word of each pair that its partner keeps
+__device__ __forceinline__ void quad_transpose(uint32_t (&a)[4], int t) {
+#pragma unroll
+  for (int k = 1; k <= 2; k <<= 1)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c & k) continue;                  // the pair (c, c + k)
+      const bool hi = t & k;
+      const uint32_t recv =
+          __shfl_xor_sync(0xffffffffu, hi ? a[c] : a[c + k], k);
+      if (hi)
+        a[c] = recv;
+      else
+        a[c + k] = recv;
+    }
+}
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -604,6 +582,54 @@ __device__ __forceinline__ void wgmma_ss_n128_zero(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(0));
 }
 
+// D (64 x 64, f32) {+}= A (64 x 16, shared) B (16 x 64, shared): S over
+// a tile of 64 keys (H = 256)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64_zero(float (&d)[32],
+                                                  uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
 // D (64 x 64, f32) += A (64 x 16, bf16 registers) B (16 x 64, shared,
 // MN-major: the transpose bit)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -668,19 +694,101 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 256, f32) += A (64 x 16, bf16 registers) B (16 x 256, shared,
+// MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int H>
 __device__ __forceinline__ void wgmma_pv(float (&o)[H / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (H == 64)
     wgmma_rs_n64(o, a, db);
-  else
+  else if constexpr (H == 128)
     wgmma_rs_n128(o, a, db);
+  else
+    wgmma_rs_n256(o, a, db);
+}
+
+// S {+}= Q K' over one k-step of a tile of BKEYS keys; the first k-step
+// overwrites S
+template <int BKEYS>
+__device__ __forceinline__ void wgmma_s(float (&d)[BKEYS / 2], uint64_t da,
+                                        uint64_t db, bool first) {
+  if constexpr (BKEYS == 64) {
+    if (first)
+      wgmma_ss_n64_zero(d, da, db);
+    else
+      wgmma_ss_n64(d, da, db, 1);
+  } else {
+    if (first)
+      wgmma_ss_n128_zero(d, da, db);
+    else
+      wgmma_ss_n128(d, da, db, 1);
+  }
 }
 
 // Persistent and warp specialised. A block stays on its SM and walks the
-// work items (BQ query rows of one (batch, head)) w = blockIdx.x,
-// blockIdx.x + gridDim.x, ..., the latest (longest) query tiles first.
+// work items (BQ query rows of one (batch, head)), one a round in a snake
+// over the grid (`walk`), the latest (longest) query tiles first.
 // Warpgroups 0 .. CONSUMERS - 1 each own 64 rows of the item; the last
 // warpgroup is the producer, whose first thread issues every TMA copy:
 // the item's Q into its buffer once the consumers have released it
@@ -698,15 +806,25 @@ __global__ void __launch_bounds__(Layout<H>::THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ Params a) {
   using L = Layout<H>;
   constexpr int CONSUMERS = L::CONSUMERS, BQ = L::BQ, PANEL_Q = L::PANEL_Q;
+  constexpr int BKEYS = L::BKEYS, STAGES = L::STAGES, PANEL_KV = L::PANEL_KV;
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled panels start on 1024-byte boundaries
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t qs = base, ks = base + L::K_OFF, vs = base + L::V_OFF;
-  // mbarriers: full[STAGES], empty[STAGES], q full, q empty
+  // mbarriers: full and empty a stage (STAGES each), and where K and V are
+  // released apart (SPLIT_KV) V's own full and empty; then q full, q
+  // empty. Without the split V's barriers are K's, which then cover both
+  constexpr bool SPLIT_KV = L::SPLIT_KV;
   const uint32_t bars = base + L::BAR_OFF;
-  const uint32_t q_full = bars + 16 * STAGES, q_empty = q_full + 8;
-  auto full = [&](int s) { return bars + 8 * s; };
-  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const uint32_t q_full = bars + 8 * (L::BARS - 2), q_empty = q_full + 8;
+  auto full_k = [&](int s) { return bars + 8 * s; };
+  auto empty_k = [&](int s) { return bars + 8 * (STAGES + s); };
+  auto full_v = [&](int s) {
+    return SPLIT_KV ? bars + 8 * (2 * STAGES + s) : full_k(s);
+  };
+  auto empty_v = [&](int s) {
+    return SPLIT_KV ? bars + 8 * (3 * STAGES + s) : empty_k(s);
+  };
 
   const int BN = a.B * a.N;
   const int qtiles = (a.S + BQ - 1) / BQ;
@@ -731,11 +849,23 @@ flash_fwd_wgmma(const __grid_constant__ Params a) {
     it.tiles = (k_end + BKEYS - 1) / BKEYS - it.kt0;
     return it;
   };
+  // the item of a block's round: round k covers items k G .. k G + G - 1
+  // (G = gridDim.x), which block b takes in a snake, k G + b in even
+  // rounds and k G + G - 1 - b in odd ones, so that a block that drew one
+  // of a round's longest items draws one of the next round's shortest
+  auto walk = [&](int k) {
+    const int G = gridDim.x;
+    return k * G + (k & 1 ? G - 1 - blockIdx.x : blockIdx.x);
+  };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full(s), 1);                     // the producer's copy
-      mbar_init(empty(s), 4 * CONSUMERS);        // every consumer warp
+      mbar_init(full_k(s), 1);                   // the producer's copy
+      mbar_init(empty_k(s), 4 * CONSUMERS);      // every consumer warp
+      if (SPLIT_KV) {
+        mbar_init(full_v(s), 1);
+        mbar_init(empty_v(s), 4 * CONSUMERS);
+      }
     }
     mbar_init(q_full, 1);
     mbar_init(q_empty, 4 * CONSUMERS);
@@ -747,8 +877,8 @@ flash_fwd_wgmma(const __grid_constant__ Params a) {
   if (wg == CONSUMERS) {
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x % 128 == 0) {
-      int ring = 0, round = 0;
-      for (int w = blockIdx.x; w < items; w += gridDim.x, ++round) {
+      int ring = 0;
+      for (int round = 0, w; (w = walk(round)) < items; ++round) {
         const Item it = item(w);
         const int kvh = it.n / a.G;
         mbar_wait(q_empty, (round & 1) ^ 1);
@@ -757,16 +887,20 @@ flash_fwd_wgmma(const __grid_constant__ Params a) {
           tma_load(qs + pn * PANEL_Q, &a.q, 64 * pn, it.q0, it.n, it.b,
                    q_full);
         for (int j = 0; j < it.tiles; ++j, ++ring) {
-          const int s = ring % STAGES;
-          mbar_wait(empty(s), ((ring / STAGES) & 1) ^ 1);
-          mbar_expect_tx(full(s), 2 * L::KV_BYTES);
+          const int s = ring % STAGES, phase = ((ring / STAGES) & 1) ^ 1;
           const int k0 = (it.kt0 + j) * BKEYS;
-          for (int pn = 0; pn < L::PANELS; ++pn) {
+          mbar_wait(empty_k(s), phase);
+          mbar_expect_tx(full_k(s), (SPLIT_KV ? 1 : 2) * L::KV_BYTES);
+          for (int pn = 0; pn < L::PANELS; ++pn)
             tma_load(ks + s * L::KV_BYTES + pn * PANEL_KV, &a.k, 64 * pn, k0,
-                     kvh, it.b, full(s));
-            tma_load(vs + s * L::KV_BYTES + pn * PANEL_KV, &a.v, 64 * pn, k0,
-                     kvh, it.b, full(s));
+                     kvh, it.b, full_k(s));
+          if (SPLIT_KV) {
+            mbar_wait(empty_v(s), phase);
+            mbar_expect_tx(full_v(s), L::KV_BYTES);
           }
+          for (int pn = 0; pn < L::PANELS; ++pn)
+            tma_load(vs + s * L::KV_BYTES + pn * PANEL_KV, &a.v, 64 * pn, k0,
+                     kvh, it.b, full_v(s));
         }
       }
     }
@@ -790,10 +924,7 @@ flash_fwd_wgmma(const __grid_constant__ Params a) {
             sw128(qa + (kk / 4) * PANEL_Q + (kk % 4) * 32, 16, 1024);
         const uint64_t db =
             sw128(kb + (kk / 4) * PANEL_KV + (kk % 4) * 32, 16, 1024);
-        if (kk == 0)
-          wgmma_ss_n128_zero(sc, da, db);
-        else
-          wgmma_ss_n128(sc, da, db, 1);
+        wgmma_s<BKEYS>(sc, da, db, kk == 0);
       }
       wgmma_commit();
     };
@@ -896,8 +1027,8 @@ flash_fwd_wgmma(const __grid_constant__ Params a) {
       if (lane == 0) mbar_arrive(q_empty);
     };
 
-    int ring = 0, round = 0;
-    for (int w = blockIdx.x; w < items; w += gridDim.x, ++round) {
+    int ring = 0;
+    for (int round = 0, w; (w = walk(round)) < items; ++round) {
       const Item it = item(w);
       wr0 = it.q0 + 64 * wg;                   // this warpgroup's first row
       row[0] = wr0 + 16 * warp + g;
@@ -915,13 +1046,14 @@ flash_fwd_wgmma(const __grid_constant__ Params a) {
       } else {
         if (wg == CONSUMERS - 1) named_arrive(1);
         int s = ring % STAGES;
-        mbar_wait(full(s), (ring / STAGES) & 1);
+        mbar_wait(full_k(s), (ring / STAGES) & 1);
         turn_begin();
         wgmma_fence();
         issue_s(s);
         turn_end();
         wgmma_wait<0>();
         fence_regs(sc);
+        if (SPLIT_KV && lane == 0) mbar_arrive(empty_k(s));
         if (it.tiles == 1) release_q();
         softmax(it.kt0 * BKEYS);
         rescale_pack();
@@ -930,7 +1062,8 @@ flash_fwd_wgmma(const __grid_constant__ Params a) {
         for (int j = 1; j < it.tiles; ++j) {
           const int sp = s;
           s = (ring + j) % STAGES;
-          mbar_wait(full(s), ((ring + j) / STAGES) & 1);
+          mbar_wait(full_k(s), ((ring + j) / STAGES) & 1);
+          if (SPLIT_KV) mbar_wait(full_v(sp), ((ring + j - 1) / STAGES) & 1);
           turn_begin();
           wgmma_fence();
           issue_s(s);
@@ -938,23 +1071,29 @@ flash_fwd_wgmma(const __grid_constant__ Params a) {
           turn_end();
           wgmma_wait<1>();
           fence_regs(sc);
+          if (SPLIT_KV && lane == 0) mbar_arrive(empty_k(s));  // K is free
           if (j == it.tiles - 1) release_q();
           softmax((it.kt0 + j) * BKEYS);
           wgmma_wait<0>();
           fence_regs(o);
-          if (lane == 0) mbar_arrive(empty(sp));   // stage sp is free
+          if (lane == 0) mbar_arrive(empty_v(sp)); // V (and K) are free
           rescale_pack();
         }
+        if (SPLIT_KV)
+          mbar_wait(full_v(s), ((ring + it.tiles - 1) / STAGES) & 1);
         turn_begin();
         wgmma_fence();
         issue_pv(s);
         turn_end();
         wgmma_wait<0>();
         fence_regs(o);
-        if (lane == 0) mbar_arrive(empty(s));
+        if (lane == 0) mbar_arrive(empty_v(s));
         ring += it.tiles;
       }
 
+      // out = O / l in bf16, a quad's words transposed in blocks of four
+      // 8-column tiles, so that lane t stores the 16 bytes of tile 4 m + t
+      // (a store instruction writes 64 bytes of each of 8 rows, not 16)
       __nv_bfloat16* op =
           static_cast<__nv_bfloat16*>(a.o) + it.b * a.ob + it.n * a.on;
 #pragma unroll
@@ -963,12 +1102,29 @@ flash_fwd_wgmma(const __grid_constant__ Params a) {
         lr += __shfl_xor_sync(0xffffffffu, lr, 1);
         lr += __shfl_xor_sync(0xffffffffu, lr, 2);
         lr = fmaxf(lr, 1e-30f);
-        if (row[r] < 0 || row[r] >= a.S) continue;
-        __nv_bfloat16* orow = op + (long long)row[r] * a.os + 2 * t;
+        // o / lr as the correctly rounded reciprocal, its product and one
+        // exact correction (Markstein): the division's bits, without a
+        // division's instructions for each of the row's H / 4 columns
+        const float rl = 1.f / lr;
+        auto div = [&](float x) {
+          const float q = __fmul_rn(x, rl);
+          return fmaf(fmaf(-q, lr, x), rl, q);
+        };
+        const bool stored = row[r] >= 0 && row[r] < a.S;
+        __nv_bfloat16* orow = op + (long long)row[r] * a.os;
 #pragma unroll
-        for (int j = 0; j < H / 8; ++j)
-          store2(orow + j * 8, o[4 * j + 2 * r] / lr,
-                 o[4 * j + 2 * r + 1] / lr);
+        for (int mt = 0; mt < H / 32; ++mt) {
+          uint32_t w[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int j = 4 * mt + c;
+            w[c] = pack2(div(o[4 * j + 2 * r]), div(o[4 * j + 2 * r + 1]));
+          }
+          quad_transpose(w, t);
+          if (stored)
+            *reinterpret_cast<uint4*>(orow + 8 * (4 * mt + t)) =
+                make_uint4(w[0], w[1], w[2], w[3]);
+        }
       }
     }
   }
@@ -1019,7 +1175,7 @@ int launch(const Args& x, int B, int device, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const int K = x.N / x.G;
   Params p;
-  constexpr int BQ = Layout<H>::BQ;
+  constexpr int BQ = Layout<H>::BQ, BKEYS = Layout<H>::BKEYS;
   if (!tensor_map(&p.q, x.q, B, x.S, x.N, H, x.qb, x.qs, x.qn, BQ) ||
       !tensor_map(&p.k, x.k, B, x.T, K, H, x.kb, x.ks, x.kn, BKEYS) ||
       !tensor_map(&p.v, x.v, B, x.T, K, H, x.vb, x.vs, x.vn, BKEYS))
@@ -1053,22 +1209,20 @@ int launch(const Args& x, int B, int device, cudaStream_t stream) {
 
 }  // namespace hopper
 
-template <typename T>
-int dispatch(const Args& a, int H, int B, int device, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2) {
-    switch (H) {
-      case 64: return hopper::launch<64>(a, B, device, stream);
-      case 128: return hopper::launch<128>(a, B, device, stream);
-      case 256: return launch<T, 256>(a, B * a.N, device, stream);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  } else {
-    switch (H) {
-      case 64: return launch<T, 64>(a, B * a.N, device, stream);
-      case 128: return launch<T, 128>(a, B * a.N, device, stream);
-      case 256: return launch<T, 256>(a, B * a.N, device, stream);
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+// bf16 on the Hopper design, float32 on the first one
+int dispatch(const Args& a, bool bf16, int H, int B, int device,
+             cudaStream_t stream) {
+  switch (H) {
+    case 64:
+      return bf16 ? hopper::launch<64>(a, B, device, stream)
+                  : launch<64>(a, B * a.N, device, stream);
+    case 128:
+      return bf16 ? hopper::launch<128>(a, B, device, stream)
+                  : launch<128>(a, B * a.N, device, stream);
+    case 256:
+      return bf16 ? hopper::launch<256>(a, B, device, stream)
+                  : launch<256>(a, B * a.N, device, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -1088,6 +1242,5 @@ extern "C" int flash_attention_fwd(
   const Args a{q, k, v, o, S, T, N, N / K, causal, window, scale,
                qb, qs, qn, kb, ks, kn, vb, vs, vn, ob, os, on};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(a, H, B, device, st)
-              : dispatch<float>(a, H, B, device, st);
+  return dispatch(a, bf16 != 0, H, B, device, st);
 }

@@ -23,14 +23,14 @@ from repro_torch.kernels.common import LAUNCHES, resolve_use_kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 HEAD_DIMS = (64, 128, 256)                 # the kernel's template instances
-WGMMA_HEAD_DIMS = (64, 128)                # bf16 heads of the Hopper design
+WGMMA_HEAD_DIMS = (64, 128, 256)           # bf16 heads of the Hopper design
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 class LaunchPlan(NamedTuple):
-    design: str          # "wgmma" (TMA, wgmma) or "mma_sync" / "fma"
+    design: str          # "wgmma" (bf16: TMA, wgmma) or "fma" (float32)
     rows: int            # query rows per work item
     keys: int            # keys per tile
     stages: int          # K/V tiles in shared memory at once
@@ -43,28 +43,30 @@ class LaunchPlan(NamedTuple):
 def launch_plan(B: int, S: int, N: int, H: int,
                 dtype: torch.dtype) -> LaunchPlan:
     """The launch of `flash_attention_fwd` for q (B, S, N, H): the
-    constants of `kernels/csrc/flash_attention.cu`. bf16 at H = 64 and
-    128 takes the Hopper design (consumer warpgroups of 64 rows, three at
-    H = 64 and two at 128, and a producer warpgroup; Q and a ring of
-    three K/V stages in 128-byte swizzled panels, mbarriers, 1024 bytes
-    to align the base); the rest the first design (4 warps, 64 rows, K
-    and V tiles with padded rows)."""
+    constants of `kernels/csrc/flash_attention.cu`. bf16 takes the Hopper
+    design (`Layout<H>`): consumer warpgroups of 64 rows (three at
+    H = 64, two at 128 and 256) and a producer warpgroup; Q and a ring of
+    K/V stages in 128-byte swizzled panels (128 keys in three stages at
+    H = 64 and 128; 64 keys in two at 256, where O's accumulator takes
+    128 registers and three stages would not fit), the mbarriers, and
+    1024 bytes to align the base. float32 takes the first design (4
+    warps, 64 rows, K and V tiles with padded rows, per-warp P tiles)."""
     if dtype == torch.bfloat16 and H in WGMMA_HEAD_DIMS:
         consumers = 3 if H == 64 else 2
-        rows, keys, stages = 64 * consumers, 128, 3
+        rows = 64 * consumers
+        keys, stages = (64, 2) if H == 256 else (128, 3)
         panels = H // 64
+        # full and empty barriers a stage, two pairs where K and V are
+        # released apart (two stages), and Q's pair
+        bars = (4 if stages == 2 else 2) * stages + 2
         smem = (panels * rows * 128 + 2 * stages * panels * keys * 128
-                + 8 * (2 * stages + 2) + 1024)
+                + 8 * bars + 1024)
         return LaunchPlan("wgmma", rows, keys, stages, 128 * (consumers + 1),
                           smem, B * N * -(-S // rows))
-    size = 2 if dtype == torch.bfloat16 else 4
     rows, keys = 64, (64 if H <= 128 else 32)
-    ld = H + (8 if size == 2 else 4)
-    smem = (rows + 2 * keys) * ld * size
-    if size == 4:
-        smem += 4 * 16 * (keys + 4) * 4          # the per-warp f32 P tiles
-    return LaunchPlan("mma_sync" if size == 2 else "fma", rows, keys, 1, 128,
-                      smem, B * N * -(-S // rows))
+    smem = (rows + 2 * keys) * (H + 4) * 4 + 4 * 16 * (keys + 4) * 4
+    return LaunchPlan("fma", rows, keys, 1, 128, smem,
+                      B * N * -(-S // rows))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

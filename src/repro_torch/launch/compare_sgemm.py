@@ -3,7 +3,8 @@ the same bits (or the fits' tolerance) on the DSML paths, and both times in
 one run.
 
     PYTHONPATH=src python -m repro_torch.launch.compare_sgemm \
-        [--library fista_step|rank_update|logistic_grad|group_threshold] \
+        [--library fista_step|rank_update|logistic_grad|group_threshold|
+                   flash_attention] \
         --source OLD/<library>.cu [--build-dir DIR]
 
 `--source` is an earlier `kernels/csrc/<library>.cu` (for example the
@@ -58,6 +59,17 @@ device.
   both at (1024, 16) in both types (three rounds of turns), beside the
   PyTorch norm-and-mask, a copy of B (one read and one write, the floor
   of a kernel that moves B) and an empty kernel (the launch floor).
+* `flash_attention`, the attention forward, at the shapes of
+  `chip_smoke.py` phase 5's flash rows (`FLASH_ROWS`: the prefills of
+  granite-3-2b, minitron-4b, deepseek-moe-16b, internvl2-2b,
+  recurrentgemma-9b and seamless-m4t-medium's encoder at 4 x 2048
+  prompts) in bf16 and at three f32 shapes: both kernels must give the
+  same bits, except in bf16 at H = 256, where either may have its own
+  design and both must hold each query row within a relative l2 error of
+  1e-2 of the plain version on the f32 upcast (phase 3's bar). Times of
+  both at every bf16 row, beside SDPA (`scaled_dot_product_attention`,
+  `is_causal`, `enable_gqa`; no window: the rows' windows cover their
+  prompts).
 """
 from __future__ import annotations
 
@@ -80,6 +92,8 @@ from repro_torch.core.engine import (
     power_iteration_batched, scaled_identity_m0,
 )
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.group_threshold import ops as threshold_ops
 from repro_torch.kernels.ista_step import ops as ista_ops
 from repro_torch.kernels.ista_step.ops import (
@@ -101,6 +115,18 @@ INGEST = (8, 1024, 256)                   # benchmarks/stream_bench.py
 LARGE_P = (4, 256, 8192)                  # benchmarks/largep_logistic.py
 TOL_FIT = 1e-4                            # x max|.|, as chip_smoke.py
 TOL_KERNEL = 1e-5                         # x max|plain|, as chip_smoke.py
+TOL_FLASH_ROW = 1e-2                      # bf16, per query row, as phase 3
+# (B, S, N, K, H), causal, window: chip_smoke.py phase 5's flash rows
+FLASH_ROWS = {
+    "granite-3-2b": ((4, 2048, 32, 8, 64), True, 0),
+    "minitron-4b": ((4, 2048, 24, 8, 128), True, 0),
+    "deepseek-moe-16b": ((4, 2048, 16, 16, 128), True, 0),
+    "internvl2-2b": ((4, 3072, 16, 8, 128), True, 0),
+    "recurrentgemma-9b": ((4, 2048, 16, 1, 256), True, 2048),
+    "seamless-m4t-medium encoder": ((4, 4096, 16, 16, 64), False, 0),
+}
+FLASH_F32 = (((2, 256, 8, 2, 64), True, 0), ((1, 200, 4, 1, 128), True, 0),
+             ((1, 512, 4, 1, 256), True, 64))
 _HALF_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
     [ctypes.c_void_p]
 _SLAB_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + \
@@ -508,11 +534,63 @@ def _compare_threshold(earlier: ctypes.CDLL, dev: torch.device,
     return same
 
 
+def _compare_flash(earlier: ctypes.CDLL, dev: torch.device,
+                   times: dict) -> list[bool]:
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def inputs(b, s, n, k, h, dtype):
+        return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((b, s, n, h), (b, s, k, h), (b, s, k, h)))
+
+    def row_err(got, ref):
+        num = torch.linalg.vector_norm(got.float() - ref, dim=-1)
+        den = torch.clamp_min(torch.linalg.vector_norm(ref, dim=-1), 1e-30)
+        return torch.max(num / den).item()
+
+    same = []
+    cases = [(name, shape, causal, window, torch.bfloat16)
+             for name, (shape, causal, window) in FLASH_ROWS.items()]
+    cases += [(f"f32 {shape}", shape, causal, window, torch.float32)
+              for shape, causal, window in FLASH_F32]
+    for name, shape, causal, window, dtype in cases:
+        q, k, v = inputs(*shape, dtype)
+        label = f"flash_attention {name} {shape} {str(dtype)[6:]}"
+        new = flash_attention(q, k, v, causal=causal, window=window)
+        with _library("flash_attention", earlier):
+            old = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if dtype == torch.bfloat16 and shape[4] == 256:
+            ref = flash_attention(q.float(), k.float(), v.float(),
+                                  causal=causal, window=window,
+                                  use_kernel=False)
+            errs = row_err(new, ref), row_err(old, ref)
+            print(f"{label}: worst row relative error current {errs[0]:.4g}, "
+                  f"earlier {errs[1]:.4g} (bar {TOL_FLASH_ROW}); "
+                  + ("the same bits" if torch.equal(new, old)
+                     else "other bits"))
+            same.append(max(errs) <= TOL_FLASH_ROW)
+        else:
+            same.append(_same(label, new, old))
+        if dtype != torch.bfloat16:
+            continue
+        out = torch.empty_like(q)
+        times[label] = {
+            **_turns("flash_attention", earlier,
+                     lambda q=q, k=k, v=v, out=out, c=causal, w=window:
+                     flash_ops.launch(q, k, v, out, causal=c, window=w)),
+            **_library_row(
+                lambda q=q, k=k, v=v, c=causal:
+                torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=c, enable_gqa=True))}
+    return same
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--library",
                     choices=("fista_step", "rank_update", "logistic_grad",
-                             "group_threshold"),
+                             "group_threshold", "flash_attention"),
                     default="fista_step")
     ap.add_argument("--source", type=Path, required=True)
     ap.add_argument("--build-dir", type=Path, default=None)
@@ -530,7 +608,8 @@ def main() -> None:
     times: dict = {}
     compare = {"fista_step": _compare_sgemm, "rank_update": _compare_rank,
                "logistic_grad": _compare_logistic,
-               "group_threshold": _compare_threshold}[args.library]
+               "group_threshold": _compare_threshold,
+               "flash_attention": _compare_flash}[args.library]
     same = compare(earlier, dev, times)
     for name, row in times.items():
         print(f"time {name}: earlier {row['earlier']} ms, current "

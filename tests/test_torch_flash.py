@@ -186,11 +186,11 @@ def test_launch_plan_covers_the_queries_and_fits_a_block(b, s, n, h, dtype):
     assert tiles * pl.rows >= s and (tiles - 1) * pl.rows < s
     assert pl.items == b * n * tiles
     assert pl.smem_bytes <= SMEM_PER_BLOCK and pl.threads % 32 == 0
-    hopper = dtype == torch.bfloat16 and h in (64, 128)
+    hopper = dtype == torch.bfloat16 and h in (64, 128, 256)
     assert (pl.design == "wgmma") == hopper
     if hopper:
-        # consumer warpgroups of 64 rows (three at H = 64, two at 128)
-        # and a producer warpgroup; every Q, K and V panel is a whole
+        # consumer warpgroups of 64 rows (three at H = 64, two at 128 and
+        # 256) and a producer warpgroup; every Q, K and V panel is a whole
         # number of 1024-byte swizzle atoms
         consumers = 3 if h == 64 else 2
         assert pl.rows == 64 * consumers and pl.stages >= 2
@@ -206,4 +206,23 @@ def test_launch_plan_at_the_serving_shape():
     assert pl.design == "wgmma" and pl.items == 1408 and pl.stages == 3
     assert pl.smem_bytes == 24576 + 3 * 2 * 16384 + 64 + 1024
     assert launch_plan(4, 2048, 32, 64, torch.float32).design == "fma"
-    assert launch_plan(1, 512, 4, 256, torch.bfloat16).design == "mma_sync"
+    assert launch_plan(1, 512, 4, 256, torch.bfloat16).design == "wgmma"
+
+
+def test_launch_plan_at_h256():
+    """recurrentgemma-9b's local attention (B, S, N, H) = (4, 2048, 16,
+    256) in bf16: two consumer warpgroups (128 rows an item), 64 keys a
+    tile in two stages, K and V released apart (two barrier pairs a
+    stage), 4 x 16 x 16 work items; Q's 4 panels and the ring in 193 KiB,
+    every panel a whole number of 1024-byte swizzle atoms."""
+    pl = launch_plan(4, 2048, 16, 256, torch.bfloat16)
+    assert pl.design == "wgmma" and pl.threads == 384
+    assert (pl.rows, pl.keys, pl.stages) == (128, 64, 2)
+    assert pl.items == 4 * 16 * 16
+    q_panel, kv_panel = pl.rows * 128, pl.keys * 128
+    assert q_panel % 1024 == 0 and kv_panel % 1024 == 0
+    assert pl.smem_bytes == (4 * q_panel + 2 * 2 * 4 * kv_panel
+                             + 8 * (4 * 2 + 2) + 1024)
+    assert pl.smem_bytes <= SMEM_PER_BLOCK
+    # a third stage would not fit
+    assert pl.smem_bytes + 2 * 4 * kv_panel > SMEM_PER_BLOCK

@@ -11,9 +11,12 @@ against the plain version on the f32 upcast of its inputs, query row by
 query row: each row's output within a relative l2 error of 1e-4 in f32
 and 1e-2 in bf16 of the plain row (a row's scale falls as
 1 / sqrt(row + 1), so a bar on max|plain|, set by row 0, would not follow
-it), and in f32 also within 2e-5 * max|plain|. The last flash shape has
-T = 300, not a multiple of the 128-key tile of the bf16 kernel, and a
-window of 40 that cuts its tiles.
+it), and in f32 also within 2e-5 * max|plain|. Among the flash shapes,
+(1, 300, 4, 2, 64) has T = 300, not a multiple of the 128-key tile of the
+bf16 kernel at H = 64, and a window of 40 that cuts its tiles; at
+H = 256 (64-key tiles) recurrentgemma-9b's prefill (4, 2048, 16, 1) with
+its window of 2048, a ragged non-causal S = 300 against T = 333, and a
+window of 96 that cuts the tiles at a ragged S = 700.
 """
 from __future__ import annotations
 
@@ -507,7 +510,9 @@ def test_grid_solve_kernels_match_plain_path(cuda):
     (2, 256, 256, 8, 2, 64, True, 0), (1, 200, 200, 4, 1, 128, True, 0),
     (1, 512, 512, 4, 1, 256, True, 64), (2, 256, 256, 8, 2, 64, False, 0),
     (1, 64, 200, 4, 2, 64, True, 0), (1, 200, 333, 4, 1, 128, False, 16),
-    (4, 2048, 2048, 32, 8, 64, True, 0), (1, 300, 300, 4, 2, 64, True, 40)])
+    (4, 2048, 2048, 32, 8, 64, True, 0), (1, 300, 300, 4, 2, 64, True, 40),
+    (4, 2048, 2048, 16, 1, 256, True, 2048), (1, 300, 333, 4, 1, 256, False, 0),
+    (1, 700, 700, 4, 2, 256, True, 96)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, t, n, k, h,
                                               causal, window):
     g = torch.Generator(device=cuda).manual_seed(6)
