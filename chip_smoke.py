@@ -57,8 +57,14 @@ Phases, each of which raises on failure (exit code != 0):
    error of the plain row (1e-4 in f32, 1e-2 in bf16: the output's
    scale falls with the row, as 1 / sqrt(row + 1), so a bar on
    max|plain|, set by row 0, would not follow it), each twice for the
-   same bits; and the kernels a bf16 call runs on the card at H = 64,
-   128 and 256 (`torch.profiler`): `flash_fwd_wgmma` of its H alone;
+   same bits; at each of these shapes also the training forward
+   (`flash_attention_fwd_lse`) twice: its output the serving call's bits,
+   its row log-sum-exp the same bits twice and within 1e-5 (f32) and
+   1e-4 (bf16) of max(1, |lse|) of the plain lse, and (1, 300, 4, 2, 64)
+   non-causal with window 50 against T = 100, whose rows s >= 149 see no
+   key (lse -1e30), in both dtypes; and the kernels a bf16 call runs on
+   the card at H = 64, 128 and 256 (`torch.profiler`): `flash_fwd_wgmma`
+   of its H alone;
 4. the regression path at full width: `dsml_fit` (DSML Algorithm 1) on
    m = 16 tasks, n = 512 samples, p = 1024 features, through the kernels
    (launch counts zeroed just before, read just after), then with
@@ -97,7 +103,10 @@ Phases, each of which raises on failure (exit code != 0):
    captured in one CUDA graph and replayed between CUDA events, so that
    no host issue is timed; `torch.profiler`'s device time where a launch
    cannot be captured, with the reason); an empty kernel's `graph_ms`,
-   the floor of any launch, beside the group threshold's row; and each
+   the floor of any launch, beside the group threshold's row; #9 with
+   its lse at the training shape (4, 2048, 32, 8, 64) beside SDPA's
+   forward on inputs that require a gradient, and the plain blockwise
+   attention backward and SDPA's backward at that shape; and each
    fit's wall time on both paths;
 6. the serving path at full width, the cell of
    `repro_torch/serving/cell.py`: granite-3-2b (40 layers, d 2048, 32/8
@@ -208,14 +217,40 @@ Phases, each of which raises on failure (exit code != 0):
        rank, f32, capacity_factor 8): each rank within 1e-5 * max|.| of
        `moe_apply` on the whole batch, one `all_to_all_experts` out and
        one back and no other collective, the all-to-all's time.
+10. training (`repro_torch.training`), after phase 9's models are freed:
+   10a. granite-3-2b unreduced in bf16 (phase 6's weights, seed 0), one
+        batch of 4 x 2048 from `synthetic_lm_batches` (seed 1), remat
+        on: one loss-and-gradient evaluation through the kernels (launch
+        counts zeroed just before and read just after: `flash_attention`
+        80 times, the forward and its recompute, and nothing else) and
+        one on the plain path (`use_kernel=False`, no launch): the loss
+        within 1e-4 relative, the global gradient norm within 1e-3
+        relative, each gradient leaf within a relative l2 error of 0.05
+        (the worst printed); the f32 control, the same weights upcast on
+        the plain path: the kernel path's worst leaf against its
+        gradient at most 1.1 x the plain path's; then, with their AdamW
+        state, 8 steps of `make_train_step` on that batch (peak_lr 1e-3,
+        warmup 1) with every loss and gradient norm finite and the last
+        loss below the first; the step's wall time after the first, tokens/s,
+        the share of the bf16 peak, peak memory; one step under
+        `torch.profiler`: device busy and idle share, and device time in
+        GEMMs, #9, the plain attention backward, the optimizer and the
+        rest;
+   10b. an f32 copy at 4 layers (batch 4 x 2048): flash 8 times
+        (`flash_fwd_kernel` with its lse), the loss within 1e-5 relative
+        and each gradient leaf within 1e-4 * max|g| of the plain path's;
+        `adamw_update` on two copies of the state with the same
+        gradients gives the same bits.
 
 It prints one JSON line of kernels (launches per run from phases 4-4c,
-6, 7c and 9; phase 8's, over its ranks and its own fits, as
+6, 7c, 9 and 10, #9 with its lse taking 10a's kernel loss-and-gradient
+run's; phase 8's, over its ranks and its own fits, as
 `launches_phase8`) and, last, the result line. With no CUDA device it
 raises before printing any result.
 """
 from __future__ import annotations
 
+import bisect
 import json
 import math
 import os
@@ -249,6 +284,10 @@ TOL_FIT = 1e-4                          # x max|.|, after chained FISTA steps
 TOL_FLASH = 2e-5                        # x max|plain|, f32
 # worst relative l2 error of a query row's output
 TOL_FLASH_ROW = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the training forward's row log-sum-exp, x max(1, |lse|) elementwise: both
+# sides sum the same f32 scores of the same (bf16) inputs in another
+# order, the bf16 kernel through exp2
+TOL_LSE = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 TOL_SERVE_BF16 = 0.1                    # x max|logits|; a wrong head map: O(1)
 # x tokens: the bf16 plain path's rounding moves this share of the first
 # MoE layer's top-k sets at most (H100 80GB HBM3, 700 W: deepseek-moe-16b
@@ -266,6 +305,28 @@ ZOO_OTHERS = (("recurrentgemma-9b", {}), ("internvl2-2b", {}),
                                             {"n_layers": 12}))
 ZOO_SSM = "mamba2-1.3b"                 # reaches no kernel
 A2A_TOKENS = 512                        # 9c: a sequence's tokens, 4 of them
+# phase 10: training granite-3-2b unreduced on phase 6's weights (seed 0),
+# one batch of synthetic_lm_batches from seed 1
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH_SEED = 4, 2048, 1
+TRAIN_STEPS = 8
+TRAIN_LR = 1e-3
+TRAIN_F32_LAYERS = 4
+# kernel path against the plain path in bf16 (each backward recomputes
+# the scores as its forward computed them; the forwards round q.k and the
+# output differently at bf16 level, which 40 layers carry into the loss
+# and the gradients): the loss relative, the global norm relative, each
+# gradient leaf's relative l2 error. Measured 1.47e-5, 5.11e-5 and 0.0411
+# (layer 0's wq) on an H100 80GB HBM3 at 700 W, where the f32 control
+# puts each bf16 path's worst leaf 0.041-0.043 off the f32 gradient, so
+# that 0.0411 is the two paths' own rounding; a wrong lse or scale moves
+# them by O(1)
+TOL_TRAIN_LOSS = 1e-4
+TOL_TRAIN_GNORM = 1e-3
+TOL_TRAIN_GRAD = 0.05
+# the kernel path's worst leaf against the f32 gradient, as a multiple of
+# the plain path's (measured 0.955 there): the kernel's forward keeps q.k
+# in f32, so its gradient is to be no further from the f32 one
+TOL_TRAIN_GRAD_F32 = 1.1
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1287,19 +1348,8 @@ def zoo_model(arch, dev, **changes):
 
 def param_gib(params) -> tuple[float, int]:
     """(GiB, count) of a parameter tree."""
-    leaves = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            for v in t.values():
-                walk(v)
-        elif isinstance(t, list):
-            for v in t:
-                walk(v)
-        else:
-            leaves.append(t)
-
-    walk(params)
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(params)
     return (sum(t.numel() * t.element_size() for t in leaves) / 2**30,
             sum(t.numel() for t in leaves))
 
@@ -1631,6 +1681,336 @@ def zoo_phase(dev, card) -> dict:
             "flash_attention_noncausal": runs["flash_attention_noncausal"]}
 
 
+def flash_backward_times(shape, qkv, card) -> dict:
+    """The training attention's backward at `shape` (B, S, N, K, H),
+    causal: the plain blockwise backward as the training path runs it
+    after the kernel (`flash_attention_bwd` from the kernel's out and lse,
+    scores in f32) and SDPA's backward (`torch.autograd.grad` through its forward),
+    by CUDA events, beside their bound (5 products of the causal pairs,
+    2.5 x the forward's; q, k, v, out, dout and lse read, dq, dk, dv
+    written)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.timing import time_ms
+    from repro_torch.models import attention_core as ac
+    fb, fs, fn, fk, fh = shape
+    q, k, v = qkv
+    gen = torch.Generator(device=q.device).manual_seed(3)
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    out, lse = flash_ops.flash_attention_fwd_lse(q, k, v)
+    plain_ms = time_ms(lambda: ac.flash_attention_bwd(
+        q, k, v, out, lse, dout, causal=True, window=0, scores_f32=True),
+        reps=5, warm=1)
+    req = [t.transpose(1, 2).detach().requires_grad_() for t in qkv]
+    o = torch.nn.functional.scaled_dot_product_attention(
+        *req, is_causal=True, enable_gqa=True)
+    d_t = dout.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(o, req, d_t,
+                                                 retain_graph=True))
+    pairs = fb * fn * flash_pairs(fs, True, 0)
+    elems = fb * fs * fh
+    bwd_bound, how = bound(2.5 * 4 * pairs * fh,
+                           2 * (3 * fn * elems + 2 * fk * elems)
+                           + 4 * fb * fn * fs + 2 * (fn + 2 * fk) * elems,
+                           PEAK_BF16_FLOPS)
+    print(f"time flash backward at {shape} bf16 causal: plain blockwise "
+          f"{plain_ms:.4f} ms, SDPA's backward {lib_ms:.4f} ms, bound "
+          f"{bwd_bound:.4f} ms ({how}) {card}")
+    return {"plain_bwd_ms": plain_ms, "library_bwd_ms": lib_ms,
+            "bwd_bound_ms": bwd_bound}
+
+
+def train_forward_flops(cfg, b: int, s: int) -> float:
+    """A forward pass of a dense decoder over b x s tokens: the
+    projections and the MLP (2 flops a weight a token), the head, and each
+    layer's causal attention (4 H flops a visible (query, key) pair a
+    head)."""
+    d, n, k, h = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    per_token = cfg.n_layers * 2 * (d * n * h + 2 * d * k * h + n * h * d
+                                    + 3 * d * cfg.d_ff)
+    attn = cfg.n_layers * 4 * b * n * flash_pairs(s, True, 0) * h
+    return b * s * (per_token + 2 * d * cfg.padded_vocab) + attn
+
+
+def train_profile(prof, wall_s: float) -> dict:
+    """A profiled train step's device time (ms): busy (the union of its
+    kernels' intervals), idle share, and by part: #9's forward
+    (`flash_fwd`), the plain attention backward and the optimizer (the
+    kernels inside the device's spans of the `attention_core._flash_bwd`
+    and `optim.adamw_update` ranges), GEMMs (by name) and the rest
+    (elementwise passes, norms, casts, copies)."""
+    from repro_torch.launch.profile_serve import _group
+    events = prof.events()
+    ranges = ("attention_core._flash_bwd", "optim.adamw_update")
+    dev_events = [e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and e.name not in ranges]
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in dev_events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    total = sum(b - a for a, b in spans)
+    parts = dict.fromkeys(("flash #9 forward", "plain attention backward",
+                           "optimizer", "GEMMs", "elementwise and other"),
+                          0.0)
+    # each kernel once, from the device's timeline: #9 by its name, the
+    # kernels inside a range's span on the device (the profiler draws
+    # each `record_function` range there too) to that range, the rest
+    # by name
+    marks = {r: sorted((e.time_range.start, e.time_range.end)
+                       for e in events
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.name == r) for r in ranges}
+
+    def inside(r, a, b):
+        i = bisect.bisect_right(marks[r], (a, float("inf"))) - 1
+        return i >= 0 and marks[r][i][0] <= a and b <= marks[r][i][1]
+
+    by_name: dict = {}
+    for e in dev_events:
+        a, b = e.time_range.start, e.time_range.end
+        by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
+        if "flash_fwd" in e.name:
+            parts["flash #9 forward"] += b - a
+        elif inside(ranges[0], a, b):
+            parts["plain attention backward"] += b - a
+        elif inside(ranges[1], a, b):
+            parts["optimizer"] += b - a
+        elif _group(e.name) == "matrix products":
+            parts["GEMMs"] += b - a
+        else:
+            parts["elementwise and other"] += b - a
+    out = {"wall_ms": wall_s * 1e3, "busy_ms": busy / 1e3,
+           "idle_share": max(0.0, 1 - busy / (wall_s * 1e6)),
+           "kernels": len(dev_events), "kernel_ms": total / 1e3,
+           "spans": {r: len(m) for r, m in marks.items()},
+           "top": [(name[:90], us / 1e3) for name, us in sorted(
+               by_name.items(), key=lambda kv: -kv[1])[:10]]}
+    out.update({k: v / 1e3 for k, v in parts.items()})
+    return out
+
+
+def train_phase(dev, card) -> dict:
+    """Phase 10: training. 10a granite-3-2b unreduced in bf16 (loss and
+    gradient on both paths, 8 steps, the step's time, a profile); 10b an
+    f32 copy at 4 layers. Returns the flash launches of 10a's kernel
+    loss-and-gradient run and the numbers the JSON line carries."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synth_tokens import synthetic_lm_batches
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import AdamWState, adamw_update, global_norm
+    from repro_torch.serving import cell
+    from repro_torch.training.step import (
+        TrainState, init_train_state, make_grad_fn, make_train_step,
+    )
+    from repro_torch.tree import named_leaves, tree_leaves, tree_map
+    from torch.profiler import ProfilerActivity, profile
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def batch_of(cfg):
+        gen = torch.Generator(device=dev).manual_seed(TRAIN_BATCH_SEED)
+        return next(synthetic_lm_batches(gen, vocab=cfg.vocab,
+                                         batch=TRAIN_BATCH, seq=TRAIN_SEQ))
+
+    def grads_on(cfg, params, batch, use_kernel):
+        """make_grad_fn's (loss, gradients) with the launch counts zeroed
+        just before and read just after, and the wall time."""
+        fn = make_grad_fn(cfg, remat=True, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, _, grads = fn(params, batch)
+        torch.cuda.synchronize()
+        return loss, grads, dict(LAUNCHES), time.perf_counter() - t0
+
+    def compare(gk, gp):
+        """The worst leaf's relative l2 error and its name."""
+        worst, name = 0.0, "?"
+        for (leaf, a), b in zip(named_leaves(gk).items(), tree_leaves(gp)):
+            num = torch.linalg.vector_norm((a.float() - b.float()).ravel())
+            den = torch.linalg.vector_norm(b.float().ravel())
+            rel = (num / torch.clamp_min(den, 1e-30)).item()
+            if rel >= worst:
+                worst, name = rel, leaf
+        return worst, name
+
+    def want_launches(n):
+        want = dict.fromkeys(LAUNCHES, 0)
+        want["flash_attention"] = n
+        return want
+
+    free()
+    out = {}
+    # ---- 10a. granite-3-2b unreduced, bf16 --------------------------------
+    cfg = get_config(cell.ARCH)
+    base = torch.cuda.memory_allocated()
+    # the parameters init_train_state draws from this seed, first without
+    # their AdamW state (37 GB), which leaves room for the f32 control
+    params = init_params(
+        torch.Generator(device=dev).manual_seed(cell.PARAM_SEED), cfg)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    batch = batch_of(cfg)
+    tokens = batch.tokens.numel()
+    loss_k, grads_k, launches_k, wall_k = grads_on(cfg, params, batch, None)
+    check(launches_k == want_launches(2 * cfg.n_layers),
+          f"10a kernel path launches {launches_k}, expected flash_attention="
+          f"{2 * cfg.n_layers} (forward and recompute) and nothing else")
+    loss_p, grads_p, launches_p, wall_p = grads_on(cfg, params, batch, False)
+    check(launches_p == want_launches(0),
+          f"10a plain path launches {launches_p}")
+    gn_k, gn_p = global_norm(grads_k).item(), global_norm(grads_p).item()
+    lk, lp = loss_k.item(), loss_p.item()
+    check(math.isfinite(lk) and math.isfinite(gn_k) and gn_k > 0,
+          f"10a loss {lk}, grad_norm {gn_k}")
+    worst, worst_leaf = compare(grads_k, grads_p)
+    # the control: the same loss's gradient in f32 at the same (bf16)
+    # weights on the plain path, from which each bf16 path's gradient
+    # is off by its own rounding
+    cfg_f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    loss_32, grads_32, _, _ = grads_on(
+        cfg_f32, tree_map(lambda p: p.float(), params), batch, False)
+    l32 = loss_32.item()
+    worst_k32, leaf_k32 = compare(grads_k, grads_32)
+    worst_p32, leaf_p32 = compare(grads_p, grads_32)
+    print(f"phase 10a {cfg.name} unreduced ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters, bf16), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat: "
+          f"loss kernel {lk:.6f} plain {lp:.6f} (rel {abs(lk - lp) / abs(lp):.3g}, "
+          f"bar {TOL_TRAIN_LOSS}); grad_norm kernel {gn_k:.6g} plain "
+          f"{gn_p:.6g} (rel {abs(gn_k - gn_p) / gn_p:.3g}, bar "
+          f"{TOL_TRAIN_GNORM}); worst leaf relative l2 {worst:.4g} at "
+          f"{worst_leaf} (bar {TOL_TRAIN_GRAD}); flash launches "
+          f"{launches_k['flash_attention']} / {launches_p['flash_attention']}; "
+          f"loss-and-grad wall {wall_k * 1e3:.1f} ms (plain "
+          f"{wall_p * 1e3:.1f}) {card}")
+    print(f"phase 10a f32 control (the same weights upcast, plain path): "
+          f"loss {l32:.6f} (kernel rel {abs(lk - l32) / abs(l32):.3g}, plain "
+          f"rel {abs(lp - l32) / abs(l32):.3g}); worst leaf relative l2 "
+          f"against the f32 gradient: kernel path {worst_k32:.4g} at "
+          f"{leaf_k32}, plain path {worst_p32:.4g} at {leaf_p32} {card}")
+    check(abs(lk - lp) <= TOL_TRAIN_LOSS * abs(lp),
+          f"10a loss: kernel {lk} vs plain {lp}")
+    check(abs(gn_k - gn_p) <= TOL_TRAIN_GNORM * gn_p,
+          f"10a grad_norm: kernel {gn_k} vs plain {gn_p}")
+    check(worst <= TOL_TRAIN_GRAD, f"10a gradient {worst_leaf}: relative "
+          f"l2 error {worst} > {TOL_TRAIN_GRAD}")
+    check(worst_k32 <= TOL_TRAIN_GRAD_F32 * worst_p32,
+          f"10a the kernel path's gradient is {worst_k32} off the f32 "
+          f"gradient at {leaf_k32}, the plain path's {worst_p32}")
+    out["launches"] = launches_k["flash_attention"]
+    del params, grads_k, grads_p, grads_32
+    free()
+
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(
+        torch.Generator(device=dev).manual_seed(cell.PARAM_SEED), cfg)
+    state_gib = (torch.cuda.memory_allocated() - base) / 2**30
+    print(f"phase 10a train state (bf16 parameters, f32 master and "
+          f"moments): {state_gib:.2f} GiB")
+    step = make_train_step(cfg, peak_lr=TRAIN_LR, warmup=1, total_steps=100)
+    losses, norms, walls = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        walls.append(time.perf_counter() - t0)
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"10a losses {losses}, grad norms {norms}")
+    check(losses[-1] < losses[0], f"10a the loss did not fall: {losses}")
+    step_s = sum(walls[1:]) / len(walls[1:])
+    fwd = train_forward_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    mfu, hfu = (3 * fwd / step_s / PEAK_BF16_FLOPS,
+                4 * fwd / step_s / PEAK_BF16_FLOPS)
+    print(f"phase 10a {TRAIN_STEPS} steps of make_train_step on one batch "
+          f"(peak_lr {TRAIN_LR}, warmup 1): losses "
+          f"{[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in norms]} {card}")
+    print(f"phase 10a step wall {step_s * 1e3:.1f} ms (mean of steps 2-"
+          f"{TRAIN_STEPS}; all {[round(w * 1e3, 1) for w in walls]}), "
+          f"{tokens / step_s:.0f} tokens/s; model FLOPs 3 x forward "
+          f"{3 * fwd / 1e12:.1f} TFLOP a step ({mfu:.4f} of the bf16 "
+          f"peak), with the recompute 4 x {4 * fwd / 1e12:.1f} TFLOP "
+          f"({hfu:.4f}); peak memory {peak_gib:.2f} GiB (state included), "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB with what "
+          f"earlier phases hold {card}")
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rep = train_profile(prof, wall)
+    del prof
+    print(f"phase 10a profile of one step: wall {rep['wall_ms']:.1f} ms, "
+          f"device busy {rep['busy_ms']:.1f} ms (idle share "
+          f"{rep['idle_share']:.4f}), {rep['kernels']} kernels, kernel time "
+          f"{rep['kernel_ms']:.1f} ms (range spans on the device: "
+          f"{rep['spans']}); by part: " + ", ".join(
+              f"{k} {rep[k]:.1f} ms" for k in (
+                  "GEMMs", "flash #9 forward", "plain attention backward",
+                  "elementwise and other", "optimizer")) + f" {card}")
+    for name, ms in rep["top"]:
+        print(f"    {ms:9.3f} ms  {name}")
+    out.update(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+               peak_gib=peak_gib, mfu=mfu, losses=losses, profile=rep)
+    del state, m
+    free()
+
+    # ---- 10b. an f32 copy at 4 layers -------------------------------------
+    cfg32 = cfg.replace(n_layers=TRAIN_F32_LAYERS, param_dtype="float32",
+                        compute_dtype="float32")
+    s32 = init_train_state(
+        torch.Generator(device=dev).manual_seed(cell.PARAM_SEED), cfg32)
+    b32 = batch_of(cfg32)
+    l32k, g32k, launches32, _ = grads_on(cfg32, s32.params, b32, None)
+    check(launches32 == want_launches(2 * TRAIN_F32_LAYERS),
+          f"10b kernel path launches {launches32}")
+    l32p, g32p, _, _ = grads_on(cfg32, s32.params, b32, False)
+    rel = abs(l32k.item() - l32p.item()) / abs(l32p.item())
+    check(rel <= TOL_KERNEL, f"10b loss: kernel {l32k.item()} vs plain "
+          f"{l32p.item()}")
+    worst32 = 0.0
+    for a, b in zip(tree_leaves(g32k), tree_leaves(g32p)):
+        err, scale = max_err(a, b)
+        check(err <= TOL_FIT * scale, f"10b a gradient leaf {tuple(a.shape)}"
+              f": err {err} > {TOL_FIT} * {scale}")
+        worst32 = max(worst32, err / max(scale, 1e-30))
+    # one update of two copies of the state with the same gradients
+    copies = [TrainState(tree_map(torch.clone, s32.params),
+                         AdamWState(*(tree_map(torch.clone, t)
+                                      for t in s32.opt[:3]), s32.opt.count),
+                         s32.step) for _ in range(2)]
+    lr = torch.tensor(TRAIN_LR, device=dev)
+    done = [adamw_update(g32k, c.opt, c.params, lr=lr) for c in copies]
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves([done[0][0], *done[0][1][:3]]),
+        tree_leaves([done[1][0], *done[1][1][:3]])))
+    check(same, "10b adamw_update gave other bits on a copy of the state")
+    print(f"phase 10b {cfg.name} f32 at {TRAIN_F32_LAYERS} layers (batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}): flash launches "
+          f"{launches32['flash_attention']}; loss kernel {l32k.item():.7f} "
+          f"plain {l32p.item():.7f} (rel {rel:.3g}, bar {TOL_KERNEL}); worst "
+          f"gradient leaf {worst32:.3g} of max|g| (bar {TOL_FIT}); "
+          f"adamw_update on two copies: the same bits {card}")
+    del s32, g32k, g32p, copies, done
+    free()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels "
@@ -1674,6 +2054,7 @@ def main() -> None:
 
     dev = torch.device("cuda")
 
+    t_start = time.perf_counter()
     # ---- 1. the card ------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -1687,6 +2068,8 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+          "phase 2")
     # ---- 2. build ---------------------------------------------------------
     # from scratch, so that every source compiles here and its spills are
     # checked; the ranks of phase 8 load these libraries as they are
@@ -1723,6 +2106,8 @@ def main() -> None:
           f"a bf16 flash_fwd_kernel: "
           f"{'flash_fwd_kernelI13__nv_bfloat16' in flash_log}")
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+          "phase 3")
     # ---- 3. kernel vs plain -----------------------------------------------
     g = torch.Generator(device=dev).manual_seed(1)
     errs: dict[str, float] = {}
@@ -1996,14 +2381,22 @@ def main() -> None:
         """The kernel twice and the plain version on the f32 upcast of the
         same inputs (T = t keys, S by default); every query row within
         TOL_FLASH_ROW[dtype] of the plain row (relative l2) and, in f32,
-        max abs error <= TOL_FLASH * max|plain|."""
+        max abs error <= TOL_FLASH * max|plain|. The training forward
+        (`flash_attention_fwd_lse`) twice: its output the serving call's
+        bits, its lse the same bits on a second launch and within
+        TOL_LSE[dtype] * max(1, |lse|) of the plain lse."""
         qkv = flash_inputs(*shape, dtype, t)
         got = flash_attention(*qkv, causal=causal, window=window,
                               use_kernel=True)
         again = flash_attention(*qkv, causal=causal, window=window,
                                 use_kernel=True)
-        ref = flash_attention(*(t.float() for t in qkv), causal=causal,
-                              window=window, use_kernel=False)
+        lse_out, lse = flash_ops.flash_attention_fwd_lse(
+            *qkv, causal=causal, window=window, use_kernel=True)
+        _, lse_again = flash_ops.flash_attention_fwd_lse(
+            *qkv, causal=causal, window=window, use_kernel=True)
+        ref, lse_ref = flash_ops.flash_attention_fwd_lse(
+            *(t.float() for t in qkv), causal=causal, window=window,
+            use_kernel=False)
         torch.cuda.synchronize()
         label = (f"{shape} {str(dtype).split('.')[-1]} causal={causal} "
                  f"window={window}" + (f" T={t}" if t is not None else ""))
@@ -2017,21 +2410,34 @@ def main() -> None:
               f"{label}: err {err} > {TOL_FLASH} * {scale}")
         check(bool(torch.equal(got, again)),
               f"flash_attention {label}: two launches gave different bits")
+        check(bool(torch.equal(lse_out, got)), f"flash_attention {label}: "
+              "the lse launch's output is not the serving call's bits")
+        check(bool(torch.equal(lse, lse_again)), f"flash_attention {label}:"
+              " two lse launches gave different bits")
+        lse_err = (torch.abs(lse - lse_ref)
+                   / torch.clamp_min(torch.abs(lse_ref), 1.0)).max().item()
+        lse_abs[(shape, dtype)] = torch.max(torch.abs(lse - lse_ref)).item()
+        check(lse_err <= TOL_LSE[dtype], f"flash_attention {label}: lse "
+              f"error {lse_err} > {TOL_LSE[dtype]} * max(1, |lse|)")
         print(f"check flash_attention {label}: worst row relative err "
               f"{rows:.3g} (bar {TOL_FLASH_ROW[dtype]:g}), max abs err "
               f"{err:.3g} (max|plain| {scale:.3g}), same bits on a second "
-              "launch")
+              f"launch; lse err {lse_err:.3g} of max(1, |lse|) (bar "
+              f"{TOL_LSE[dtype]:g}), the serving call's output bits, the "
+              "same lse bits twice")
         return err, qkv
 
     f32, bf16 = torch.float32, torch.bfloat16
     serve_cfg = get_config(cell.ARCH)
     flash_path = (cell.BATCH, cell.PROMPT, serve_cfg.n_heads,
                   serve_cfg.n_kv_heads, serve_cfg.resolved_head_dim)
+    lse_abs: dict = {}            # (shape, dtype) -> max |lse - plain|
     check_flash((2, 256, 8, 2, 64), f32)
     check_flash((1, 200, 4, 1, 128), f32)
     check_flash((1, 512, 4, 1, 256), f32, window=64)
     check_flash((2, 256, 8, 2, 64), f32, causal=False)
     errs["flash_attention"], flash_qkv = check_flash(flash_path, bf16)
+    errs["flash_attention_lse"] = lse_abs[(flash_path, bf16)]
     errs["flash_attention_h128"], flash_qkv128 = check_flash(FLASH_H128, bf16)
     # the shapes of phase 9's prefills: H = 128 with G = 1 and 2, H = 256
     # with one kv head and a window, and the encoder's non-causal H = 64
@@ -2046,6 +2452,10 @@ def main() -> None:
     # a ragged non-causal S against T, and a window cutting the tiles
     check_flash((1, 300, 4, 1, 256), bf16, causal=False, t=333)
     check_flash((1, 700, 4, 2, 256), bf16, window=96)
+    # rows s >= 149 see no key (non-causal, window 50, T = 100): lse -1e30
+    for dtype in (f32, bf16):
+        check_flash((1, 300, 4, 2, 64), dtype, causal=False, window=50,
+                    t=100)
     # every bf16 call runs the Hopper design of its head dim, and nothing
     # of the f32 body
     h256_shape, _, h256_window = zoo_flash["flash_attention_h256"]
@@ -2063,6 +2473,8 @@ def main() -> None:
               f"{flash_ops.launch_plan(fb_, fs_, fn_, fh_, bf16)}; runs "
               f"{[n for n in names if 'flash' in n]}")
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+          "phase 4")
     # ---- 4. the main path at full width -----------------------------------
     data = gen_regression(torch.Generator(device=dev).manual_seed(0),
                           m=M, n=N, p=P, s=S, signal_low=0.3, device=dev)
@@ -2107,6 +2519,8 @@ def main() -> None:
           f"{fit_plain_s * 1e3:.1f} ms, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB {card}")
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+          "phase 4b")
     # ---- 4b. the logistic path at full width ------------------------------
     cdata = gen_classification(torch.Generator(device=dev).manual_seed(0),
                                m=M, n=N, p=P, s=S, device=dev)
@@ -2157,6 +2571,8 @@ def main() -> None:
           f"plain {cfit_plain_s * 1e3:.1f} ms, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB {card}")
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+          "phase 4c")
     # ---- 4c. the remaining DSML kernels and the baselines -----------------
     def wall(fn, *args, **kw):
         t0 = time.perf_counter()
@@ -2288,6 +2704,8 @@ def main() -> None:
               f"ms {card}")
     print(f"phase 4c wall (kernel paths): {t4c * 1e3:.1f} ms {card}")
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+          "phase 5")
     # ---- 5. times ---------------------------------------------------------
     m, n, p = M, N, P
     # Sigma is symmetric by construction: its least work is the upper
@@ -2335,6 +2753,27 @@ def main() -> None:
                     fq.transpose(1, 2), fkk.transpose(1, 2),
                     fv.transpose(1, 2), is_causal=causal, enable_gqa=True))
 
+    def flash_lse_row(name, shape, qkv):
+        """#9 with its lse, as the training forward launches it: q, k, v
+        and out once each, and the lse; beside SDPA's forward on inputs
+        that require a gradient (it then writes its own logsumexp)."""
+        fb, fs, fn, fk, fh = shape
+        fq, fkk, fv = qkv
+        f_out = torch.empty_like(fq)
+        f_lse = torch.empty((fb, fn, fs), device=dev)
+        req = [t.transpose(1, 2).detach().requires_grad_() for t in qkv]
+        return (name, "src/repro_torch/kernels/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention/kernel.py:83",
+                bound(flash_flops(shape),
+                      2 * (2 * fb * fs * fn * fh + 2 * fb * fs * fk * fh)
+                      + 4 * fb * fn * fs, PEAK_BF16_FLOPS),
+                lambda: flash_ops.launch(fq, fkk, fv, f_out, lse=f_lse),
+                lambda: flash_ops.flash_attention_fwd_lse(fq, fkk, fv),
+                lambda: flash_ops.flash_attention_fwd_lse(fq, fkk, fv,
+                                                          use_kernel=False),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    *req, is_causal=True, enable_gqa=True))
+
     # the weighted launch's yardstick: one bmm on (w X)' computed aside
     Xwt = (X * w[..., None]).transpose(1, 2)
     Xit = Xi.transpose(1, 2)
@@ -2343,6 +2782,7 @@ def main() -> None:
     rows = [
         flash_row("flash_attention", flash_path, flash_qkv),
         flash_row("flash_attention_h128", FLASH_H128, flash_qkv128),
+        flash_lse_row("flash_attention_lse", flash_path, flash_qkv),
         *(flash_row(name, shape, zoo_qkv[name], causal, window)
           for name, (shape, causal, window) in zoo_flash.items()),
         ("rank_update", "src/repro_torch/kernels/csrc/rank_update.cu",
@@ -2496,10 +2936,12 @@ def main() -> None:
               "rank_update_weighted": (m, n, p),
               "rank_update_ingest": INGEST,
               "flash_attention_h128": FLASH_H128,
+              "flash_attention_lse": flash_path,
               **{name: z[0] for name, z in zoo_flash.items()}}
     # the redesigned kernels' least work, for their achieved rate
     row_flops = {"flash_attention": flash_flops(flash_path),
                  "flash_attention_h128": flash_flops(FLASH_H128),
+                 "flash_attention_lse": flash_flops(flash_path),
                  **{name: flash_flops(*z) for name, z in zoo_flash.items()},
                  "fista_step_gemm": 2 * m * p * p * p,
                  "ista_step_gemm": 2 * p * p * p,
@@ -2547,9 +2989,13 @@ def main() -> None:
     floor_ms, (floor_g, floor_how) = time_ms(empty), graph_ms(empty)
     print(f"time empty kernel (the launch floor): events {floor_ms:.4f} ms; "
           f"device only {floor_g:.4f} ms ({floor_how}) {card}")
+    next(r for r in kernels if r["name"] == "flash_attention_lse").update(
+        flash_backward_times(flash_path, flash_qkv, card))
     next(r for r in kernels if r["name"] == "group_threshold").update(
         launch_floor_ms=floor_ms, launch_floor_graph_ms=floor_g)
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+          "phase 6")
     # ---- 6. the serving path at full width -------------------------------
     steps = cell.NEW_TOKENS
     base_mem = torch.cuda.memory_allocated()
@@ -2614,16 +3060,27 @@ def main() -> None:
           f"{gen32_s * 1e3:.1f} ms {card}")
     del p32
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+          "phase 7")
     # ---- 7. the streaming service ------------------------------------------
     launches_ingest, carried = stream_phase(dev, card, data, res, cdata,
                                             cres, cfit_args, lam, mu, Lam)
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+          "phase 8")
     # ---- 8. the distributed path ---------------------------------------
     launches_8 = distributed_phase(dev, card, data, res, carried, lam, mu,
                                    Lam)
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+          "phase 9")
     # ---- 9. the rest of the model zoo at full width ----------------------
     launches_9 = zoo_phase(dev, card)
+
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+          "phase 10")
+    # ---- 10. training -------------------------------------------------------
+    trained = train_phase(dev, card)
 
     # launches per run: the regression rows from phase 4, the logistic
     # rows from phase 4b (the unfused pair is not on either path), the
@@ -2642,11 +3099,13 @@ def main() -> None:
                     "logistic_grad_unfused_p8192": claunches["logistic_z"],
                     **{k: launches_4c[k] for k in new_keys},
                     "flash_attention": serve_launches["flash_attention"],
-                    **launches_9}
+                    **launches_9,
+                    "flash_attention_lse": trained["launches"]}
     print(json.dumps({"kernels": [
         {**row, "launches": run_launches[row["name"]],
          "launches_phase8": launches_8.get(row["name"], 0)}
         for row in kernels]}))
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -3,7 +3,7 @@
 The port's counterpart of the JAX package's `repro/checkpoint/io.py`, on
 the same file format, so a checkpoint written by either package loads
 in the other. A tree is nested dicts, NamedTuples, lists and tuples
-with tensors at the leaves. A leaf's name
+with tensors at the leaves, walked by `repro_torch.tree`. A leaf's name
 is its path joined with "/": dict keys, NamedTuple field names, list
 indices — `{"state": StreamState}` saves as `state/Sigmas`, ...,
 `state/support` (bool), `state/generation` (int32, 0-d). Dict keys go
@@ -28,29 +28,11 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.tree import map_leaves, named_leaves
+
 
 class CheckpointError(ValueError):
     """A checkpoint file is unreadable or does not match its template."""
-
-
-def _is_namedtuple(node) -> bool:
-    return isinstance(node, tuple) and hasattr(node, "_fields")
-
-
-def _map_leaves(tree, fn, path=()):
-    """Rebuild `tree` with every leaf replaced by `fn(name, leaf)`."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _map_leaves(tree[k], fn, path + (str(k),))
-                for k in sorted(tree)}
-    if _is_namedtuple(tree):
-        return type(tree)(*(_map_leaves(v, fn, path + (f,))
-                            for f, v in zip(tree._fields, tree)))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_leaves(v, fn, path + (str(i),))
-                          for i, v in enumerate(tree))
-    return fn("/".join(path), tree)
 
 
 def _host_array(leaf: torch.Tensor) -> np.ndarray:
@@ -63,13 +45,8 @@ def _host_array(leaf: torch.Tensor) -> np.ndarray:
 
 
 def _flatten_with_names(tree) -> dict:
-    out = {}
-
-    def put(name, leaf):
-        out[name] = _host_array(leaf)
-
-    _map_leaves(tree, put)
-    return out
+    return {name: _host_array(leaf)
+            for name, leaf in named_leaves(tree).items()}
 
 
 def npz_safe_dtype(dtype: torch.dtype) -> np.dtype:
@@ -134,8 +111,7 @@ def restore_pytree(path: str, template):
     """
     fname = _npz_name(path)
     with load_npz(fname) as data:
-        names = []
-        _map_leaves(template, lambda name, leaf: names.append(name))
+        names = list(named_leaves(template))
         missing = [k for k in names if k not in data.files]
         if missing:
             extra = [k for k in data.files if k not in names]
@@ -155,4 +131,4 @@ def restore_pytree(path: str, template):
             return torch.from_numpy(arr).to(device=leaf.device,
                                             dtype=leaf.dtype)
 
-        return _map_leaves(template, restore)
+        return map_leaves(restore, template)

@@ -16,7 +16,9 @@ are matched by name and fields, so nothing of the reference is imported.
 
 The model stack has parameters: `params_from_reference` carries the
 reference's parameter tree (random, from a seed: no trained weights are
-in the repository) across for every family of the zoo.
+in the repository) across for every family of the zoo, and
+`train_state_from_reference` a training state (parameters, AdamW's
+master copy and moments, the counts).
 """
 from __future__ import annotations
 
@@ -28,7 +30,10 @@ from repro_torch.core.logistic import DsmlLogisticResult
 from repro_torch.core.synth import MultiTaskData
 from repro_torch.models.backbone import stack_plan
 from repro_torch.multitask.sparse_probe import ProbeData
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.training.step import TrainState
 from repro_torch.stream.state import StreamState, WindowState
+from repro_torch.tree import tree_map
 
 _TUPLES = {cls.__name__: cls
            for cls in (MultiTaskData, DsmlResult, DsmlLogisticResult,
@@ -66,15 +71,6 @@ def from_reference(obj, device="cuda"):
     return _tensor(obj, device)
 
 
-def _leaves(tree, fn):
-    """Apply `fn` to every array of a tree of dicts and lists."""
-    if isinstance(tree, dict):
-        return {k: _leaves(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_leaves(v, fn) for v in tree]
-    return fn(tree)
-
-
 def _unstack(groups: dict, pattern, n_groups: int, device) -> list:
     """The reference's scanned groups `{"p0": ..., "p1": ...}` (each leaf
     with a leading axis of n_groups) -> one dict per layer, group by
@@ -83,12 +79,12 @@ def _unstack(groups: dict, pattern, n_groups: int, device) -> list:
         raise ValueError(f"params_from_reference: groups {sorted(groups)} "
                          f"for the pattern {pattern}")
     # split the stacked axis on the host, one copy of each layer
-    host = {k: _leaves(v, np.array) for k, v in groups.items()}
+    host = {k: tree_map(np.array, v) for k, v in groups.items()}
     got = host["p0"]["norm1"].shape[0]
     if got != n_groups:
         raise ValueError(f"params_from_reference: {got} stacked groups, "
                          f"the config has {n_groups}")
-    return [_leaves(host[f"p{i}"], lambda a, g=g: _tensor(a[g], device))
+    return [tree_map(lambda a, g=g: _tensor(a[g], device), host[f"p{i}"])
             for g in range(n_groups) for i in range(len(pattern))]
 
 
@@ -105,7 +101,7 @@ def params_from_reference(params: dict, cfg, device="cuda") -> dict:
     if len(params.get("tail", [])) != len(tail):
         raise ValueError(f"params_from_reference: {len(params.get('tail', []))}"
                          f" tail layers, the config has {len(tail)}")
-    out = {k: _leaves(v, lambda a: _tensor(a, device))
+    out = {k: tree_map(lambda a: _tensor(a, device), v)
            for k, v in params.items() if k not in ("layers", "encoder")}
     out["layers"] = _unstack(params["layers"], pattern, n_groups, device)
     if "encoder" in params:
@@ -115,3 +111,27 @@ def params_from_reference(params: dict, cfg, device="cuda") -> dict:
                                cfg.n_encoder_layers, device),
             "final_norm": _tensor(enc["final_norm"], device)}
     return out
+
+
+def train_state_from_reference(state, cfg, device="cuda"):
+    """The reference's `TrainState(params, AdamWState(master, mu, nu,
+    count), step)` -> the port's `training.step.TrainState` on `device`:
+    the parameter, master and moment trees each laid out as
+    `params_from_reference` lays out parameters, `count` and `step` 0-d
+    int32 tensors."""
+    if tuple(getattr(state, "_fields", ())) != TrainState._fields or \
+            tuple(getattr(state.opt, "_fields", ())) != AdamWState._fields:
+        raise TypeError(f"train_state_from_reference: not a reference "
+                        f"TrainState: {type(state).__name__}")
+    opt = state.opt
+
+    def tree(t):
+        return params_from_reference(t, cfg, device)
+
+    def count(c):
+        return _tensor(c, device).to(torch.int32)
+
+    return TrainState(params=tree(state.params),
+                      opt=AdamWState(tree(opt.master), tree(opt.mu),
+                                     tree(opt.nu), count(opt.count)),
+                      step=count(state.step))

@@ -26,6 +26,15 @@
 // does not leave one long tail of blocks. No split over keys: a row's
 // sum runs in one order, so two launches give the same bits.
 //
+// The training forward also writes each row's log-sum-exp, (B, N, S) f32,
+// lse = m + log(max(l, 1e-30)) in natural-log units with m the running
+// max of the scaled scores, as the reference's `_flash_fwd`
+// (src/repro/models/attention_core.py) returns it for its blockwise
+// backward; a row that sees no key gets its -1e30. Both designs write it
+// in their epilogue from the m and l they already hold (the bf16 design
+// keeps m in raw score units and scales it once there), one lane a row;
+// a null pointer (serving) writes nothing and costs one branch a row.
+//
 // What bounds it on this card: the operations. At the serving path's
 // shape (B, S, N, K, H) = (4, 2048, 32, 8, 64) in bf16, the causal half
 // is 4 B N (S (S + 1) / 2) H = 68.7 GFLOP, 0.069 ms on the bf16 tensor
@@ -115,6 +124,8 @@ struct Args {
   float scale;
   // strides in elements: batch, sequence, head
   long long qb, qs, qn, kb, ks, kn, vb, vs, vn, ob, os, on;
+  // the row log-sum-exp (B, N, S) f32, contiguous, or null: none written
+  float* lse;
 };
 
 template <int H>
@@ -307,6 +318,9 @@ flash_fwd_kernel(const Args a) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = fmaxf(l[i], 1e-30f);
     if (row[i] >= a.S) continue;
+    // m + log(max(l, 1e-30)): m is NEG_INF where the row saw no key
+    if (a.lse != nullptr && t == 0)
+      a.lse[((long long)b * a.N + n) * a.S + row[i]] = m[i] + logf(l[i]);
     float* orow = op + (long long)row[i] * a.os + 2 * t;
 #pragma unroll
     for (int j = 0; j < H / 8; ++j)
@@ -377,7 +391,9 @@ static_assert(Layout<64>::SMEM <= 232448 && Layout<128>::SMEM <= 232448 &&
 struct Params {
   CUtensorMap q, k, v;        // (H, rows, heads, B) through the strides
   void* o;
+  float* lse;                 // (B, N, S) f32, or null: none written
   int B, S, T, N, G, causal, window;
+  float scale;                // 1 / sqrt(H)
   float scale_log2;           // 1 / sqrt(H) times log2(e)
   long long ob, os, on;
 };
@@ -1111,6 +1127,14 @@ flash_fwd_wgmma(const __grid_constant__ Params a) {
           return fmaf(fmaf(-q, lr, x), rl, q);
         };
         const bool stored = row[r] >= 0 && row[r] < a.S;
+        // the row log-sum-exp in natural-log units: m is the raw score's
+        // running max (-inf where the row saw no key, written as the
+        // plain version's -1e30 + log(1e-30), which rounds to -1e30)
+        if (a.lse != nullptr && stored && t == 0)
+          a.lse[((long long)it.b * a.N + it.n) * a.S + row[r]] =
+              m[r] == -INFINITY
+                  ? -1e30f
+                  : __fadd_rn(__fmul_rn(m[r], a.scale), logf(lr));
         __nv_bfloat16* orow = op + (long long)row[r] * a.os;
 #pragma unroll
         for (int mt = 0; mt < H / 32; ++mt) {
@@ -1181,6 +1205,7 @@ int launch(const Args& x, int B, int device, cudaStream_t stream) {
       !tensor_map(&p.v, x.v, B, x.T, K, H, x.vb, x.vs, x.vn, BKEYS))
     return static_cast<int>(cudaErrorInvalidValue);
   p.o = x.o;
+  p.lse = x.lse;
   p.B = B;
   p.S = x.S;
   p.T = x.T;
@@ -1188,6 +1213,7 @@ int launch(const Args& x, int B, int device, cudaStream_t stream) {
   p.G = x.G;
   p.causal = x.causal;
   p.window = x.window;
+  p.scale = x.scale;
   p.scale_log2 = x.scale * 1.4426950408889634f;
   p.ob = x.ob;
   p.os = x.os;
@@ -1230,17 +1256,35 @@ int dispatch(const Args& a, bool bf16, int H, int B, int device,
 
 // q (B, S, N, H), k/v (B, T, K, H) -> o (B, S, N, H), all float32
 // (bf16 == 0) or all bfloat16 (bf16 == 1); strides in elements, the last
-// axis contiguous, rows 16-byte aligned (the wrapper checks).
+// axis contiguous, rows 16-byte aligned (the wrapper checks). With `lse`
+// (float32 (B, N, S), contiguous; the training forward) each row's
+// log-sum-exp m + log(max(l, 1e-30)) in natural-log units is written too,
+// m the running max of the scaled scores (-1e30 where the row saw no key);
+// serving passes null and writes none.
+extern "C" int flash_attention_fwd_lse(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int bf16, int B, int S, int T, int N, int K, int H, long long qb,
+    long long qs, long long qn, long long kb, long long ks, long long kn,
+    long long vb, long long vs, long long vn, long long ob, long long os,
+    long long on, int causal, int window, float scale, int device,
+    void* stream) {
+  if (K <= 0 || N % K != 0 || B <= 0 || S <= 0 || T <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q,  k,  v,  o,  S,  T,  N,  N / K, causal, window, scale,
+               qb, qs, qn, kb, ks, kn, vb, vs,    vn,     ob,     os,
+               on, lse};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dispatch(a, bf16 != 0, H, B, device, st);
+}
+
+// the same without the log-sum-exp (the serving path's entry)
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int bf16, int B,
     int S, int T, int N, int K, int H, long long qb, long long qs,
     long long qn, long long kb, long long ks, long long kn, long long vb,
     long long vs, long long vn, long long ob, long long os, long long on,
     int causal, int window, float scale, int device, void* stream) {
-  if (K <= 0 || N % K != 0 || B <= 0 || S <= 0 || T <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, o, S, T, N, N / K, causal, window, scale,
-               qb, qs, qn, kb, ks, kn, vb, vs, vn, ob, os, on};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(a, bf16 != 0, H, B, device, st);
+  return flash_attention_fwd_lse(q, k, v, o, nullptr, bf16, B, S, T, N, K, H,
+                                 qb, qs, qn, kb, ks, kn, vb, vs, vn, ob, os,
+                                 on, causal, window, scale, device, stream);
 }

@@ -1,5 +1,6 @@
 """Wrapper of the flash-attention forward kernel (`kernels/csrc/
-flash_attention.cu`), the prefill attention of the model stack.
+flash_attention.cu`), the prefill attention of the model stack and the
+forward of its training attention.
 
 `use_kernel` follows `kernels/common.py`: the CUDA kernel for CUDA
 tensors, the plain version (`ref.py`) for CPU tensors. Nothing on CUDA
@@ -7,8 +8,15 @@ routes to the plain version: ragged S and T are masked in the kernel.
 Shapes and types the kernel does not take raise on both paths, so that
 the CPU and the card refuse the same calls.
 
+`flash_attention_fwd_lse` also returns each row's log-sum-exp (B, N, S)
+in float32, which the blockwise backward of `models/attention_core.py`
+reads: the kernel writes it beside the output (the .cu's `_lse` entry),
+and serving's `flash_attention` writes none.
+
 `launch_plan` says which of the .cu's two designs a call takes and its
-launch shape; it is plain Python, so the CPU tests check it.
+launch shape; it is plain Python, so the CPU tests check it. The lse
+output changes neither design's registers nor shared memory (it is
+written in the epilogue from m and l), so the plan is the same with it.
 """
 from __future__ import annotations
 
@@ -20,13 +28,17 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import LAUNCHES, resolve_use_kernel
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_fwd_lse_ref, flash_attention_ref,
+)
 
 HEAD_DIMS = (64, 128, 256)                 # the kernel's template instances
 WGMMA_HEAD_DIMS = (64, 128, 256)           # bf16 heads of the Hopper design
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+# `flash_attention_fwd_lse`: the same with the lse pointer after out's
+_ARGTYPES_LSE = _ARGTYPES[:4] + [ctypes.c_void_p] + _ARGTYPES[4:]
 
 
 class LaunchPlan(NamedTuple):
@@ -110,6 +122,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int = 0, use_kernel: bool | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`flash_attention` and each query row's log-sum-exp of its scaled
+    scores: (out (B, S, N, H) in q's dtype, lse (B, N, S) float32), lse =
+    m + log(max(l, 1e-30)) in natural-log units, as the reference's
+    `_flash_fwd` returns it (-1e30 for a row that sees no key). On CPU
+    tensors the plain version (`ref.py`), on CUDA tensors the kernel."""
+    _check(q, k, v, window)
+    if not resolve_use_kernel("flash_attention", use_kernel, q, k, v):
+        return flash_attention_fwd_lse_ref(q, k, v, causal=causal,
+                                           window=window)
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    B, S, N, _ = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, N, S), dtype=torch.float32, device=q.device)
+    launch(q, k, v, out, causal=causal, window=window, lse=lse)
+    return out, lse
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """`t` itself when the kernel can read it through its strides (last
     axis contiguous, 16-byte rows and base), else a contiguous copy."""
@@ -121,18 +154,27 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           out: torch.Tensor, *, causal: bool = True, window: int = 0) -> None:
-    """Launch the kernel into `out` (B, S, N, H), with no checks: the
-    operands are what `flash_attention` passes (checked shapes and types,
-    strides the kernel reads, one CUDA device). A timing loop calls it to
-    time the kernel alone."""
+           out: torch.Tensor, *, causal: bool = True, window: int = 0,
+           lse: torch.Tensor | None = None) -> None:
+    """Launch the kernel into `out` (B, S, N, H), and into `lse` (B, N, S)
+    float32 contiguous where given, with no checks: the operands are what
+    `flash_attention` or `flash_attention_fwd_lse` passes (checked shapes
+    and types, strides the kernel reads, one CUDA device). A timing loop
+    calls it to time the kernel alone."""
     B, S, N, H = q.shape
     T, K = k.shape[1], k.shape[2]
-    fn = _build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     scale = float(np.float32(1.0) / np.sqrt(np.float32(H)))  # as ref.py
-    _build.call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                int(q.dtype == torch.bfloat16), B, S, T, N, K, H, *strides,
-                int(causal), int(window), scale, q.device.index,
+    if lse is None:
+        fn = _build.function("flash_attention", "flash_attention_fwd",
+                             _ARGTYPES)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    else:
+        fn = _build.function("flash_attention", "flash_attention_fwd_lse",
+                             _ARGTYPES_LSE)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr())
+    _build.call(fn, *ptrs, int(q.dtype == torch.bfloat16), B, S, T, N, K, H,
+                *strides, int(causal), int(window), scale, q.device.index,
                 _build.stream(q.device))
     LAUNCHES["flash_attention"] += 1

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.attention_core import flash_attention as _flash
+from repro_torch.models import attention_core
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -20,7 +20,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> torch.Tensor:
     """q: (B, S, N, H); k/v: (B, T, K, H) -> (B, S, N, H)."""
     S, T = q.shape[1], k.shape[1]
-    return _flash(q, k, v,
-                  q_pos=torch.arange(S, device=q.device),
-                  k_pos=torch.arange(T, device=q.device),
-                  causal=causal, window=window)
+    return attention_core.flash_attention(
+        q, k, v, q_pos=torch.arange(S, device=q.device),
+        k_pos=torch.arange(T, device=q.device), causal=causal, window=window)
+
+
+def flash_attention_fwd_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, causal: bool = True,
+                                window: int = 0
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`flash_attention_ref` and the rows' log-sum-exp (B, N, S) float32,
+    `attention_core`'s `_flash_fwd` in the standard layout."""
+    S, T = q.shape[1], k.shape[1]
+    return attention_core.flash_attention_with_lse(
+        q, k, v, q_pos=torch.arange(S, device=q.device),
+        k_pos=torch.arange(T, device=q.device), causal=causal, window=window)

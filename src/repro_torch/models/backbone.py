@@ -13,8 +13,15 @@ as plain lists: `params["layers"]` holds the groups' layers one after
 another (layer j has kind `pattern[j % len(pattern)]`), `params["tail"]`
 the tail's, `params["encoder"]["layers"]` the encoder's, and a Python
 loop runs them (`convert.params_from_reference` splits the reference's
-stacks). The caches follow the same lists. Everything runs forward only,
-under `torch.no_grad`.
+stacks). The caches follow the same lists.
+
+`forward_train` is differentiable (the training step of
+`training/step.py` takes its gradient); with `remat` each group of
+`stack_plan`'s pattern is checkpointed
+(`torch.utils.checkpoint.checkpoint`, non-reentrant) as the reference's
+`jax.checkpoint(group)`: its activations are recomputed in the backward,
+and the tail (the MoE head, Griffin's remainder) is not. The serving
+entry points run under `torch.no_grad`.
 
 Three entry points per model:
   forward_train   — full-sequence logits (+ the MoE aux)
@@ -33,6 +40,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import LayerKind, ModelConfig
 from repro_torch.models.layers import (
@@ -374,26 +382,45 @@ def _inputs(params, cfg: ModelConfig, batch: Batch, use_kernel):
     return x, enc_out
 
 
-def _decoder_stack_train(params, cfg: ModelConfig, x, enc_out, use_kernel):
+def _decoder_stack_train(params, cfg: ModelConfig, x, enc_out, use_kernel,
+                         remat: bool = False):
+    """The stack in its run order; with `remat` (and a gradient to take)
+    each group of `stack_plan`'s pattern in `params["layers"]` runs under
+    a checkpoint, the tail does not."""
     positions = _positions(x)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kinds, key, _ in _run_order(cfg):
-        for lp, kind in zip(params.get(key, []), kinds):
+    group = len(stack_plan(cfg)[0])
+
+    def run(layers, kinds, x, aux_total):
+        for lp, kind in zip(layers, kinds):
             x, aux = _layer_train(kind, lp, x, cfg, positions, enc_out,
                                   use_kernel)
             aux_total = aux_total + aux
+        return x, aux_total
+
+    remat = remat and torch.is_grad_enabled()
+    for kinds, key, _ in _run_order(cfg):
+        layers = params.get(key, [])
+        if key != "layers" or not remat:
+            x, aux_total = run(layers, kinds, x, aux_total)
+            continue
+        for g in range(0, len(layers), group):
+            x, aux_total = checkpoint(run, layers[g:g + group],
+                                      kinds[g:g + group], x, aux_total,
+                                      use_reentrant=False)
     return x, aux_total
 
 
-@torch.no_grad()
 def forward_train(params, cfg: ModelConfig, batch: Batch, *,
                   remat: bool = True, use_kernel: bool | None = None):
     """Full-sequence forward. Returns (logits (B,S,V), aux_loss): the
     MoE layers' router_aux_weight · balance loss + router_z_weight ·
-    z-loss, summed (0 without MoE). `remat` is accepted for the
-    reference's signature and has no effect here (no backward)."""
+    z-loss, summed (0 without MoE). Differentiable in the parameters;
+    `remat` checkpoints each scanned group of layers, as the reference's
+    `jax.checkpoint` does, where a gradient is taken."""
     x, enc_out = _inputs(params, cfg, batch, use_kernel)
-    x, aux = _decoder_stack_train(params, cfg, x, enc_out, use_kernel)
+    x, aux = _decoder_stack_train(params, cfg, x, enc_out, use_kernel,
+                                  remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.arch_type == "vlm" and batch.frontend is not None:
         x = x[:, batch.frontend.shape[1]:]    # loss only on token positions

@@ -11,8 +11,13 @@ float32, in the reference's op order.
 The long-sequence branch of `attention_train` (S·T >= FLASH_THRESHOLD,
 S > 1, no `kv_override`) runs `kernels/flash_attention`, the port of the
 TPU flash kernel: the kernel on CUDA tensors, its plain version on the
-CPU, as `use_kernel` says (`kernels/common.py`). Cross attention
+CPU, as `use_kernel` says (`kernels/common.py`), through
+`flash_attention_train`: where a gradient is taken, the forward writes
+its row log-sum-exp too and the backward is `attention_core`'s blockwise
+one, the reference's. Cross attention
 (`kv_override`) always takes the dense branch, as in the reference.
+Every function here is differentiable except `attention_decode`, which
+writes into its cache.
 """
 from __future__ import annotations
 
@@ -23,9 +28,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.common import resolve_use_kernel
 # the module, not its function: ops.py's plain version imports
 # models.attention_core, so either package may be imported first
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import attention_core
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
@@ -115,6 +122,42 @@ def _proj(x: torch.Tensor, w: torch.Tensor, spec: str) -> torch.Tensor:
     return torch.einsum(spec, x, w.to(x.dtype))
 
 
+class _FlashTrain(torch.autograd.Function):
+    """The long-sequence branch with a gradient: `flash_attention_fwd_lse`
+    (the kernel with its lse on CUDA tensors), `attention_core`'s plain
+    blockwise backward. The backward recomputes the scores as the forward
+    that ran computed them: in f32 after the kernel, rounded to the input
+    dtype after the plain forward, so that exp(s − lse) is the softmax
+    the forward normalised."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, use_kernel):
+        kernel = resolve_use_kernel("flash_attention", use_kernel, q, k, v)
+        out, lse = flash_ops.flash_attention_fwd_lse(
+            q, k, v, causal=causal, window=window, use_kernel=kernel)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = dict(causal=causal, window=window, scores_f32=kernel)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = attention_core.flash_attention_bwd(
+            *ctx.saved_tensors, dout, **ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0,
+                          use_kernel: bool | None = None) -> torch.Tensor:
+    """Attention by position index over q (B,S,N,H), k/v (B,T,K,H) ->
+    (B,S,N,H), differentiable in q, k and v: `kernels/flash_attention`'s
+    forward (`use_kernel` as there) and the plain blockwise backward.
+    Where no gradient is taken it is `flash_attention`'s call itself."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashTrain.apply(q, k, v, causal, window, use_kernel)
+    return flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                     use_kernel=use_kernel)
+
+
 def _attend(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             positions: torch.Tensor, causal: bool, window: int, use_kernel,
             kv_override: Optional[torch.Tensor] = None,
@@ -137,8 +180,8 @@ def _attend(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     # positions every caller in the stack passes.
     S_q, T_k = q.shape[1], k.shape[1]
     if kv_override is None and S_q * T_k >= FLASH_THRESHOLD and S_q > 1:
-        out = flash_ops.flash_attention(q, k, v, causal=causal,
-                                        window=window, use_kernel=use_kernel)
+        out = flash_attention_train(q, k, v, causal=causal, window=window,
+                                    use_kernel=use_kernel)
         return _proj(out, p["wo"], "bsnh,nhd->bsd"), k, v
 
     scores = _gqa_scores(q, k)                                  # (B,K,G,S,T)

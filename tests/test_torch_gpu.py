@@ -17,6 +17,20 @@ bf16 kernel at H = 64, and a window of 40 that cuts its tiles; at
 H = 256 (64-key tiles) recurrentgemma-9b's prefill (4, 2048, 16, 1) with
 its window of 2048, a ragged non-causal S = 300 against T = 333, and a
 window of 96 that cuts the tiles at a ragged S = 700.
+
+The training forward's row log-sum-exp (`flash_attention_fwd_lse`) is
+held elementwise to the plain version's on the f32 upcast: within
+1e-5 · max(1, |lse|) in f32 and 1e-4 · max(1, |lse|) in bf16 (both sides
+sum the same f32 scores and exponentials, in another order, the bf16
+kernel through exp2), the rows that see no key at -1e30 on both; its
+output has the bits of serving's call. The training attention's
+gradients (kernel forward, plain backward) are held to the plain
+forward's: 1e-4 · max|plain| in f32, 5e-2 · max|plain| in bf16, where the
+plain forward rounds q·k to bf16 and the kernel keeps it in f32 (each
+backward recomputes the scores as its forward did); a wrong lse or
+scale moves them by O(1). In bf16 the kernel path's gradients are also
+held to the f32 ones on the upcast inputs: closer than the backward that
+rounds q·k to bf16 after the kernel's forward.
 """
 from __future__ import annotations
 
@@ -34,7 +48,9 @@ from repro_torch.core.logistic import dsml_logistic_fit
 from repro_torch.core.synth import gen_classification, gen_regression
 from repro_torch.configs import get_config
 from repro_torch.kernels.common import LAUNCHES
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention, flash_attention_fwd_lse,
+)
 from repro_torch.kernels.group_threshold.ops import (
     group_threshold, kernel_row_lanes, row_lanes,
 )
@@ -52,6 +68,8 @@ from repro_torch.kernels.rank_update.ops import (
 )
 from repro_torch.models import Batch, forward_decode, forward_prefill
 from repro_torch.models import init_params
+from repro_torch.models.attention_core import flash_attention_bwd
+from repro_torch.models.layers import flash_attention_train
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-5
@@ -569,6 +587,114 @@ def test_flash_attention_launches_once_per_layer_of_prefill(cuda):
     assert bool(torch.isfinite(d_logits[..., :cfg.vocab]).all())
     err = (logits.float() - plain.float()).abs().max().item()
     assert err <= 0.1 * plain.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, s, t, n, k, h, causal, window", [
+    (2, 256, 256, 8, 2, 64, True, 0), (1, 200, 200, 4, 1, 128, True, 0),
+    (1, 512, 512, 4, 1, 256, True, 64), (1, 200, 333, 4, 1, 128, False, 16),
+    (4, 2048, 2048, 32, 8, 64, True, 0), (1, 300, 300, 4, 2, 64, True, 40),
+    (1, 300, 333, 4, 1, 256, False, 0), (1, 300, 100, 4, 2, 64, False, 50)])
+def test_flash_attention_lse_matches_plain(cuda, dtype, b, s, t, n, k, h,
+                                           causal, window):
+    """The kernel's lse (B, N, S) against the plain version's, twice for
+    the same bits, its output the serving call's bits; (1, 300, 100)
+    non-causal with window 50 leaves rows s >= 149 without a key."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn((b, s, n, h), generator=g, device=cuda).to(dtype)
+    kk = torch.randn((b, t, k, h), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, t, k, h), generator=g, device=cuda).to(dtype)
+    before = LAUNCHES["flash_attention"]
+    out, lse = flash_attention_fwd_lse(q, kk, v, causal=causal,
+                                       window=window)
+    out2, lse2 = flash_attention_fwd_lse(q, kk, v, causal=causal,
+                                         window=window)
+    serve = flash_attention(q, kk, v, causal=causal, window=window)
+    assert LAUNCHES["flash_attention"] == before + 3
+    want_out, want = flash_attention_fwd_lse(
+        q.float(), kk.float(), v.float(), causal=causal, window=window,
+        use_kernel=False)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, n, s) and lse.dtype == torch.float32
+    assert torch.equal(lse, lse2) and torch.equal(out, out2)
+    assert torch.equal(out, serve)
+    tol = 1e-5 if dtype == torch.float32 else 1e-4
+    err = (torch.abs(lse - want) / torch.clamp_min(torch.abs(want), 1.0))
+    assert err.max().item() <= tol, err.max().item()
+    empty = want <= -1e29
+    if causal or not window or s <= t + window - 1:
+        assert not bool(empty.any())
+    else:
+        assert bool(empty.any()) and bool((lse[empty] == -1e30).all())
+    row_err = (torch.linalg.vector_norm(out.float() - want_out, dim=-1)
+               / torch.clamp_min(torch.linalg.vector_norm(want_out, dim=-1),
+                                 1e-30)).max().item()
+    assert row_err <= (1e-4 if dtype == torch.float32 else 1e-2), row_err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal, window", [(True, 0), (True, 300),
+                                            (False, 0)])
+def test_flash_attention_train_grads_kernel_matches_plain(cuda, dtype,
+                                                          causal, window):
+    """`flash_attention_train` (the model's long branch): the kernel's
+    forward with its lse, one launch, against the plain forward, both with
+    the plain blockwise backward (scores in f32 after the kernel, rounded
+    as the plain forward rounds them after it), at (2, 2048, 8, 2, 64)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    shapes = ((2, 2048, 8, 64), (2, 2048, 2, 64), (2, 2048, 2, 64))
+    qkv = [torch.randn(sh, generator=g, device=cuda).to(dtype)
+           for sh in shapes]
+    dout = torch.randn(shapes[0], generator=g, device=cuda).to(dtype)
+    grads = []
+    for use_kernel in (None, False):
+        ts = [t.clone().requires_grad_() for t in qkv]
+        before = LAUNCHES["flash_attention"]
+        out = flash_attention_train(*ts, causal=causal, window=window,
+                                    use_kernel=use_kernel)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        assert LAUNCHES["flash_attention"] == before + (use_kernel is None)
+        grads.append([out.detach()] + [t.grad for t in ts])
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for name, got, want in zip(("out", "dq", "dk", "dv"), *grads):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("causal, window", [(True, 0), (True, 300)])
+def test_flash_attention_train_backward_follows_the_kernels_scores(
+        cuda, causal, window):
+    """bf16 at (2, 2048, 8, 2, 64): `flash_attention_train`'s gradients
+    through the kernel, whose backward recomputes q·k in f32 as the kernel
+    kept it, against the f32 gradients on the upcast inputs: each of dq,
+    dk, dv within 0.85 of the relative l2 error of the same backward with
+    q·k rounded to bf16 after the kernel's forward (the CPU twin in
+    tests/test_torch_train.py reads 0.58-0.73 of it)."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    shapes = ((2, 2048, 8, 64), (2, 2048, 2, 64), (2, 2048, 2, 64))
+    qkv = [torch.randn(sh, generator=g, device=cuda).bfloat16()
+           for sh in shapes]
+    dout = torch.randn(shapes[0], generator=g, device=cuda).bfloat16()
+    kw = dict(causal=causal, window=window)
+    ts = [t.clone().requires_grad_() for t in qkv]
+    flash_attention_train(*ts, **kw).backward(dout)
+    up = [t.float() for t in qkv]
+    want = flash_attention_bwd(
+        *up, *flash_attention_fwd_lse(*up, **kw, use_kernel=False),
+        dout.float(), **kw, scores_f32=False)
+    rounded = flash_attention_bwd(*qkv, *flash_attention_fwd_lse(*qkv, **kw),
+                                  dout, **kw, scores_f32=False)
+
+    def rel(a, w):
+        return (torch.linalg.vector_norm(a.float() - w)
+                / torch.linalg.vector_norm(w)).item()
+
+    for name, t, r, w in zip(("dq", "dk", "dv"), ts, rounded, want):
+        assert rel(t.grad, w) < 0.85 * rel(r, w), \
+            (name, rel(t.grad, w), rel(r, w))
 
 
 # ---- the streaming service (repro_torch.stream) on the card ----------------
