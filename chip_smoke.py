@@ -242,11 +242,44 @@ Phases, each of which raises on failure (exit code != 0):
         `adamw_update` on two copies of the state with the same
         gradients gives the same bits.
 
+11. sharded training (`launch/train.py`'s sharded path: the rules as
+   DTensor placements, ZeRO-1 AdamW), each rank a process on the one
+   card (gloo: NCCL refuses two ranks on one card), started by
+   `run_probe`, loading phase 2's kernels, after phase 10's state is
+   freed; 10a writes what 11a compares with (its kernel run's loss,
+   global gradient norm and the gradients of layer 0, the last layer,
+   `embed`, `head` and `final_norm`):
+   11a. granite-3-2b unreduced in bf16 on 2 ranks as a (1, 2) mesh,
+        phase 10a's weights and batch, remat: one loss and gradient
+        through the kernels, #9 80 times on each rank at its local heads
+        (4, 2048, 16, 4, 64) and nothing else, against 10a: the loss
+        within 1e-4 relative, the norm within 1e-3, each saved leaf
+        within 0.05 relative l2 (10a's bars); then 3 AdamW steps, every
+        loss finite and the last below the first; a step's wall,
+        tokens/s, each rank's peak memory, the collectives of a step by
+        kind with their bytes (`launch.hlo.Counters`), one activation
+        all-reduce's own time;
+   11b. an f32 copy at 4 layers on 4 ranks as a (2, 2) mesh (ZeRO over
+        `data`; #9 as `flash_fwd_kernel` with its lse, 8 launches a rank
+        a step): each of two steps from the unsharded step's state
+        before it (computed here, on the card) against that step: every
+        gradient leaf within 1e-4 · max|g| (10b's bar), the loss and the
+        gradient norm within 1e-5 relative, every master element within
+        1e-5 (absolute, a unit weight's scale) plus the most that the
+        sharded and unsharded gradients' difference at that element can
+        move AdamW's step (1.25 lr / eps times it; it matters only where
+        the gradient is within about 1e-8 of 0), at most a thousandth of
+        the elements past the 1e-5 alone, each parameter its master's
+        bits.
+   Phase 3 and 5 gain #9 at 11a's per-rank shape, with its lse, beside
+   SDPA.
+
 It prints one JSON line of kernels (launches per run from phases 4-4c,
 6, 7c, 9 and 10, #9 with its lse taking 10a's kernel loss-and-gradient
-run's; phase 8's, over its ranks and its own fits, as
-`launches_phase8`) and, last, the result line. With no CUDA device it
-raises before printing any result.
+run's and its per-rank row 11a's rank 0's; phase 8's, over its ranks
+and its own fits, as `launches_phase8`, and phase 11's, over its 11a
+ranks, as `launches_phase11`) and, last, the result line. With no CUDA
+device it raises before printing any result.
 """
 from __future__ import annotations
 
@@ -257,6 +290,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -327,6 +361,32 @@ TOL_TRAIN_GRAD = 0.05
 # the plain path's (measured 0.955 there): the kernel's forward keeps q.k
 # in f32, so its gradient is to be no further from the f32 one
 TOL_TRAIN_GRAD_F32 = 1.1
+# phase 11: granite-3-2b trained sharded on gloo ranks of the one card.
+# 11a: phase 10a's weights and batch, bf16, a (1, TP_MODEL) mesh; held to
+# 10a's kernel run with 10a's bars; then TP_STEPS AdamW steps. 11b: an f32
+# copy at TRAIN_F32_LAYERS layers on a (2, 2) mesh, each of its two steps
+# from the unsharded step's state before it, held to that step
+TP_MODEL = 2
+TP_STEPS = 3
+SHARDED_MESH_11B = (2, 2)
+# 11b holds every gradient leaf to 1e-4 · max|g| (10b's bar for f32
+# gradients summed in two orders on the card; 9.35e-6 read at step 1,
+# H100 80GB HBM3, 700 W), and each master element after the update to
+# 1e-5 · max(1, max|w|) plus what the difference d between the sharded
+# and the unsharded gradient at that element can move AdamW's step:
+# ADAM_SLOPE_11B · lr · d / eps. The step m̂ / (sqrt(v̂) + eps) changes
+# with its gradient by at most lr / eps at count 1 (lr g / (|g| + eps)),
+# and (0.526 + 0.716) lr / eps at count 2 (b1 0.9, b2 0.95: the slope of
+# m̂, and |m̂| / sqrt(v̂) <= 1 times the slope of sqrt(v̂)); the clip
+# scales both gradients alike. It matters where the gradient is within
+# about 1e-8 of 0: on the card an element of layers/0/mlp/w_up whose
+# unsharded gradient is exactly 0 moved 1.865e-05 at step 1, twice
+# (H100 80GB HBM3, 700 W). At most MAX_SLOPED_11B of the elements may
+# need more than the 1e-5 bar, as the CPU test's `_check_step` caps its
+# band of tiny gradients
+ADAM_SLOPE_11B = 1.25
+ADAM_EPS = 1e-8                         # adamw_update's default
+MAX_SLOPED_11B = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1794,11 +1854,14 @@ def train_profile(prof, wall_s: float) -> dict:
     return out
 
 
-def train_phase(dev, card) -> dict:
+def train_phase(dev, card, save_dir) -> dict:
     """Phase 10: training. 10a granite-3-2b unreduced in bf16 (loss and
     gradient on both paths, 8 steps, the step's time, a profile); 10b an
     f32 copy at 4 layers. Returns the flash launches of 10a's kernel
-    loss-and-gradient run and the numbers the JSON line carries."""
+    loss-and-gradient run and the numbers the JSON line carries; writes
+    what phase 11a compares with to `save_dir`/ref10a.pt: the kernel
+    path's loss, its global gradient norm and the gradients of
+    `SHARDED_LEAVES`."""
     from repro_torch.configs import get_config
     from repro_torch.data.synth_tokens import synthetic_lm_batches
     from repro_torch.kernels.common import LAUNCHES, reset_launches
@@ -1906,6 +1969,10 @@ def train_phase(dev, card) -> dict:
           f"10a the kernel path's gradient is {worst_k32} off the f32 "
           f"gradient at {leaf_k32}, the plain path's {worst_p32}")
     out["launches"] = launches_k["flash_attention"]
+    torch.save({"loss": lk, "gnorm": gn_k,
+                "grads": {name: g.cpu() for name, g in named_leaves(grads_k)
+                          .items() if sharded_leaf(name, cfg)}},
+               f"{save_dir}/ref10a.pt")
     del params, grads_k, grads_p, grads_32
     free()
 
@@ -2009,6 +2076,401 @@ def train_phase(dev, card) -> dict:
     del s32, g32k, g32p, copies, done
     free()
     return out
+
+
+def sharded_leaf(name: str, cfg) -> bool:
+    """The leaves phase 11a holds to 10a: layer 0's, the last layer's,
+    the embedding, the head and the final norm."""
+    return name.startswith(("layers/0/", f"layers/{cfg.n_layers - 1}/")) \
+        or name in ("embed", "head", "final_norm")
+
+
+TRAIN11_PROGRAM = r"""
+import json, logging, math, time
+import numpy as np
+import torch
+import torch.distributed as dist
+logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+    logging.ERROR)
+from repro_torch.checkpoint.io import restore_pytree
+from repro_torch.configs import get_config
+from repro_torch.data.synth_tokens import synthetic_lm_batches
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import LAUNCHES, reset_launches
+from repro_torch.launch.hlo import Counters
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import init_params
+from repro_torch.optim.adamw import global_norm
+from repro_torch.sharding.place import distribute_tree, full
+from repro_torch.sharding.rules import (
+    NamedSharding, batch_pspecs, logits_pspec, named, opt_pspecs,
+    param_pspecs,
+)
+from repro_torch.substrate import init_from_env
+from repro_torch.training.step import (
+    init_sharded_train_state, make_grad_fn, make_train_step,
+)
+from repro_torch.tree import named_leaves
+
+spec = json.load(open("@SPEC@"))
+dev = torch.device("cuda")
+rank, world = init_from_env(device=dev)
+_build.build()
+out = dict(rank=rank, world=world, compiled=sorted(_build.BUILD_SECONDS),
+           device=torch.cuda.current_device())
+mesh = make_host_mesh(spec["model"], device_type="cuda")
+cfg = get_config(spec["arch"]).replace(**spec["changes"])
+batch = next(synthetic_lm_batches(
+    torch.Generator(device=dev).manual_seed(spec["batch_seed"]),
+    vocab=cfg.vocab, batch=spec["batch"], seq=spec["seq"]))
+sb = distribute_tree(batch, batch_pspecs(mesh, spec["batch"]), mesh)
+lp = NamedSharding(mesh, logits_pspec(mesh, cfg.padded_vocab, spec["seq"]))
+
+
+def gen():
+    return torch.Generator(device=dev).manual_seed(spec["param_seed"])
+
+
+def rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return (torch.linalg.vector_norm((a - b).ravel())
+            / torch.clamp_min(torch.linalg.vector_norm(b.ravel()),
+                              1e-30)).item()
+
+
+def make_step(state):
+    return make_train_step(
+        cfg, peak_lr=spec["lr"], warmup=1, total_steps=100,
+        logits_pspec=lp,
+        grads_pspec=named(mesh, opt_pspecs(state.params, mesh)))
+
+
+if spec["phase"] == "11a":
+    params = init_params(gen(), cfg)
+    sp = distribute_tree(params, param_pspecs(params, mesh), mesh)
+    del params
+    grad_fn = make_grad_fn(cfg, remat=True, logits_pspec=lp)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, _, grads = grad_fn(sp, sb)
+    torch.cuda.synchronize()
+    out["grad_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = dict(LAUNCHES)
+    out["loss"], out["gnorm"] = loss.item(), global_norm(grads).item()
+    ref = torch.load(spec["ref10a"]) if rank == 0 else None
+    worst, worst_leaf = 0.0, "?"
+    for name, g in named_leaves(grads).items():
+        if name in spec["leaves"]:
+            g = full(g)
+            if rank == 0:
+                r = rel_l2(g, ref["grads"][name].to(dev))
+                if r >= worst:
+                    worst, worst_leaf = r, name
+    out["worst"], out["worst_leaf"] = worst, worst_leaf
+    if rank == 0:
+        out["ref_loss"], out["ref_gnorm"] = ref["loss"], ref["gnorm"]
+    del grads, sp, ref
+    torch.cuda.empty_cache()
+
+    state = init_sharded_train_state(gen(), cfg, mesh)
+    step = make_step(state)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, walls = [], [], []
+    for i in range(spec["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == spec["steps"] - 1:
+            with Counters() as c:
+                state, m = step(state, sb)
+        else:
+            state, m = step(state, sb)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out.update(losses=losses, norms=norms, walls_ms=walls,
+               calls=c.calls(), bytes=c.collectives(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del state
+    torch.cuda.empty_cache()
+    # one activation all-reduce alone: the (batch, seq, d) bf16 residual
+    # stream every tensor-parallel block sums over `model`
+    x = torch.randn((spec["batch"], spec["seq"], cfg.d_model), device=dev
+                    ).to(torch.bfloat16)
+    group = mesh.get_group("model")
+    dist.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(5):
+        dist.all_reduce(x, group=group)
+    e1.record()
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = e0.elapsed_time(e1) / 5
+    out["allreduce_bytes"] = x.numel() * x.element_size()
+
+if spec["phase"] == "11b":
+    state = init_sharded_train_state(gen(), cfg, mesh)
+    step = make_step(state)
+    grad_fn = make_grad_fn(cfg, remat=True, logits_pspec=lp)
+    out["steps"] = []
+    for k, (start, want) in enumerate(spec["states"]):
+        if start is not None:
+            state = restore_pytree(start, state)
+        ref = np.load(want) if rank == 0 else None
+        # the gradient this step takes, each leaf gathered; rank 0 keeps
+        # it for the update's bar
+        _, _, grads = grad_fn(state.params, sb)
+        gworst, gsh = {}, {}
+        for name, g in named_leaves(grads).items():
+            g = full(g)
+            if rank == 0:
+                w = torch.from_numpy(ref[f"grad/{name}"]).to(dev)
+                gsh[name] = g.float()
+                gworst[name] = [torch.max(torch.abs(gsh[name] - w)).item(),
+                                torch.max(torch.abs(w)).item()]
+        del grads
+        reset_launches()
+        state, m = step(state, sb)
+        torch.cuda.synchronize()
+        got = dict(loss=m["loss"].item(), grad_norm=m["grad_norm"].item(),
+                   launches=dict(LAUNCHES), worst={}, sloped=0, n=0,
+                   grads=gworst)
+        lr = float(m["lr"])
+        params = named_leaves(state.params)
+        for name, x in named_leaves(state.opt.master).items():
+            x, p = full(x), full(params[name])
+            if rank:
+                continue
+            # f32: each parameter is its master weight, cast to f32
+            got["params_are_master"] = got.get("params_are_master", True) \
+                and bool(torch.equal(p, x))
+            w = torch.from_numpy(ref[f"master/{name}"]).to(dev)
+            gref = torch.from_numpy(ref[f"grad/{name}"]).to(dev)
+            g = gsh.pop(name)
+            plain = spec["tol"] * max(1.0, torch.abs(w).max().item())
+            slope = spec["slope"] * lr / spec["eps"] * torch.abs(g - gref)
+            err = torch.abs(x - w)
+            # the element that takes the largest share of its bar, with
+            # its gradients (unsharded, sharded)
+            i = int(torch.argmax(err / (plain + slope)))
+            got["worst"][name] = [
+                err.flatten()[i].item(), plain, slope.flatten()[i].item(),
+                gref.flatten()[i].item(), g.flatten()[i].item()]
+            got["sloped"] += int((err > plain).sum())
+            got["n"] += err.numel()
+        out["steps"].append(got)
+
+dist.destroy_process_group()
+print("RANK11 " + json.dumps(out))
+"""
+
+
+def train_sharded_phase(dev, card, tmp) -> dict:
+    """Phase 11: granite-3-2b's train step sharded over gloo ranks of the
+    one card (`launch/train.py`'s path: `init_sharded_train_state`, the
+    batch placed by `batch_pspecs`, `make_train_step` with the
+    reference's `logits_pspec` and `grads_pspec`). 11a: the full model in
+    bf16 on a (1, TP_MODEL) mesh, phase 10a's weights and batch: one loss
+    and gradient through the kernels (#9 on each rank's local heads)
+    against 10a's saved kernel run, then TP_STEPS AdamW steps. 11b: an
+    f32 copy at TRAIN_F32_LAYERS layers on a (2, 2) mesh (ZeRO over
+    `data`), each of two steps from the unsharded step's state before it
+    against that step. Returns the flash launches of 11a's rank 0 and of
+    the phase."""
+    from repro_torch.checkpoint.io import save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data.synth_tokens import synthetic_lm_batches
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.serving import cell
+    from repro_torch.substrate import run_probe
+    from repro_torch.training.step import (
+        init_train_state, make_grad_fn, make_train_step,
+    )
+    from repro_torch.tree import named_leaves
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = get_config(cell.ARCH)
+    base = dict(arch=cell.ARCH, param_seed=cell.PARAM_SEED,
+                batch_seed=TRAIN_BATCH_SEED, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, lr=TRAIN_LR)
+
+    def ranks(label, world, spec):
+        path = f"{tmp}/spec_{label}.json"
+        Path(path).write_text(json.dumps(spec))
+        t0 = time.perf_counter()
+        run = run_probe(TRAIN11_PROGRAM.replace("@SPEC@", path), world=world,
+                        timeout=900, pg_timeout=600)
+        wall = time.perf_counter() - t0
+        check(run.ok, f"phase {label} ranks failed:\n{run.report()}")
+        lines = []
+        for i, r in enumerate(run.ranks):
+            found = [ln for ln in r.stdout.splitlines()
+                     if ln.startswith("RANK11 ")]
+            check(len(found) == 1, f"{label} rank {i}: no result line:\n"
+                  f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+            line = json.loads(found[0][len("RANK11 "):])
+            check(line["compiled"] == [],
+                  f"{label} rank {i} recompiled kernels: {line['compiled']}")
+            check(line["device"] == 0, f"{label} rank {i} on card "
+                  f"{line['device']}")
+            lines.append(line)
+        print(f"phase {label}: {world} gloo ranks on the one card, the "
+              f"whole run {wall:.1f} s {card}")
+        return lines
+
+    # ---- 11a. granite-3-2b unreduced, bf16, (1, TP_MODEL) --------------
+    leaves = [n for n in named_leaves(init_params_shapes(cfg))
+              if sharded_leaf(n, cfg)]
+    a = ranks("11a", TP_MODEL, dict(
+        base, phase="11a", model=TP_MODEL, changes={}, steps=TP_STEPS,
+        leaves=leaves, ref10a=f"{tmp}/ref10a.pt"))
+    r0 = a[0]
+    per_rank = [ln["launches"] for ln in a]
+    for i, got in enumerate(per_rank):
+        want = dict.fromkeys(got, 0)
+        want["flash_attention"] = 2 * cfg.n_layers
+        check(got == want, f"11a rank {i} launches {got}, expected "
+              f"flash_attention={2 * cfg.n_layers} (forward and recompute "
+              "on its local heads) and nothing else")
+    lk, l10 = r0["loss"], r0["ref_loss"]
+    gk, g10 = r0["gnorm"], r0["ref_gnorm"]
+    print(f"phase 11a {cfg.name} unreduced, bf16, mesh (1, {TP_MODEL}), "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat, through the kernels: "
+          f"loss {lk:.6f} against 10a's {l10:.6f} (rel "
+          f"{abs(lk - l10) / abs(l10):.3g}, bar {TOL_TRAIN_LOSS}); grad_norm "
+          f"{gk:.6g} against {g10:.6g} (rel {abs(gk - g10) / g10:.3g}, bar "
+          f"{TOL_TRAIN_GNORM}); worst of {len(leaves)} leaves relative l2 "
+          f"{r0['worst']:.4g} at {r0['worst_leaf']} (bar {TOL_TRAIN_GRAD}); "
+          f"flash launches a rank {[ln['launches']['flash_attention'] for ln in a]}; "
+          f"loss-and-grad wall {[round(ln['grad_wall_ms'], 1) for ln in a]} "
+          f"ms {card}")
+    check(abs(lk - l10) <= TOL_TRAIN_LOSS * abs(l10),
+          f"11a loss {lk} vs 10a {l10}")
+    check(abs(gk - g10) <= TOL_TRAIN_GNORM * g10,
+          f"11a grad_norm {gk} vs 10a {g10}")
+    check(r0["worst"] <= TOL_TRAIN_GRAD, f"11a gradient {r0['worst_leaf']}:"
+          f" relative l2 error {r0['worst']} > {TOL_TRAIN_GRAD}")
+    losses = r0["losses"]
+    check(all(math.isfinite(x) for x in losses + r0["norms"]),
+          f"11a losses {losses}, grad norms {r0['norms']}")
+    check(losses[-1] < losses[0], f"11a the loss did not fall: {losses}")
+    step_ms = r0["walls_ms"][1]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"phase 11a {TP_STEPS} AdamW steps (peak_lr {TRAIN_LR}, warmup 1):"
+          f" losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in r0['norms']]}; step walls "
+          f"{[round(w, 1) for w in r0['walls_ms']]} ms (the last under the "
+          f"collective counters); a step {step_ms:.1f} ms (step 2), "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s; peak memory a rank "
+          f"{[round(ln['peak_gib'], 2) for ln in a]} GiB {card}")
+    print(f"phase 11a collectives of a step on rank 0, by kind: calls "
+          f"{r0['calls']}, bytes {r0['bytes']}; one activation all-reduce "
+          f"({r0['allreduce_bytes'] / 2**20:.0f} MiB bf16 over `model`) "
+          f"{r0['allreduce_ms']:.2f} ms on rank 0 (CUDA events, mean of 5) "
+          f"{card}")
+
+    # ---- 11b. f32 at TRAIN_F32_LAYERS layers, (2, 2), against the parent --
+    cfg32 = cfg.replace(n_layers=TRAIN_F32_LAYERS, param_dtype="float32",
+                        compute_dtype="float32")
+    state = init_train_state(
+        torch.Generator(device=dev).manual_seed(cell.PARAM_SEED), cfg32)
+    batch = next(synthetic_lm_batches(
+        torch.Generator(device=dev).manual_seed(TRAIN_BATCH_SEED),
+        vocab=cfg32.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ))
+    step = make_train_step(cfg32, peak_lr=TRAIN_LR, warmup=1,
+                           total_steps=100)
+    grad_fn = make_grad_fn(cfg32, remat=True)
+    states, want = [], []
+    for k in range(2):
+        if k:
+            save_pytree(f"{tmp}/s11b_{k}", state)
+        _, _, grads = grad_fn(state.params, batch)
+        flat_g = {f"grad/{n}": g.cpu().numpy()
+                  for n, g in named_leaves(grads).items()}
+        del grads
+        reset_launches()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        check(LAUNCHES["flash_attention"] == 2 * TRAIN_F32_LAYERS,
+              f"11b unsharded step launches {dict(LAUNCHES)}")
+        flat = {**flat_g,
+                **{f"master/{n}": x.cpu().numpy()
+                   for n, x in named_leaves(state.opt.master).items()}}
+        np.savez(f"{tmp}/want11b_{k}.npz", **flat)
+        del flat, flat_g
+        states.append([f"{tmp}/s11b_{k}.npz" if k else None,
+                       f"{tmp}/want11b_{k}.npz"])
+        want.append((m["loss"].item(), m["grad_norm"].item(),
+                     float(m["lr"])))
+    del state, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    world = SHARDED_MESH_11B[0] * SHARDED_MESH_11B[1]
+    b = ranks("11b", world, dict(
+        base, phase="11b", model=SHARDED_MESH_11B[1],
+        changes=dict(n_layers=TRAIN_F32_LAYERS, param_dtype="float32",
+                     compute_dtype="float32"), states=states,
+        tol=TOL_KERNEL, slope=ADAM_SLOPE_11B, eps=ADAM_EPS))
+    for k, ((loss, gnorm, lr), got) in enumerate(zip(want,
+                                                     b[0]["steps"])):
+        check(got["params_are_master"], f"11b step {k}: a parameter is not "
+              "its f32 master weight")
+        for i, ln in enumerate(b):
+            fl = ln["steps"][k]["launches"]["flash_attention"]
+            check(fl == 2 * TRAIN_F32_LAYERS, f"11b rank {i} step {k} "
+                  f"flash launches {fl}")
+        check(abs(got["loss"] - loss) <= TOL_KERNEL * abs(loss),
+              f"11b step {k} loss {got['loss']} vs unsharded {loss}")
+        check(abs(got["grad_norm"] - gnorm) <= TOL_KERNEL * gnorm,
+              f"11b step {k} grad_norm {got['grad_norm']} vs {gnorm}")
+        gmax, gleaf = 0.0, "?"
+        for name, (err, scale) in got["grads"].items():
+            # 10b's bar for f32 gradients summed in two orders on the card
+            check(err <= TOL_FIT * scale, f"11b step {k} gradient {name}:"
+                  f" err {err} > {TOL_FIT} * {scale}")
+            if err / max(scale, 1e-30) >= gmax:
+                gmax, gleaf = err / max(scale, 1e-30), name
+        # the update (see ADAM_SLOPE_11B): the element that takes the
+        # largest share of its bar, its gradients printed
+        share, at = 0.0, None
+        for name, (err, plain, slope, gref, gsh) in got["worst"].items():
+            check(err <= plain + slope, f"11b step {k} master {name}: err "
+                  f"{err} > {plain} + {slope} (the gradient there "
+                  f"{gsh} sharded, {gref} unsharded)")
+            if err / (plain + slope) >= share:
+                share, at = err / (plain + slope), (name, err, plain, slope,
+                                                    gref, gsh)
+        check(got["sloped"] <= MAX_SLOPED_11B * got["n"],
+              f"11b step {k}: {got['sloped']} of {got['n']} master elements "
+              f"past {TOL_KERNEL} absolute")
+        name, err, plain, slope, gref, gsh = at
+        print(f"phase 11b {cfg.name} f32 at {TRAIN_F32_LAYERS} layers, mesh "
+              f"{SHARDED_MESH_11B}, step {k + 1}: loss {got['loss']:.7f} "
+              f"against unsharded {loss:.7f}, grad_norm "
+              f"{got['grad_norm']:.7g} against {gnorm:.7g}; worst gradient "
+              f"leaf {gmax:.3g} of its max|g| at {gleaf} (bar {TOL_FIT}); "
+              f"master (each parameter its master's bits): "
+              f"{got['sloped']} of {got['n']} elements past {plain:g} "
+              f"(at most {MAX_SLOPED_11B:g} of them), the largest share of "
+              f"its bar {share:.3g} at {name}: off by {err:.4g}, bar "
+              f"{plain:g} + {slope:.4g} ({ADAM_SLOPE_11B} lr / eps times the "
+              f"gradients' difference there: {gsh:.6g} sharded, {gref:.6g} "
+              f"unsharded, lr {lr:g}); flash (f32, with lse) "
+              f"{2 * TRAIN_F32_LAYERS} launches a rank {card}")
+    return {"launches_11a": r0["launches"]["flash_attention"],
+            "launches": {"flash_attention_lse_tp2": sum(
+                ln["launches"]["flash_attention"] for ln in a)}}
+
+
+def init_params_shapes(cfg):
+    """`init_params`' tree for `cfg` on the `meta` device (names and
+    shapes, no memory)."""
+    from repro_torch.launch.specs import meta_train_state
+    return meta_train_state(cfg).params
 
 
 def main() -> None:
@@ -2439,6 +2901,13 @@ def main() -> None:
     errs["flash_attention"], flash_qkv = check_flash(flash_path, bf16)
     errs["flash_attention_lse"] = lse_abs[(flash_path, bf16)]
     errs["flash_attention_h128"], flash_qkv128 = check_flash(FLASH_H128, bf16)
+    # the sharded train step's per-rank shape (phase 11a): granite's q and
+    # kv heads split over a model axis of TP_MODEL
+    flash_tp = (cell.BATCH, cell.PROMPT, serve_cfg.n_heads // TP_MODEL,
+                serve_cfg.n_kv_heads // TP_MODEL,
+                serve_cfg.resolved_head_dim)
+    _, flash_qkv_tp = check_flash(flash_tp, bf16)
+    errs["flash_attention_lse_tp2"] = lse_abs[(flash_tp, bf16)]
     # the shapes of phase 9's prefills: H = 128 with G = 1 and 2, H = 256
     # with one kv head and a window, and the encoder's non-causal H = 64
     zoo_flash, zoo_qkv = zoo_flash_shapes(get_config), {}
@@ -2783,6 +3252,7 @@ def main() -> None:
         flash_row("flash_attention", flash_path, flash_qkv),
         flash_row("flash_attention_h128", FLASH_H128, flash_qkv128),
         flash_lse_row("flash_attention_lse", flash_path, flash_qkv),
+        flash_lse_row("flash_attention_lse_tp2", flash_tp, flash_qkv_tp),
         *(flash_row(name, shape, zoo_qkv[name], causal, window)
           for name, (shape, causal, window) in zoo_flash.items()),
         ("rank_update", "src/repro_torch/kernels/csrc/rank_update.cu",
@@ -2937,11 +3407,13 @@ def main() -> None:
               "rank_update_ingest": INGEST,
               "flash_attention_h128": FLASH_H128,
               "flash_attention_lse": flash_path,
+              "flash_attention_lse_tp2": flash_tp,
               **{name: z[0] for name, z in zoo_flash.items()}}
     # the redesigned kernels' least work, for their achieved rate
     row_flops = {"flash_attention": flash_flops(flash_path),
                  "flash_attention_h128": flash_flops(FLASH_H128),
                  "flash_attention_lse": flash_flops(flash_path),
+                 "flash_attention_lse_tp2": flash_flops(flash_tp),
                  **{name: flash_flops(*z) for name, z in zoo_flash.items()},
                  "fista_step_gemm": 2 * m * p * p * p,
                  "ista_step_gemm": 2 * p * p * p,
@@ -3080,7 +3552,13 @@ def main() -> None:
     print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
           "phase 10")
     # ---- 10. training -------------------------------------------------------
-    trained = train_phase(dev, card)
+    with tempfile.TemporaryDirectory(prefix="chip11_") as tmp11:
+        trained = train_phase(dev, card, tmp11)
+
+        print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+              "phase 11")
+        # ---- 11. sharded training -----------------------------------------
+        sharded = train_sharded_phase(dev, card, tmp11)
 
     # launches per run: the regression rows from phase 4, the logistic
     # rows from phase 4b (the unfused pair is not on either path), the
@@ -3100,10 +3578,12 @@ def main() -> None:
                     **{k: launches_4c[k] for k in new_keys},
                     "flash_attention": serve_launches["flash_attention"],
                     **launches_9,
-                    "flash_attention_lse": trained["launches"]}
+                    "flash_attention_lse": trained["launches"],
+                    "flash_attention_lse_tp2": sharded["launches_11a"]}
     print(json.dumps({"kernels": [
         {**row, "launches": run_launches[row["name"]],
-         "launches_phase8": launches_8.get(row["name"], 0)}
+         "launches_phase8": launches_8.get(row["name"], 0),
+         "launches_phase11": sharded["launches"].get(row["name"], 0)}
         for row in kernels]}))
     print(f"elapsed {time.perf_counter() - t_start:.1f} s in all")
     print(smi)

@@ -13,6 +13,15 @@ has no bfloat16) and cast back on restore. Restore maps the saved
 arrays onto a template tree, checking shapes, and puts each leaf on
 its template leaf's device with its dtype.
 
+Sharded trees (the sharded train state, DTensor leaves): `save_pytree`
+gathers each leaf to its global tensor on every rank (one all-gather a
+split mesh dim) and rank 0 alone writes the file, after the gather, then
+every rank waits for the write; so the file has the unsharded tree's
+names and shapes, and loads in the unsharded port and in the reference.
+`restore_pytree` into a template of DTensors has every rank read the
+global file and keep its own block of each leaf, placed as the template
+leaf (any mesh: a checkpoint of one mesh shape resumes on another).
+
 Crash safety: `save_pytree` never writes the target file in place. The
 payload lands in a same-directory temp file that is flushed, fsynced,
 and `os.replace`d over the destination, so a process killed mid-save
@@ -27,7 +36,10 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.sharding.place import full, place
 from repro_torch.tree import map_leaves, named_leaves
 
 
@@ -45,7 +57,7 @@ def _host_array(leaf: torch.Tensor) -> np.ndarray:
 
 
 def _flatten_with_names(tree) -> dict:
-    return {name: _host_array(leaf)
+    return {name: _host_array(full(leaf))
             for name, leaf in named_leaves(tree).items()}
 
 
@@ -80,8 +92,15 @@ def _npz_name(path: str) -> str:
 
 
 def save_pytree(path: str, tree) -> None:
+    """Write `tree` to `path` (`.npz` added). With DTensor leaves, every
+    rank of their group must call it: each leaf is gathered to its global
+    value, rank 0 writes, and the others return once it has."""
+    sharded = any(isinstance(x, DTensor) for x in named_leaves(tree).values())
     flat = _flatten_with_names(tree)
-    atomic_write(_npz_name(path), lambda f: np.savez(f, **flat))
+    if not sharded or dist.get_rank() == 0:
+        atomic_write(_npz_name(path), lambda f: np.savez(f, **flat))
+    if sharded:
+        dist.barrier()
 
 
 def load_npz(path: str):
@@ -100,7 +119,8 @@ def load_npz(path: str):
 def restore_pytree(path: str, template):
     """Restore into the structure of `template`, a tree of tensors: each
     leaf comes back with its template leaf's shape (checked), dtype and
-    device.
+    device; a DTensor leaf as this rank's block of the saved array,
+    placed as the template leaf.
 
     Raises `CheckpointError` naming the file and the offending leaves
     when the checkpoint is torn, was saved from a different structure
@@ -128,6 +148,10 @@ def restore_pytree(path: str, template):
                 raise CheckpointError(
                     f"checkpoint '{fname}' leaf '{key}': shape {arr.shape} "
                     f"!= template {tuple(leaf.shape)}")
+            if isinstance(leaf, DTensor):
+                full = torch.from_numpy(arr).to(
+                    device=leaf.to_local().device, dtype=leaf.dtype)
+                return place(full, leaf.device_mesh, leaf.placements)
             return torch.from_numpy(arr).to(device=leaf.device,
                                             dtype=leaf.dtype)
 

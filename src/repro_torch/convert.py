@@ -31,7 +31,7 @@ from repro_torch.core.synth import MultiTaskData
 from repro_torch.models.backbone import stack_plan
 from repro_torch.multitask.sparse_probe import ProbeData
 from repro_torch.optim.adamw import AdamWState
-from repro_torch.training.step import TrainState
+from repro_torch.training.step import TrainState, shard_train_state
 from repro_torch.stream.state import StreamState, WindowState
 from repro_torch.tree import tree_map
 
@@ -113,12 +113,15 @@ def params_from_reference(params: dict, cfg, device="cuda") -> dict:
     return out
 
 
-def train_state_from_reference(state, cfg, device="cuda"):
+def train_state_from_reference(state, cfg, device="cuda", mesh=None):
     """The reference's `TrainState(params, AdamWState(master, mu, nu,
     count), step)` -> the port's `training.step.TrainState` on `device`:
     the parameter, master and moment trees each laid out as
     `params_from_reference` lays out parameters, `count` and `step` 0-d
-    int32 tensors."""
+    int32 tensors. With a `mesh` (a `DeviceMesh` of (data, model) or
+    (pod, data, model)), every rank converts the whole state and keeps
+    its blocks (`training.step.shard_train_state`: the parameters by
+    `param_pspecs`, master and moments by `opt_pspecs`)."""
     if tuple(getattr(state, "_fields", ())) != TrainState._fields or \
             tuple(getattr(state.opt, "_fields", ())) != AdamWState._fields:
         raise TypeError(f"train_state_from_reference: not a reference "
@@ -131,7 +134,8 @@ def train_state_from_reference(state, cfg, device="cuda"):
     def count(c):
         return _tensor(c, device).to(torch.int32)
 
-    return TrainState(params=tree(state.params),
-                      opt=AdamWState(tree(opt.master), tree(opt.mu),
-                                     tree(opt.nu), count(opt.count)),
-                      step=count(state.step))
+    out = TrainState(params=tree(state.params),
+                     opt=AdamWState(tree(opt.master), tree(opt.mu),
+                                    tree(opt.nu), count(opt.count)),
+                     step=count(state.step))
+    return out if mesh is None else shard_train_state(out, mesh)

@@ -10,7 +10,9 @@ Gumbel-max draw `jax.random.categorical` makes); labels are the tokens
 shifted by one, -1 at the end; the stub frontend is 0.1 · N(0, 1).
 Everything comes from the one `torch.Generator`, on its device, so the
 same seed gives the same stream; the bits are not the reference's (the
-two RNGs differ).
+two RNGs differ). For the sharded step every rank draws the same global
+stream from the seed and keeps its block of each batch
+(`sharded_lm_batches`), so no batch is sent between ranks.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from typing import Iterator, Optional
 import torch
 
 from repro_torch.models import Batch
+from repro_torch.sharding.place import distribute_tree
+from repro_torch.sharding.rules import batch_pspecs
 
 BRANCHING = 4
 
@@ -63,3 +67,16 @@ def synthetic_lm_batches(gen: torch.Generator, *, vocab: int, batch: int,
             fe = 0.1 * torch.randn((batch, *frontend_shape), generator=gen,
                                    device=gen.device)
         yield Batch(tokens=tokens, labels=labels, frontend=fe)
+
+
+def sharded_lm_batches(gen: torch.Generator, mesh, *, vocab: int,
+                       batch: int, seq: int,
+                       frontend_shape: Optional[tuple] = None
+                       ) -> Iterator[Batch]:
+    """`synthetic_lm_batches`' global batches (every rank draws the same
+    stream from `gen`'s seed), each leaf a DTensor on `mesh` placed by
+    `batch_pspecs` (rows over the data axes) from this rank's own copy."""
+    specs = batch_pspecs(mesh, batch, frontend_shape is not None)
+    for b in synthetic_lm_batches(gen, vocab=vocab, batch=batch, seq=seq,
+                                  frontend_shape=frontend_shape):
+        yield distribute_tree(b, specs, mesh)

@@ -1,4 +1,5 @@
-"""Training launcher: any --arch at the smoke size, on one card.
+"""Training launcher: any --arch at the smoke size, on one card or
+sharded over the ranks of a process group.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \
         --steps 20
@@ -14,22 +15,51 @@ batches from `data.synth_tokens` seeded 1. `--checkpoint` saves the whole
 last step and `--resume` restores one before the first
 (`checkpoint/io.py`).
 
-The reference runs its step under a mesh (`--model-axis` shards the
-parameters over `model`); the port's sharding rules are not written yet
-(`ROADMAP.md`, queue A item 8), so `--model-axis` above 1 is refused
-rather than run unsharded.
+Sharded, as the reference runs it under `make_host_mesh(--model-axis)`:
+started as ranks of a process group (`RANK`, `WORLD_SIZE`,
+`REPRO_INIT_FILE` set, as `repro_torch.substrate.run_probe` or
+`hostenv.rank_env` sets them), each rank joins the group (gloo, or NCCL
+with `REPRO_BACKEND=nccl`), builds the (world // model-axis, model-axis)
+(data, model) mesh, builds the same full state from seed 0 and keeps its
+blocks (`init_sharded_train_state`: parameters by `param_pspecs`,
+AdamW's master and moments by `opt_pspecs`, ZeRO-1), and takes its block of
+each global batch; the step places the logits by `logits_pspec` and the
+gradients by the opt specs, as the reference's jit does. Every rank
+prints; a checkpoint is one global file, written by rank 0. Without the
+rank environment `--model-axis` above 1 is refused. The families DTensor
+does not carry through their forward (`training.step.LOCAL_FORWARD`:
+MoE, the RG-LRU hybrid, SSM) train sharded on a data-only mesh alone,
+and `--model-axis` above 1 refuses them by name (`ROADMAP.md`, queue A
+item 8).
+
+On the CPU, four gloo ranks on a (2, 2) mesh:
+`run_probe("from repro_torch.launch import train; train.main(['--device',
+'cpu', '--model-axis', '2', '--steps', '2'])", world=4)`.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
 
 from repro_torch.checkpoint.io import restore_pytree, save_pytree
 from repro_torch.configs import ASSIGNED, get_config, smoke
-from repro_torch.data.synth_tokens import synthetic_lm_batches
-from repro_torch.training.step import init_train_state, make_train_step
+from repro_torch.data.synth_tokens import (
+    sharded_lm_batches, synthetic_lm_batches,
+)
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.sharding.rules import (
+    NamedSharding, logits_pspec, named, opt_pspecs,
+)
+from repro_torch.substrate.hostenv import init_from_env
+from repro_torch.training.step import (
+    LOCAL_FORWARD, init_sharded_train_state, init_train_state,
+    make_train_step,
+)
+
+RANK_ENV = ("RANK", "WORLD_SIZE", "REPRO_INIT_FILE")
 
 
 def main(argv=None):
@@ -46,32 +76,59 @@ def main(argv=None):
     ap.add_argument("--resume", default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.model_axis > 1:
+    sharded = all(k in os.environ for k in RANK_ENV)
+    if args.model_axis > 1 and not sharded:
         raise SystemExit(
-            f"--model-axis {args.model_axis}: the port has no sharding rules "
-            "yet (ROADMAP.md, queue A item 8: sharding/rules.py as DTensor "
-            "placements); it trains on one device")
+            f"--model-axis {args.model_axis} trains sharded, as ranks of a "
+            "process group (ROADMAP.md, queue A item 8): start one process "
+            f"a rank with {', '.join(RANK_ENV)} set "
+            "(repro_torch.substrate.run_probe or hostenv.rank_env)")
 
     dev = torch.device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = smoke(cfg)
-    print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
-          f"device={dev}")
+    if args.model_axis > 1 and cfg.arch_type in LOCAL_FORWARD:
+        raise SystemExit(
+            f"--model-axis {args.model_axis}: {cfg.name} ({cfg.arch_type}) "
+            "trains sharded on a data-only mesh (--model-axis 1) alone; "
+            "ROADMAP.md, queue A item 8, lists the families refused at a "
+            "model axis above 1")
+    mesh = None
+    if sharded:
+        init_from_env(dev if os.environ.get("REPRO_BACKEND") == "nccl"
+                      else None)
+        mesh = make_host_mesh(args.model_axis, device_type=dev.type)
+        print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
+              f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+              f"device={dev}")
+    else:
+        print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
+              f"device={dev}")
 
-    state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kw = {}
+    if mesh is None:
+        state = init_train_state(gen, cfg)
+    else:
+        state = init_sharded_train_state(gen, cfg, mesh)
+        kw = dict(logits_pspec=NamedSharding(
+                      mesh, logits_pspec(mesh, cfg.padded_vocab, args.seq)),
+                  grads_pspec=named(mesh, opt_pspecs(state.params, mesh)))
     if args.resume:
         state = restore_pytree(args.resume, state)
         print(f"resumed from {args.resume} at step {int(state.step)}")
 
     step = make_train_step(cfg, peak_lr=args.lr, warmup=20,
                            total_steps=args.steps,
-                           microbatches=args.microbatches)
+                           microbatches=args.microbatches, **kw)
     fe_shape = ((cfg.n_frontend_tokens, cfg.d_model)
                 if cfg.frontend else None)
-    batches = synthetic_lm_batches(torch.Generator(device=dev).manual_seed(1),
-                                   vocab=cfg.vocab, batch=args.batch,
-                                   seq=args.seq, frontend_shape=fe_shape)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    shape = dict(vocab=cfg.vocab, batch=args.batch, seq=args.seq,
+                 frontend_shape=fe_shape)
+    batches = (synthetic_lm_batches(gen, **shape) if mesh is None
+               else sharded_lm_batches(gen, mesh, **shape))
     losses = []
     t0 = time.time()
     for i, batch in zip(range(args.steps), batches):

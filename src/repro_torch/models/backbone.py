@@ -34,12 +34,19 @@ and changes nothing else.
 Run a family on the CPU with `python -m repro_torch.launch.serve --arch
 <name> --device cpu` (the smoke size); `chip_smoke.py` phase 9 serves
 the non-dense families at full width on the card.
+
+`forward_train` also runs on DTensors (the sharded train step): the
+embeddings are looked up vocab-parallel (`_embed_vocab_parallel`) and
+placed as the tokens, and the head's input gradient is summed over
+`model` (`sharding.place`); the rest is the layers' own.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import LayerKind, ModelConfig
@@ -57,6 +64,9 @@ from repro_torch.models.rglru import (
 from repro_torch.models.ssd import (
     SsdCache, _split_proj, init_ssd_cache, init_ssd_params,
     ssd_block_decode, ssd_block_train,
+)
+from repro_torch.sharding.place import (
+    grad_placed_as_input, placed_as, replicated_like,
 )
 
 
@@ -124,7 +134,8 @@ def _cross(p: dict, x, cfg: ModelConfig, positions, enc_out):
 def _layer_train(kind: LayerKind, p: dict, x, cfg: ModelConfig, positions,
                  enc_out, use_kernel):
     """Returns (x, aux_loss_scalar)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = replicated_like(torch.zeros((), dtype=torch.float32,
+                                      device=x.device), x)
     if kind in ("attn", "local_attn"):
         x = x + attention_train(p["attn"], rms_norm(x, p["norm1"],
                                                     cfg.norm_eps),
@@ -342,10 +353,48 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
 # ---------------------------------------------------------------------------
 
 def _embed(params, cfg, tokens):
-    return params["embed"][tokens].to(_dtype(cfg.compute_dtype))
+    table = params["embed"]
+    if isinstance(table, DTensor) and \
+            Shard(0) in table.placements:
+        return _embed_vocab_parallel(table, tokens).to(
+            _dtype(cfg.compute_dtype))
+    return table[tokens].to(_dtype(cfg.compute_dtype))
+
+
+def _embed_vocab_parallel(table: DTensor, tokens: DTensor) -> DTensor:
+    """The lookup of a table whose rows (the vocabulary) are split over a
+    mesh dim (Megatron's vocab-parallel embedding): each rank looks up the
+    tokens that fall in its rows and gives 0 for the rest, so the result
+    is partial over that dim (summed where it joins the residual stream,
+    `_inputs`) and a rank's gradient falls on its own rows. DTensor's own
+    lookup would move the table to a split of d instead (an all-to-all of
+    the table) and gather the embeddings over d."""
+    mesh, tp = table.device_mesh, list(table.placements)
+    xp = list(tokens.placements)
+    split = [j for j, p in enumerate(tp) if p == Shard(0)]
+    if len(split) != 1 or any(p.is_shard() and p.dim != 0 for p in tp):
+        raise ValueError(f"embedding placed {tp}: one mesh dim may split "
+                         "the vocabulary, none d")
+    j = split[0]
+
+    def lookup(tab, tok):
+        n = tab.shape[0]
+        idx = tok.long() - mesh.get_local_rank(j) * n
+        inside = (idx >= 0) & (idx < n)
+        rows = tab[torch.clamp(idx, 0, n - 1)]
+        return torch.where(inside[..., None], rows, 0.0)
+
+    out = [Partial() if i == j else p for i, p in enumerate(xp)]
+    # the table's gradient: its own rows, summed over the ranks that
+    # split the batch
+    grad = [Partial() if x.is_shard() else p for p, x in zip(tp, xp)]
+    return local_map(lookup, out_placements=out, in_placements=(tp, xp),
+                     in_grad_placements=(grad, xp),
+                     device_mesh=mesh)(table, tokens)
 
 
 def _unembed(params, cfg, x):
+    x = grad_placed_as_input(x)
     head = params["head"] if "head" in params else params["embed"].T
     return torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
 
@@ -373,7 +422,9 @@ def _encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor,
 def _inputs(params, cfg: ModelConfig, batch: Batch, use_kernel):
     """(x, enc_out): the token embeddings, the VLM's patches prepended,
     and the encoder's output for enc-dec (else None)."""
-    x = _embed(params, cfg, batch.tokens)
+    # on DTensors, the embeddings placed as the tokens (the batch over
+    # the data axes, d whole: summed over a vocab-sharded table's ranks)
+    x = placed_as(_embed(params, cfg, batch.tokens), batch.tokens)
     enc_out = None
     if cfg.arch_type == "encdec":
         enc_out = _encoder_forward(params, cfg, batch.frontend, use_kernel)
@@ -388,7 +439,8 @@ def _decoder_stack_train(params, cfg: ModelConfig, x, enc_out, use_kernel,
     each group of `stack_plan`'s pattern in `params["layers"]` runs under
     a checkpoint, the tail does not."""
     positions = _positions(x)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total = replicated_like(torch.zeros((), dtype=torch.float32,
+                                            device=x.device), x)
     group = len(stack_plan(cfg)[0])
 
     def run(layers, kinds, x, aux_total):

@@ -18,15 +18,28 @@ one, the reference's. Cross attention
 (`kv_override`) always takes the dense branch, as in the reference.
 Every function here is differentiable except `attention_decode`, which
 writes into its cache.
+
+On DTensors (the sharded train step, parameters placed by
+`sharding.rules`), the projections are DTensor's, the heads split over
+`model`; RoPE and the attention itself (the kernel's forward with the
+blockwise backward, or the dense branch) run under `local_map` on each
+rank's local heads (`_on_local_heads`: where `fit_spec` replicated
+`wk`/`wv`, each rank takes the kv heads of its q heads), the output
+projection's partial sum is all-reduced where it joins the residual
+stream, and the block input's gradient is summed over `model` once
+(`sharding.place.grad_placed_as_input`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.common import resolve_use_kernel
 # the module, not its function: ops.py's plain version imports
@@ -34,6 +47,7 @@ from repro_torch.kernels.common import resolve_use_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention_core
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.place import grad_placed_as_input, placed_as
 
 NEG_INF = -1e30
 # use blockwise attention once the score matrix would exceed ~2k x 2k
@@ -158,6 +172,81 @@ def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0,
                                      use_kernel=use_kernel)
 
 
+def _attention_core(q, k, v, *, flash: bool, causal: bool, window: int,
+                    use_kernel, cross: bool,
+                    kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of q (B,S,N,H) over k, v (B,T,K,H) -> (B,S,N,H): the flash
+    branch, or the dense one (masked by position, or by `kv_mask` where
+    `cross`)."""
+    if flash:
+        return flash_attention_train(q, k, v, causal=causal, window=window,
+                                     use_kernel=use_kernel)
+    scores = _gqa_scores(q, k)                                  # (B,K,G,S,T)
+    S, T = scores.shape[-2], scores.shape[-1]
+    dev = q.device
+    if cross:
+        mask = torch.ones((S, T), dtype=torch.bool, device=dev) \
+            if kv_mask is None else kv_mask[:, None, None, None, :]
+    else:
+        i = torch.arange(S, device=dev)[:, None]
+        j = torch.arange(T, device=dev)[None, :]
+        mask = torch.ones((S, T), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= j <= i
+        if window:
+            mask &= j > i - window
+    probs = _masked_softmax(scores, mask).to(q.dtype)
+    return _gqa_out(probs, v)
+
+
+def _on_local_heads(core, q: DTensor, k: DTensor, v: DTensor) -> DTensor:
+    """`core(q, k, v)` on each rank's own heads (`local_map`), for q, k, v
+    DTensors on one mesh placed alike, except where q's heads are split
+    (`Shard(2)`) over a mesh dim and the kv heads are whole there (a
+    `wk`/`wv` that `fit_spec` replicated, K not divisible by the axis).
+    Then each rank takes the kv heads of its own q heads: q head n reads
+    kv head n // G (G = N / K), so rank r of that dim, holding q heads
+    [r L, (r + 1) L) (L = N / M), reads kv heads [r L / G, ...), and its
+    share of their gradient is partial (summed over the dim). The output
+    is placed as q."""
+    mesh = q.device_mesh
+    qp, kp = list(q.placements), list(k.placements)
+    kv_grad, split = list(kp), None
+    G = q.shape[2] // k.shape[2]
+    for j, (a, b) in enumerate(zip(qp, kp)):
+        if a == b:
+            continue
+        if a != Shard(2) or not isinstance(b, Replicate):
+            raise ValueError(f"attention: q placed {qp}, k placed {kp}")
+        kv_grad[j], split = Partial(), j
+
+    def local(ql, kl, vl):
+        if split is not None:
+            n = ql.shape[2]
+            if n % G and G % n:
+                raise ValueError(f"attention: {n} local q heads do not cover "
+                                 f"whole kv groups of {G}")
+            r = mesh.get_local_rank(split)
+            lo, hi = r * n // G, ((r + 1) * n - 1) // G + 1
+            kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        return core(ql, kl, vl)
+
+    return local_map(local, out_placements=qp, in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, kv_grad, kv_grad),
+                     device_mesh=mesh)(q, k, v)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor,
+          theta: float) -> torch.Tensor:
+    """`rope`, on each rank's local block of a DTensor: it is position-wise
+    and per head, and the sequence is never split."""
+    if not isinstance(x, DTensor):
+        return rope(x, positions, theta)
+    pl = list(x.placements)
+    return local_map(rope, out_placements=pl, in_placements=(pl, None, None),
+                     device_mesh=x.device_mesh)(x, positions, theta)
+
+
 def _attend(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             positions: torch.Tensor, causal: bool, window: int, use_kernel,
             kv_override: Optional[torch.Tensor] = None,
@@ -165,41 +254,34 @@ def _attend(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     """`attention_train`'s body; also returns its k (roped unless
     `kv_override`) and its v, which `attention_prefill` keeps as the
     cache (the reference computes them a second time, with the same
-    result)."""
+    result). On DTensors (the sharded train step) the attention itself
+    runs on each rank's heads (`_on_local_heads`)."""
+    x = grad_placed_as_input(x)
     q = _proj(x, p["wq"], "bsd,dnh->bsnh")
-    src = x if kv_override is None else kv_override.to(x.dtype)
+    src = x if kv_override is None else \
+        grad_placed_as_input(kv_override.to(x.dtype))
     k = _proj(src, p["wk"], "btd,dkh->btkh")
     v = _proj(src, p["wv"], "btd,dkh->btkh")
     if kv_override is None:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
 
     # Long sequences: blockwise (flash) attention — O(S) memory instead of
     # materializing the (S, T) score matrix. The kernel masks by position
     # index, which is the reference's positional mask for the arange
     # positions every caller in the stack passes.
     S_q, T_k = q.shape[1], k.shape[1]
-    if kv_override is None and S_q * T_k >= FLASH_THRESHOLD and S_q > 1:
-        out = flash_attention_train(q, k, v, causal=causal, window=window,
-                                    use_kernel=use_kernel)
-        return _proj(out, p["wo"], "bsnh,nhd->bsd"), k, v
-
-    scores = _gqa_scores(q, k)                                  # (B,K,G,S,T)
-    S, T = scores.shape[-2], scores.shape[-1]
-    if kv_override is not None:
-        mask = torch.ones((S, T), dtype=torch.bool, device=x.device) \
-            if kv_mask is None else kv_mask[:, None, None, None, :]
-    else:
-        i = torch.arange(S, device=x.device)[:, None]
-        j = torch.arange(T, device=x.device)[None, :]
-        mask = torch.ones((S, T), dtype=torch.bool, device=x.device)
-        if causal:
-            mask &= j <= i
-        if window:
-            mask &= j > i - window
-    probs = _masked_softmax(scores, mask).to(x.dtype)
-    out = _gqa_out(probs, v)
-    return _proj(out, p["wo"], "bsnh,nhd->bsd"), k, v
+    core = functools.partial(
+        _attention_core,
+        flash=kv_override is None and S_q * T_k >= FLASH_THRESHOLD
+        and S_q > 1, causal=causal, window=window, use_kernel=use_kernel,
+        cross=kv_override is not None, kv_mask=kv_mask)
+    o = _on_local_heads(core, q, k, v) if isinstance(q, DTensor) \
+        else core(q, k, v)
+    # (B, S, N·H) @ (N·H, d): `einsum`'s own flattening of this product
+    # gives DTensor a strided split it cannot propagate under fake tensors
+    out = torch.matmul(o.flatten(2), p["wo"].to(x.dtype).flatten(0, 1))
+    return placed_as(out, x), k, v
 
 
 def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig, *,

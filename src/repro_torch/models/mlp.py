@@ -10,10 +10,12 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
+from repro_torch.sharding.place import grad_placed_as_input, placed_as
 
 
 def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     cdt = x.dtype
+    x = grad_placed_as_input(x)
     if act in ("swiglu", "geglu"):
         g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(cdt))
         u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(cdt))
@@ -27,7 +29,10 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
             h = F.gelu(h, approximate="tanh")
         else:
             raise ValueError(act)
-    return torch.einsum("bsf,fd->bsd", h, p["w_down"].to(cdt))
+    # a matmul, not an einsum: on DTensors `einsum`'s flattening leads
+    # DTensor to gather `w_down` in the backward; the output placed as x
+    # (summed over `model`)
+    return placed_as(torch.matmul(h, p["w_down"].to(cdt)), x)
 
 
 def init_mlp_params(gen: torch.Generator, cfg: ModelConfig, d_ff: int,

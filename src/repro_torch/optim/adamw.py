@@ -27,6 +27,19 @@ bounds the f32 temporaries.
 The parameter trees are nested dicts and lists of tensors, as
 `models.backbone.init_params` builds them, walked by `repro_torch.tree`
 (dict keys in sorted order, as JAX's).
+
+Sharded (ZeRO-1, the reference's scheme): the leaves are DTensors, the
+parameters placed by `sharding.rules.param_pspecs` (split over `model`
+only, replicated over `data`), the master and the moments by
+`opt_pspecs` (split over `data` too). The gradients come placed as the
+master (the train step's reduce-scatter over `data`; a gradient placed
+otherwise is redistributed first). The update then runs on each rank's
+local shards, its groups formed over local elements; `global_norm` is
+the norm of the whole tree (each rank sums the squares of the shards it
+owns, one all-reduce over the mesh); and the write-back crosses
+placements: each new master shard is cast to the parameter's dtype and
+gathered over `data` into the parameter's local tensor, the
+reference's all-gather of the new bf16 parameters.
 """
 from __future__ import annotations
 
@@ -34,7 +47,9 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from repro_torch.sharding.place import gather, local
 from repro_torch.tree import tree_leaves, tree_map
 
 # elements of the leaves one group of the update takes at most (a leaf
@@ -77,9 +92,47 @@ def adamw_init(params) -> AdamWState:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's sum of squares, in f32."""
+    """sqrt of the sum over leaves of each leaf's sum of squares, in f32.
+    On DTensor leaves, the norm of the global tree (`_sharded_norm`)."""
+    leaves = tree_leaves(tree)
+    if any(isinstance(x, DTensor) for x in leaves):
+        return _sharded_norm(leaves)
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+                          for x in leaves))
+
+
+def _sharded_norm(leaves) -> torch.Tensor:
+    """The global norm of DTensor leaves on one mesh: each rank sums the
+    squares of its local shards, each shard counted once (on the ranks at
+    coordinate 0 of every mesh dim a leaf is replicated over; a partial
+    leaf summed first), and the sums are added over the mesh, one
+    all-reduce a mesh dim. The result is a plain 0-d tensor, the same on
+    every rank."""
+    mesh = leaves[0].device_mesh
+    total = torch.zeros((), dtype=torch.float32,
+                        device=leaves[0].to_local().device)
+    for x in leaves:
+        pl = [Replicate() if p.is_partial() else p for p in x.placements]
+        if pl != list(x.placements):
+            x = x.redistribute(mesh, pl)
+        if all(mesh.get_local_rank(j) == 0
+               for j, p in enumerate(pl) if p.is_replicate()):
+            total = total + torch.sum(torch.square(
+                x.to_local().to(torch.float32)))
+    return torch.sqrt(DTensor.from_local(
+        total, mesh, [Partial()] * mesh.ndim, run_check=False).full_tensor())
+
+
+def _write_back(p: torch.Tensor, w: torch.Tensor) -> None:
+    """The new master `w` into the parameter `p`, cast to its dtype; a
+    DTensor master shard is cast, then gathered to `p`'s placements (over
+    `data`) into `p`'s local tensor."""
+    if not isinstance(p, DTensor):
+        p.copy_(w)
+        return
+    cast = DTensor.from_local(w.to_local().to(p.dtype), w.device_mesh,
+                              w.placements, run_check=False)
+    p.to_local().copy_(gather(cast, p.placements))
 
 
 def _groups(n_elems: list[int]) -> list[list[int]]:
@@ -104,9 +157,15 @@ def adamw_update(grads, state: AdamWState, params, *, lr, b1: float = 0.9,
     of `state` and `params` (see the module docstring), which are
     returned; the count is a new tensor. `grads` may be in the
     parameters' dtype: each leaf is cast to f32 before it is used, as
-    the reference casts the tree."""
+    the reference casts the tree. A DTensor gradient is placed as its
+    master leaf first, which takes the place of the reference's
+    `grads_pspec` constraint."""
     f32 = torch.float32
-    gnorm = global_norm(grads)
+    p_all, w_all = tree_leaves(params), tree_leaves(state.master)
+    g_all = [g.redistribute(w.device_mesh, w.placements)
+             if isinstance(g, DTensor) and g.placements != w.placements
+             else g for g, w in zip(tree_leaves(grads), w_all)]
+    gnorm = global_norm(g_all)
     dev = gnorm.device
     scale = torch.minimum(
         torch.ones((), dtype=f32, device=dev),
@@ -120,15 +179,16 @@ def adamw_update(grads, state: AdamWState, params, *, lr, b1: float = 0.9,
                          count.to(f32))
     lr_wd = lr * weight_decay
 
-    g_all, p_all = tree_leaves(grads), tree_leaves(params)
-    w_all, m_all = tree_leaves(state.master), tree_leaves(state.mu)
-    v_all = tree_leaves(state.nu)
+    # the local shards (the whole leaf where unsharded)
+    g_loc, w_loc = [local(g) for g in g_all], [local(w) for w in w_all]
+    m_loc = [local(m) for m in tree_leaves(state.mu)]
+    v_loc = [local(v) for v in tree_leaves(state.nu)]
     with torch.no_grad():
-        for idx in _groups([p.numel() for p in p_all]):
-            w = [w_all[i] for i in idx]
-            m = [m_all[i] for i in idx]
-            v = [v_all[i] for i in idx]
-            g = torch._foreach_mul([g_all[i].to(f32) for i in idx], scale)
+        for idx in _groups([w.numel() for w in w_loc]):
+            w = [w_loc[i] for i in idx]
+            m = [m_loc[i] for i in idx]
+            v = [v_loc[i] for i in idx]
+            g = torch._foreach_mul([g_loc[i].to(f32) for i in idx], scale)
             torch._foreach_mul_(m, b1)
             torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
             gg = torch._foreach_mul(g, 1 - b2)
@@ -148,6 +208,6 @@ def adamw_update(grads, state: AdamWState, params, *, lr, b1: float = 0.9,
             torch._foreach_sub_(w, decay)
             del step, decay
             for i in idx:
-                p_all[i].copy_(w_all[i])
+                _write_back(p_all[i], w_all[i])
     return params, AdamWState(state.master, state.mu, state.nu, count), {
         "grad_norm": gnorm, "lr": lr}

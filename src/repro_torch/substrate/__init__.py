@@ -12,7 +12,7 @@ meshes and groups are passed explicitly) and `force_host_device_count`
 `host_device_env`'s counterpart is `rank_env`).
 """
 from repro_torch.substrate.collectives import (
-    all_gather_tasks, all_to_all_experts, pmax, pmin, psum_stats,
+    all_gather, all_gather_tasks, all_to_all_experts, pmax, pmin, psum_stats,
     resolve_group,
 )
 from repro_torch.substrate.compat import all_gather_into, init_ranks
@@ -26,7 +26,8 @@ from repro_torch.substrate.probes import (
 )
 
 __all__ = [
-    "all_gather_tasks", "all_to_all_experts", "pmax", "pmin", "psum_stats",
+    "all_gather", "all_gather_tasks", "all_to_all_experts", "pmax", "pmin",
+    "psum_stats",
     "resolve_group",
     "all_gather_into", "init_ranks",
     "chunk_specs", "feed_chunk", "feed_shards",

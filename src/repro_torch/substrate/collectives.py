@@ -58,6 +58,21 @@ def all_gather_tasks(x: torch.Tensor, group=None,
     return out
 
 
+def all_gather(x: torch.Tensor, group=None, axis: str = "data", *,
+               dim: int = 0) -> torch.Tensor:
+    """Every rank's `x` over `axis`, concatenated on dim `dim` in rank
+    order: the gather of a DTensor's blocks (`sharding.place.gather`),
+    through the synchronous `torch.distributed` call, which gloo runs on
+    CUDA tensors too."""
+    g = resolve_group(group, axis)
+    _record("all_gather", x, g, axis)
+    src = torch.movedim(x, dim, 0).contiguous()
+    out = src.new_empty((dist.get_world_size(g) * src.shape[0],
+                         *src.shape[1:]))
+    all_gather_into(out, src, g)
+    return torch.movedim(out, 0, dim)
+
+
 def all_to_all_experts(x: torch.Tensor, group=None, axis: str = "model",
                        *, split_axis: int = 0,
                        concat_axis: int = 0) -> torch.Tensor:

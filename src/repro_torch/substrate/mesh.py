@@ -8,9 +8,14 @@ arguments, since each builds the sub-groups of every dim. Ranks fill the
 mesh in row-major order: on `data_task_mesh`, rank r sits at
 (data, task) = divmod(r, n_task).
 
-`device_type` only labels the mesh (the port takes its groups from it,
-`mesh.get_group(dim)`, and runs no DTensor); by default it follows the
-backend, `cuda` for NCCL and `cpu` otherwise.
+The same meshes carry DTensors: the sharded train step's parameters,
+optimizer state and batch (`sharding.rules`, `training.step`), and the
+DSML layer takes its groups from them (`mesh.get_group(dim)`).
+`device_type` is where the mesh's DTensors lie, whatever the backend:
+`cuda` for CUDA tensors, gloo's ranks on the one card included (every
+rank then on card 0, `rank % device_count()`), `cpu` for CPU tensors. By
+default it follows the backend, `cuda` for NCCL and `cpu` otherwise;
+callers with CUDA tensors under gloo pass `cuda`.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 def make_mesh(shape, axis_names, device_type: str | None = None
               ) -> DeviceMesh:
     """A mesh of `shape` over the ranks of the default group, its dims
-    named `axis_names`."""
+    named `axis_names`, its DTensors on `device_type` (see above)."""
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, tuple(shape),

@@ -1,4 +1,5 @@
-"""Training step: cross-entropy loss + AdamW update, on one card.
+"""Training step: cross-entropy loss + AdamW update, on one card or
+sharded.
 
 The port of the JAX package's `training/step.py`. `make_train_step(cfg)`
 returns a function
@@ -14,22 +15,45 @@ writes the new parameters and optimizer state into the state's tensors
 the microbatches, the last microbatch's `ce` and `aux`, `grad_norm` and
 `lr`, each a 0-d f32 tensor on the state's device.
 
-The reference's `logits_pspec` and `grads_pspec` are sharding
-constraints of its mesh; the one-card step has none (the sharding rules
-are not ported yet, `ROADMAP.md` queue A).
+Sharded, as the reference's jit of the same step under a mesh: the
+state is a tree of DTensors (`shard_train_state`,
+`init_sharded_train_state`: parameters by `sharding.rules.param_pspecs`,
+AdamW's master and moments by `opt_pspecs`, ZeRO-1), the batch is
+placed by `batch_pspecs`, and DTensor carries the forward and the
+backward (the model code adds the constraints it cannot infer:
+`sharding.place`). The reference's sharding constraints become
+`logits_pspec` (the logits placed before the loss: vocabulary-parallel
+cross entropy, the token mean taken over the global batch) and
+`grads_pspec` (each f32 gradient, and the microbatch accumulator,
+placed as the master: a reduce-scatter over `data`). The metrics are
+then plain tensors, the same on every rank. The families DTensor does
+not carry run on local tensors on a data-only mesh (`LOCAL_FORWARD`).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import (
+    DTensor, Partial, Replicate, Shard,
+)
+from torch.distributed.tensor import zeros as dtensor_zeros
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models import Batch, forward_train, init_params
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import (
     AdamWState, adamw_init, adamw_update, warmup_cosine,
 )
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.sharding.place import (
+    constrain, distribute_tree, full, is_sharded, local, place,
+    replicated_like,
+)
+from repro_torch.sharding.rules import (
+    opt_pspecs, param_pspecs, placements,
+)
+from repro_torch.tree import named_leaves, tree_leaves, tree_map, tree_unflatten
 
 NEG_INF = -1e30
 
@@ -40,93 +64,250 @@ class TrainState(NamedTuple):
     step: torch.Tensor          # 0-d int32
 
 
+def _sharded_lse_ll(logits: DTensor, labels: DTensor):
+    """Each row's log-sum-exp and its label's logit, for DTensor logits
+    placed as `logits_pspec` places them, the vocabulary split over
+    `model` included, without gathering the (B, S, V) logits: the row max
+    and the sum of exponentials are reduced over the vocabulary's ranks,
+    and each rank picks the labels that fall in its slice of the
+    vocabulary (`local_map`), 0 elsewhere, summed over the same ranks.
+    Both come back placed as the labels. The reference's formula
+    (max + log Σ exp(x − max), the max without a gradient), in another
+    order of summation."""
+    mesh, lp = logits.device_mesh, list(logits.placements)
+    vdim = logits.ndim - 1
+    row = [Replicate() if p == Shard(vdim) else p for p in lp]
+    split = [j for j, p in enumerate(lp) if p == Shard(vdim)]
+
+    def rows(t):
+        return t.redistribute(mesh, row)
+
+    m = rows(torch.amax(logits, dim=-1, keepdim=True)).detach()
+    lse = (m + torch.log(rows(torch.sum(torch.exp(logits - m), dim=-1,
+                                        keepdim=True))))[..., 0]
+
+    def picked(lg, lab):
+        n = lg.shape[-1]
+        lo = mesh.get_local_rank(split[0]) * n if split else 0
+        idx = torch.clamp_min(lab, 0).long() - lo
+        got = torch.gather(lg, -1, torch.clamp(idx, 0, n - 1)[..., None])
+        return torch.where((idx >= 0) & (idx < n), got[..., 0], 0.0)
+
+    ll = local_map(picked, out_placements=[Partial() if p == Shard(vdim)
+                                           else p for p in lp],
+                   in_placements=(lp, row), device_mesh=mesh,
+                   redistribute_inputs=True)(logits, labels)
+    return lse, rows(ll)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
-                  vocab: Optional[int] = None) -> torch.Tensor:
+                  pspec=None, vocab: Optional[int] = None) -> torch.Tensor:
     """Token-mean CE in float32; labels == -1 are masked out.
 
     logits: (B, S, Vp), possibly padded past `vocab` (the pad columns are
-    masked at -1e30, so the loss is exact); labels: (B, S)."""
+    masked at -1e30, so the loss is exact); labels: (B, S). On DTensors
+    (the sharded step) the logits are first placed by `pspec` (a
+    `rules.NamedSharding`, the reference's sharding constraint), and the
+    mean is over the global batch: the masked sum and the count of valid
+    labels are each summed over the data axes before the division."""
+    if pspec is not None:
+        logits = constrain(logits, pspec)
     logits = logits.to(torch.float32)
     if vocab is not None and vocab < logits.shape[-1]:
         pad_mask = torch.arange(logits.shape[-1], device=logits.device) < vocab
-        logits = torch.where(pad_mask, logits, NEG_INF)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1,
-                      torch.clamp_min(labels, 0).long()[..., None])[..., 0]
+        logits = torch.where(replicated_like(pad_mask, logits), logits,
+                             NEG_INF)
+    if isinstance(logits, DTensor):
+        lse, ll = _sharded_lse_ll(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          torch.clamp_min(labels, 0).long()[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
     nll = (lse - ll) * mask
     return torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
 def make_loss_fn(cfg: ModelConfig, *, remat: bool = True,
-                 use_kernel: bool | None = None):
+                 logits_pspec=None, use_kernel: bool | None = None):
     """loss_fn(params, batch) -> (ce + aux, {"ce", "aux"});
-    `use_kernel` goes to the flash kernel's wrapper."""
+    `logits_pspec` places sharded logits (`cross_entropy`), `use_kernel`
+    goes to the flash kernel's wrapper."""
     def loss_fn(params, batch: Batch):
         logits, aux = forward_train(params, cfg, batch, remat=remat,
                                     use_kernel=use_kernel)
-        ce = cross_entropy(logits, batch.labels, vocab=cfg.vocab)
+        ce = cross_entropy(logits, batch.labels, pspec=logits_pspec,
+                           vocab=cfg.vocab)
         return ce + aux, {"ce": ce, "aux": aux}
     return loss_fn
 
 
-def make_grad_fn(cfg: ModelConfig, *, remat: bool = True,
-                 use_kernel: bool | None = None):
-    """grad_fn(params, batch) -> (loss, parts, grads): `make_loss_fn`'s
-    loss and parts (detached) and its gradient, a tree like `params` in
-    the parameters' dtypes (zeros for a parameter the loss does not
-    reach). The parameters are read through detached aliases, so their
-    own `requires_grad` is left as it is."""
-    loss_fn = make_loss_fn(cfg, remat=remat, use_kernel=use_kernel)
+# the families DTensor does not carry through their forward (MoE's top-k
+# and slot scatter, the RG-LRU and SSD scans): sharded, they run on a
+# data-only mesh alone, each rank's rows on its local tensors
+LOCAL_FORWARD = ("moe", "hybrid", "ssm")
 
-    def grad_fn(params, batch: Batch):
+
+def make_grad_fn(cfg: ModelConfig, *, remat: bool = True,
+                 logits_pspec=None, use_kernel: bool | None = None):
+    """grad_fn(params, batch) -> (loss, parts, grads): `make_loss_fn`'s
+    loss and parts (detached; on DTensors their global values, plain
+    tensors) and its gradient, a tree like `params` in the parameters'
+    dtypes (zeros for a parameter the loss does not reach; on DTensors,
+    placed as DTensor's backward leaves them). The parameters are read
+    through detached aliases, so their own `requires_grad` is left as it
+    is.
+
+    On DTensors a family of `LOCAL_FORWARD` runs on local tensors: on a
+    data-only mesh (ZeRO-1 keeps the parameters whole on every rank) each
+    rank takes the loss and gradient of its own rows, and they are summed
+    over the data ranks (the gradients partial sums for the train step's
+    reduce-scatter). The cross entropy stays the token mean over the
+    global batch: each rank's masked sum is divided by the count of
+    valid labels summed over the data ranks. The aux loss is the mean of
+    the ranks' own: an MoE routes each rank's rows alone, its capacity
+    and balance loss taken over them, as the reference's step with as
+    many microbatches as data ranks does (a departure from the
+    reference's one-batch step, `ROADMAP.md` queue A item 8). The SSM
+    and hybrid families have no aux loss and mix no rows, so theirs is
+    the reference's step. With a `model` axis above 1 these families
+    raise."""
+    loss_fn = make_loss_fn(cfg, remat=remat, logits_pspec=logits_pspec,
+                           use_kernel=use_kernel)
+
+    def plain(params, batch: Batch, fn=loss_fn):
         aliases = tree_map(lambda p: p.detach().requires_grad_(), params)
         leaves = tree_leaves(aliases)
-        loss, parts = loss_fn(aliases, batch)
+        loss, parts = fn(aliases, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
         return (loss.detach(), {k: v.detach() for k, v in parts.items()},
+                grads)
+
+    def local(params, batch: Batch):
+        leaves = tree_leaves(params)
+        mesh = leaves[0].device_mesh
+        if any(mesh.size(j) > 1 and not pl.is_replicate()
+               for x in leaves for j, pl in enumerate(x.placements)):
+            raise ValueError(
+                f"{cfg.name} ({cfg.arch_type}): the sharded step runs this "
+                "family on a data-only mesh (model axis 1) alone; "
+                "ROADMAP.md, queue A item 8, lists the families refused at "
+                "a model axis above 1")
+        # the ranks the batch's rows are split over
+        pl = batch.tokens.placements
+        n = math.prod(mesh.size(j) for j, p in enumerate(pl) if p.is_shard())
+        partial = [Partial() if p.is_shard() else Replicate() for p in pl]
+
+        def summed(t):
+            return DTensor.from_local(t, mesh, partial, run_check=False)
+
+        labels = batch.labels.to_local()
+        valid = torch.sum(labels >= 0).to(torch.float32)
+        # this rank's share of the global token mean
+        w = valid / torch.clamp_min(full(summed(valid)), 1.0)
+
+        def share(p, b: Batch):
+            _, parts = loss_fn(p, b)
+            ce, aux = parts["ce"] * w, parts["aux"] / n
+            return ce + aux, {"ce": ce, "aux": aux}
+
+        loss, parts, grads = plain(
+            tree_unflatten(params, [p.to_local() for p in leaves]),
+            Batch(*(None if x is None else x.to_local() for x in batch)),
+            share)
+        return summed(loss), {k: summed(v) for k, v in parts.items()}, \
+            [summed(g) for g in grads]
+
+    def grad_fn(params, batch: Batch):
+        if cfg.arch_type in LOCAL_FORWARD and is_sharded(params):
+            loss, parts, grads = local(params, batch)
+        else:
+            loss, parts, grads = plain(params, batch)
+        # 0-d results as plain tensors, the same on every rank
+        return (full(loss), {k: full(v) for k, v in parts.items()},
                 tree_unflatten(params, grads))
     return grad_fn
+
+
+def _microbatch(x: Optional[torch.Tensor], i: int, n: int):
+    """Rows [i B / n, (i + 1) B / n) of the batch leaf `x`, the
+    reference's i-th microbatch; on a DTensor the same global rows,
+    placed as `x` (gathered over the data axes and each rank's block
+    taken)."""
+    if x is None:
+        return None
+    if not isinstance(x, DTensor):
+        return x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+    whole = full(x)
+    rows = whole.reshape(n, whole.shape[0] // n, *whole.shape[1:])[i]
+    return place(rows, x.device_mesh, x.placements)
+
+
+def _f32_zeros(p: torch.Tensor, sharding) -> torch.Tensor:
+    """An f32 accumulator for the gradient of `p`, placed by `sharding`
+    (a `rules.NamedSharding`) where one is given."""
+    if sharding is None:
+        return torch.zeros(p.shape, dtype=torch.float32,
+                           device=local(p).device)
+    return dtensor_zeros(p.shape, dtype=torch.float32,
+                         device_mesh=sharding.mesh,
+                         placements=sharding.placements)
 
 
 def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
                     warmup: int = 100, total_steps: int = 10000,
                     weight_decay: float = 0.1, clip_norm: float = 1.0,
-                    remat: bool = True, microbatches: int = 1):
+                    remat: bool = True, logits_pspec=None,
+                    microbatches: int = 1, grads_pspec=None):
     """`microbatches > 1` accumulates the gradients of that many slices of
     the batch in f32 (peak activation memory drops by the same factor),
-    as the reference's scan does."""
-    grad_fn = make_grad_fn(cfg, remat=remat)
+    as the reference's scan does. `grads_pspec` (the ZeRO opt specs as
+    `rules.named` gives them) places each f32 gradient, and the
+    accumulator, over `data` (a reduce-scatter of the data ranks'
+    partial sums), and `logits_pspec` places the logits, as the
+    reference's sharding constraints do."""
+    grad_fn = make_grad_fn(cfg, remat=remat, logits_pspec=logits_pspec)
+    shard_of = (tree_leaves(grads_pspec) if grads_pspec is not None
+                else None)
+
+    def placed(leaves: list):
+        """Each gradient leaf of `leaves` in f32, placed by `grads_pspec`
+        where one is given, one at a time: each entry of `leaves` is
+        dropped once its f32 copy is made, so the compute-dtype gradients
+        are freed as the f32 ones are made."""
+        for i in range(len(leaves)):
+            g = leaves[i].to(torch.float32)
+            leaves[i] = None
+            yield g if shard_of is None else constrain(g, shard_of[i])
 
     def train_step(state: TrainState, batch: Batch):
         if microbatches > 1:
-            def split(x, i):
-                if x is None:
-                    return None
-                n = x.shape[0] // microbatches
-                return x.reshape(microbatches, n, *x.shape[1:])[i]
-
             loss = torch.zeros((), dtype=torch.float32,
                                device=state.step.device)
-            grads = tree_map(lambda p: torch.zeros(p.shape,
-                                                   dtype=torch.float32,
-                                                   device=p.device),
-                             state.params)
+            grads = [_f32_zeros(p, None if shard_of is None else shard_of[i])
+                     for i, p in enumerate(tree_leaves(state.params))]
             for i in range(microbatches):
                 loss_i, parts, grads_i = grad_fn(
-                    state.params, Batch(*(split(x, i) for x in batch)))
-                # in place: a + g into a's memory, the f32 accumulator
-                for a, g in zip(tree_leaves(grads), tree_leaves(grads_i)):
-                    a.add_(g.to(torch.float32))
+                    state.params,
+                    Batch(*(_microbatch(x, i, microbatches) for x in batch)))
+                flat = tree_leaves(grads_i)
                 del grads_i
+                # in place: a + g into a's memory, the f32 accumulator
+                for a, g in zip(grads, placed(flat)):
+                    a.add_(g)
                 loss = loss + loss_i
             loss = loss / microbatches
-            for g in tree_leaves(grads):
+            for g in grads:
                 g.div_(microbatches)
+            grads = tree_unflatten(state.params, grads)
         else:
             loss, parts, grads = grad_fn(state.params, batch)
+            if shard_of is not None:
+                flat = tree_leaves(grads)
+                del grads
+                grads = tree_unflatten(state.params, list(placed(flat)))
 
         lr = warmup_cosine(state.step, peak_lr=peak_lr, warmup=warmup,
                            total=total_steps)
@@ -148,3 +329,48 @@ def init_train_state(gen: torch.Generator, cfg: ModelConfig) -> TrainState:
     return TrainState(params=params, opt=adamw_init(params),
                       step=torch.zeros((), dtype=torch.int32,
                                        device=gen.device))
+
+
+def init_sharded_train_state(gen: torch.Generator, cfg: ModelConfig,
+                             mesh) -> TrainState:
+    """`shard_train_state(init_train_state(gen, cfg), mesh)`, the same
+    blocks, without the whole f32 state on any rank: every rank draws the
+    full parameters from `gen` (the same seed on every rank) and places
+    each leaf, its f32 master copy and its zero moments one leaf at a
+    time, so a rank holds the whole compute-dtype parameters and its own
+    blocks of the rest (granite-3-2b: 5.3 GB, not the 37 GB of the whole
+    state)."""
+    params = init_params(gen, cfg)
+    pspecs = named_leaves(param_pspecs(params, mesh))
+    ospecs = named_leaves(opt_pspecs(params, mesh))
+    trees: list = [[], [], [], []]
+    for name, p in named_leaves(params).items():
+        pl = placements(ospecs[name], mesh)
+        # adamw_init's master: an f32 copy even of an f32 parameter
+        master = place(p.to(torch.float32, copy=True), mesh, pl)
+        for tree, t in zip(trees, (
+                place(p, mesh, placements(pspecs[name], mesh)), master,
+                torch.zeros_like(master), torch.zeros_like(master))):
+            tree.append(t)
+    params, master, mu, nu = (tree_unflatten(params, t) for t in trees)
+    dev = gen.device
+    return TrainState(
+        params=params,
+        opt=AdamWState(master, mu, nu,
+                       torch.zeros((), dtype=torch.int32, device=dev)),
+        step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def shard_train_state(state: TrainState, mesh) -> TrainState:
+    """`state` (every rank's same full copy) on `mesh`: the parameters as
+    DTensors placed by `param_pspecs`, the master and moments by
+    `opt_pspecs` (ZeRO-1), each rank keeping its own blocks (nothing is
+    sent); the counts stay plain 0-d tensors."""
+    pspecs = param_pspecs(state.params, mesh)
+    ospecs = opt_pspecs(state.params, mesh)
+    opt = state.opt
+    return TrainState(
+        params=distribute_tree(state.params, pspecs, mesh),
+        opt=AdamWState(*(distribute_tree(t, ospecs, mesh)
+                         for t in (opt.master, opt.mu, opt.nu)), opt.count),
+        step=state.step)

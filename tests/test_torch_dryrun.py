@@ -1,0 +1,136 @@
+"""The port's dry run and its counters, on the CPU.
+
+* `launch.hlo.Counters` counts 7 · 2 · 64³ FLOPs for a loop of 7
+  `tanh(c @ w)` on (64, 64): the counterpart of the reference's
+  `test_analyze_hlo_scan_flops_exact` (a scanned loop's dots, counted
+  once an iteration);
+* `roofline` names compute, memory or the collectives as the bottleneck
+  at the port's `HW`;
+* `python -m repro_torch.launch.dryrun --arch granite-3-2b --shape
+  train_4k --mesh 2x2 --reduced` (the smoke size, where every rule
+  divides), in a subprocess: the fake group it starts becomes the
+  process's default group. Its rank-0 argument bytes equal the sum over
+  the leaves of the reference's train state and batch of the local-shard
+  bytes the reference's own specs give them on a (2, 2) mesh, and its
+  rank-0 FLOPs equal a quarter of the unsharded step's, counted by
+  `torch.utils.flop_counter.FlopCounterMode` on fake tensors: the batch
+  is split over `data` and every product's heads, ffn width or
+  vocabulary over `model`.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as JP
+
+from repro.configs import get_config, smoke
+from repro.sharding import rules as jrules
+from repro.training.step import init_train_state as jax_init_train_state
+import repro_torch.configs as tconfigs
+from repro_torch.launch.hlo import Counters, roofline
+from repro_torch.launch.mesh import HW
+from repro_torch.models import Batch
+from repro_torch.substrate import REPO_ROOT
+from repro_torch.training.step import init_train_state, make_train_step
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def test_counters_count_a_loop_of_products_exactly():
+    c = torch.randn(64, 64)
+    w = torch.randn(64, 64)
+    with Counters() as k:
+        x = c
+        for _ in range(7):
+            x = torch.tanh(x @ w)
+    assert k.flops == 7 * 2 * 64 ** 3
+    assert k.collectives() == {"total": 0}
+    # each product reads two (64, 64) f32 operands and writes one, and
+    # each tanh reads one and writes one
+    assert k.bytes == 7 * (3 + 2) * 64 * 64 * 4
+
+
+@pytest.mark.parametrize("flops, nbytes, coll, want", [
+    (1e15, 1e9, 1e6, "compute"), (1e9, 1e13, 1e6, "memory"),
+    (1e9, 1e9, 1e12, "collective")])
+def test_roofline_picks_the_largest_term(flops, nbytes, coll, want):
+    r = roofline(flops, nbytes, coll)
+    assert r["bottleneck"] == want
+    assert r["compute_s"] == flops / HW["peak_flops_bf16"]
+    assert r["memory_s"] == nbytes / HW["hbm_bw"]
+    assert r["collective_s"] == coll / HW["link_bw"]
+
+
+def _reference_local_bytes(cfg, mesh_sizes, batch, seq) -> int:
+    """One rank's bytes of the reference's train state and batch under its
+    own specs: each leaf's bytes over the sizes of the axes its spec
+    names."""
+    class Mesh:
+        shape = mesh_sizes
+        axis_names = tuple(mesh_sizes)
+    state = jax.eval_shape(lambda: jax_init_train_state(
+        jax.random.PRNGKey(0), cfg))
+    specs = jrules.train_state_pspecs(state, Mesh)
+    bspec = jrules.batch_pspecs(Mesh, batch)
+    tok = jax.ShapeDtypeStruct((batch, seq), np.int32)
+    total = 0
+    for leaf, spec in zip(
+            jax.tree.leaves((state, (tok, tok))),
+            jax.tree.leaves((specs, (bspec.tokens, bspec.labels)),
+                            is_leaf=lambda x: isinstance(x, JP))):
+        n = math.prod(leaf.shape) * np.dtype(leaf.dtype).itemsize
+        for ax in spec:
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                if a is not None:
+                    n //= mesh_sizes[a]
+        total += n
+    return total
+
+
+def test_dryrun_counts_a_ranks_bytes_and_flops(tmp_path):
+    out = tmp_path / "dryrun"
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO_ROOT, "src"),
+               OMP_NUM_THREADS="2")
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "granite-3-2b", "--shape", "train_4k", "--mesh", "2x2",
+         "--reduced", "--out", str(out)],
+        capture_output=True, text=True, timeout=120, cwd=REPO_ROOT, env=env)
+    assert run.returncode == 0, run.stderr[-3000:]
+    rec = json.loads(
+        (out / "granite-3-2b__train_4k__2x2__reduced.json").read_text())
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["memory"]["temp_size_in_bytes"] is None
+    B, S = 256, 4096
+    jc = smoke(get_config("granite-3-2b"))
+    assert rec["memory"]["argument_size_in_bytes"] == _reference_local_bytes(
+        jc, {"data": 2, "model": 2}, B, S)
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    tc = tconfigs.smoke(tconfigs.get_config("granite-3-2b"))
+    with FakeTensorMode():
+        state = init_train_state(torch.Generator(), tc)
+        tok = torch.zeros((B, S), dtype=torch.int32)
+        with FlopCounterMode(display=False) as f:
+            make_train_step(tc)(state, Batch(tok, tok))
+    assert rec["microbatches"] == 1
+    assert rec["flops_per_chip"] == f.get_total_flops() / 4
+    assert rec["model_flops"] == 6 * tc.active_param_count() * B * S
+    assert rec["collective_bytes_per_chip"]["total"] > 0
+    assert rec["roofline"]["bottleneck"] in ("compute", "memory",
+                                             "collective")

@@ -899,3 +899,63 @@ def test_sparse_probe_kernels_match_plain(cuda):
     assert abs(lam_k - lam_p) <= 1e-4 * lam_p
     assert torch.equal(got.support, want.support)
     _assert_close([got.beta_tilde], [want.beta_tilde], tol=1e-4)
+
+
+_LOCAL_HEADS = r"""
+import functools, json
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch.kernels.common import LAUNCHES, reset_launches
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.layers import _attention_core, _on_local_heads
+from repro_torch.sharding.place import place
+from repro_torch.substrate import init_from_env
+dev = torch.device("cuda")
+init_from_env(device=dev)
+mesh = make_host_mesh(1, device_type="cuda")
+g = torch.Generator(device=dev).manual_seed(0)
+# the sharded train step's per-rank shape (granite at a model axis of 2)
+q = torch.randn((4, 2048, 16, 64), generator=g, device=dev).bfloat16()
+k, v = (torch.randn((4, 2048, 4, 64), generator=g, device=dev).bfloat16()
+        for _ in range(2))
+pl = [Replicate(), Shard(2)]
+out = {}
+for use_kernel in (None, False):
+    qd, kd, vd = (place(t, mesh, pl).requires_grad_() for t in (q, k, v))
+    core = functools.partial(_attention_core, flash=True, causal=True,
+                             window=0, use_kernel=use_kernel, cross=False)
+    reset_launches()
+    o = _on_local_heads(core, qd, kd, vd)
+    torch.cuda.synchronize()
+    launches = LAUNCHES["flash_attention"]
+    dq = torch.autograd.grad(o.to_local().float().sum(), qd)[0]
+    out[str(use_kernel)] = (o.to_local().float(), dq.to_local().float(),
+                            launches, list(o.to_local().shape),
+                            isinstance(o, DTensor))
+(ok, gk, nk, shape, is_dt), (op, gp, n_plain, _, _) = out["None"], out["False"]
+# the output against the plain version on the f32 upcast, row by row
+from repro_torch.kernels.flash_attention.ops import flash_attention
+ref = flash_attention(q.float(), k.float(), v.float(), use_kernel=False)
+rows = ((ok - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)).max()
+print(json.dumps(dict(launches=nk, plain=n_plain, shape=shape, dtensor=is_dt,
+                      row_err=rows.item(),
+                      grad_err=((gk - gp).abs().max() / gp.abs().max()).item())))
+"""
+
+
+def test_flash_attention_train_on_local_heads_launches_the_kernel(cuda):
+    """`flash_attention_train` under `local_map` (`layers._on_local_heads`)
+    on a one-rank (1, 1) CUDA mesh at the sharded step's per-rank shape:
+    the kernel launches once, its output DTensor holds the local heads,
+    each query row within 1e-2 (relative l2) of the plain version's on
+    the f32 upcast (the file's bf16 bar), and the gradient of q within
+    5e-2 · max|plain| of the plain bf16 path's (the kernel keeps q·k in
+    f32, the plain bf16 forward rounds it)."""
+    from repro_torch.substrate import run_probe
+    run = run_probe(_LOCAL_HEADS, world=1, timeout=120, pg_timeout=60)
+    assert run.ok, run.report()
+    got = json.loads(run.ranks[0].stdout.strip().splitlines()[-1])
+    assert got["launches"] == 1 and got["plain"] == 0
+    assert got["shape"] == [4, 2048, 16, 64] and got["dtensor"]
+    assert got["row_err"] <= 1e-2, got
+    assert got["grad_err"] <= 5e-2, got
