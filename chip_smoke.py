@@ -274,12 +274,41 @@ Phases, each of which raises on failure (exit code != 0):
    Phase 3 and 5 gain #9 at 11a's per-rank shape, with its lse, beside
    SDPA.
 
+12. the MoE, RG-LRU hybrid and SSM families trained sharded on 2 gloo
+   ranks of the one card as a (1, 2) mesh (`train_zoo_sharded_phase`),
+   full width, bf16, remat, 10a's seeds and AdamW settings, the depth
+   cut (ZOO12): 12a deepseek-moe-16b at 3 of 28 layers (the dense head
+   and 2 MoE layers, expert parallel, the global batch's routing), 12b
+   qwen3-moe-30b-a3b at 2 of 48, 12c recurrentgemma-9b at one (rec, rec,
+   local_attn) group of 38 layers with the batch cut to 2 x 2048 (its
+   256k-vocabulary logits), 12d mamba2-1.3b unreduced (head parallel,
+   `w_in` and `conv_w` gathered through the ledger). Each family's
+   unsharded bf16 kernel run (one loss and gradient, remat) is taken
+   first in this process, saved and freed; then, in one pair of ranks,
+   each family's loss and gradient through the kernels (#9 on each
+   rank's local heads: 5, 4 and 2 launches a rank, none for mamba2, and
+   nothing else), the MoE routed as the unsharded run (every route call
+   replayed), against it by 11a's bars (loss 1e-4, norm 1e-3, each saved
+   leaf 0.05 relative l2: the tail's, the stack's first and last layers,
+   `embed`, `head`, `final_norm`); then 2 AdamW steps, the first routing
+   freely: the share of tokens whose top-k set flips at the first MoE
+   layer at most 0.1, the drop fractions, the loss falling, a step's
+   wall, tokens/s, each rank's peak memory, the last step's collectives
+   by kind, bytes and op (no DTensor all-gather: the gathers are the
+   ledger's). 12e: f32 copies on 4 ranks as (2, 2), deepseek-moe-16b
+   at 2 layers with its capacity binding (capacity factor 0.5) and
+   mamba2-1.3b at 1 layer, each held to the unsharded f32 step by 11b's
+   bars (`f32_sharded_check`, 11b's own procedure). Phase 3 and 5 gain
+   #9 at 12a-12c's per-rank shapes, with the lse, beside SDPA.
+
 It prints one JSON line of kernels (launches per run from phases 4-4c,
 6, 7c, 9 and 10, #9 with its lse taking 10a's kernel loss-and-gradient
-run's and its per-rank row 11a's rank 0's; phase 8's, over its ranks
-and its own fits, as `launches_phase8`, and phase 11's, over its 11a
-ranks, as `launches_phase11`) and, last, the result line. With no CUDA
-device it raises before printing any result.
+run's, its 11a per-rank row 11a's rank 0's and its phase 12 per-rank
+rows 12a-12c's rank 0's; phase 8's, over its ranks and its own fits, as
+`launches_phase8`, phase 11's, over its 11a ranks, as
+`launches_phase11`, and phase 12's, over its ranks, as
+`launches_phase12`) and, last, the result line. With no CUDA device it
+raises before printing any result.
 """
 from __future__ import annotations
 
@@ -387,6 +416,38 @@ SHARDED_MESH_11B = (2, 2)
 ADAM_SLOPE_11B = 1.25
 ADAM_EPS = 1e-8                         # adamw_update's default
 MAX_SLOPED_11B = 1e-3
+# phase 12: the MoE, RG-LRU hybrid and SSM families trained sharded on 2
+# gloo ranks of the one card as a (1, TP_MODEL) mesh, full width, bf16,
+# remat, 10a's seeds and AdamW settings: (run, arch, changes, batch), the
+# depth cut so that both ranks' state (about 20 B a parameter) and the
+# batch's activations fit the card; recurrentgemma-9b's 256k-vocabulary
+# logits also cut its batch to 2 x 2048. Each is held to its unsharded
+# bf16 kernel run, taken first here, by 11a's bars; an MoE's share of
+# tokens whose top-k set flips at the first MoE layer by
+# TOL_ROUTE_FLIPS. Then ZOO12_STEPS AdamW steps. A leaf whose gradient
+# sums terms that cancel is far from its f32 value in any bf16 run
+# (mamba2-1.3b's layers/0/ssd/A_log: 0.145 between the sharded and the
+# unsharded run on an H100 80GB HBM3 at 700 W, where every other leaf of
+# the four runs was under 0.03): each leaf is held to TOL_TRAIN_GRAD or
+# to ZOO12_NOISE times the unsharded bf16 run's own relative l2 distance
+# from an f32 control (the same weights upcast, the plain path, the MoE
+# routed as the bf16 run), whichever is larger. Two runs whose rounding
+# errors are alike and independent part by about sqrt(2) times it
+ZOO12_NOISE = 2.0
+ZOO12 = (("12a", "deepseek-moe-16b", {"n_layers": 3}, TRAIN_BATCH),
+         ("12b", "qwen3-moe-30b-a3b", {"n_layers": 2}, TRAIN_BATCH),
+         ("12c", "recurrentgemma-9b", {"n_layers": 3}, 2),
+         ("12d", "mamba2-1.3b", {}, TRAIN_BATCH))
+ZOO12_STEPS = 2
+# 12e: f32 copies on SHARDED_MESH_11B's ranks, the fewest layers that
+# hold one of each kind (deepseek-moe-16b: its dense head and one MoE
+# layer, with C = ceil(T K 0.5 / E) slots an expert, so that the capacity
+# binds), each held to the unsharded f32 step by 11b's bars: one step,
+# the unsharded one taken by rank 0 in memory (11b's files at these
+# widths passed the 45 GiB a run may write to the machine's disk)
+ZOO12E = (("12e-moe", "deepseek-moe-16b",
+           {"n_layers": 2, "moe": {"capacity_factor": 0.5}}),
+          ("12e-ssm", "mamba2-1.3b", {"n_layers": 1}))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -406,6 +467,14 @@ def row_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     num = torch.linalg.vector_norm(got - ref, dim=-1)
     den = torch.linalg.vector_norm(ref, dim=-1)
     return torch.max(num / torch.clamp_min(den, 1e-30)).item()
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b||, in f32."""
+    a, b = a.float(), b.float()
+    return (torch.linalg.vector_norm((a - b).ravel())
+            / torch.clamp_min(torch.linalg.vector_norm(b.ravel()),
+                              1e-30)).item()
 
 
 def bound(flops: float, nbytes: float,
@@ -1485,6 +1554,27 @@ def encoder_launches(counts: list):
         backbone._encoder_forward = inner
 
 
+@contextmanager
+def moe_drops(seen: list):
+    """Within the block, each `moe_apply` call of the model appends its
+    drop fraction to `seen` (a float; on DTensors this rank's replica,
+    read without a collective)."""
+    from repro_torch.models import backbone
+    from repro_torch.sharding.place import local
+    inner = backbone.moe_apply
+
+    def recording(p, x, c):
+        out, aux = inner(p, x, c)
+        seen.append(float(local(aux["moe_drop_frac"])))
+        return out, aux
+
+    backbone.moe_apply = recording
+    try:
+        yield seen
+    finally:
+        backbone.moe_apply = inner
+
+
 def route_flips(a: list, b: list) -> list[int]:
     """Per MoE layer, the tokens whose top-k expert sets differ."""
     return [int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
@@ -2086,14 +2176,13 @@ def sharded_leaf(name: str, cfg) -> bool:
 
 
 TRAIN11_PROGRAM = r"""
-import json, logging, math, time
+import json, logging, math, sys, time
 import numpy as np
 import torch
 import torch.distributed as dist
 logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
     logging.ERROR)
 from repro_torch.checkpoint.io import restore_pytree
-from repro_torch.configs import get_config
 from repro_torch.data.synth_tokens import synthetic_lm_batches
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import LAUNCHES, reset_launches
@@ -2108,7 +2197,8 @@ from repro_torch.sharding.rules import (
 )
 from repro_torch.substrate import init_from_env
 from repro_torch.training.step import (
-    init_sharded_train_state, make_grad_fn, make_train_step,
+    init_sharded_train_state, init_train_state, make_grad_fn,
+    make_train_step,
 )
 from repro_torch.tree import named_leaves
 
@@ -2119,30 +2209,60 @@ _build.build()
 out = dict(rank=rank, world=world, compiled=sorted(_build.BUILD_SECONDS),
            device=torch.cuda.current_device())
 mesh = make_host_mesh(spec["model"], device_type="cuda")
-cfg = get_config(spec["arch"]).replace(**spec["changes"])
-batch = next(synthetic_lm_batches(
-    torch.Generator(device=dev).manual_seed(spec["batch_seed"]),
-    vocab=cfg.vocab, batch=spec["batch"], seq=spec["seq"]))
-sb = distribute_tree(batch, batch_pspecs(mesh, spec["batch"]), mesh)
-lp = NamedSharding(mesh, logits_pspec(mesh, cfg.padded_vocab, spec["seq"]))
+sys.path.insert(0, spec["root"])
+from chip_smoke import config_of, moe_drops, moe_routes, rel_l2, route_flips
+
+
+# the seed's batch of n rows, placed on the mesh; the logits' spec
+def placed_batch(cfg, n):
+    batch = next(synthetic_lm_batches(
+        torch.Generator(device=dev).manual_seed(spec["batch_seed"]),
+        vocab=cfg.vocab, batch=n, seq=spec["seq"]))
+    return (distribute_tree(batch, batch_pspecs(mesh, n), mesh),
+            NamedSharding(mesh, logits_pspec(mesh, cfg.padded_vocab,
+                                             spec["seq"])))
+
+
+cfg = config_of(spec["arch"], spec["changes"])
+sb, lp = placed_batch(cfg, spec["batch"])
 
 
 def gen():
     return torch.Generator(device=dev).manual_seed(spec["param_seed"])
 
 
-def rel_l2(a, b):
-    a, b = a.float(), b.float()
-    return (torch.linalg.vector_norm((a - b).ravel())
-            / torch.clamp_min(torch.linalg.vector_norm(b.ravel()),
-                              1e-30)).item()
-
-
-def make_step(state):
+def make_step(state, cfg=cfg, lp=lp):
     return make_train_step(
         cfg, peak_lr=spec["lr"], warmup=1, total_steps=100,
         logits_pspec=lp,
         grads_pspec=named(mesh, opt_pspecs(state.params, mesh)))
+
+
+# n steps of `step` from `state` on `sb`, the first within the context
+# `first`: the losses, norms, walls (ms), the last step's collectives by
+# kind and by op, and the peak memory
+def timed_steps(step, state, sb, n, first=None):
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, walls = [], [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == n - 1:
+            with Counters() as c:
+                state, m = step(state, sb)
+        elif i == 0 and first is not None:
+            with first:
+                state, m = step(state, sb)
+        else:
+            state, m = step(state, sb)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return state, dict(
+        losses=losses, norms=norms, walls_ms=walls, calls=c.calls(),
+        bytes=c.collectives(), ops=c.ops(),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
 if spec["phase"] == "11a":
@@ -2174,24 +2294,8 @@ if spec["phase"] == "11a":
     torch.cuda.empty_cache()
 
     state = init_sharded_train_state(gen(), cfg, mesh)
-    step = make_step(state)
-    torch.cuda.reset_peak_memory_stats()
-    losses, norms, walls = [], [], []
-    for i in range(spec["steps"]):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if i == spec["steps"] - 1:
-            with Counters() as c:
-                state, m = step(state, sb)
-        else:
-            state, m = step(state, sb)
-        losses.append(m["loss"].item())
-        norms.append(m["grad_norm"].item())
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    out.update(losses=losses, norms=norms, walls_ms=walls,
-               calls=c.calls(), bytes=c.collectives(),
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    state, got = timed_steps(make_step(state), state, sb, spec["steps"])
+    out.update(got)
     del state
     torch.cuda.empty_cache()
     # one activation all-reduce alone: the (batch, seq, d) bf16 residual
@@ -2211,15 +2315,47 @@ if spec["phase"] == "11a":
     out["allreduce_ms"] = e0.elapsed_time(e1) / 5
     out["allreduce_bytes"] = x.numel() * x.element_size()
 
-if spec["phase"] == "11b":
+# 12e: rank 0 takes the unsharded f32 step itself, from the seed's state,
+# before its sharded state exists (the others wait in their first
+# collective): its gradient and new master by name, as 11b's files hold
+# them, on the host; its metrics into `out`
+def unsharded_step():
+    ustate = init_train_state(gen(), cfg)
+    batch = next(synthetic_lm_batches(
+        torch.Generator(device=dev).manual_seed(spec["batch_seed"]),
+        vocab=cfg.vocab, batch=spec["batch"], seq=spec["seq"]))
+    drops = []
+    with moe_drops(drops):
+        _, _, g = make_grad_fn(cfg, remat=True)(ustate.params, batch)
+    ref = {f"grad/{n}": x.cpu() for n, x in named_leaves(g).items()}
+    del g
+    reset_launches()
+    ustate, m = make_train_step(cfg, peak_lr=spec["lr"], warmup=1,
+                                total_steps=100)(ustate, batch)
+    torch.cuda.synchronize()
+    out["ref"] = dict(loss=m["loss"].item(), grad_norm=m["grad_norm"].item(),
+                      lr=float(m["lr"]), launches=dict(LAUNCHES), drops=drops)
+    ref.update({f"master/{n}": x.cpu()
+                for n, x in named_leaves(ustate.opt.master).items()})
+    del ustate, batch, m
+    torch.cuda.empty_cache()
+    return ref
+
+
+if spec["phase"] in ("11b", "12e"):
+    held = unsharded_step() if spec["phase"] == "12e" and rank == 0 \
+        else None
     state = init_sharded_train_state(gen(), cfg, mesh)
     step = make_step(state)
     grad_fn = make_grad_fn(cfg, remat=True, logits_pspec=lp)
     out["steps"] = []
-    for k, (start, want) in enumerate(spec["states"]):
+    plan = ([(start, lambda want=want: np.load(want))
+             for start, want in spec["states"]] if spec["phase"] == "11b"
+            else [(None, lambda: held)])
+    for k, (start, reference) in enumerate(plan):
         if start is not None:
             state = restore_pytree(start, state)
-        ref = np.load(want) if rank == 0 else None
+        ref = reference() if rank == 0 else None
         # the gradient this step takes, each leaf gathered; rank 0 keeps
         # it for the update's bar
         _, _, grads = grad_fn(state.params, sb)
@@ -2227,7 +2363,7 @@ if spec["phase"] == "11b":
         for name, g in named_leaves(grads).items():
             g = full(g)
             if rank == 0:
-                w = torch.from_numpy(ref[f"grad/{name}"]).to(dev)
+                w = torch.as_tensor(ref[f"grad/{name}"], device=dev)
                 gsh[name] = g.float()
                 gworst[name] = [torch.max(torch.abs(gsh[name] - w)).item(),
                                 torch.max(torch.abs(w)).item()]
@@ -2247,8 +2383,8 @@ if spec["phase"] == "11b":
             # f32: each parameter is its master weight, cast to f32
             got["params_are_master"] = got.get("params_are_master", True) \
                 and bool(torch.equal(p, x))
-            w = torch.from_numpy(ref[f"master/{name}"]).to(dev)
-            gref = torch.from_numpy(ref[f"grad/{name}"]).to(dev)
+            w = torch.as_tensor(ref[f"master/{name}"], device=dev)
+            gref = torch.as_tensor(ref[f"grad/{name}"], device=dev)
             g = gsh.pop(name)
             plain = spec["tol"] * max(1.0, torch.abs(w).max().item())
             slope = spec["slope"] * lr / spec["eps"] * torch.abs(g - gref)
@@ -2263,9 +2399,266 @@ if spec["phase"] == "11b":
             got["n"] += err.numel()
         out["steps"].append(got)
 
+if spec["phase"] == "12":
+    import contextlib
+    out["runs"] = []
+    for run in spec["runs"]:
+        cfg = config_of(run["arch"], run["changes"])
+        sb, lp = placed_batch(cfg, run["batch"])
+        params = init_params(gen(), cfg)
+        sp = distribute_tree(params, param_pspecs(params, mesh), mesh)
+        del params
+        grad_fn = make_grad_fn(cfg, remat=True, logits_pspec=lp)
+        # the unsharded run's routing, every call of it, replayed: the
+        # comparison's discontinuity (a bf16 rounding that moves a token
+        # across a top-k or capacity boundary) taken out
+        routes = [t.to(dev) for t in torch.load(run["routes"])]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with moe_routes(routes, replay=True):
+            loss, _, grads = grad_fn(sp, sb)
+        torch.cuda.synchronize()
+        got = dict(label=run["label"], launches=dict(LAUNCHES),
+                   grad_wall_ms=(time.perf_counter() - t0) * 1e3,
+                   loss=loss.item(), gnorm=global_norm(grads).item())
+        ref = torch.load(run["ref"]) if rank == 0 else None
+        # each saved leaf against its bar: the larger of tol and noise
+        # times the unsharded run's own distance from the f32 control
+        worst = (0.0, 0.0, 1.0, "?")
+        for name, g in named_leaves(grads).items():
+            if name in run["leaves"]:
+                g = full(g)
+                if rank == 0:
+                    r = rel_l2(g, ref["grads"][name].to(dev))
+                    bar = max(spec["tol"], spec["noise"] * ref["noise"][name])
+                    if r / bar >= worst[0] / worst[2]:
+                        worst = (r, ref["noise"][name], bar, name)
+        got.update(worst=worst[0], worst_noise=worst[1], worst_bar=worst[2],
+                   worst_leaf=worst[3])
+        if rank == 0:
+            got.update(ref_loss=ref["loss"], ref_gnorm=ref["gnorm"],
+                       ref_drops=ref["drops"])
+        del grads, sp, ref
+        torch.cuda.empty_cache()
+        # the first step routes freely: its first MoE layer's choices
+        # against the unsharded run's, and its drop fractions
+        free, drops = [], []
+        state = init_sharded_train_state(gen(), cfg, mesh)
+        first = contextlib.ExitStack()
+        first.enter_context(moe_routes(free))
+        first.enter_context(moe_drops(drops))
+        state, steps = timed_steps(make_step(state, cfg, lp), state, sb,
+                                   spec["steps"], first)
+        got.update(steps, drops=drops)
+        if free:
+            got["flips"] = route_flips(free[:1], routes[:1])[0]
+            got["tokens"] = free[0].shape[0]
+        del free, routes
+        del state
+        torch.cuda.empty_cache()
+        out["runs"].append(got)
+
 dist.destroy_process_group()
 print("RANK11 " + json.dumps(out))
 """
+
+
+def train_base() -> dict:
+    """The rank program's spec entries every training phase shares:
+    phase 10a's weights, batch seed and shape, and learning rate."""
+    from repro_torch.serving import cell
+    return dict(arch=cell.ARCH, param_seed=cell.PARAM_SEED,
+                batch_seed=TRAIN_BATCH_SEED, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, lr=TRAIN_LR, changes={}, root=str(ROOT))
+
+
+def train_ranks(label, world, spec, tmp, card) -> list:
+    """`TRAIN11_PROGRAM` with `spec` on `world` gloo ranks of the one
+    card (`run_probe`); each rank's result line, checked to have loaded
+    phase 2's kernels and to sit on card 0."""
+    from repro_torch.substrate import run_probe
+    path = f"{tmp}/spec_{label}.json"
+    Path(path).write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    run = run_probe(TRAIN11_PROGRAM.replace("@SPEC@", path), world=world,
+                    timeout=900, pg_timeout=600)
+    wall = time.perf_counter() - t0
+    check(run.ok, f"phase {label} ranks failed:\n{run.report()}")
+    lines = []
+    for i, r in enumerate(run.ranks):
+        found = [ln for ln in r.stdout.splitlines()
+                 if ln.startswith("RANK11 ")]
+        check(len(found) == 1, f"{label} rank {i}: no result line:\n"
+              f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        line = json.loads(found[0][len("RANK11 "):])
+        check(line["compiled"] == [],
+              f"{label} rank {i} recompiled kernels: {line['compiled']}")
+        check(line["device"] == 0, f"{label} rank {i} on card "
+              f"{line['device']}")
+        lines.append(line)
+    print(f"phase {label}: {world} gloo ranks on the one card, the "
+          f"whole run {wall:.1f} s {card}")
+    return lines
+
+
+def config_of(arch: str, changes: dict):
+    """`arch`'s configuration with `changes` (a `moe` entry: a dict of the
+    nested MoE fields), as the rank program builds it."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    changes = dict(changes)
+    if "moe" in changes:
+        changes["moe"] = dataclasses.replace(cfg.moe, **changes["moe"])
+    return cfg.replace(**changes)
+
+
+def flash_launches(cfg) -> int:
+    """#9's launches in one remat loss-and-gradient of `cfg`: two for each
+    attention layer of the scanned stack (the forward and the recompute),
+    one for each of the tail's (the MoE head), which runs outside remat."""
+    from repro_torch.models.backbone import stack_plan
+    pat, n_groups, tail = stack_plan(cfg)
+    attn = ("attn", "local_attn", "moe")
+    return 2 * sum(k in attn for k in pat * n_groups) + \
+        sum(k in attn for k in tail)
+
+
+def f32_sharded_check(label, arch, changes, dev, card, tmp,
+                      in_rank: bool = False) -> None:
+    """An f32 copy of `arch` with `changes` trained on SHARDED_MESH_11B's
+    ranks (ZeRO over `data`) against the unsharded step, by 11b's bars:
+    every gradient leaf within TOL_FIT · max|g|, the loss and the norm
+    within TOL_KERNEL relative, each master element within TOL_KERNEL ·
+    max(1, max|w|) plus ADAM_SLOPE_11B lr / eps times the two gradients'
+    difference there (at most MAX_SLOPED_11B of them past the first term
+    alone), each parameter its master's bits; #9 as many times on each
+    rank as on one card. 11b: each of two steps from the unsharded
+    step's state before it, computed here on the card, written to files
+    and freed before the ranks start. With `in_rank` (12e): one step from
+    the seed's state, whose unsharded twin rank 0 takes itself and holds
+    in memory (nothing written to the disk: a full-width f32 state and
+    its gradients are tens of GB)."""
+    from repro_torch.checkpoint.io import save_pytree
+    from repro_torch.data.synth_tokens import synthetic_lm_batches
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.models.backbone import _stack_kinds
+    from repro_torch.serving import cell
+    from repro_torch.training.step import (
+        init_train_state, make_grad_fn, make_train_step,
+    )
+    from repro_torch.tree import named_leaves
+
+    changes = {**changes, "param_dtype": "float32",
+               "compute_dtype": "float32"}
+    cfg32 = config_of(arch, changes)
+    want_flash = flash_launches(cfg32)
+    n_moe = sum(k == "moe" for k in _stack_kinds(cfg32))
+    world = SHARDED_MESH_11B[0] * SHARDED_MESH_11B[1]
+    spec = dict(train_base(), arch=arch, model=SHARDED_MESH_11B[1],
+                changes=changes, tol=TOL_KERNEL, slope=ADAM_SLOPE_11B,
+                eps=ADAM_EPS)
+    states, want, drops = [], [], []
+    if in_rank:
+        b = train_ranks(label, world, dict(spec, phase="12e"), tmp, card)
+        ref = b[0]["ref"]
+        check(ref["launches"].get("flash_attention", 0) == want_flash,
+              f"{label} unsharded step launches {ref['launches']}")
+        want.append((ref["loss"], ref["grad_norm"], ref["lr"]))
+        drops = ref["drops"]
+    else:
+        state = init_train_state(
+            torch.Generator(device=dev).manual_seed(cell.PARAM_SEED), cfg32)
+        batch = next(synthetic_lm_batches(
+            torch.Generator(device=dev).manual_seed(TRAIN_BATCH_SEED),
+            vocab=cfg32.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ))
+        step = make_train_step(cfg32, peak_lr=TRAIN_LR, warmup=1,
+                               total_steps=100)
+        grad_fn = make_grad_fn(cfg32, remat=True)
+        for k in range(2):
+            if k:
+                save_pytree(f"{tmp}/s{label}_{k}", state)
+            with moe_drops(drops if not k else []):
+                _, _, grads = grad_fn(state.params, batch)
+            flat_g = {f"grad/{n}": g.cpu().numpy()
+                      for n, g in named_leaves(grads).items()}
+            del grads
+            reset_launches()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            check(LAUNCHES["flash_attention"] == want_flash,
+                  f"{label} unsharded step launches {dict(LAUNCHES)}")
+            flat = {**flat_g,
+                    **{f"master/{n}": x.cpu().numpy()
+                       for n, x in named_leaves(state.opt.master).items()}}
+            np.savez(f"{tmp}/want{label}_{k}.npz", **flat)
+            del flat, flat_g
+            states.append([f"{tmp}/s{label}_{k}.npz" if k else None,
+                           f"{tmp}/want{label}_{k}.npz"])
+            want.append((m["loss"].item(), m["grad_norm"].item(),
+                         float(m["lr"])))
+        del state, batch
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        b = train_ranks(label, world, dict(spec, phase="11b", states=states),
+                        tmp, card)
+    if n_moe:
+        # the capacity binds where C holds fewer than the T·K choices;
+        # the forward's layers first, then remat's recompute
+        drops = drops[:n_moe]
+        print(f"phase {label} unsharded step 1's MoE drop fractions "
+              f"{[round(x, 4) for x in drops]} (capacity_factor "
+              f"{cfg32.moe.capacity_factor}) {card}")
+        check(cfg32.moe.capacity_factor >= 1 or min(drops) > 0,
+              f"{label}: the capacity does not bind: drops {drops}")
+    for k, ((loss, gnorm, lr), got) in enumerate(zip(want,
+                                                     b[0]["steps"])):
+        check(got["params_are_master"], f"{label} step {k}: a parameter is not "
+              "its f32 master weight")
+        for i, ln in enumerate(b):
+            fl = ln["steps"][k]["launches"].get("flash_attention", 0)
+            check(fl == want_flash, f"{label} rank {i} step {k} "
+                  f"flash launches {fl}")
+        check(abs(got["loss"] - loss) <= TOL_KERNEL * abs(loss),
+              f"{label} step {k} loss {got['loss']} vs unsharded {loss}")
+        check(abs(got["grad_norm"] - gnorm) <= TOL_KERNEL * gnorm,
+              f"{label} step {k} grad_norm {got['grad_norm']} vs {gnorm}")
+        gmax, gleaf = 0.0, "?"
+        for name, (err, scale) in got["grads"].items():
+            # 10b's bar for f32 gradients summed in two orders on the card
+            check(err <= TOL_FIT * scale, f"{label} step {k} gradient {name}:"
+                  f" err {err} > {TOL_FIT} * {scale}")
+            if err / max(scale, 1e-30) >= gmax:
+                gmax, gleaf = err / max(scale, 1e-30), name
+        # the update (see ADAM_SLOPE_11B): the element that takes the
+        # largest share of its bar, its gradients printed
+        share, at = 0.0, None
+        for name, (err, plain, slope, gref, gsh) in got["worst"].items():
+            check(err <= plain + slope, f"{label} step {k} master {name}: err "
+                  f"{err} > {plain} + {slope} (the gradient there "
+                  f"{gsh} sharded, {gref} unsharded)")
+            if err / (plain + slope) >= share:
+                share, at = err / (plain + slope), (name, err, plain, slope,
+                                                    gref, gsh)
+        check(got["sloped"] <= MAX_SLOPED_11B * got["n"],
+              f"{label} step {k}: {got['sloped']} of {got['n']} master elements "
+              f"past {TOL_KERNEL} absolute")
+        name, err, plain, slope, gref, gsh = at
+        print(f"phase {label} {cfg32.name} f32 at {cfg32.n_layers} layers "
+              f"({changes}), mesh "
+              f"{SHARDED_MESH_11B}, step {k + 1}: loss {got['loss']:.7f} "
+              f"against unsharded {loss:.7f}, grad_norm "
+              f"{got['grad_norm']:.7g} against {gnorm:.7g}; worst gradient "
+              f"leaf {gmax:.3g} of its max|g| at {gleaf} (bar {TOL_FIT}); "
+              f"master (each parameter its master's bits): "
+              f"{got['sloped']} of {got['n']} elements past {plain:g} "
+              f"(at most {MAX_SLOPED_11B:g} of them), the largest share of "
+              f"its bar {share:.3g} at {name}: off by {err:.4g}, bar "
+              f"{plain:g} + {slope:.4g} ({ADAM_SLOPE_11B} lr / eps times the "
+              f"gradients' difference there: {gsh:.6g} sharded, {gref:.6g} "
+              f"unsharded, lr {lr:g}); flash (f32, with lse) "
+              f"{want_flash} launches a rank {card}")
 
 
 def train_sharded_phase(dev, card, tmp) -> dict:
@@ -2280,54 +2673,20 @@ def train_sharded_phase(dev, card, tmp) -> dict:
     `data`), each of two steps from the unsharded step's state before it
     against that step. Returns the flash launches of 11a's rank 0 and of
     the phase."""
-    from repro_torch.checkpoint.io import save_pytree
     from repro_torch.configs import get_config
-    from repro_torch.data.synth_tokens import synthetic_lm_batches
-    from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.serving import cell
-    from repro_torch.substrate import run_probe
-    from repro_torch.training.step import (
-        init_train_state, make_grad_fn, make_train_step,
-    )
     from repro_torch.tree import named_leaves
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     cfg = get_config(cell.ARCH)
-    base = dict(arch=cell.ARCH, param_seed=cell.PARAM_SEED,
-                batch_seed=TRAIN_BATCH_SEED, batch=TRAIN_BATCH,
-                seq=TRAIN_SEQ, lr=TRAIN_LR)
-
-    def ranks(label, world, spec):
-        path = f"{tmp}/spec_{label}.json"
-        Path(path).write_text(json.dumps(spec))
-        t0 = time.perf_counter()
-        run = run_probe(TRAIN11_PROGRAM.replace("@SPEC@", path), world=world,
-                        timeout=900, pg_timeout=600)
-        wall = time.perf_counter() - t0
-        check(run.ok, f"phase {label} ranks failed:\n{run.report()}")
-        lines = []
-        for i, r in enumerate(run.ranks):
-            found = [ln for ln in r.stdout.splitlines()
-                     if ln.startswith("RANK11 ")]
-            check(len(found) == 1, f"{label} rank {i}: no result line:\n"
-                  f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-            line = json.loads(found[0][len("RANK11 "):])
-            check(line["compiled"] == [],
-                  f"{label} rank {i} recompiled kernels: {line['compiled']}")
-            check(line["device"] == 0, f"{label} rank {i} on card "
-                  f"{line['device']}")
-            lines.append(line)
-        print(f"phase {label}: {world} gloo ranks on the one card, the "
-              f"whole run {wall:.1f} s {card}")
-        return lines
 
     # ---- 11a. granite-3-2b unreduced, bf16, (1, TP_MODEL) --------------
     leaves = [n for n in named_leaves(init_params_shapes(cfg))
               if sharded_leaf(n, cfg)]
-    a = ranks("11a", TP_MODEL, dict(
-        base, phase="11a", model=TP_MODEL, changes={}, steps=TP_STEPS,
-        leaves=leaves, ref10a=f"{tmp}/ref10a.pt"))
+    a = train_ranks("11a", TP_MODEL, dict(
+        train_base(), phase="11a", model=TP_MODEL, steps=TP_STEPS,
+        leaves=leaves, ref10a=f"{tmp}/ref10a.pt"), tmp, card)
     r0 = a[0]
     per_rank = [ln["launches"] for ln in a]
     for i, got in enumerate(per_rank):
@@ -2374,96 +2733,225 @@ def train_sharded_phase(dev, card, tmp) -> dict:
           f"{card}")
 
     # ---- 11b. f32 at TRAIN_F32_LAYERS layers, (2, 2), against the parent --
-    cfg32 = cfg.replace(n_layers=TRAIN_F32_LAYERS, param_dtype="float32",
-                        compute_dtype="float32")
-    state = init_train_state(
-        torch.Generator(device=dev).manual_seed(cell.PARAM_SEED), cfg32)
-    batch = next(synthetic_lm_batches(
-        torch.Generator(device=dev).manual_seed(TRAIN_BATCH_SEED),
-        vocab=cfg32.vocab, batch=TRAIN_BATCH, seq=TRAIN_SEQ))
-    step = make_train_step(cfg32, peak_lr=TRAIN_LR, warmup=1,
-                           total_steps=100)
-    grad_fn = make_grad_fn(cfg32, remat=True)
-    states, want = [], []
-    for k in range(2):
-        if k:
-            save_pytree(f"{tmp}/s11b_{k}", state)
-        _, _, grads = grad_fn(state.params, batch)
-        flat_g = {f"grad/{n}": g.cpu().numpy()
-                  for n, g in named_leaves(grads).items()}
-        del grads
-        reset_launches()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        check(LAUNCHES["flash_attention"] == 2 * TRAIN_F32_LAYERS,
-              f"11b unsharded step launches {dict(LAUNCHES)}")
-        flat = {**flat_g,
-                **{f"master/{n}": x.cpu().numpy()
-                   for n, x in named_leaves(state.opt.master).items()}}
-        np.savez(f"{tmp}/want11b_{k}.npz", **flat)
-        del flat, flat_g
-        states.append([f"{tmp}/s11b_{k}.npz" if k else None,
-                       f"{tmp}/want11b_{k}.npz"])
-        want.append((m["loss"].item(), m["grad_norm"].item(),
-                     float(m["lr"])))
-    del state, batch
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    world = SHARDED_MESH_11B[0] * SHARDED_MESH_11B[1]
-    b = ranks("11b", world, dict(
-        base, phase="11b", model=SHARDED_MESH_11B[1],
-        changes=dict(n_layers=TRAIN_F32_LAYERS, param_dtype="float32",
-                     compute_dtype="float32"), states=states,
-        tol=TOL_KERNEL, slope=ADAM_SLOPE_11B, eps=ADAM_EPS))
-    for k, ((loss, gnorm, lr), got) in enumerate(zip(want,
-                                                     b[0]["steps"])):
-        check(got["params_are_master"], f"11b step {k}: a parameter is not "
-              "its f32 master weight")
-        for i, ln in enumerate(b):
-            fl = ln["steps"][k]["launches"]["flash_attention"]
-            check(fl == 2 * TRAIN_F32_LAYERS, f"11b rank {i} step {k} "
-                  f"flash launches {fl}")
-        check(abs(got["loss"] - loss) <= TOL_KERNEL * abs(loss),
-              f"11b step {k} loss {got['loss']} vs unsharded {loss}")
-        check(abs(got["grad_norm"] - gnorm) <= TOL_KERNEL * gnorm,
-              f"11b step {k} grad_norm {got['grad_norm']} vs {gnorm}")
-        gmax, gleaf = 0.0, "?"
-        for name, (err, scale) in got["grads"].items():
-            # 10b's bar for f32 gradients summed in two orders on the card
-            check(err <= TOL_FIT * scale, f"11b step {k} gradient {name}:"
-                  f" err {err} > {TOL_FIT} * {scale}")
-            if err / max(scale, 1e-30) >= gmax:
-                gmax, gleaf = err / max(scale, 1e-30), name
-        # the update (see ADAM_SLOPE_11B): the element that takes the
-        # largest share of its bar, its gradients printed
-        share, at = 0.0, None
-        for name, (err, plain, slope, gref, gsh) in got["worst"].items():
-            check(err <= plain + slope, f"11b step {k} master {name}: err "
-                  f"{err} > {plain} + {slope} (the gradient there "
-                  f"{gsh} sharded, {gref} unsharded)")
-            if err / (plain + slope) >= share:
-                share, at = err / (plain + slope), (name, err, plain, slope,
-                                                    gref, gsh)
-        check(got["sloped"] <= MAX_SLOPED_11B * got["n"],
-              f"11b step {k}: {got['sloped']} of {got['n']} master elements "
-              f"past {TOL_KERNEL} absolute")
-        name, err, plain, slope, gref, gsh = at
-        print(f"phase 11b {cfg.name} f32 at {TRAIN_F32_LAYERS} layers, mesh "
-              f"{SHARDED_MESH_11B}, step {k + 1}: loss {got['loss']:.7f} "
-              f"against unsharded {loss:.7f}, grad_norm "
-              f"{got['grad_norm']:.7g} against {gnorm:.7g}; worst gradient "
-              f"leaf {gmax:.3g} of its max|g| at {gleaf} (bar {TOL_FIT}); "
-              f"master (each parameter its master's bits): "
-              f"{got['sloped']} of {got['n']} elements past {plain:g} "
-              f"(at most {MAX_SLOPED_11B:g} of them), the largest share of "
-              f"its bar {share:.3g} at {name}: off by {err:.4g}, bar "
-              f"{plain:g} + {slope:.4g} ({ADAM_SLOPE_11B} lr / eps times the "
-              f"gradients' difference there: {gsh:.6g} sharded, {gref:.6g} "
-              f"unsharded, lr {lr:g}); flash (f32, with lse) "
-              f"{2 * TRAIN_F32_LAYERS} launches a rank {card}")
+    f32_sharded_check("11b", cell.ARCH, {"n_layers": TRAIN_F32_LAYERS},
+                      dev, card, tmp)
     return {"launches_11a": r0["launches"]["flash_attention"],
             "launches": {"flash_attention_lse_tp2": sum(
                 ln["launches"]["flash_attention"] for ln in a)}}
+
+
+# phase 12's bf16 runs whose #9 per-rank instance is a row of its own
+ZOO12_ROWS = {"12a": "flash_attention_lse_moe_tp2",
+              "12b": "flash_attention_lse_qwen3_tp2",
+              "12c": "flash_attention_lse_h256_tp2"}
+
+
+def zoo12_flash_shapes() -> dict:
+    """{row: (shape, window)}: #9's per-rank instance in phase 12's runs,
+    (batch, S, N / TP_MODEL, the kv heads a rank reads, H): K / TP_MODEL
+    where it divides, else the kv heads of the rank's q heads (a
+    replicated `wk`/`wv`, each rank slicing its own)."""
+    out = {}
+    for label, arch, changes, batch in ZOO12:
+        if label not in ZOO12_ROWS:
+            continue
+        cfg = config_of(arch, changes)
+        n, k = cfg.n_heads // TP_MODEL, cfg.n_kv_heads
+        kv = k // TP_MODEL if k % TP_MODEL == 0 else \
+            max(1, n // (cfg.n_heads // k))
+        out[ZOO12_ROWS[label]] = ((batch, TRAIN_SEQ, n, kv,
+                                   cfg.resolved_head_dim), cfg.window)
+    return out
+
+
+def zoo_leaves(cfg) -> list:
+    """The leaves phase 12 holds to the unsharded run: the tail's first
+    layer (the MoE head), the stack's first and last, the embedding, the
+    head and the final norm."""
+    from repro_torch.tree import named_leaves
+    names = list(named_leaves(init_params_shapes(cfg)))
+    last = max(int(n.split("/")[1]) for n in names
+               if n.startswith("layers/"))
+    keep = ("tail/0/", "layers/0/", f"layers/{last}/")
+    return [n for n in names if n.startswith(keep)
+            or n in ("embed", "head", "final_norm")]
+
+
+def train_zoo_sharded_phase(dev, card, tmp) -> dict:
+    """Phase 12: the MoE, RG-LRU hybrid and SSM families' train step
+    sharded over TP_MODEL gloo ranks of the one card as a (1, TP_MODEL)
+    mesh (`launch/train.py`'s path), each run of ZOO12 at full width in
+    bf16 with its depth cut: first its unsharded kernel run here (one
+    loss and gradient with remat; #9's launches counted; the first MoE
+    layer's routing and each MoE layer's drops recorded), saved and
+    freed; then, in one pair of ranks, each run's loss and gradient
+    through the kernels (launch counts zeroed just before, read just
+    after) held to it by 11a's bars, the MoE's routing flips by
+    TOL_ROUTE_FLIPS, and ZOO12_STEPS AdamW steps: the loss falling, step
+    walls, tokens/s, each rank's peak memory, the last step's
+    collectives by kind and by op (no DTensor all-gather). Then 12e:
+    ZOO12E's f32 copies on SHARDED_MESH_11B (`f32_sharded_check`).
+    Returns rank 0's and both ranks' #9 launches by row."""
+    from repro_torch.data.synth_tokens import synthetic_lm_batches
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.models import init_params
+    from repro_torch.models.backbone import _stack_kinds
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.serving import cell
+    from repro_torch.training.step import make_grad_fn
+    from repro_torch.tree import named_leaves, tree_map
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    runs = []
+    for label, arch, changes, batch_n in ZOO12:
+        cfg = config_of(arch, changes)
+        leaves = zoo_leaves(cfg)
+        n_moe = sum(k == "moe" for k in _stack_kinds(cfg))
+        params = init_params(
+            torch.Generator(device=dev).manual_seed(cell.PARAM_SEED), cfg)
+        n_params = sum(p.numel() for p in named_leaves(params).values())
+        batch = next(synthetic_lm_batches(
+            torch.Generator(device=dev).manual_seed(TRAIN_BATCH_SEED),
+            vocab=cfg.vocab, batch=batch_n, seq=TRAIN_SEQ))
+        routes, drops = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with moe_routes(routes), moe_drops(drops):
+            loss, _, grads = make_grad_fn(cfg, remat=True)(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want_flash = flash_launches(cfg)
+        got = dict(LAUNCHES)
+        check(got == {**dict.fromkeys(got, 0),
+                      "flash_attention": want_flash},
+              f"{label} unsharded launches {got}, expected flash_attention"
+              f"={want_flash} and nothing else")
+        flat = named_leaves(grads)
+        ref = {"loss": loss.item(), "gnorm": global_norm(grads).item(),
+               "grads": {n: flat[n] for n in leaves}, "drops": drops[:n_moe]}
+        del grads, flat
+        # the f32 control: the bf16 run's distance from it, leaf by leaf
+        cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+        params = tree_map(lambda t: t.float(), params)
+        with moe_routes(list(routes), replay=True):
+            _, _, g32 = make_grad_fn(cfg32, remat=True, use_kernel=False)(
+                params, batch)
+        g32 = named_leaves(g32)
+        ref["noise"] = {n: rel_l2(ref["grads"][n], g32[n]) for n in leaves}
+        del g32
+        torch.save(ref, f"{tmp}/ref{label}.pt")
+        torch.save([t.cpu() for t in routes], f"{tmp}/routes{label}.pt")
+        print(f"phase {label} {arch} {changes} unsharded, bf16, batch "
+              f"{batch_n} x {TRAIN_SEQ}, remat, {n_params / 1e9:.3f} B "
+              f"parameters: loss {ref['loss']:.6f}, grad_norm "
+              f"{ref['gnorm']:.6g}, flash launches {want_flash}, MoE drop "
+              f"fractions {[round(x, 4) for x in ref['drops']]}; "
+              f"loss-and-grad {wall * 1e3:.1f} ms, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+        runs.append(dict(label=label, arch=arch, changes=changes,
+                         batch=batch_n, leaves=leaves,
+                         ref=f"{tmp}/ref{label}.pt",
+                         routes=f"{tmp}/routes{label}.pt", flash=want_flash,
+                         n_moe=n_moe, n_params=n_params))
+        noisy = max(ref["noise"], key=ref["noise"].get)
+        print(f"phase {label} f32 control (the weights upcast, the plain "
+              f"path{', routed as the bf16 run' if n_moe else ''}): the "
+              f"bf16 run's leaves {min(ref['noise'].values()):.3g}-"
+              f"{ref['noise'][noisy]:.3g} relative l2 off it, the most at "
+              f"{noisy} {card}")
+        del params, batch, ref, routes, loss
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    lines = train_ranks("12", TP_MODEL, dict(
+        train_base(), phase="12", model=TP_MODEL, steps=ZOO12_STEPS,
+        tol=TOL_TRAIN_GRAD, noise=ZOO12_NOISE,
+        runs=[{k: r[k] for k in ("label", "arch", "changes", "batch",
+                                 "leaves", "ref", "routes")}
+              for r in runs]),
+        tmp, card)
+    rank0, both = {}, {}
+    for k, run in enumerate(runs):
+        label, got = run["label"], [ln["runs"][k] for ln in lines]
+        r0 = got[0]
+        for i, g in enumerate(got):
+            fl = g["launches"].get("flash_attention", 0)
+            check(fl == run["flash"] and
+                  sum(g["launches"].values()) == fl,
+                  f"{label} rank {i} launches {g['launches']}, expected "
+                  f"flash_attention={run['flash']} (forward and recompute "
+                  "on its local heads) and nothing else")
+            functional = [op for op in g["ops"]
+                          if op.startswith("_c10d_functional")
+                          and "all_gather" in op]
+            check(not functional, f"{label} rank {i}: DTensor all-gathers "
+                  f"{functional} in a step")
+        lk, lr = r0["loss"], r0["ref_loss"]
+        gk, gr = r0["gnorm"], r0["ref_gnorm"]
+        flips, routed = "", ""
+        if run["n_moe"]:
+            share = r0["flips"] / r0["tokens"]
+            routed = " (routed as the unsharded run, every call replayed)"
+            flips = (f"; free routing (the first step): top-k sets flipped "
+                     f"at the first MoE layer {r0['flips']} of "
+                     f"{r0['tokens']} tokens ({share:.4f}, bar "
+                     f"{TOL_ROUTE_FLIPS}), drop fractions sharded "
+                     f"{[round(x, 4) for x in r0['drops'][:run['n_moe']]]}"
+                     f", unsharded {[round(x, 4) for x in r0['ref_drops']]}")
+        print(f"phase {label} {run['arch']} {run['changes']}, bf16, mesh "
+              f"(1, {TP_MODEL}), batch {run['batch']} x {TRAIN_SEQ}, remat, "
+              f"through the kernels{routed}: loss {lk:.6f} against unsharded "
+              f"{lr:.6f} (rel {abs(lk - lr) / abs(lr):.3g}, bar "
+              f"{TOL_TRAIN_LOSS}); grad_norm {gk:.6g} against {gr:.6g} (rel "
+              f"{abs(gk - gr) / gr:.3g}, bar {TOL_TRAIN_GNORM}); the leaf "
+              f"nearest its bar of {len(run['leaves'])}: {r0['worst_leaf']} "
+              f"relative l2 {r0['worst']:.4g}, bar {r0['worst_bar']:.4g} "
+              f"(the larger of {TOL_TRAIN_GRAD} and {ZOO12_NOISE} x the "
+              f"unsharded run's {r0['worst_noise']:.4g} off the f32 "
+              f"control); flash launches a "
+              f"rank {[g['launches'].get('flash_attention', 0) for g in got]}"
+              f"; loss-and-grad wall "
+              f"{[round(g['grad_wall_ms'], 1) for g in got]} ms{flips} "
+              f"{card}")
+        check(abs(lk - lr) <= TOL_TRAIN_LOSS * abs(lr),
+              f"{label} loss {lk} vs unsharded {lr}")
+        check(abs(gk - gr) <= TOL_TRAIN_GNORM * gr,
+              f"{label} grad_norm {gk} vs unsharded {gr}")
+        check(r0["worst"] <= r0["worst_bar"], f"{label} gradient "
+              f"{r0['worst_leaf']}: relative l2 error {r0['worst']} > "
+              f"{r0['worst_bar']}")
+        if run["n_moe"]:
+            check(r0["flips"] <= TOL_ROUTE_FLIPS * r0["tokens"],
+                  f"{label}: {r0['flips']} of {r0['tokens']} tokens routed "
+                  "to another top-k set at the first MoE layer")
+        losses = r0["losses"]
+        check(all(math.isfinite(x) for x in losses + r0["norms"]),
+              f"{label} losses {losses}, grad norms {r0['norms']}")
+        check(losses[-1] < losses[0], f"{label} the loss did not fall: "
+              f"{losses}")
+        step_ms = r0["walls_ms"][-1]
+        tokens = run["batch"] * TRAIN_SEQ
+        print(f"phase {label} {ZOO12_STEPS} AdamW steps (peak_lr {TRAIN_LR},"
+              f" warmup 1): losses {[round(x, 4) for x in losses]}, grad "
+              f"norms {[round(x, 4) for x in r0['norms']]}; step walls "
+              f"{[round(w, 1) for w in r0['walls_ms']]} ms (the last under "
+              f"the collective counters); a step {step_ms:.1f} ms (the "
+              f"last), {tokens / step_ms * 1e3:.0f} tokens/s; peak memory a "
+              f"rank {[round(g['peak_gib'], 2) for g in got]} GiB; "
+              f"collectives of the last step on rank 0: calls {r0['calls']},"
+              f" bytes {r0['bytes']}, by op {r0['ops']} {card}")
+        if label in ZOO12_ROWS:
+            rank0[ZOO12_ROWS[label]] = r0["launches"]["flash_attention"]
+            both[ZOO12_ROWS[label]] = sum(
+                g["launches"]["flash_attention"] for g in got)
+
+    # ---- 12e. f32 copies on (2, 2) against the unsharded f32 step -------
+    for label, arch, changes in ZOO12E:
+        f32_sharded_check(label, arch, changes, dev, card, tmp, in_rank=True)
+    return {"launches": rank0, "launches_phase12": both}
 
 
 def init_params_shapes(cfg):
@@ -2908,6 +3396,13 @@ def main() -> None:
                 serve_cfg.resolved_head_dim)
     _, flash_qkv_tp = check_flash(flash_tp, bf16)
     errs["flash_attention_lse_tp2"] = lse_abs[(flash_tp, bf16)]
+    # phase 12's per-rank instances: deepseek-moe-16b's and
+    # qwen3-moe-30b-a3b's H = 128 heads, recurrentgemma-9b's H = 256 with
+    # its one replicated kv head and its window, each with the lse
+    zoo12_flash, zoo12_qkv = zoo12_flash_shapes(), {}
+    for name, (shape, window) in zoo12_flash.items():
+        _, zoo12_qkv[name] = check_flash(shape, bf16, window=window)
+        errs[name] = lse_abs[(shape, bf16)]
     # the shapes of phase 9's prefills: H = 128 with G = 1 and 2, H = 256
     # with one kv head and a window, and the encoder's non-causal H = 64
     zoo_flash, zoo_qkv = zoo_flash_shapes(get_config), {}
@@ -3222,24 +3717,28 @@ def main() -> None:
                     fq.transpose(1, 2), fkk.transpose(1, 2),
                     fv.transpose(1, 2), is_causal=causal, enable_gqa=True))
 
-    def flash_lse_row(name, shape, qkv):
+    def flash_lse_row(name, shape, qkv, window=0):
         """#9 with its lse, as the training forward launches it: q, k, v
         and out once each, and the lse; beside SDPA's forward on inputs
-        that require a gradient (it then writes its own logsumexp)."""
+        that require a gradient (it then writes its own logsumexp). SDPA
+        has no window: a row's window covers its whole sequence."""
         fb, fs, fn, fk, fh = shape
+        check(window == 0 or window >= fs, f"{name}: SDPA has no window")
         fq, fkk, fv = qkv
         f_out = torch.empty_like(fq)
         f_lse = torch.empty((fb, fn, fs), device=dev)
         req = [t.transpose(1, 2).detach().requires_grad_() for t in qkv]
         return (name, "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention/kernel.py:83",
-                bound(flash_flops(shape),
+                bound(flash_flops(shape, window=window),
                       2 * (2 * fb * fs * fn * fh + 2 * fb * fs * fk * fh)
                       + 4 * fb * fn * fs, PEAK_BF16_FLOPS),
-                lambda: flash_ops.launch(fq, fkk, fv, f_out, lse=f_lse),
-                lambda: flash_ops.flash_attention_fwd_lse(fq, fkk, fv),
+                lambda: flash_ops.launch(fq, fkk, fv, f_out, lse=f_lse,
+                                         window=window),
                 lambda: flash_ops.flash_attention_fwd_lse(fq, fkk, fv,
-                                                          use_kernel=False),
+                                                          window=window),
+                lambda: flash_ops.flash_attention_fwd_lse(
+                    fq, fkk, fv, window=window, use_kernel=False),
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     *req, is_causal=True, enable_gqa=True))
 
@@ -3253,6 +3752,8 @@ def main() -> None:
         flash_row("flash_attention_h128", FLASH_H128, flash_qkv128),
         flash_lse_row("flash_attention_lse", flash_path, flash_qkv),
         flash_lse_row("flash_attention_lse_tp2", flash_tp, flash_qkv_tp),
+        *(flash_lse_row(name, shape, zoo12_qkv[name], window)
+          for name, (shape, window) in zoo12_flash.items()),
         *(flash_row(name, shape, zoo_qkv[name], causal, window)
           for name, (shape, causal, window) in zoo_flash.items()),
         ("rank_update", "src/repro_torch/kernels/csrc/rank_update.cu",
@@ -3408,12 +3909,15 @@ def main() -> None:
               "flash_attention_h128": FLASH_H128,
               "flash_attention_lse": flash_path,
               "flash_attention_lse_tp2": flash_tp,
-              **{name: z[0] for name, z in zoo_flash.items()}}
+              **{name: z[0] for name, z in zoo_flash.items()},
+              **{name: z[0] for name, z in zoo12_flash.items()}}
     # the redesigned kernels' least work, for their achieved rate
     row_flops = {"flash_attention": flash_flops(flash_path),
                  "flash_attention_h128": flash_flops(FLASH_H128),
                  "flash_attention_lse": flash_flops(flash_path),
                  "flash_attention_lse_tp2": flash_flops(flash_tp),
+                 **{name: flash_flops(shape, window=window)
+                    for name, (shape, window) in zoo12_flash.items()},
                  **{name: flash_flops(*z) for name, z in zoo_flash.items()},
                  "fista_step_gemm": 2 * m * p * p * p,
                  "ista_step_gemm": 2 * p * p * p,
@@ -3560,6 +4064,12 @@ def main() -> None:
         # ---- 11. sharded training -----------------------------------------
         sharded = train_sharded_phase(dev, card, tmp11)
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+          "phase 12")
+    # ---- 12. the other families trained sharded ---------------------------
+    with tempfile.TemporaryDirectory(prefix="chip12_") as tmp12:
+        zoo_sharded = train_zoo_sharded_phase(dev, card, tmp12)
+
     # launches per run: the regression rows from phase 4, the logistic
     # rows from phase 4b (the unfused pair is not on either path), the
     # rows of the third slice from phase 4c, flash from phase 6, the
@@ -3579,11 +4089,14 @@ def main() -> None:
                     "flash_attention": serve_launches["flash_attention"],
                     **launches_9,
                     "flash_attention_lse": trained["launches"],
-                    "flash_attention_lse_tp2": sharded["launches_11a"]}
+                    "flash_attention_lse_tp2": sharded["launches_11a"],
+                    **zoo_sharded["launches"]}
     print(json.dumps({"kernels": [
         {**row, "launches": run_launches[row["name"]],
          "launches_phase8": launches_8.get(row["name"], 0),
-         "launches_phase11": sharded["launches"].get(row["name"], 0)}
+         "launches_phase11": sharded["launches"].get(row["name"], 0),
+         "launches_phase12": zoo_sharded["launches_phase12"].get(
+             row["name"], 0)}
         for row in kernels]}))
     print(f"elapsed {time.perf_counter() - t_start:.1f} s in all")
     print(smi)

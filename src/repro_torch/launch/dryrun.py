@@ -33,10 +33,9 @@ combination, with the reference's fields where torch can give them:
                              rules and the `meta` shapes alone;
   microbatches, n_params, n_active.
 
-The train step runs for `train_4k` where the family runs with a model
-axis above 1 (`training.step.LOCAL_FORWARD` lists those that do not);
-the prefill and decode shapes, and the other families, get their
-per-device bytes alone: the port has no sharded serving path yet.
+The train step runs for `train_4k`, for every family; the prefill and
+decode shapes get their per-device bytes alone: the port has no sharded
+serving path yet.
 
 Microbatches: the smallest power of two (at most 16, dividing the local
 batch) that keeps the residual stream remat saves (layers x local batch
@@ -72,9 +71,7 @@ from repro_torch.sharding.rules import (
     named, opt_pspecs, param_pspecs,
 )
 from repro_torch.substrate.mesh import make_mesh
-from repro_torch.training.step import (
-    LOCAL_FORWARD, make_train_step, shard_train_state,
-)
+from repro_torch.training.step import make_train_step, shard_train_state
 from repro_torch.tree import map_leaves, named_leaves
 
 # the remat residual stream's share of the card's memory (see above)
@@ -234,11 +231,6 @@ def lower_combo(arch: str, shape: str, *, multi_pod: bool,
     if spec.mode != "train":
         rec.update(status="bytes_only",
                    why="the port has no sharded serving path")
-        return rec
-    if sizes["model"] > 1 and cfg.arch_type in LOCAL_FORWARD:
-        rec.update(status="bytes_only",
-                   why=f"{cfg.arch_type} trains sharded on a data-only "
-                       "mesh alone")
         return rec
     rec.update(status="ok", **train_record(cfg, spec, mesh))
     return rec

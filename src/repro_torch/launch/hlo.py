@@ -84,6 +84,7 @@ class Counters(CommDebugMode):
         self.bytes = 0
         self._coll_bytes: dict = defaultdict(float)
         self._coll_calls: dict = defaultdict(int)
+        self._coll_ops: dict = defaultdict(int)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if isinstance(func, torch._ops.HigherOrderOperator) or \
@@ -100,6 +101,7 @@ class Counters(CommDebugMode):
         if kind is not None:
             if kind != "other":
                 self._coll_calls[kind] += 1
+                self._coll_ops[str(packet)] += 1
                 self._coll_bytes[kind] += _nbytes(out) * _MULT.get(kind, 1.0)
             return out
         if packet in flop_registry:
@@ -132,6 +134,12 @@ class Counters(CommDebugMode):
 
     def calls(self) -> dict:
         return dict(self._coll_calls)
+
+    def ops(self) -> dict:
+        """{op: calls} of the collectives by the op that ran them: DTensor's
+        functional ones (`_c10d_functional.*`) apart from the synchronous
+        `torch.distributed` calls of the ledger (`c10d.*`)."""
+        return dict(self._coll_ops)
 
 
 def roofline(flops: float, bytes_accessed: float, coll_bytes: float) -> dict:

@@ -26,11 +26,10 @@ AdamW's master and moments by `opt_pspecs`, ZeRO-1), and takes its block of
 each global batch; the step places the logits by `logits_pspec` and the
 gradients by the opt specs, as the reference's jit does. Every rank
 prints; a checkpoint is one global file, written by rank 0. Without the
-rank environment `--model-axis` above 1 is refused. The families DTensor
-does not carry through their forward (`training.step.LOCAL_FORWARD`:
-MoE, the RG-LRU hybrid, SSM) train sharded on a data-only mesh alone,
-and `--model-axis` above 1 refuses them by name (`ROADMAP.md`, queue A
-item 8).
+rank environment `--model-axis` above 1 is refused. Every family trains
+at any model axis its widths allow: the MoE expert parallel with the
+global batch's routing, the RG-LRU and SSD blocks on each rank's
+channels and heads.
 
 On the CPU, four gloo ranks on a (2, 2) mesh:
 `run_probe("from repro_torch.launch import train; train.main(['--device',
@@ -55,8 +54,7 @@ from repro_torch.sharding.rules import (
 )
 from repro_torch.substrate.hostenv import init_from_env
 from repro_torch.training.step import (
-    LOCAL_FORWARD, init_sharded_train_state, init_train_state,
-    make_train_step,
+    init_sharded_train_state, init_train_state, make_train_step,
 )
 
 RANK_ENV = ("RANK", "WORLD_SIZE", "REPRO_INIT_FILE")
@@ -88,12 +86,6 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = smoke(cfg)
-    if args.model_axis > 1 and cfg.arch_type in LOCAL_FORWARD:
-        raise SystemExit(
-            f"--model-axis {args.model_axis}: {cfg.name} ({cfg.arch_type}) "
-            "trains sharded on a data-only mesh (--model-axis 1) alone; "
-            "ROADMAP.md, queue A item 8, lists the families refused at a "
-            "model axis above 1")
     mesh = None
     if sharded:
         init_from_env(dev if os.environ.get("REPRO_BACKEND") == "nccl"

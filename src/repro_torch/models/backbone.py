@@ -35,10 +35,16 @@ Run a family on the CPU with `python -m repro_torch.launch.serve --arch
 <name> --device cpu` (the smoke size); `chip_smoke.py` phase 9 serves
 the non-dense families at full width on the card.
 
-`forward_train` also runs on DTensors (the sharded train step): the
-embeddings are looked up vocab-parallel (`_embed_vocab_parallel`) and
-placed as the tokens, and the head's input gradient is summed over
-`model` (`sharding.place`); the rest is the layers' own.
+`forward_train` also runs on DTensors (the sharded train step), for
+every family: the embeddings are looked up vocab-parallel
+(`_embed_vocab_parallel`) and placed as the tokens, and the head's input
+gradient is summed over `model` (`sharding.place`); the rest is the
+blocks' own: attention on each rank's heads (`layers`), the MLP column-
+and row-parallel (`mlp`), the MoE expert parallel with global routing
+(`moe`), the RG-LRU block on each rank's channels (`rglru`) and the SSD
+block on its heads (`ssd`), each summing its input's gradient over
+`model` once (`place.grad_placed_as_input`) and its output's partial sum
+where it joins the residual stream.
 """
 from __future__ import annotations
 
@@ -152,8 +158,10 @@ def _layer_train(kind: LayerKind, p: dict, x, cfg: ModelConfig, positions,
                                 use_kernel=use_kernel)
         h, moe_aux = moe_apply(p["moe"], rms_norm(x, p["norm2"], cfg.norm_eps),
                                cfg)
-        aux = aux + cfg.moe.router_aux_weight * moe_aux["moe_aux_loss"] \
-            + cfg.moe.router_z_weight * moe_aux["moe_z_loss"]
+        # the two losses summed first: on DTensors both are partial sums
+        # (`moe._moe_apply_sharded`), all-reduced once where they join
+        aux = aux + (cfg.moe.router_aux_weight * moe_aux["moe_aux_loss"]
+                     + cfg.moe.router_z_weight * moe_aux["moe_z_loss"])
         x = x + h
     elif kind == "recurrent":
         x = x + recurrent_block_train(p["rec"], rms_norm(x, p["norm1"],

@@ -14,8 +14,19 @@ from repro_torch.sharding.place import grad_placed_as_input, placed_as
 
 
 def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The feed-forward block. On DTensors (the sharded step) column- and
+    row-parallel over `model` as the rules place its weights, the input's
+    gradient summed over `model` once and the output placed as x (its
+    partial sum all-reduced)."""
+    return placed_as(mlp_partial(p, grad_placed_as_input(x), act), x)
+
+
+def mlp_partial(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """`mlp_apply` without its two placements: on DTensors the output is
+    a partial sum over `model` (each rank's share of the ffn width), for a
+    caller that adds another partial sum to it before the one all-reduce
+    (the MoE's shared experts)."""
     cdt = x.dtype
-    x = grad_placed_as_input(x)
     if act in ("swiglu", "geglu"):
         g = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(cdt))
         u = torch.einsum("bsd,df->bsf", x, p["w_up"].to(cdt))
@@ -30,9 +41,8 @@ def mlp_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
         else:
             raise ValueError(act)
     # a matmul, not an einsum: on DTensors `einsum`'s flattening leads
-    # DTensor to gather `w_down` in the backward; the output placed as x
-    # (summed over `model`)
-    return placed_as(torch.matmul(h, p["w_down"].to(cdt)), x)
+    # DTensor to gather `w_down` in the backward
+    return torch.matmul(h, p["w_down"].to(cdt))
 
 
 def init_mlp_params(gen: torch.Generator, cfg: ModelConfig, d_ff: int,

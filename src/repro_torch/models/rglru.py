@@ -12,6 +12,11 @@ Training/prefill evaluates the linear recurrence with a log-depth scan
 (the reference's `jax.lax.associative_scan`; here Hillis–Steele steps
 over the sequence axis with the same combine, ceil(log2 S) of them);
 decode carries (h, conv window) state and returns a new cache.
+
+On DTensors (the sharded train step) the block is channel parallel over
+`model` (`_recurrent_block_sharded`), as the rules place its weights:
+`w_x`, `w_gate`, `conv_w`, the gates' output columns, `b_a`, `b_i` and
+`lam` are each rank's channels, and `w_o`'s rows.
 """
 from __future__ import annotations
 
@@ -19,9 +24,14 @@ from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
+from repro_torch.sharding.place import (
+    balanced, block, block_placements, gather_blocks, grad_placed_as_input,
+    on_local, placed_as,
+)
 
 
 class RecurrentCache(NamedTuple):
@@ -48,7 +58,11 @@ def _causal_depthwise_conv(u: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def _rglru_gates(p: dict, u: torch.Tensor, c: float):
+def _rglru_gates(p: dict, u: torch.Tensor, c: float,
+                 u_out: torch.Tensor | None = None):
+    """The gates a, b of the channels of `p`'s gate columns, from u over
+    every channel; `u_out` is u on those channels where they are not all
+    of u's (a rank's channels in the sharded block)."""
     f32 = torch.float32
     uf = u.to(f32)
     r = torch.sigmoid(torch.einsum("...d,de->...e", uf, p["w_a"].to(f32))
@@ -57,7 +71,8 @@ def _rglru_gates(p: dict, u: torch.Tensor, c: float):
                       + p["b_i"].to(f32))
     log_a = -c * F.softplus(p["lam"].to(f32)) * r
     a = torch.exp(log_a)
-    b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * uf)
+    own = uf if u_out is None else u_out.to(f32)
+    b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * own)
     return a, b
 
 
@@ -96,13 +111,64 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 def recurrent_block_train(p: dict, x: torch.Tensor,
                           cfg: ModelConfig) -> torch.Tensor:
-    """Griffin recurrent block, full sequence. x: (B, S, d_model)."""
+    """Griffin recurrent block, full sequence. x: (B, S, d_model). On
+    DTensors, channel parallel (`_recurrent_block_sharded`)."""
+    if isinstance(x, DTensor):
+        return _recurrent_block_sharded(p, x, cfg)
     cdt = x.dtype
     gate = _gelu(torch.einsum("bsd,de->bse", x, p["w_gate"].to(cdt)))
     u = torch.einsum("bsd,de->bse", x, p["w_x"].to(cdt))
     u = _causal_depthwise_conv(u, p["conv_w"])
     h = rglru_scan(p, u, cfg.rglru.c)
     return torch.einsum("bse,ed->bsd", h * gate, p["w_o"].to(cdt))
+
+
+def _recurrent_block_sharded(p: dict, x: DTensor,
+                             cfg: ModelConfig) -> DTensor:
+    """`recurrent_block_train` on DTensors: x (B, S, d) with its rows
+    split over the data axes and replicated over `model`; each rank runs
+    its channels [lo, hi) of D (`balanced`) on its local tensors
+    (`place.on_local`). The gate, u = conv(x W_x) and the scan are
+    per channel. The gates r and i of a channel read u over every
+    channel, so u is gathered over `model` (`gather_blocks`, through the
+    ledger; its gradient, partial on each rank, reduce-scattered back):
+    B·S·D a layer, where gathering `w_a` and `w_i` instead would still
+    need u whole. `w_o` is row-parallel: the output is a partial sum over
+    `model`, all-reduced where it joins the residual stream. Where D
+    does not divide the model axis the rules replicate these weights:
+    each rank computes u whole and takes its channels from it."""
+    mesh = x.device_mesh
+    x = grad_placed_as_input(x)
+    D = p["w_x"].shape[1]
+    lo, hi = balanced(D, mesh)
+    pl = {k: v.placements for k, v in p.items()}
+
+    def local(xl, q):
+        cdt = xl.dtype
+
+        def own(name, dim):
+            return block(q[name], pl[name], mesh, dim, lo, hi)
+
+        gate = _gelu(torch.einsum("bsd,de->bse", xl, own("w_gate", 1).to(cdt)))
+        w_x, conv_w = own("w_x", 1), own("conv_w", 1)
+        if q["w_x"].shape[1] == hi - lo and q["conv_w"].shape[1] == hi - lo:
+            # the rank's channels of u, then u over every channel
+            u_own = _causal_depthwise_conv(
+                torch.einsum("bsd,de->bse", xl, w_x.to(cdt)), conv_w)
+            u = gather_blocks(u_own, mesh, ("model",), 2)
+        else:
+            u = _causal_depthwise_conv(
+                torch.einsum("bsd,de->bse", xl, q["w_x"].to(cdt)),
+                q["conv_w"])
+            u_own = u[..., lo:hi]
+        gates = {k: own(k, 1 if k.startswith("w_") else 0)
+                 for k in ("w_a", "w_i", "b_a", "b_i", "lam")}
+        a, b = _rglru_gates(gates, u, cfg.rglru.c, u_out=u_own)
+        h = _linear_scan(a, b).to(cdt)
+        return torch.einsum("bse,ed->bsd", h * gate, own("w_o", 0).to(cdt))
+
+    out = on_local(local, x, block_placements(x), x, p)
+    return placed_as(out, x)
 
 
 def recurrent_block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -11,6 +11,9 @@ dtype.
 
 Decode carries the (B, H, P, N) SSM state and a depthwise-conv window,
 and returns a new cache.
+
+On DTensors (the sharded train step) the block is head parallel over
+`model` (`_ssd_block_sharded`).
 """
 from __future__ import annotations
 
@@ -19,10 +22,15 @@ from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
 from repro_torch.models.rglru import _causal_depthwise_conv
+from repro_torch.sharding.place import (
+    balanced, block, block_placements, grad_placed_as_input, on_local,
+    placed_as, whole,
+)
 
 
 class SsdCache(NamedTuple):
@@ -106,18 +114,26 @@ def _split_proj(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return torch.split(zxbcdt, [d_in, d_in, gn, gn, sc.n_heads], dim=-1)
 
 
-def _prep(p: dict, xin, Bc, Cc, dt, cfg: ModelConfig):
+def _prep(p: dict, xin, Bc, Cc, dt, cfg: ModelConfig, heads=None):
+    """The scan's inputs for heads [lo, hi) (`heads`; all H where None),
+    whose x, dt, `dt_bias` and `A_log` are given, B and C for every
+    group."""
     sc = cfg.ssd
     b, l, _ = xin.shape
     H, P, G, N = sc.n_heads, sc.head_dim, sc.n_groups, sc.state_dim
+    lo, hi = heads or (0, H)
     f32 = torch.float32
-    dt = F.softplus(dt.to(f32) + p["dt_bias"].to(f32))           # (b,l,H)
-    A = -torch.exp(p["A_log"].to(f32))                            # (H,)
+    dt = F.softplus(dt.to(f32) + p["dt_bias"].to(f32))           # (b,l,h)
+    A = -torch.exp(p["A_log"].to(f32))                            # (h,)
     dtA = dt * A[None, None, :]
-    xh = xin.reshape(b, l, H, P)
+    xh = xin.reshape(b, l, hi - lo, P)
     rep = H // G
-    Bh = torch.repeat_interleave(Bc.reshape(b, l, G, N), rep, dim=2)
-    Ch = torch.repeat_interleave(Cc.reshape(b, l, G, N), rep, dim=2)
+    # the groups repeated to every head, as the reference's, then the
+    # given heads' (their gradient summed in the reference's order)
+    Bh = torch.repeat_interleave(Bc.reshape(b, l, G, N), rep,
+                                 dim=2)[:, :, lo:hi]
+    Ch = torch.repeat_interleave(Cc.reshape(b, l, G, N), rep,
+                                 dim=2)[:, :, lo:hi]
     x_dt = xh * dt[..., None].to(xh.dtype)
     return x_dt, dtA, Bh, Ch, xh
 
@@ -132,7 +148,12 @@ def _conv_split(xbc: torch.Tensor, cfg: ModelConfig):
 def ssd_block_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
                     return_state: bool = False):
     """Full-sequence Mamba-2 block. x: (B, S, d_model). With
-    `return_state`, also the final SSM state (B, H, P, N) in float32."""
+    `return_state`, also the final SSM state (B, H, P, N) in float32. On
+    DTensors, head parallel (`_ssd_block_sharded`; no state)."""
+    if isinstance(x, DTensor):
+        if return_state:
+            raise ValueError("ssd_block_train: no state on DTensors")
+        return _ssd_block_sharded(p, x, cfg)
     sc = cfg.ssd
     z, xin, Bc, Cc, dt = _split_proj(p, x, cfg)
     xbc = torch.cat([xin, Bc, Cc], dim=-1)
@@ -148,6 +169,63 @@ def ssd_block_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if return_state:
         return out, final
     return out
+
+
+def _ssd_block_sharded(p: dict, x: DTensor, cfg: ModelConfig) -> DTensor:
+    """`ssd_block_train` on DTensors: x (B, S, d) with its rows split over
+    the data axes and replicated over `model`; each rank runs its heads
+    [lo, hi) of H (`balanced`) on its local tensors (`place.on_local`).
+
+    The rules split `w_in`'s columns (z ‖ x ‖ B ‖ C ‖ dt) and `conv_w`'s
+    channels (x ‖ B ‖ C) evenly over `model`, which is not by heads (at
+    mamba2-1.3b's widths rank 0 of 2 holds all of z and 160 columns of
+    x), so a rank's compute slice is not its storage slice: both are
+    gathered whole over `model` (`place.whole`, through the ledger; their
+    gradients, partial on each rank, reduce-scattered back to the
+    rules' blocks) and the rank takes its heads' columns of z, x and dt
+    and all of B and C. `dt_bias`, `A_log`, `D` and `w_out`'s rows are
+    the rank's heads where H divides the model axis (taken whole and
+    sliced where the rules replicate them). `ssd_chunked` runs on the
+    rank's heads; `w_out`'s output is a partial sum over `model`,
+    all-reduced where it joins the residual stream."""
+    sc = cfg.ssd
+    H, P, gn = sc.n_heads, sc.head_dim, sc.n_groups * sc.state_dim
+    d_in = H * P
+    mesh = x.device_mesh
+    x = grad_placed_as_input(x)
+    lo, hi = balanced(H, mesh)
+    h = hi - lo
+    pl = {k: v.placements for k, v in p.items()}
+
+    def local(xl, q):
+        dev = xl.device
+        heads = torch.arange(lo * P, hi * P, device=dev)
+        bc = torch.arange(2 * gn, device=dev)
+        cols = torch.cat([heads, d_in + heads, 2 * d_in + bc,
+                          2 * d_in + 2 * gn + torch.arange(lo, hi,
+                                                           device=dev)])
+        w_in = whole(q["w_in"], pl["w_in"], mesh, 1)
+        zxbcdt = torch.einsum("bsd,de->bse", xl,
+                              w_in[:, cols].to(xl.dtype))
+        z, xin, Bc, Cc, dt = torch.split(zxbcdt, [h * P, h * P, gn, gn, h],
+                                         dim=-1)
+        conv_w = whole(q["conv_w"], pl["conv_w"], mesh, 1)
+        xbc = torch.cat([xin, Bc, Cc], dim=-1)
+        xbc = F.silu(_causal_depthwise_conv(
+            xbc, conv_w[:, torch.cat([heads, d_in + bc])]))
+        xin, Bc, Cc = torch.split(xbc, [h * P, gn, gn], dim=-1)
+        own = {k: block(q[k], pl[k], mesh, 0, lo, hi)
+               for k in ("dt_bias", "A_log", "D")}
+        x_dt, dtA, Bh, Ch, xh = _prep(own, xin, Bc, Cc, dt, cfg,
+                                      heads=(lo, hi))
+        y, _ = ssd_chunked(x_dt, dtA, Bh, Ch, sc.chunk)
+        y = y + xh * own["D"].to(y.dtype)[None, None, :, None]
+        y = y.reshape(xl.shape[0], xl.shape[1], h * P) * F.silu(z)
+        w_out = block(q["w_out"], pl["w_out"], mesh, 0, lo * P, hi * P)
+        return torch.einsum("bse,ed->bsd", y, w_out.to(y.dtype))
+
+    out = on_local(local, x, block_placements(x), x, p)
+    return placed_as(out, x)
 
 
 def ssd_block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -7,7 +7,11 @@ leaves, each placed by `rules.placements` of its spec. Every rank builds
 the same full tree (the same seed) and keeps its own block of each leaf
 (`place`): nothing is sent. Blocks are gathered back (`gather`, `full`)
 by the synchronous all-gather of `substrate.collectives` (the ledger
-records it). Both are the port's own: DTensor's `distribute_tensor` and
+records it). The model code's blocks that DTensor does not carry (the
+MoE's routing, the RG-LRU and SSD scans) run on each rank's local
+tensors (`on_local`), gathering what they need whole through the same
+all-gather, differentiably (`gather_blocks`: its gradient is the
+ledger's reduce-scatter). Both are the port's own: DTensor's `distribute_tensor` and
 its all-gather (the functional collective, awaited by `wait_tensor`)
 crashed gloo ranks on CUDA tensors with a segmentation fault (PyTorch
 2.11 on an H100), where gloo's synchronous all-gather, and DTensor's
@@ -17,10 +21,10 @@ its order of splits (mesh dim by mesh dim).
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.sharding.rules import placements
-from repro_torch.substrate.collectives import all_gather
+from repro_torch.substrate.collectives import all_gather, reduce_scatter
 from repro_torch.tree import map_leaves, named_leaves
 
 
@@ -98,11 +102,6 @@ def local(x: torch.Tensor) -> torch.Tensor:
     return x.to_local() if isinstance(x, DTensor) else x
 
 
-def is_sharded(tree) -> bool:
-    """Whether any leaf of `tree` is a DTensor."""
-    return any(isinstance(x, DTensor) for x in named_leaves(tree).values())
-
-
 def replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """`t` as a DTensor replicated on `ref`'s mesh where `ref` is a
     DTensor (each rank holds the same `t`), else `t`: DTensor refuses an
@@ -160,3 +159,123 @@ def grad_placed_as_input(x: torch.Tensor) -> torch.Tensor:
     if not isinstance(x, DTensor):
         return x
     return _GradPlacedAsInput.apply(x)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """The ledger's all-gather over one mesh dim, whose gradient is the
+    ledger's reduce-scatter: each rank's gradient of the whole tensor is
+    its partial sum, and a rank's block of the sum is its own."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return all_gather(x, mesh, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return reduce_scatter(g, mesh, axis, dim=dim), None, None, None
+
+
+def gather_blocks(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """`x`, this rank's block of a tensor split on `dim` over the mesh dims
+    named `axes` (major to minor, as `rules.placements` splits a dim over
+    several), gathered whole: the minor dim first. Differentiable: the
+    gradient of the whole, a partial sum on each rank, is reduce-scattered
+    back to this rank's block. Dims of size 1 are skipped."""
+    for axis in reversed(tuple(axes)):
+        if mesh.size(mesh.mesh_dim_names.index(axis)) > 1:
+            x = _GatherBlocks.apply(x, mesh, axis, dim)
+    return x
+
+
+def balanced(n: int, mesh, axis: str = "model") -> tuple:
+    """[lo, hi): this rank's share of n items (heads, channels, experts)
+    split over the mesh dim `axis`, in rank order; a rank's block of a dim
+    that `Shard` splits evenly, else as even a split as there is."""
+    j = mesh.mesh_dim_names.index(axis)
+    k, r = mesh.size(j), mesh.get_local_rank(j)
+    return r * n // k, (r + 1) * n // k
+
+
+def block(t: torch.Tensor, pl, mesh, dim: int, lo: int, hi: int,
+          axis: str = "model") -> torch.Tensor:
+    """Indices [lo, hi) of dim `dim` of the global tensor whose local
+    tensor `t` is placed by `pl`: `t` itself where its split over `axis`
+    is that block, else sliced from `t` whole over `axis` (`whole`)."""
+    j = mesh.mesh_dim_names.index(axis)
+    p = pl[j]
+    if p.is_shard() and p.dim == dim and mesh.size(j) > 1:
+        n, r = t.shape[dim], mesh.get_local_rank(j)
+        if (r * n, (r + 1) * n) == (lo, hi):
+            return t
+    return whole(t, pl, mesh, dim, axis).narrow(dim, lo, hi - lo)
+
+
+def whole(t: torch.Tensor, pl, mesh, dim: int,
+          axis: str = "model") -> torch.Tensor:
+    """The local tensor `t` (placed by `pl`) whole on dim `dim` over the
+    mesh dim `axis`: gathered (`gather_blocks`) where it is split there,
+    else `t` (replicated: `fit_spec` dropped an axis that does not
+    divide)."""
+    j = mesh.mesh_dim_names.index(axis)
+    p = pl[j]
+    if not p.is_shard() or mesh.size(j) == 1:
+        return t
+    if p.dim != dim:
+        raise ValueError(f"whole: placed {tuple(pl)}, not split on dim {dim}")
+    return gather_blocks(t, mesh, (axis,), dim)
+
+
+def split_dims(x: DTensor, axis: str = "model") -> set:
+    """The mesh dims a block on local tensors divides its work over: those
+    that split `x`'s rows (each rank its own) and `axis` (each rank its
+    heads, channels or experts), where they have more than one rank."""
+    mesh = x.device_mesh
+    dims = {j for j, p in enumerate(x.placements) if p.is_shard()}
+    dims.add(mesh.mesh_dim_names.index(axis))
+    return {j for j in dims if mesh.size(j) > 1}
+
+
+def on_local(fn, x: DTensor, out_placements, *args):
+    """`fn(*local args)` on each rank's local tensors, for trees of
+    DTensors `args` on `x`'s mesh (plain values pass as they are), its
+    outputs (a tensor or a tuple of tensors) made DTensors placed by
+    `out_placements`, one a output. The work is divided over
+    `split_dims(x)`: each rank's local backward gives its own share of
+    the gradient of an input replicated over such a dim (its rows, its
+    heads, channels or experts), so that gradient is `Partial` there,
+    summed where it is next placed; a sharded dim keeps its `Shard`, and
+    a dim the work is not divided over its `Replicate`. A value that
+    every rank of a divided dim computes alike must be scaled so that
+    the sum over those ranks is the value (`models/moe.py`'s aux
+    losses)."""
+    mesh = x.device_mesh
+    split = split_dims(x)
+
+    def unwrap(_, t):
+        if not isinstance(t, DTensor):
+            return t
+        grad = [Partial() if p.is_replicate() and j in split else p
+                for j, p in enumerate(t.placements)]
+        return t.to_local(grad_placements=grad)
+
+    out = fn(*map_leaves(unwrap, tuple(args)))
+    single = not isinstance(out, tuple)
+    outs = (out,) if single else out
+    pls = (out_placements,) if single else out_placements
+    wrapped = tuple(DTensor.from_local(o, mesh, pl, run_check=False)
+                    for o, pl in zip(outs, pls))
+    return wrapped[0] if single else wrapped
+
+
+def block_placements(x: DTensor, axis: str = "model") -> tuple:
+    """The placements of a block's (B, S, d) output computed on local
+    tensors (`on_local`): split as `x`'s rows, a partial sum over `axis`
+    where it has more than one rank (each rank's heads, channels or
+    experts), replicated elsewhere."""
+    mesh = x.device_mesh
+    jm = mesh.mesh_dim_names.index(axis)
+    return tuple(Partial() if j == jm and mesh.size(j) > 1
+                 else (p if p.is_shard() else Replicate())
+                 for j, p in enumerate(x.placements))

@@ -14,8 +14,9 @@ per trace, the port once per call; for one fit both give one call.
 
 Operands go to the backend where they lie: NCCL takes CUDA tensors,
 gloo CPU tensors and, on the card's PyTorch (2.11), CUDA tensors for
-the all-gather, the all-reduce and the all-to-all; staging a CUDA
-operand through the host for gloo gave the same bits and was slower
+the all-gather, the all-reduce, the reduce-scatter and the all-to-all;
+staging a CUDA operand through the host for gloo gave the same bits and
+was slower
 (`python -m repro_torch.launch.gloo_operands`).
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch import obs
-from repro_torch.substrate.compat import all_gather_into
+from repro_torch.substrate.compat import all_gather_into, reduce_scatter_into
 
 
 def resolve_group(group, axis: str):
@@ -70,6 +71,20 @@ def all_gather(x: torch.Tensor, group=None, axis: str = "data", *,
     out = src.new_empty((dist.get_world_size(g) * src.shape[0],
                          *src.shape[1:]))
     all_gather_into(out, src, g)
+    return torch.movedim(out, 0, dim)
+
+
+def reduce_scatter(x: torch.Tensor, group=None, axis: str = "data", *,
+                   dim: int = 0) -> torch.Tensor:
+    """The sum of every rank's `x` over `axis`, split on dim `dim` into
+    one block a rank in rank order, this rank's block returned: the
+    gradient of `all_gather` (`sharding.place.gather_blocks`)."""
+    g = resolve_group(group, axis)
+    _record("reduce_scatter", x, g, axis)
+    src = torch.movedim(x, dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // dist.get_world_size(g),
+                         *src.shape[1:]))
+    reduce_scatter_into(out, src, g)
     return torch.movedim(out, 0, dim)
 
 

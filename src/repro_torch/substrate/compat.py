@@ -5,8 +5,9 @@ The port's counterpart of the JAX package's `repro/substrate/compat.py`,
 with the port's own purpose: that file papers over `shard_map`'s moves
 between jax releases; this one over `torch.distributed`'s. The all-gather
 into one tensor is `all_gather_single` on new PyTorch and
-`all_gather_into_tensor` (deprecated there) on older ones. Both are
-looked up when called, never bound at import, so a caller that wraps
+`all_gather_into_tensor` (deprecated there) on older ones, and the
+reduce-scatter `reduce_scatter_single` or `reduce_scatter_tensor`. They
+are looked up when called, never bound at import, so a caller that wraps
 `torch.distributed`'s functions (a collective count) sees every call.
 
 `init_ranks` joins a process group through a `file://` rendezvous (no
@@ -28,6 +29,14 @@ def all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
     dim 0 in rank order."""
     fn = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
+    fn(out, x, group=group)
+
+
+def reduce_scatter_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """Sum every rank's `x` of `group` and scatter the sum on dim 0 in
+    rank order, this rank's block into `out`."""
+    fn = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
     fn(out, x, group=group)
 
 

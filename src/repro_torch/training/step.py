@@ -26,12 +26,14 @@ backward (the model code adds the constraints it cannot infer:
 cross entropy, the token mean taken over the global batch) and
 `grads_pspec` (each f32 gradient, and the microbatch accumulator,
 placed as the master: a reduce-scatter over `data`). The metrics are
-then plain tensors, the same on every rank. The families DTensor does
-not carry run on local tensors on a data-only mesh (`LOCAL_FORWARD`).
+then plain tensors, the same on every rank. Every family runs so, at any
+(data, model) mesh the rules allow: the blocks DTensor does not carry
+by itself (the MoE's routing, the RG-LRU and SSD scans) run on each
+rank's local tensors inside the model (`sharding.place.on_local`).
 """
 from __future__ import annotations
 
-import math
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -47,7 +49,7 @@ from repro_torch.optim.adamw import (
     AdamWState, adamw_init, adamw_update, warmup_cosine,
 )
 from repro_torch.sharding.place import (
-    constrain, distribute_tree, full, is_sharded, local, place,
+    constrain, distribute_tree, full, local, place,
     replicated_like,
 )
 from repro_torch.sharding.rules import (
@@ -73,7 +75,9 @@ def _sharded_lse_ll(logits: DTensor, labels: DTensor):
     vocabulary (`local_map`), 0 elsewhere, summed over the same ranks.
     Both come back placed as the labels. The reference's formula
     (max + log Σ exp(x − max), the max without a gradient), in another
-    order of summation."""
+    order of summation; where no mesh dim of more than one rank splits
+    the vocabulary, each rank's rows' `torch.logsumexp`, as the
+    unsharded step's."""
     mesh, lp = logits.device_mesh, list(logits.placements)
     vdim = logits.ndim - 1
     row = [Replicate() if p == Shard(vdim) else p for p in lp]
@@ -82,9 +86,14 @@ def _sharded_lse_ll(logits: DTensor, labels: DTensor):
     def rows(t):
         return t.redistribute(mesh, row)
 
-    m = rows(torch.amax(logits, dim=-1, keepdim=True)).detach()
-    lse = (m + torch.log(rows(torch.sum(torch.exp(logits - m), dim=-1,
-                                        keepdim=True))))[..., 0]
+    if all(mesh.size(j) == 1 for j in split):
+        lse = local_map(functools.partial(torch.logsumexp, dim=-1),
+                        out_placements=row, in_placements=(lp,),
+                        device_mesh=mesh)(logits)
+    else:
+        m = rows(torch.amax(logits, dim=-1, keepdim=True)).detach()
+        lse = (m + torch.log(rows(torch.sum(torch.exp(logits - m), dim=-1,
+                                            keepdim=True))))[..., 0]
 
     def picked(lg, lab):
         n = lg.shape[-1]
@@ -142,12 +151,6 @@ def make_loss_fn(cfg: ModelConfig, *, remat: bool = True,
     return loss_fn
 
 
-# the families DTensor does not carry through their forward (MoE's top-k
-# and slot scatter, the RG-LRU and SSD scans): sharded, they run on a
-# data-only mesh alone, each rank's rows on its local tensors
-LOCAL_FORWARD = ("moe", "hybrid", "ssm")
-
-
 def make_grad_fn(cfg: ModelConfig, *, remat: bool = True,
                  logits_pspec=None, use_kernel: bool | None = None):
     """grad_fn(params, batch) -> (loss, parts, grads): `make_loss_fn`'s
@@ -156,77 +159,22 @@ def make_grad_fn(cfg: ModelConfig, *, remat: bool = True,
     dtypes (zeros for a parameter the loss does not reach; on DTensors,
     placed as DTensor's backward leaves them). The parameters are read
     through detached aliases, so their own `requires_grad` is left as it
-    is.
-
-    On DTensors a family of `LOCAL_FORWARD` runs on local tensors: on a
-    data-only mesh (ZeRO-1 keeps the parameters whole on every rank) each
-    rank takes the loss and gradient of its own rows, and they are summed
-    over the data ranks (the gradients partial sums for the train step's
-    reduce-scatter). The cross entropy stays the token mean over the
-    global batch: each rank's masked sum is divided by the count of
-    valid labels summed over the data ranks. The aux loss is the mean of
-    the ranks' own: an MoE routes each rank's rows alone, its capacity
-    and balance loss taken over them, as the reference's step with as
-    many microbatches as data ranks does (a departure from the
-    reference's one-batch step, `ROADMAP.md` queue A item 8). The SSM
-    and hybrid families have no aux loss and mix no rows, so theirs is
-    the reference's step. With a `model` axis above 1 these families
-    raise."""
+    is. Every family runs on DTensors alike: the model's blocks carry
+    their own sharding (`models.backbone`), and the cross entropy is the
+    token mean over the global batch."""
     loss_fn = make_loss_fn(cfg, remat=remat, logits_pspec=logits_pspec,
                            use_kernel=use_kernel)
 
-    def plain(params, batch: Batch, fn=loss_fn):
+    def grad_fn(params, batch: Batch):
         aliases = tree_map(lambda p: p.detach().requires_grad_(), params)
         leaves = tree_leaves(aliases)
-        loss, parts = fn(aliases, batch)
+        loss, parts = loss_fn(aliases, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
-        return (loss.detach(), {k: v.detach() for k, v in parts.items()},
-                grads)
-
-    def local(params, batch: Batch):
-        leaves = tree_leaves(params)
-        mesh = leaves[0].device_mesh
-        if any(mesh.size(j) > 1 and not pl.is_replicate()
-               for x in leaves for j, pl in enumerate(x.placements)):
-            raise ValueError(
-                f"{cfg.name} ({cfg.arch_type}): the sharded step runs this "
-                "family on a data-only mesh (model axis 1) alone; "
-                "ROADMAP.md, queue A item 8, lists the families refused at "
-                "a model axis above 1")
-        # the ranks the batch's rows are split over
-        pl = batch.tokens.placements
-        n = math.prod(mesh.size(j) for j, p in enumerate(pl) if p.is_shard())
-        partial = [Partial() if p.is_shard() else Replicate() for p in pl]
-
-        def summed(t):
-            return DTensor.from_local(t, mesh, partial, run_check=False)
-
-        labels = batch.labels.to_local()
-        valid = torch.sum(labels >= 0).to(torch.float32)
-        # this rank's share of the global token mean
-        w = valid / torch.clamp_min(full(summed(valid)), 1.0)
-
-        def share(p, b: Batch):
-            _, parts = loss_fn(p, b)
-            ce, aux = parts["ce"] * w, parts["aux"] / n
-            return ce + aux, {"ce": ce, "aux": aux}
-
-        loss, parts, grads = plain(
-            tree_unflatten(params, [p.to_local() for p in leaves]),
-            Batch(*(None if x is None else x.to_local() for x in batch)),
-            share)
-        return summed(loss), {k: summed(v) for k, v in parts.items()}, \
-            [summed(g) for g in grads]
-
-    def grad_fn(params, batch: Batch):
-        if cfg.arch_type in LOCAL_FORWARD and is_sharded(params):
-            loss, parts, grads = local(params, batch)
-        else:
-            loss, parts, grads = plain(params, batch)
         # 0-d results as plain tensors, the same on every rank
-        return (full(loss), {k: full(v) for k, v in parts.items()},
+        return (full(loss.detach()),
+                {k: full(v.detach()) for k, v in parts.items()},
                 tree_unflatten(params, grads))
     return grad_fn
 

@@ -134,3 +134,66 @@ def test_dryrun_counts_a_ranks_bytes_and_flops(tmp_path):
     assert rec["collective_bytes_per_chip"]["total"] > 0
     assert rec["roofline"]["bottleneck"] in ("compute", "memory",
                                              "collective")
+
+
+def _routed_and_replicated_flops(tc, T: int, model: int) -> float:
+    """What a rank of a (4, `model`) mesh does beyond 1/16 of the
+    unsharded step, from the shapes (each product counted 4 times: the
+    forward, remat's recompute, the two products of its backward): the
+    MoE's router on all T tokens (every rank routes the global batch),
+    its E/M experts on all their C slots (the expert batch is the same on
+    every data rank), the k and v projections where the kv heads do not
+    divide `model` (replicated: 3 times in the dense head layer, which
+    runs outside remat); the SSD's B and C columns of `w_in`, which every
+    rank of `model` projects."""
+    d, ranks = tc.d_model, 4 * model
+    if tc.moe is not None:
+        mc = tc.moe
+        E, K = mc.n_experts, mc.top_k
+        C = math.ceil(T * K * mc.capacity_factor / E)
+        router = 4 * 2 * T * d * E
+        experts = 4 * 3 * 2 * E * C * d * mc.d_expert
+        extra = router * (1 - 1 / ranks) + experts * (1 / model - 1 / ranks)
+        if tc.n_kv_heads % model:
+            kv = (3 + 4) * 2 * 2 * T * d * tc.n_kv_heads * tc.resolved_head_dim
+            extra += kv * (1 / 4 - 1 / ranks)
+        return extra
+    sc = tc.ssd
+    bc = tc.n_layers * 4 * 2 * T * d * 2 * sc.n_groups * sc.state_dim
+    return bc * (1 / 4 - 1 / ranks)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-1.3b"])
+def test_dryrun_runs_the_moe_and_ssm_sharded_step(tmp_path, arch):
+    """At the smoke size on a fake 4 x 4 group the MoE and SSM families'
+    sharded step runs (`status: "ok"`), and rank 0's FLOPs are 1/16 of
+    the unsharded step's (counted on fake tensors as above) but for the
+    work each rank of `model` does whole (`_routed_and_replicated_flops`):
+    the MoE's router and its E/M = 1 expert's slots, the SSD's H/M = 1
+    head with B and C projected on every rank."""
+    out = tmp_path / "dryrun"
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO_ROOT, "src"),
+               OMP_NUM_THREADS="2")
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", "train_4k", "--mesh", "4x4", "--reduced", "--out",
+         str(out)],
+        capture_output=True, text=True, timeout=180, cwd=REPO_ROOT, env=env)
+    assert run.returncode == 0, run.stderr[-3000:]
+    rec = json.loads((out / f"{arch}__train_4k__4x4__reduced.json").read_text())
+    assert rec["status"] == "ok", rec.get("traceback")
+    calls = rec["collective_calls"]
+    assert calls["all-gather"] > 0 and calls["reduce-scatter"] > 0, calls
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    B, S = 256, 4096
+    tc = tconfigs.smoke(tconfigs.get_config(arch))
+    with FakeTensorMode():
+        state = init_train_state(torch.Generator(), tc)
+        tok = torch.zeros((B, S), dtype=torch.int32)
+        with FlopCounterMode(display=False) as f:
+            make_train_step(tc)(state, Batch(tok, tok))
+    assert rec["microbatches"] == 1
+    assert rec["flops_per_chip"] == \
+        f.get_total_flops() / 16 + _routed_and_replicated_flops(tc, B * S, 4)

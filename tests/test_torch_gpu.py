@@ -594,7 +594,10 @@ def test_flash_attention_launches_once_per_layer_of_prefill(cuda):
     (2, 256, 256, 8, 2, 64, True, 0), (1, 200, 200, 4, 1, 128, True, 0),
     (1, 512, 512, 4, 1, 256, True, 64), (1, 200, 333, 4, 1, 128, False, 16),
     (4, 2048, 2048, 32, 8, 64, True, 0), (1, 300, 300, 4, 2, 64, True, 40),
-    (1, 300, 333, 4, 1, 256, False, 0), (1, 300, 100, 4, 2, 64, False, 50)])
+    (1, 300, 333, 4, 1, 256, False, 0), (1, 300, 100, 4, 2, 64, False, 50),
+    # recurrentgemma-9b's local attention on a rank of a model axis of 2
+    # (chip_smoke phase 12c): 8 q heads, its one kv head, window 2048
+    (2, 2048, 2048, 8, 1, 256, True, 2048)])
 def test_flash_attention_lse_matches_plain(cuda, dtype, b, s, t, n, k, h,
                                            causal, window):
     """The kernel's lse (B, N, S) against the plain version's, twice for

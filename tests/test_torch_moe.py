@@ -38,6 +38,7 @@ from repro.models.moe import moe_apply as jax_moe_apply
 import repro_torch.configs as tconfigs
 from repro_torch.convert import from_reference
 from repro_torch.models.moe import moe_apply, moe_sharding, route
+from repro_torch.sharding.rules import P
 from repro_torch.substrate import run_probe
 
 F32 = dict(compute_dtype="float32", param_dtype="float32")
@@ -154,18 +155,28 @@ def test_moe_permutation_equivariance():
 
 
 def test_moe_sharding_takes_no_hint_and_refuses_one():
-    """Unset hints change nothing; a spec raises, since torch has no
-    sharding constraint to apply it with."""
+    """Unset hints change nothing, and neither do the reference's two
+    (`launch/dryrun.py`'s: expert batches over `model`, tokens over the
+    data axes), which are the layouts the sharded layer on DTensors
+    always takes; any other spec raises, since torch has no sharding
+    constraint to apply it with."""
     jc, tc = _cfgs()
     _, tp = _params(jc)
     x = torch.from_numpy(_x(7, (1, 8, tc.d_model)))
     out, _ = moe_apply(tp, x, tc)
-    with moe_sharding(expert_batch=None, tokens=None):
-        inside, _ = moe_apply(tp, x, tc)
-    assert torch.equal(out, inside)
-    with pytest.raises(ValueError, match="moe_apply_a2a"):
-        with moe_sharding(expert_batch=("model", None, None), tokens=None):
-            pass
+    for eb, tok in ((None, None),
+                    (P("model", None, None), P(("data",), None)),
+                    (("model", None, None), P(("pod", "data"), None)),
+                    (None, P("data", None))):
+        with moe_sharding(expert_batch=eb, tokens=tok):
+            inside, _ = moe_apply(tp, x, tc)
+        assert torch.equal(out, inside)
+    for eb, tok in ((P(None, "model", None), None),
+                    (None, P(None, "data")),
+                    (P("data", None, None), P("data", None))):
+        with pytest.raises(ValueError, match="no other sharding constraint"):
+            with moe_sharding(expert_batch=eb, tokens=tok):
+                pass
 
 
 # ---- the all-to-all dispatch on gloo ranks -----------------------------

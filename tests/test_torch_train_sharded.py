@@ -19,14 +19,12 @@ Meshes (data, model): (1, 2), (2, 1) and (2, 2), the last with two
 microbatches (against the reference's step with two), and (1, 4), where
 smoke granite's 2 kv heads do not split over 4 ranks: `fit_spec`
 replicates `wk`/`wv` and each rank slices out the kv head of its one q
-head. internvl2-2b at (1, 2). Of the families DTensor does not carry
-(MoE, the RG-LRU hybrid, SSM), mamba2-1.3b and deepseek-moe-16b at
-(2, 1), where each rank takes its own rows' loss on local tensors:
-mamba2-1.3b, its rows given unequal counts of valid labels, held to the
-reference's one-batch step (the token mean over the global batch);
-deepseek-moe-16b, whose ranks route their own rows, to the reference's
-step with as many microbatches as data ranks. `launch/train.py` refuses
-each of them at a model axis above 1.
+head. internvl2-2b at (1, 2). mamba2-1.3b and deepseek-moe-16b at
+(2, 1), both held to the reference's one-batch step: mamba2-1.3b with
+its rows given unequal counts of valid labels (the token mean over the
+global batch), deepseek-moe-16b with its capacity binding (global
+routing: the reference drops tokens on that batch). The other families'
+model-parallel steps are in `test_torch_train_sharded_zoo.py`.
 
 A (2, 2) run's checkpoint is one global file, which loads in the
 unsharded port and in the reference's `restore_pytree` (given a template
@@ -36,6 +34,7 @@ by kind (`launch.hlo.Counters`, which extends `CommDebugMode`).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pickle
@@ -58,7 +57,10 @@ from repro_torch.launch import train as ttrain
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.sharding.rules import opt_pspecs
 from repro_torch.substrate import run_probe
-from repro_torch.training.step import TrainState, init_train_state
+from repro_torch.models import Batch as TBatch
+from repro_torch.training.step import (
+    TrainState, init_train_state, make_train_step,
+)
 from repro_torch.tree import named_leaves, tree_leaves
 
 F32 = dict(compute_dtype="float32", param_dtype="float32")
@@ -70,7 +72,7 @@ B, S = 4, 64
 # of the port's, placed on the mesh; take one step; rank 0 saves what it
 # gathered and the metrics
 _RANK = r"""
-import json, logging, pickle
+import dataclasses, json, logging, pickle
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -93,8 +95,11 @@ from repro_torch.training.step import (
 spec = json.load(open(@SPEC@))
 rank, world = init_from_env()
 mesh = make_host_mesh(spec["model"], device_type="cpu")
-cfg = smoke(get_config(spec["arch"])).replace(
-    compute_dtype="float32", param_dtype="float32", **spec["changes"])
+cfg = smoke(get_config(spec["arch"]))
+changes = dict(spec["changes"])
+if "moe" in changes:
+    changes["moe"] = dataclasses.replace(cfg.moe, **changes["moe"])
+cfg = cfg.replace(compute_dtype="float32", param_dtype="float32", **changes)
 data = np.load(spec["batch"])
 batch = Batch(*(torch.from_numpy(data[k]) if k in data.files else None
                 for k in ("tokens", "labels", "frontend")))
@@ -119,7 +124,8 @@ for k, path in enumerate(spec["states"]):
     with Counters() as c:
         state, m = step(state, sb)
     out.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                "calls": c.calls(), "bytes": c.collectives()})
+                "calls": c.calls(), "bytes": c.collectives(),
+                "ops": c.ops()})
     if spec.get("save") and spec["save"][k]:
         save_pytree(spec["save"][k], state)
     full = full_tree(state)
@@ -145,9 +151,15 @@ def _run(tmp_path, name, world, **spec) -> list:
 
 
 def _configs(arch, **changes):
-    jc = smoke(get_config(arch)).replace(**F32, **changes)
-    tc = tconfigs.smoke(tconfigs.get_config(arch)).replace(**F32, **changes)
-    return jc, tc
+    """The reference's and the port's smoke `arch` in f32 with `changes`;
+    a `moe` entry is a dict of the nested `MoeConfig`'s fields."""
+    out = []
+    for c in (smoke(get_config(arch)), tconfigs.smoke(tconfigs.get_config(arch))):
+        kw = dict(changes)
+        if "moe" in kw:
+            kw["moe"] = dataclasses.replace(c.moe, **kw["moe"])
+        out.append(c.replace(**F32, **kw))
+    return tuple(out)
 
 
 def _batch_arrays(cfg, seed=7, uneven=False) -> dict:
@@ -167,13 +179,32 @@ def _batch_arrays(cfg, seed=7, uneven=False) -> dict:
     return out
 
 
-def _close(got: torch.Tensor, want, label: str, tol: float = TOL,
-           floor: float = 1e-6) -> None:
+def _within(got: torch.Tensor, want, tol: float, floor: float):
+    """(whether `got` is within tol · max(floor, max|want|) of `want`,
+    the error, the bar)."""
     want = np.array(want, dtype=np.float64)
     err = float(np.max(np.abs(got.detach().double().numpy() - want),
                        initial=0.0))
     scale = max(floor, float(np.max(np.abs(want), initial=0.0)))
-    assert err <= tol * scale, f"{label}: err {err} > {tol} * {scale}"
+    return err <= tol * scale, err, tol * scale
+
+
+def _close(got: torch.Tensor, want, label: str, tol: float = TOL,
+           floor: float = 1e-6, port=None) -> None:
+    """`got` within the bar of the reference's `want`. Where `port` (the
+    unsharded port's value, from the same state) is given and is itself
+    outside the bar, the f32 rounding of the one-card port already
+    parts from the reference's there, and `got` is held to `port` by the
+    same bar instead: the sharding may add nothing to it."""
+    ok, err, bar = _within(got, want, tol, floor)
+    if ok:
+        return
+    if port is not None and not _within(port, want, tol, floor)[0]:
+        ok, err2, bar2 = _within(got, port.numpy(), tol, floor)
+        assert ok, (f"{label}: err {err} > {bar} off the reference, "
+                    f"{err2} > {bar2} off the unsharded port")
+        return
+    assert ok, f"{label}: err {err} > {bar}"
 
 
 def _reference_steps(jc, tc, arrays, microbatches, tmp_path):
@@ -205,47 +236,85 @@ def _reference_steps(jc, tc, arrays, microbatches, tmp_path):
     return paths, want
 
 
-def _check_step(got_path, want, metrics, label):
+def _check_step(got_path, want, metrics, label, port=None):
     """The gathered state after one sharded step against the reference's
-    (see the module docstring for the bars)."""
+    (see the module docstring for the bars); `port`, the unsharded port's
+    (state, metrics) from the same state, where a leaf may be held to it
+    (`_close`)."""
     state, jm = want
     got = restore_pytree(got_path, state)
-    _close(torch.tensor(metrics["loss"]), jm["loss"], f"{label} loss")
+    ps, pm = port or (None, {})
+
+    def pick(leaves, i, mask=None):
+        if leaves is None:
+            return None
+        return leaves[i] if mask is None else leaves[i][mask]
+
+    _close(torch.tensor(metrics["loss"]), jm["loss"], f"{label} loss",
+           port=None if ps is None else torch.tensor(pm["loss"]))
     _close(torch.tensor(metrics["grad_norm"]), jm["grad_norm"],
-           f"{label} grad_norm")
+           f"{label} grad_norm",
+           port=None if ps is None else torch.tensor(pm["grad_norm"]))
     assert int(got.step) == int(state.step)
     assert int(got.opt.count) == int(state.opt.count)
     for name in ("mu", "nu"):
-        for g, w in zip(tree_leaves(getattr(got.opt, name)),
-                        tree_leaves(getattr(state.opt, name))):
-            _close(g, w.numpy(), f"{label} {name}")
+        mine = None if ps is None else tree_leaves(getattr(ps.opt, name))
+        for i, (g, w) in enumerate(zip(tree_leaves(getattr(got.opt, name)),
+                                       tree_leaves(getattr(state.opt, name)))):
+            _close(g, w.numpy(), f"{label} {name}", port=pick(mine, i))
     lr, small = jm["lr"], 0
     for name, g_tree, w_tree in (("master", got.opt.master, state.opt.master),
                                  ("params", got.params, state.params)):
-        for g, w, mu in zip(tree_leaves(g_tree), tree_leaves(w_tree),
-                            tree_leaves(state.opt.mu)):
+        mine = None if ps is None else tree_leaves(
+            ps.opt.master if name == "master" else ps.params)
+        for i, (g, w, mu) in enumerate(zip(tree_leaves(g_tree),
+                                           tree_leaves(w_tree),
+                                           tree_leaves(state.opt.mu))):
             tiny = (torch.abs(mu) < 0.1 * 1e-7) & (mu != 0)
-            _close(g[~tiny], w[~tiny].numpy(), f"{label} {name}", floor=1.0)
+            _close(g[~tiny], w[~tiny].numpy(), f"{label} {name}", floor=1.0,
+                   port=pick(mine, i, ~tiny))
             _close(g[tiny], w[tiny].numpy(), f"{label} {name} |g| < 1e-7",
-                   tol=2 * lr, floor=1.0)
+                   tol=2 * lr, floor=1.0, port=pick(mine, i, tiny))
             small += int(tiny.sum())
     n = sum(p.numel() for p in tree_leaves(state.params))
     assert small <= 1e-3 * 2 * n, f"{label}: {small} of {n} tiny gradients"
 
 
+def _port_steps(tc, arrays, microbatches, paths):
+    """The unsharded port's step, on plain tensors, from each of the
+    reference's states at `paths`: [(state, metrics)]."""
+    step = make_train_step(tc, microbatches=microbatches, **KW)
+    batch = TBatch(*(torch.from_numpy(arrays[k]) if k in arrays else None
+                     for k in ("tokens", "labels", "frontend")))
+    out = []
+    for path in paths:
+        with open(path, "rb") as f:
+            state = train_state_from_reference(pickle.load(f), tc, "cpu")
+        state, m = step(state, batch)
+        out.append((state, {k: float(v) for k, v in m.items()}))
+    return out
+
+
 def _held_to_reference(tmp_path, arch, mesh, microbatches=1,
-                       ref_microbatches=None, uneven=False, **changes):
+                       ref_microbatches=None, uneven=False, port_floor=False,
+                       **changes):
+    """Two sharded steps of `arch` on `mesh`, each held to the
+    reference's step from the same state; with `port_floor`, a leaf
+    where the unsharded port's own step parts from the reference's by
+    more than the bar is held to the unsharded port's (`_close`)."""
     jc, tc = _configs(arch, **changes)
     arrays = _batch_arrays(tc, uneven=uneven)
     np.savez(tmp_path / "batch.npz", **arrays)
     paths, want = _reference_steps(
         jc, tc, arrays, ref_microbatches or microbatches, tmp_path)
+    port = (_port_steps(tc, arrays, microbatches, paths) if port_floor
+            else [None, None])
     metrics = _run(tmp_path, "run", mesh[0] * mesh[1], arch=arch,
                    model=mesh[1], microbatches=microbatches, states=paths,
                    batch=str(tmp_path / "batch.npz"), changes=changes)
     for k in range(2):
         _check_step(str(tmp_path / "run" / f"state{k}"), want[k], metrics[k],
-                    f"{arch} {mesh} step {k}")
+                    f"{arch} {mesh} step {k}", port=port[k])
     return metrics
 
 
@@ -260,32 +329,57 @@ def test_sharded_vlm_matches_reference(tmp_path):
     _held_to_reference(tmp_path, "internvl2-2b", (1, 2))
 
 
-@pytest.mark.parametrize("arch, ref_microbatches, uneven",
-                         [("mamba2-1.3b", 1, True),
-                          ("deepseek-moe-16b", 2, False)],
+# smoke deepseek-moe-16b with C = ⌈T·K·0.75/E⌉ slots an expert: fewer
+# than the T·K choices, so the capacity binds and tokens are dropped
+BINDING = {"moe": {"capacity_factor": 0.75}}
+
+
+def _reference_drops(arch, arrays, **changes) -> list:
+    """The reference's `moe_drop_frac` of each MoE layer on the batch of
+    `arrays`, from its own forward on its seed-0 state (read out of its
+    scan by `jax.debug.callback`)."""
+    import repro.models.backbone as jbackbone
+    from repro.models import forward_train as jax_forward_train
+    jc, _ = _configs(arch, **changes)
+    drops, inner = [], jbackbone.moe_apply
+
+    def recorded(p, x, cfg):
+        out, aux = inner(p, x, cfg)
+        jax.debug.callback(lambda v: drops.append(float(v)),
+                           aux["moe_drop_frac"])
+        return out, aux
+
+    js = jax_init_train_state(jax.random.PRNGKey(0), jc)
+    batch = Batch(tokens=jnp.asarray(arrays["tokens"]),
+                  labels=jnp.asarray(arrays["labels"]))
+    jbackbone.moe_apply = recorded
+    try:
+        jax.block_until_ready(jax_forward_train(js.params, jc, batch,
+                                                remat=False))
+        jax.effects_barrier()
+    finally:
+        jbackbone.moe_apply = inner
+    return drops
+
+
+@pytest.mark.parametrize("arch, uneven, changes",
+                         [("mamba2-1.3b", True, {}),
+                          ("deepseek-moe-16b", False, BINDING)],
                          ids=["mamba2-1.3b", "deepseek-moe-16b"])
-def test_data_only_mesh_runs_the_other_families(tmp_path, arch,
-                                                ref_microbatches, uneven):
-    """On (2, 1) each rank takes its own rows' loss on local tensors,
-    divided by the global count of valid labels. The SSM mixes no rows:
-    with the ranks' counts unequal, its step is the reference's one-batch
-    step, where a mean of the ranks' means would not be. An MoE routes
-    each rank's rows alone (capacity and balance loss per rank), which
-    is the reference's step with two microbatches, there where the two
-    halves' counts are equal."""
-    _held_to_reference(tmp_path, arch, (2, 1), uneven=uneven,
-                       ref_microbatches=ref_microbatches)
-
-
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-30b-a3b",
-                                  "recurrentgemma-9b", "mamba2-1.3b"])
-def test_model_axis_refuses_the_families_dtensor_does_not_carry(
-        arch, monkeypatch):
-    for k, v in (("RANK", "0"), ("WORLD_SIZE", "2"),
-                 ("REPRO_INIT_FILE", "/nonexistent/rendezvous")):
-        monkeypatch.setenv(k, v)
-    with pytest.raises(SystemExit, match=f"{arch}.*ROADMAP.md, queue A"):
-        ttrain.main(["--device", "cpu", "--arch", arch, "--model-axis", "2"])
+def test_data_only_mesh_runs_the_other_families(tmp_path, arch, uneven,
+                                                changes):
+    """On (2, 1), held to the reference's one-batch step. The SSM mixes
+    no rows: with the ranks' counts of valid labels unequal, its loss is
+    the token mean over the global batch, where a mean of the ranks'
+    means would not be. The MoE routes the global batch (each rank
+    gathers the rows): its capacity binds (the reference drops tokens on
+    this batch), so routing each rank's rows alone would drop other
+    tokens and fail here."""
+    if changes:
+        jc, tc = _configs(arch, **changes)
+        drops = _reference_drops(arch, _batch_arrays(tc), **changes)
+        assert drops and min(drops) > 0, drops
+    _held_to_reference(tmp_path, arch, (2, 1), uneven=uneven, **changes)
 
 
 def test_model_axis_without_ranks_says_how_to_start_them(monkeypatch):
