@@ -116,7 +116,10 @@ Phases, each of which raises on failure (exit code != 0):
    times, one per layer's prefill, and nothing else), then the same with
    `use_kernel=False` on the card: the prefill's last logits within
    0.1 * max|logits|, the shared tokens counted, prefill and decode
-   times, tokens per second and peak memory; then an f32 copy of the same
+   times, tokens per second and peak memory; the kernel run once more
+   step by step (`serve_trace`: each step's logits), whose tokens must
+   be `greedy_generate`'s and which phase 13a holds its sharded steps
+   to; then an f32 copy of the same
    widths at 4 layers (batch 2, prompt 2048, 8 new tokens), whose kernel
    and plain paths must give identical tokens and last logits within
    1e-4 * max|logits|;
@@ -301,13 +304,45 @@ Phases, each of which raises on failure (exit code != 0):
    bars (`f32_sharded_check`, 11b's own procedure). Phase 3 and 5 gain
    #9 at 12a-12c's per-rank shapes, with the lse, beside SDPA.
 
+13. serving sharded on gloo ranks of the one card
+   (`serve_sharded_phase`, `SERVE13_PROGRAM`): `serving.engine`'s
+   prefill and decode steps on parameters placed by `param_pspecs`, the
+   request batch by `batch_pspecs`, the caches coming out placed by
+   `cache_pspecs` (every leaf checked), each decode step fed the
+   unsharded run's token before it (teacher forcing), the launch counts
+   zeroed just before the prefill and read after the last decode step,
+   every rank's collectives counted by op (no DTensor all-gather):
+   13a. granite-3-2b unreduced in bf16 on 2 ranks as (1, 2), phase 6's
+        weights and request batch (4 x 2048, 16 new tokens): a warm-up
+        prefill (its collectives counted), then the prefill and 15 decode
+        steps timed, each held to phase 6's kernel run (recorded step by
+        step, `serve_trace`) by TOL_SERVE_BF16 · max|logits|, #9 40
+        times a rank at (4, 2048, 16, 4, 64) and nothing else; then one
+        more step, its collectives counted; the prefill and decode walls,
+        tokens/s, a rank's peak memory, the greedy tokens shared;
+   13b. on the same ranks, SERVE13B: deepseek-moe-16b at 3 of 28 layers
+        (routed as its unsharded run; a free prefill's flips at the first
+        MoE layer held to TOL_ROUTE_FLIPS), recurrentgemma-9b at one
+        group of 38, mamba2-1.3b, seamless-m4t-medium (#9 inside its
+        encoder counted on its own) and internvl2-2b unreduced, each held
+        to its unsharded kernel run (taken first in this process) by
+        TOL_SERVE_BF16 · max|logits|, under the collective counters;
+   13c. f32 copies on 4 ranks as (2, 2) (granite at 4 layers,
+        deepseek-moe-16b at 2 with capacity factor 0.5, recurrentgemma-9b
+        at one group, mamba2-1.3b at 2 layers), batch 2, 8 new tokens:
+        the unsharded f32 run's greedy tokens and logits within TOL_FIT ·
+        max|logits|.
+   Phase 3 and 5 gain #9 without the lse at 13a-13b's five per-rank
+   prefill shapes, beside SDPA.
+
 It prints one JSON line of kernels (launches per run from phases 4-4c,
 6, 7c, 9 and 10, #9 with its lse taking 10a's kernel loss-and-gradient
-run's, its 11a per-rank row 11a's rank 0's and its phase 12 per-rank
-rows 12a-12c's rank 0's; phase 8's, over its ranks and its own fits, as
-`launches_phase8`, phase 11's, over its 11a ranks, as
-`launches_phase11`, and phase 12's, over its ranks, as
-`launches_phase12`) and, last, the result line. With no CUDA device it
+run's, its 11a per-rank row 11a's rank 0's, its phase 12 per-rank rows
+12a-12c's rank 0's and its phase 13 per-rank rows 13a-13b's rank 0's;
+phase 8's, over its ranks and its own fits, as `launches_phase8`, phase
+11's, over its 11a ranks, as `launches_phase11`, phase 12's, over its
+ranks, as `launches_phase12`, and phase 13's, over its 13a-13b ranks, as
+`launches_phase13`) and, last, the result line. With no CUDA device it
 raises before printing any result.
 """
 from __future__ import annotations
@@ -448,6 +483,34 @@ ZOO12_STEPS = 2
 ZOO12E = (("12e-moe", "deepseek-moe-16b",
            {"n_layers": 2, "moe": {"capacity_factor": 0.5}}),
           ("12e-ssm", "mamba2-1.3b", {"n_layers": 1}))
+
+# phase 13: serving sharded on gloo ranks of the one card. 13a:
+# granite-3-2b unreduced in bf16 on a (1, TP_MODEL) mesh, phase 6's
+# weights and request batch, each step held to phase 6's unsharded
+# kernel run by TOL_SERVE_BF16 (the run recorded step by step,
+# `serve_trace`). 13b: the other family kinds at full width on the same
+# ranks, each held to its own unsharded kernel run, taken first here; the
+# depth cut to phase 12's cuts where the two ranks' weights or the time
+# would not allow more (deepseek-moe-16b's 16.4 B parameters twice over
+# do not fit the card): (run, arch, changes)
+SERVE13B = (("13b-moe", "deepseek-moe-16b", {"n_layers": 3}),
+            ("13b-rg", "recurrentgemma-9b", {"n_layers": 3}),
+            ("13b-ssm", "mamba2-1.3b", {}),
+            ("13b-audio", "seamless-m4t-medium", {}),
+            ("13b-vlm", "internvl2-2b", {}))
+# 13c: f32 copies on SHARDED_MESH_11B's 4 ranks, batch 2 (one row a data
+# rank), prompt 2048 and 8 new tokens as phase 6's f32 copy, each held to
+# its unsharded f32 kernel run by 11b's f32 bar (1e-4 · max|logits|) with
+# the same greedy tokens: deepseek-moe-16b with its capacity binding, and
+# the channel-parallel RG-LRU and head-parallel SSD prefill and decode
+# (their conv windows moved between layouts by `place.reshard`)
+F32 = {"param_dtype": "float32", "compute_dtype": "float32"}
+SERVE13C = (("13c-dense", "granite-3-2b", {"n_layers": 4, **F32}),
+            ("13c-moe", "deepseek-moe-16b",
+             {"n_layers": 2, "moe": {"capacity_factor": 0.5}, **F32}),
+            ("13c-rg", "recurrentgemma-9b", {"n_layers": 3, **F32}),
+            ("13c-ssm", "mamba2-1.3b", {"n_layers": 2, **F32}))
+SERVE13C_BATCH, SERVE13C_STEPS = 2, 8
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2473,25 +2536,28 @@ def train_base() -> dict:
                 seq=TRAIN_SEQ, lr=TRAIN_LR, changes={}, root=str(ROOT))
 
 
-def train_ranks(label, world, spec, tmp, card) -> list:
-    """`TRAIN11_PROGRAM` with `spec` on `world` gloo ranks of the one
-    card (`run_probe`); each rank's result line, checked to have loaded
-    phase 2's kernels and to sit on card 0."""
+def run_ranks(label, world, spec, tmp, card, program=None,
+              tag: str = "RANK11", timeout: float = 900,
+              pg_timeout: float = 600) -> list:
+    """`program` (`TRAIN11_PROGRAM` where None), whose ranks print their
+    result on a line that starts with `tag`, with `spec` on `world` gloo
+    ranks of the one card (`run_probe`); each rank's result line, checked
+    to have loaded phase 2's kernels and to sit on card 0."""
     from repro_torch.substrate import run_probe
     path = f"{tmp}/spec_{label}.json"
     Path(path).write_text(json.dumps(spec))
     t0 = time.perf_counter()
-    run = run_probe(TRAIN11_PROGRAM.replace("@SPEC@", path), world=world,
-                    timeout=900, pg_timeout=600)
+    run = run_probe((program or TRAIN11_PROGRAM).replace("@SPEC@", path),
+                    world=world, timeout=timeout, pg_timeout=pg_timeout)
     wall = time.perf_counter() - t0
     check(run.ok, f"phase {label} ranks failed:\n{run.report()}")
     lines = []
     for i, r in enumerate(run.ranks):
         found = [ln for ln in r.stdout.splitlines()
-                 if ln.startswith("RANK11 ")]
+                 if ln.startswith(tag + " ")]
         check(len(found) == 1, f"{label} rank {i}: no result line:\n"
               f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-        line = json.loads(found[0][len("RANK11 "):])
+        line = json.loads(found[0][len(tag) + 1:])
         check(line["compiled"] == [],
               f"{label} rank {i} recompiled kernels: {line['compiled']}")
         check(line["device"] == 0, f"{label} rank {i} on card "
@@ -2561,7 +2627,7 @@ def f32_sharded_check(label, arch, changes, dev, card, tmp,
                 eps=ADAM_EPS)
     states, want, drops = [], [], []
     if in_rank:
-        b = train_ranks(label, world, dict(spec, phase="12e"), tmp, card)
+        b = run_ranks(label, world, dict(spec, phase="12e"), tmp, card)
         ref = b[0]["ref"]
         check(ref["launches"].get("flash_attention", 0) == want_flash,
               f"{label} unsharded step launches {ref['launches']}")
@@ -2601,7 +2667,7 @@ def f32_sharded_check(label, arch, changes, dev, card, tmp,
         del state, batch
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-        b = train_ranks(label, world, dict(spec, phase="11b", states=states),
+        b = run_ranks(label, world, dict(spec, phase="11b", states=states),
                         tmp, card)
     if n_moe:
         # the capacity binds where C holds fewer than the T·K choices;
@@ -2684,7 +2750,7 @@ def train_sharded_phase(dev, card, tmp) -> dict:
     # ---- 11a. granite-3-2b unreduced, bf16, (1, TP_MODEL) --------------
     leaves = [n for n in named_leaves(init_params_shapes(cfg))
               if sharded_leaf(n, cfg)]
-    a = train_ranks("11a", TP_MODEL, dict(
+    a = run_ranks("11a", TP_MODEL, dict(
         train_base(), phase="11a", model=TP_MODEL, steps=TP_STEPS,
         leaves=leaves, ref10a=f"{tmp}/ref10a.pt"), tmp, card)
     r0 = a[0]
@@ -2866,7 +2932,7 @@ def train_zoo_sharded_phase(dev, card, tmp) -> dict:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
-    lines = train_ranks("12", TP_MODEL, dict(
+    lines = run_ranks("12", TP_MODEL, dict(
         train_base(), phase="12", model=TP_MODEL, steps=ZOO12_STEPS,
         tol=TOL_TRAIN_GRAD, noise=ZOO12_NOISE,
         runs=[{k: r[k] for k in ("label", "arch", "changes", "batch",
@@ -2952,6 +3018,385 @@ def train_zoo_sharded_phase(dev, card, tmp) -> dict:
     for label, arch, changes in ZOO12E:
         f32_sharded_check(label, arch, changes, dev, card, tmp, in_rank=True)
     return {"launches": rank0, "launches_phase12": both}
+
+
+@torch.no_grad()
+def serve_trace(params, cfg, prompt, steps, frontend=None) -> dict:
+    """The unsharded greedy run step by step, as `greedy_generate` runs it:
+    the prefill's last logits and each decode step's (f32, on the host)
+    and the tokens each gives, for phase 13 to hold its sharded steps
+    to."""
+    from repro_torch.models import Batch
+    from repro_torch.serving.engine import (
+        frontend_offset, make_prefill_step, make_serve_step,
+    )
+    off, s = frontend_offset(cfg, frontend), prompt.shape[1]
+    logits, caches = make_prefill_step(cfg, cache_len=s + off + steps)(
+        params, Batch(tokens=prompt, frontend=frontend))
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    out = {"logits": [logits[:, -1].float().cpu()], "tokens": [tok.cpu()]}
+    serve = make_serve_step(cfg)
+    for i in range(steps - 1):
+        tok, logits, caches = serve(params, tok[:, None], s + off + i,
+                                    caches)
+        out["logits"].append(logits[:, -1].float().cpu())
+        out["tokens"].append(tok.cpu())
+    return out
+
+
+SERVE13_PROGRAM = r"""
+import contextlib, json, logging, sys, time
+import torch
+import torch.distributed as dist
+logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+    logging.ERROR)
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import LAUNCHES, reset_launches
+from repro_torch.launch.hlo import Counters
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import Batch, init_params
+from repro_torch.serving import cell
+from repro_torch.serving.engine import (
+    frontend_offset, make_prefill_step, make_serve_step,
+)
+from repro_torch.sharding.place import distribute_tree, full
+from repro_torch.sharding.rules import (
+    batch_pspecs, cache_pspecs, param_pspecs, placements,
+)
+from repro_torch.substrate import init_from_env
+from repro_torch.tree import named_leaves
+
+spec = json.load(open("@SPEC@"))
+dev = torch.device("cuda")
+rank, world = init_from_env(device=dev)
+_build.build()
+out = dict(rank=rank, world=world, compiled=sorted(_build.BUILD_SECONDS),
+           device=torch.cuda.current_device(), runs=[])
+mesh = make_host_mesh(spec["model"], device_type="cuda")
+sys.path.insert(0, spec["root"])
+from chip_smoke import config_of, encoder_launches, moe_routes, route_flips
+
+
+def ms_since(t0):
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def worst(got, want, vocab):
+    # max |got - want| over max |want|, on the vocabulary's columns
+    got, want = got[..., :vocab].float(), want[..., :vocab].to(got.device)
+    return (torch.max(torch.abs(got - want)) /
+            torch.max(torch.abs(want))).item()
+
+
+for run in spec["runs"]:
+    cfg = config_of(run["arch"], run["changes"])
+    params = init_params(
+        torch.Generator(device=dev).manual_seed(cell.PARAM_SEED), cfg)
+    sp = distribute_tree(params, param_pspecs(params, mesh), mesh)
+    del params
+    torch.cuda.empty_cache()
+    B, steps = run["batch"], run["steps"]
+    prompt = cell.make_prompt(cfg, dev, B)
+    fe = cell.make_frontend(cfg, dev, B)
+    S, off = prompt.shape[1], frontend_offset(cfg, fe)
+    sb = distribute_tree(Batch(tokens=prompt, frontend=fe),
+                         batch_pspecs(mesh, B, fe is not None), mesh)
+    ref = torch.load(run["ref"])
+    routes = ([t.to(dev) for t in torch.load(run["routes"])]
+              if run["routes"] else None)
+    prefill = make_prefill_step(cfg, cache_len=S + off + steps)
+    serve = make_serve_step(cfg)
+    got = dict(label=run["label"])
+
+    def routing():
+        return (moe_routes(routes, replay=True) if routes is not None
+                else contextlib.nullcontext())
+
+    if run["warm"]:
+        # a prefill that warms the path up, its collectives counted
+        with routing(), Counters() as c:
+            logits, caches = prefill(sp, sb)
+        torch.cuda.synchronize()
+        got.update(prefill_calls=c.calls(), prefill_bytes=c.collectives(),
+                   prefill_ops=c.ops())
+        del logits, caches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # without a warm-up, the timed prefill's collectives are counted
+    counted = contextlib.nullcontext(None) if run["warm"] else Counters()
+    enc, walls, errs, agree = [], [], [], []
+    reset_launches()
+    with encoder_launches(enc), routing():
+        with counted as c:
+            t0 = time.perf_counter()
+            logits, caches = prefill(sp, sb)
+            got["prefill_ms"] = ms_since(t0)
+        if c is not None:
+            got.update(prefill_calls=c.calls(),
+                       prefill_bytes=c.collectives(), prefill_ops=c.ops())
+        want = named_leaves(cache_pspecs(mesh, caches, B))
+        got["misplaced"] = [k for k, t in named_leaves(caches).items()
+                            if tuple(t.placements)
+                            != placements(want[k], mesh)]
+        errs.append(worst(full(logits)[:, -1], ref["logits"][0],
+                          cfg.padded_vocab))
+        # each step fed the unsharded run's token before it (teacher
+        # forcing: one near-tie does not carry on)
+        for i in range(steps - 1):
+            tok = distribute_tree(ref["tokens"][i].to(dev)[:, None],
+                                  batch_pspecs(mesh, B).tokens, mesh)
+            t0 = time.perf_counter()
+            nxt, logits, caches = serve(sp, tok, S + off + i, caches)
+            walls.append(ms_since(t0))
+            errs.append(worst(full(logits)[:, -1], ref["logits"][i + 1],
+                              cfg.vocab))
+            agree.append(int((full(nxt).cpu()
+                              == ref["tokens"][i + 1]).sum()))
+    got.update(launches=dict(LAUNCHES), encoder=sum(enc),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               decode_ms=walls, errs=errs, agree=agree,
+               tokens=B * (steps - 1))
+    # one more step (routed freely: the unsharded run has no such step),
+    # its collectives counted
+    tok = distribute_tree(ref["tokens"][steps - 1].to(dev)[:, None],
+                          batch_pspecs(mesh, B).tokens, mesh)
+    with Counters() as c:
+        serve(sp, tok, S + off + steps - 1, caches)
+    got.update(decode_calls=c.calls(), decode_bytes=c.collectives(),
+               decode_ops=c.ops())
+    del logits, caches
+    if routes is not None:
+        # the routing left free: the first MoE layer's top-k sets against
+        # the unsharded run's
+        free = []
+        with moe_routes(free):
+            prefill(sp, sb)
+        got["flips"] = route_flips(free[:1], routes[:1])[0]
+        got["routed"] = free[0].shape[0]
+    del sp
+    torch.cuda.empty_cache()
+    out["runs"].append(got)
+
+dist.destroy_process_group()
+print("RANK13 " + json.dumps(out))
+"""
+
+
+# phase 13's runs whose #9 per-rank instance (no lse) is a row of its own
+SERVE13_ROWS = {"13a": "flash_attention_tp2",
+                "13b-moe": "flash_attention_moe_tp2",
+                "13b-rg": "flash_attention_h256_tp2",
+                "13b-vlm": "flash_attention_vlm_tp2",
+                "13b-audio": "flash_attention_noncausal_tp2"}
+
+
+def serve13_flash_shapes() -> dict:
+    """{row: ((B, S, N / TP_MODEL, the kv heads a rank reads, H), causal,
+    window)}: #9 without its lse at the per-rank shapes of phase 13's
+    prefills, from the configurations (the VLM's patches ahead of its
+    prompt; the enc-dec's encoder over its frames, not causal; the
+    seamless decoder's causal calls run the H = 64 body of the granite
+    row); K / TP_MODEL kv heads where it divides, else those of the
+    rank's q heads (a replicated `wk`/`wv`)."""
+    from repro_torch.serving import cell
+
+    def shape(arch, s):
+        c = config_of(arch, {})
+        n, k = c.n_heads // TP_MODEL, c.n_kv_heads
+        kv = k // TP_MODEL if k % TP_MODEL == 0 else \
+            max(1, n // (c.n_heads // k))
+        return (cell.BATCH, s, n, kv, c.resolved_head_dim)
+
+    vlm = config_of("internvl2-2b", {})
+    audio = config_of("seamless-m4t-medium", {})
+    return {
+        "flash_attention_tp2": (shape(cell.ARCH, cell.PROMPT), True, 0),
+        "flash_attention_moe_tp2": (shape("deepseek-moe-16b", cell.PROMPT),
+                                    True, 0),
+        "flash_attention_h256_tp2": (
+            shape("recurrentgemma-9b", cell.PROMPT), True,
+            config_of("recurrentgemma-9b", {}).window),
+        "flash_attention_vlm_tp2": (
+            shape(vlm.name, cell.PROMPT + vlm.n_frontend_tokens), True, 0),
+        "flash_attention_noncausal_tp2": (
+            shape(audio.name, audio.n_frontend_tokens), False, 0),
+    }
+
+
+def attention_layers(cfg) -> int:
+    """The layers of `cfg` whose prefill runs #9 once (the encoder's
+    aside)."""
+    return sum(kind in ("attn", "local_attn", "moe")
+               for kind in cfg.layer_kinds())
+
+
+def serve_reference(label, arch, changes, dev, tmp, batch, steps,
+                    replay: bool = True) -> dict:
+    """An unsharded kernel run of phase 13 taken here: `serve_trace` of
+    `arch` with `changes` on its request batch, saved to `tmp` (with
+    `replay`, every MoE route call too, for the sharded run to make); the
+    rank program's entry for the run."""
+    from repro_torch.models import init_params
+    from repro_torch.serving import cell
+    cfg = config_of(arch, changes)
+    params = init_params(
+        torch.Generator(device=dev).manual_seed(cell.PARAM_SEED), cfg)
+    prompt = cell.make_prompt(cfg, dev, batch)
+    fe = cell.make_frontend(cfg, dev, batch)
+    routes = []
+    with moe_routes(routes):
+        trace = serve_trace(params, cfg, prompt, steps, fe)
+    torch.save(trace, f"{tmp}/ref{label}.pt")
+    replay = replay and bool(routes)
+    if replay:
+        torch.save([t.cpu() for t in routes], f"{tmp}/routes{label}.pt")
+    del params, prompt, fe, routes
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dict(label=label, arch=arch, changes=changes, batch=batch,
+                steps=steps, ref=f"{tmp}/ref{label}.pt", warm=False,
+                routes=f"{tmp}/routes{label}.pt" if replay else None)
+
+
+def serve_sharded_phase(dev, card, tmp) -> dict:
+    """Phase 13: prefill and decode sharded over gloo ranks of the one
+    card (`serving.engine`'s steps on parameters placed by
+    `param_pspecs`, the batch by `batch_pspecs`; the caches come out
+    placed by `cache_pspecs`), each decode step fed the unsharded run's
+    token before it. 13a: granite-3-2b unreduced in bf16 on a (1,
+    TP_MODEL) mesh against phase 6's kernel run (`{tmp}/ref13a.pt`); a
+    warm-up prefill, then the prefill and NEW_TOKENS - 1 decode steps
+    timed with the launch counts zeroed just before and read just after,
+    then one more step under the collective counters. 13b: SERVE13B's
+    families on the same ranks, each against its unsharded kernel run
+    taken first here (the MoE routed as it, every route call replayed,
+    then a free prefill's flips), under the collective counters. 13c:
+    SERVE13C's f32 copies on SHARDED_MESH_11B's 4 ranks, the same tokens
+    and logits within TOL_FIT · max|logits|. Returns rank 0's #9
+    launches by row and both ranks' (`launches_phase13`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import cell
+
+    steps = cell.NEW_TOKENS
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    runs = [dict(label="13a", arch=cell.ARCH, changes={}, batch=cell.BATCH,
+                 steps=steps, ref=f"{tmp}/ref13a.pt", warm=True,
+                 routes=None)]
+    for label, arch, changes in SERVE13B:
+        runs.append(serve_reference(label, arch, changes, dev, tmp,
+                                    cell.BATCH, steps))
+    base = dict(model=TP_MODEL, root=str(ROOT))
+    lines = run_ranks("13ab", TP_MODEL, dict(base, runs=runs), tmp, card,
+                      SERVE13_PROGRAM, "RANK13", 600, 300)
+    rank0, both = {}, {}
+    for k, run in enumerate(runs):
+        label, got = run["label"], [ln["runs"][k] for ln in lines]
+        r0 = got[0]
+        cfg = config_of(run["arch"], run["changes"])
+        full_cfg = get_config(run["arch"])
+        n_attn = attention_layers(cfg)
+        enc = cfg.n_encoder_layers if cfg.arch_type == "encdec" else 0
+        for i, g in enumerate(got):
+            fl = g["launches"].get("flash_attention", 0)
+            check(fl == n_attn + enc and sum(g["launches"].values()) == fl
+                  and g["encoder"] == enc,
+                  f"{label} rank {i} launches {g['launches']} ({g['encoder']}"
+                  f" in the encoder), expected flash_attention="
+                  f"{n_attn + enc} ({enc} in the encoder) on its local heads "
+                  "and nothing else")
+            ops = {**g["prefill_ops"], **g["decode_ops"]}
+            functional = [op for op in ops if op.startswith(
+                "_c10d_functional") and "all_gather" in op]
+            check(not functional, f"{label} rank {i}: DTensor all-gathers "
+                  f"{functional}")
+            check(g["misplaced"] == [], f"{label} rank {i}: cache leaves "
+                  f"placed otherwise than cache_pspecs: {g['misplaced']}")
+        worst_step = max(r0["errs"][1:])
+        check(r0["errs"][0] <= TOL_SERVE_BF16
+              and worst_step <= TOL_SERVE_BF16, f"{label}: the prefill's "
+              f"last logits {r0['errs'][0]:.4g} and the worst decode step's"
+              f" {worst_step:.4g} of max|logits| off the unsharded run, bar"
+              f" {TOL_SERVE_BF16}")
+        cut = (f" cut to {cfg.n_layers} of {full_cfg.n_layers} layers"
+               if cfg.n_layers != full_cfg.n_layers else " unreduced")
+        flips = ""
+        if run["routes"]:
+            check(r0["flips"] <= TOL_ROUTE_FLIPS * r0["routed"],
+                  f"{label}: free routing flipped {r0['flips']} of "
+                  f"{r0['routed']} tokens' top-k sets at the first MoE layer")
+            flips = (f"; routed as the unsharded run (every call replayed); "
+                     f"free routing flips {r0['flips']} of {r0['routed']} "
+                     f"tokens' top-k sets at the first MoE layer (bar "
+                     f"{TOL_ROUTE_FLIPS})")
+        prefill_ms, decode = r0["prefill_ms"], r0["decode_ms"]
+        step_ms = sum(decode) / len(decode)
+        total_s = (prefill_ms + sum(decode)) / 1e3
+        counted = ("" if run["warm"] else
+                   " (the prefill under the collective counters, no "
+                   "warm-up)")
+        print(f"phase {label} {cfg.name}{cut}, {cfg.compute_dtype}, mesh "
+              f"(1, {TP_MODEL}), batch {run['batch']} x {cell.PROMPT}, "
+              f"{steps} new tokens: prefill last logits "
+              f"{r0['errs'][0]:.4g} of max|logits| off the unsharded kernel"
+              f" run, the decode steps' worst {worst_step:.4g} (bar "
+              f"{TOL_SERVE_BF16}); greedy tokens the unsharded run's "
+              f"{sum(r0['agree'])} of {r0['tokens']}{flips}; every cache "
+              f"leaf placed as cache_pspecs; flash launches a rank "
+              f"{[g['launches'].get('flash_attention', 0) for g in got]}"
+              f"{f' ({enc} in the encoder)' if enc else ''} {card}")
+        print(f"phase {label} times{counted}: prefill {prefill_ms:.1f} ms, "
+              f"decode {step_ms:.2f} ms per token step (mean of "
+              f"{len(decode)}; {[round(x, 1) for x in decode]}), "
+              f"{run['batch'] * steps / total_s:.1f} tokens/s; peak memory "
+              f"a rank {[round(g['peak_gib'], 2) for g in got]} GiB {card}")
+        print(f"phase {label} collectives on rank 0: the prefill calls "
+              f"{r0['prefill_calls']}, bytes {r0['prefill_bytes']}, by op "
+              f"{r0['prefill_ops']}; a decode step calls "
+              f"{r0['decode_calls']}, bytes {r0['decode_bytes']}, by op "
+              f"{r0['decode_ops']} {card}")
+        if label in SERVE13_ROWS:
+            row = SERVE13_ROWS[label]
+            fl = [g["launches"]["flash_attention"] - g["encoder"]
+                  if label != "13b-audio" else g["encoder"] for g in got]
+            rank0[row], both[row] = fl[0], sum(fl)
+
+    # ---- 13c. f32 copies on (2, 2) ----------------------------------------
+    runs = [serve_reference(label, arch, changes, dev, tmp, SERVE13C_BATCH,
+                            SERVE13C_STEPS, replay=False)
+            for label, arch, changes in SERVE13C]
+    world = SHARDED_MESH_11B[0] * SHARDED_MESH_11B[1]
+    lines = run_ranks("13c", world, dict(
+        base, model=SHARDED_MESH_11B[1], runs=runs), tmp, card,
+        SERVE13_PROGRAM, "RANK13", 600, 300)
+    for k, run in enumerate(runs):
+        got = [ln["runs"][k] for ln in lines]
+        r0 = got[0]
+        cfg = config_of(run["arch"], run["changes"])
+        n_attn = attention_layers(cfg)
+        for i, g in enumerate(got):
+            check(g["launches"].get("flash_attention", 0) == n_attn
+                  and sum(g["launches"].values()) == n_attn,
+                  f"{run['label']} rank {i} launches {g['launches']}, "
+                  f"expected flash_attention={n_attn} and nothing else")
+            check(g["misplaced"] == [], f"{run['label']} rank {i}: "
+                  f"misplaced {g['misplaced']}")
+        check(sum(r0["agree"]) == r0["tokens"], f"{run['label']}: "
+              f"{sum(r0['agree'])} of {r0['tokens']} greedy tokens the "
+              "unsharded f32 run's")
+        check(max(r0["errs"]) <= TOL_FIT, f"{run['label']}: logits "
+              f"{max(r0['errs'])} of max|logits| off the unsharded f32 run")
+        moe = run["changes"].get("moe")
+        print(f"phase {run['label']} {cfg.name} f32 at {cfg.n_layers} "
+              f"layers{f' {moe}' if moe else ''}, mesh "
+              f"{SHARDED_MESH_11B}, batch {run['batch']} x {cell.PROMPT}, "
+              f"{run['steps']} new tokens: greedy tokens the unsharded f32 "
+              f"run's ({r0['tokens']} of {r0['tokens']}); the prefill's "
+              f"and the decode steps' logits at most {max(r0['errs']):.3g} "
+              f"of max|logits| off it (bar {TOL_FIT}); flash (f32) "
+              f"{n_attn} launches a rank {card}")
+    return {"launches": rank0, "launches_phase13": both}
 
 
 def init_params_shapes(cfg):
@@ -3403,6 +3848,13 @@ def main() -> None:
     for name, (shape, window) in zoo12_flash.items():
         _, zoo12_qkv[name] = check_flash(shape, bf16, window=window)
         errs[name] = lse_abs[(shape, bf16)]
+    # phase 13's per-rank instances, without the lse: the sharded
+    # prefills of granite-3-2b, deepseek-moe-16b, recurrentgemma-9b,
+    # internvl2-2b and seamless-m4t-medium's encoder
+    serve13_flash, serve13_qkv = serve13_flash_shapes(), {}
+    for name, (shape, causal, window) in serve13_flash.items():
+        errs[name], serve13_qkv[name] = check_flash(
+            shape, bf16, causal=causal, window=window)
     # the shapes of phase 9's prefills: H = 128 with G = 1 and 2, H = 256
     # with one kv head and a window, and the encoder's non-causal H = 64
     zoo_flash, zoo_qkv = zoo_flash_shapes(get_config), {}
@@ -3756,6 +4208,8 @@ def main() -> None:
           for name, (shape, window) in zoo12_flash.items()),
         *(flash_row(name, shape, zoo_qkv[name], causal, window)
           for name, (shape, causal, window) in zoo_flash.items()),
+        *(flash_row(name, shape, serve13_qkv[name], causal, window)
+          for name, (shape, causal, window) in serve13_flash.items()),
         ("rank_update", "src/repro_torch/kernels/csrc/rank_update.cu",
          "src/repro/kernels/rank_update/kernel.py:121", rank_bound,
          lambda: rank_ops.launch(X, y, None, S_out, c_out),
@@ -3910,7 +4364,8 @@ def main() -> None:
               "flash_attention_lse": flash_path,
               "flash_attention_lse_tp2": flash_tp,
               **{name: z[0] for name, z in zoo_flash.items()},
-              **{name: z[0] for name, z in zoo12_flash.items()}}
+              **{name: z[0] for name, z in zoo12_flash.items()},
+              **{name: z[0] for name, z in serve13_flash.items()}}
     # the redesigned kernels' least work, for their achieved rate
     row_flops = {"flash_attention": flash_flops(flash_path),
                  "flash_attention_h128": flash_flops(FLASH_H128),
@@ -3919,6 +4374,8 @@ def main() -> None:
                  **{name: flash_flops(shape, window=window)
                     for name, (shape, window) in zoo12_flash.items()},
                  **{name: flash_flops(*z) for name, z in zoo_flash.items()},
+                 **{name: flash_flops(*z)
+                    for name, z in serve13_flash.items()},
                  "fista_step_gemm": 2 * m * p * p * p,
                  "ista_step_gemm": 2 * p * p * p,
                  "rank_update": rank_work(m, n, p)[0],
@@ -4014,7 +4471,17 @@ def main() -> None:
           f"{weights_gib:.2f} GiB; peak during generate {peak_gib:.2f} GiB "
           f"(weights included), {peak_total_gib:.2f} GiB with what earlier "
           f"phases hold {card}")
-    del params, logits_k, logits_p
+    # the kernel run step by step, which phase 13a holds its sharded
+    # steps to
+    tmp13 = tempfile.TemporaryDirectory(prefix="chip13_")
+    trace = serve_trace(params, cfg, prompt, steps)
+    torch.save(trace, f"{tmp13.name}/ref13a.pt")
+    check(torch.equal(torch.stack(trace["tokens"], 1), out[:, plen:].cpu()),
+          f"{cfg.name} the kernel run step by step for phase 13a: its "
+          "tokens are not greedy_generate's")
+    print(f"{cfg.name} the kernel run step by step for phase 13a: its "
+          "tokens are greedy_generate's")
+    del params, logits_k, logits_p, trace
 
     cfg32, p32, _ = cell.make_cell(dev, n_layers=4, param_dtype="float32",
                                    compute_dtype="float32")
@@ -4070,6 +4537,12 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip12_") as tmp12:
         zoo_sharded = train_zoo_sharded_phase(dev, card, tmp12)
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+          "phase 13")
+    # ---- 13. serving sharded ----------------------------------------------
+    serving = serve_sharded_phase(dev, card, tmp13.name)
+    tmp13.cleanup()
+
     # launches per run: the regression rows from phase 4, the logistic
     # rows from phase 4b (the unfused pair is not on either path), the
     # rows of the third slice from phase 4c, flash from phase 6, the
@@ -4090,12 +4563,14 @@ def main() -> None:
                     **launches_9,
                     "flash_attention_lse": trained["launches"],
                     "flash_attention_lse_tp2": sharded["launches_11a"],
-                    **zoo_sharded["launches"]}
+                    **zoo_sharded["launches"], **serving["launches"]}
     print(json.dumps({"kernels": [
         {**row, "launches": run_launches[row["name"]],
          "launches_phase8": launches_8.get(row["name"], 0),
          "launches_phase11": sharded["launches"].get(row["name"], 0),
          "launches_phase12": zoo_sharded["launches_phase12"].get(
+             row["name"], 0),
+         "launches_phase13": serving["launches_phase13"].get(
              row["name"], 0)}
         for row in kernels]}))
     print(f"elapsed {time.perf_counter() - t_start:.1f} s in all")

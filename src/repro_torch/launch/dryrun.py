@@ -1,19 +1,27 @@
-"""Dry run of the sharded train step on a fake 256- or 512-rank mesh.
+"""Dry run of the sharded train, prefill and decode steps on a fake 256-
+or 512-rank mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b \
-        --shape train_4k [--multi-pod | --both-meshes | --mesh DxM] \
-        [--reduced] [--all] [--out experiments/dryrun_torch]
+        --shape train_4k[,prefill_32k,...] [--multi-pod | --both-meshes | \
+        --mesh DxM] [--reduced] [--all] [--out experiments/dryrun_torch]
 
 The port of the JAX package's `launch/dryrun.py` by purpose. The
 reference lowers and compiles each (arch x shape x mesh) step for 256
 (512) forced host devices and reads XLA's analyses. The port runs its own
-train step (`training.step.make_train_step`, sharded by
-`sharding.rules` as `launch/train.py` shards it) on `FakeTensorMode`
-tensors, as rank 0 of a fake process group of 256 (or 512) ranks
-(`torch.testing._internal.distributed.fake_pg`): every op and collective
-runs on shapes alone, nothing is computed or allocated and nothing is
-sent. `launch.hlo.Counters` counts what rank 0 does. One JSON record a
-combination, with the reference's fields where torch can give them:
+steps on `FakeTensorMode` tensors, as rank 0 of a fake process group of
+256 (or 512) ranks (`torch.testing._internal.distributed.fake_pg`):
+every op and collective runs on shapes alone, nothing is computed or
+allocated and nothing is sent. `train_4k` runs the train step
+(`training.step.make_train_step`, sharded by `sharding.rules` as
+`launch/train.py` shards it); `prefill_32k` runs
+`serving.engine.make_prefill_step(cfg, cache_len=S)` on parameters
+placed by `param_pspecs` and a batch by `batch_pspecs`; `decode_32k`
+and `long_500k` run `make_serve_step(cfg)` on those parameters, one
+token placed as `batch_pspecs(...).tokens`, the position S - 1 (a host
+integer) and caches of S slots placed by `cache_pspecs`, as the
+reference lowers them. `launch.hlo.Counters` counts what rank 0 does.
+One JSON record a combination, with the reference's fields where torch
+can give them:
 
   flops_per_chip             FLOPs on rank 0's local shapes;
   bytes_per_chip             its ops' input and output bytes (eager, no
@@ -21,21 +29,21 @@ combination, with the reference's fields where torch can give them:
   collective_bytes_per_chip  by kind and total (an all-reduce twice),
                              with `collective_calls`;
   memory                     `argument_size_in_bytes`: rank 0's local
-                             shards of the train state and the batch;
-                             `temp_size_in_bytes`: null (no compiler to
-                             ask for its temporaries);
+                             shards of the step's arguments (the train
+                             state or the parameters, the batch or the
+                             token, the caches); `temp_size_in_bytes`:
+                             null (no compiler to ask for its
+                             temporaries);
   roofline                   the three terms at the H100's data-sheet
                              peaks (`launch.mesh.HW`) and the bottleneck;
-  model_flops, useful_ratio  6 · active parameters · tokens, over all
-                             ranks' FLOPs;
+  model_flops, useful_ratio  6 · active parameters · tokens for a train
+                             step, 2 · active parameters · tokens for
+                             prefill (B · S tokens) and decode (B), over
+                             all ranks' FLOPs;
   per_device_bytes           parameters, optimizer state, batch and (for
                              decode shapes) caches on one rank, from the
                              rules and the `meta` shapes alone;
-  microbatches, n_params, n_active.
-
-The train step runs for `train_4k`, for every family; the prefill and
-decode shapes get their per-device bytes alone: the port has no sharded
-serving path yet.
+  microbatches (0 for serving), n_params, n_active.
 
 Microbatches: the smallest power of two (at most 16, dividing the local
 batch) that keeps the residual stream remat saves (layers x local batch
@@ -65,6 +73,7 @@ from repro_torch.launch.hlo import Counters, roofline
 from repro_torch.launch.mesh import HW, make_production_mesh
 from repro_torch.launch.specs import SHAPES, input_specs
 from repro_torch.models import Batch
+from repro_torch.serving.engine import make_prefill_step, make_serve_step
 from repro_torch.sharding.place import distribute_tree
 from repro_torch.sharding.rules import (
     NamedSharding, axis_sizes, batch_pspecs, cache_pspecs, logits_pspec,
@@ -159,9 +168,34 @@ def _fake_like(fm, tree):
                           tree)
 
 
-def train_record(cfg, spec, mesh) -> dict:
+def _local_args(tree) -> int:
+    """Bytes of this rank's local tensors of `tree`'s leaves."""
+    return sum((x.to_local() if isinstance(x, DTensor) else x).numel()
+               * x.element_size() for x in named_leaves(tree).values()
+               if isinstance(x, torch.Tensor))
+
+
+def _record(cfg, mesh, k: Counters, t_run: float, args: int,
+            model_flops: float, micro: int) -> dict:
+    coll = k.collectives()
+    return {
+        "t_run_s": round(t_run, 2),
+        "flops_per_chip": float(k.flops), "bytes_per_chip": float(k.bytes),
+        "collective_bytes_per_chip": coll, "collective_calls": k.calls(),
+        "memory": {"argument_size_in_bytes": args,
+                   "temp_size_in_bytes": None},
+        "roofline": roofline(k.flops, k.bytes, coll["total"]),
+        "model_flops": model_flops,
+        "useful_ratio": model_flops / max(k.flops * mesh.size(), 1.0),
+        "n_params": cfg.param_count(), "n_active": cfg.active_param_count(),
+        "microbatches": micro,
+    }
+
+
+def train_record(cfg, spec, mesh, seq: int) -> dict:
     """Run one sharded train step of `spec` (fake tensors) on `mesh` and
-    count rank 0's work."""
+    count rank 0's work; its tokens are batch × `seq`, the context (the
+    VLM's patches included), as the reference counts them."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     sizes = axis_sizes(mesh)
     state, batch = spec.args
@@ -179,29 +213,48 @@ def train_record(cfg, spec, mesh) -> dict:
             logits_pspec=NamedSharding(mesh, logits_pspec(
                 mesh, cfg.padded_vocab, S)),
             grads_pspec=named(mesh, opt_pspecs(state.params, mesh)))
-        args = sum((x.to_local() if isinstance(x, DTensor) else x).numel()
-                   * x.element_size()
-                   for x in named_leaves((state, batch)).values())
+        args = _local_args((state, batch))
         t0 = time.time()
         with Counters() as k:
             step(state, batch)
         t_run = time.time() - t0
-    coll = k.collectives()
-    n_active = cfg.active_param_count()
-    tokens = B * S
-    model_flops = 6 * n_active * tokens
-    return {
-        "t_run_s": round(t_run, 2),
-        "flops_per_chip": float(k.flops), "bytes_per_chip": float(k.bytes),
-        "collective_bytes_per_chip": coll, "collective_calls": k.calls(),
-        "memory": {"argument_size_in_bytes": args,
-                   "temp_size_in_bytes": None},
-        "roofline": roofline(k.flops, k.bytes, coll["total"]),
-        "model_flops": model_flops,
-        "useful_ratio": model_flops / max(k.flops * mesh.size(), 1.0),
-        "n_params": cfg.param_count(), "n_active": n_active,
-        "microbatches": micro,
-    }
+    return _record(cfg, mesh, k, t_run, args,
+                   6 * cfg.active_param_count() * B * seq, micro)
+
+
+def serve_record(cfg, spec, mesh, seq: int) -> dict:
+    """Run one sharded prefill (of a prompt whose context is `seq`, into
+    a cache of `seq` slots) or decode step (one token at position
+    seq - 1 against caches of `seq` slots) of `spec` on fake tensors on
+    `mesh`, placed as the reference's dry run places them, and count
+    rank 0's work."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    fm = FakeTensorMode()
+    args = _fake_like(fm, spec.args)
+    params = args[0]
+    with fm:
+        sp = distribute_tree(params, param_pspecs(params, mesh), mesh)
+        if spec.mode == "prefill":
+            batch = args[1]
+            B = batch.tokens.shape[0]
+            sb = distribute_tree(batch, batch_pspecs(
+                mesh, B, batch.frontend is not None), mesh)
+            step, inputs = make_prefill_step(cfg, cache_len=seq), (sp, sb)
+            tokens = B * seq
+        else:
+            _, token, _, caches = args
+            B = token.shape[0]
+            st = distribute_tree(token, batch_pspecs(mesh, B).tokens, mesh)
+            sc = distribute_tree(caches, cache_pspecs(mesh, caches, B), mesh)
+            step, inputs = make_serve_step(cfg), (sp, st, seq - 1, sc)
+            tokens = B
+        arg_bytes = _local_args(inputs)
+        t0 = time.time()
+        with Counters() as k:
+            step(*inputs)
+        t_run = time.time() - t0
+    return _record(cfg, mesh, k, t_run, arg_bytes,
+                   2 * cfg.active_param_count() * tokens, 0)
 
 
 def lower_combo(arch: str, shape: str, *, multi_pod: bool,
@@ -228,18 +281,19 @@ def lower_combo(arch: str, shape: str, *, multi_pod: bool,
            "mode": spec.mode, "note": spec.note, "reduced": reduced,
            "per_device_bytes": per_device_bytes(arch, shape, sizes)
            if not reduced else None}
-    if spec.mode != "train":
-        rec.update(status="bytes_only",
-                   why="the port has no sharded serving path")
-        return rec
-    rec.update(status="ok", **train_record(cfg, spec, mesh))
+    seq = SHAPES[shape]["seq"]
+    record = train_record if spec.mode == "train" else serve_record
+    rec.update(status="ok", **record(cfg, spec, mesh, seq))
     return rec
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Multi-pod dry-run")
-    ap.add_argument("--arch", default=None)
-    ap.add_argument("--shape", default=None, choices=list(SHAPES) + [None])
+    ap.add_argument("--arch", default=None,
+                    help="one family, or several separated by commas")
+    ap.add_argument("--shape", default=None,
+                    help=f"of {', '.join(SHAPES)}; several separated by "
+                    "commas")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--all", action="store_true")
@@ -255,8 +309,13 @@ def main(argv=None):
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
         logging.ERROR)
 
-    archs = ASSIGNED if args.all or args.arch is None else [args.arch]
-    shapes = list(SHAPES) if args.all or args.shape is None else [args.shape]
+    archs = ASSIGNED if args.all or args.arch is None \
+        else args.arch.split(",")
+    shapes = list(SHAPES) if args.all or args.shape is None \
+        else args.shape.split(",")
+    unknown = [s for s in shapes if s not in SHAPES]
+    if unknown:
+        ap.error(f"unknown shape {unknown}: one of {list(SHAPES)}")
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
 
     os.makedirs(args.out, exist_ok=True)

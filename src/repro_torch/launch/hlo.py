@@ -102,7 +102,10 @@ class Counters(CommDebugMode):
             if kind != "other":
                 self._coll_calls[kind] += 1
                 self._coll_ops[str(packet)] += 1
-                self._coll_bytes[kind] += _nbytes(out) * _MULT.get(kind, 1.0)
+                # an op that returns only its work object (the ledger's
+                # all-to-all) wrote into its first argument
+                nbytes = _nbytes(out) or _nbytes(args[:1])
+                self._coll_bytes[kind] += nbytes * _MULT.get(kind, 1.0)
             return out
         if packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)

@@ -51,7 +51,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
@@ -63,16 +63,14 @@ from repro_torch.models.layers import (
 from repro_torch.models.mlp import init_mlp_params, mlp_apply
 from repro_torch.models.moe import init_moe_params, moe_apply
 from repro_torch.models.rglru import (
-    RecurrentCache, _causal_depthwise_conv, init_recurrent_cache,
-    init_recurrent_params, recurrent_block_decode, recurrent_block_train,
-    rglru_scan,
+    init_recurrent_cache, init_recurrent_params, recurrent_block_decode,
+    recurrent_block_train,
 )
 from repro_torch.models.ssd import (
-    SsdCache, _split_proj, init_ssd_cache, init_ssd_params,
-    ssd_block_decode, ssd_block_train,
+    init_ssd_cache, init_ssd_params, ssd_block_decode, ssd_block_train,
 )
 from repro_torch.sharding.place import (
-    grad_placed_as_input, placed_as, replicated_like,
+    grad_placed_as_input, local_offset, placed_as, replicated_like,
 )
 
 
@@ -198,33 +196,19 @@ def _layer_prefill(kind: LayerKind, p: dict, x, cfg: ModelConfig, positions,
             x = _cross(p, x, cfg, positions, enc_out)
         return _ffn(kind, p, x, cfg), cache
     if kind == "recurrent":
-        xn = rms_norm(x, p["norm1"], cfg.norm_eps)
-        x = x + recurrent_block_train(p["rec"], xn, cfg)
+        h, cache = recurrent_block_train(
+            p["rec"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg,
+            with_cache=True)
+        x = x + h
         x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps),
                           cfg.mlp_act)
-        return x, _recurrent_state_from_sequence(p["rec"], xn, cfg)
+        return x, cache
     if kind == "ssd":
-        xn = rms_norm(x, p["norm1"], cfg.norm_eps)
-        h, state = ssd_block_train(p["ssd"], xn, cfg, return_state=True)
-        # the conv window's inputs, from the projection computed again
-        # (the reference's order)
-        _, xin, Bc, Cc, _ = _split_proj(p["ssd"], xn, cfg)
-        xbc = torch.cat([xin, Bc, Cc], dim=-1)
-        conv = xbc[:, -(cfg.ssd.conv_kernel - 1):]
-        return x + h, SsdCache(state=state, conv=conv)
+        h, cache = ssd_block_train(
+            p["ssd"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg,
+            with_cache=True)
+        return x + h, cache
     raise ValueError(kind)
-
-
-def _recurrent_state_from_sequence(p: dict, xn: torch.Tensor,
-                                   cfg: ModelConfig) -> RecurrentCache:
-    """Final RG-LRU hidden state + conv window after a prefill sequence,
-    rebuilt from the sequence as the reference does."""
-    rc = cfg.rglru
-    u_in = torch.einsum("bsd,de->bse", xn, p["w_x"].to(xn.dtype))
-    u = _causal_depthwise_conv(u_in, p["conv_w"])
-    h = rglru_scan(p, u, rc.c)
-    return RecurrentCache(h=h[:, -1].to(torch.float32),
-                          conv=u_in[:, -(rc.conv_kernel - 1):])
 
 
 def _layer_decode(kind: LayerKind, p: dict, x, cfg: ModelConfig, pos, cache,
@@ -528,7 +512,7 @@ def forward_decode(params, cfg: ModelConfig, token: torch.Tensor, pos,
     Returns (logits (B,1,V), new caches). The attention caches' tensors
     are updated in place (`layers.attention_decode`); the recurrent and
     SSD caches are new, as the reference's."""
-    x = _embed(params, cfg, token)
+    x = placed_as(_embed(params, cfg, token), token)
     enc_out = caches.get("enc_out")
     new = {"stack": [], "tail": [], "enc_out": enc_out}
     for kinds, key, name in _run_order(cfg):
@@ -538,5 +522,25 @@ def forward_decode(params, cfg: ModelConfig, token: torch.Tensor, pos,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _unembed(params, cfg, x)
     if cfg.padded_vocab != cfg.vocab:
-        logits[..., cfg.vocab:] = torch.finfo(logits.dtype).min
+        logits = _mask_padded_vocab(logits, cfg.vocab)
     return logits, new
+
+
+def _mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """`logits` with columns `vocab` and beyond set to the dtype's lowest
+    value, in place; on DTensor logits split over the vocabulary each
+    rank masks its own block by global column (the padded columns may
+    fall inside one rank's block, as granite-3-2b's 49155 of 49408), a
+    partial sum summed first."""
+    low = torch.finfo(logits.dtype).min
+    if not isinstance(logits, DTensor):
+        logits[..., vocab:] = low
+        return logits
+    if any(p.is_partial() for p in logits.placements):
+        logits = logits.redistribute(
+            logits.device_mesh, [Replicate() if p.is_partial() else p
+                                 for p in logits.placements])
+    local = logits.to_local()
+    start = max(0, vocab - local_offset(logits, logits.ndim - 1))
+    local[..., start:] = low
+    return logits

@@ -47,7 +47,12 @@ from repro_torch.kernels.common import resolve_use_kernel
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention_core
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding.place import grad_placed_as_input, placed_as
+from repro_torch.sharding.place import (
+    balanced, block_placements, grad_placed_as_input, on_local, placed_as,
+    replicated_like, reshard, whole,
+)
+from repro_torch.sharding.rules import cache_placements
+from repro_torch.substrate.collectives import pmax, psum_stats
 
 NEG_INF = -1e30
 # use blockwise attention once the score matrix would exceed ~2k x 2k
@@ -306,7 +311,11 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                       positions: torch.Tensor, window: int = 0,
                       cache_len: Optional[int] = None,
                       use_kernel: bool | None = None):
-    """Causal attention over the prompt; returns (out, KVCache)."""
+    """Causal attention over the prompt; returns (out, KVCache). On
+    DTensors the cache is placed as `rules.cache_pspecs` places it: its
+    sequence split over `model` where it divides (the attention's head
+    split resharded through the ledger, `place.reshard`), `slot_pos`
+    replicated."""
     B, S, _ = x.shape
     out, k, v = _attend(p, x, cfg, positions=positions, causal=True,
                         window=window, use_kernel=use_kernel)
@@ -316,19 +325,35 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     pos1d = positions if positions.ndim == 1 else positions[0]
     if not window:
         assert L >= S, f"cache_len {L} < seq {S} needs a sliding window"
+    if not isinstance(k, DTensor):
+        return out, _fill_cache(k, v, pos1d, L)
+    # each rank's cache of its heads over the whole sequence, then the
+    # sequence split
+    hk, mesh = k.placements, k.device_mesh
+    kl, vl, slot_pos = _fill_cache(k.to_local(), v.to_local(), pos1d, L)
+    pl = cache_placements(mesh, "k", (B, L, *k.shape[2:]), B)
+    kd, vd = (reshard(DTensor.from_local(t, mesh, hk, run_check=False), pl)
+              for t in (kl, vl))
+    return out, KVCache(kd, vd, replicated_like(slot_pos, kd))
+
+
+def _fill_cache(k: torch.Tensor, v: torch.Tensor, pos1d: torch.Tensor,
+                L: int) -> KVCache:
+    """The cache of L slots that the prompt's k, v (B, S, K, H) at
+    positions `pos1d` leave: padded where L >= S, else a ring buffer of
+    the last L positions at slot pos % L."""
+    S = k.shape[1]
     if L >= S:
         pad = L - S
-        cache = KVCache(
+        return KVCache(
             k=F.pad(k, (0, 0, 0, 0, 0, pad)),
             v=F.pad(v, (0, 0, 0, 0, 0, pad)),
             slot_pos=F.pad(pos1d.to(torch.int32), (0, pad), value=-1),
         )
-    else:  # ring buffer keeps the last L positions at slot pos % L
-        keep = slice(S - L, S)
-        kk, vv, pp = k[:, keep], v[:, keep], pos1d[keep].to(torch.int32)
-        order = torch.argsort(pp % L)
-        cache = KVCache(k=kk[:, order], v=vv[:, order], slot_pos=pp[order])
-    return out, cache
+    keep = slice(S - L, S)
+    kk, vv, pp = k[:, keep], v[:, keep], pos1d[keep].to(torch.int32)
+    order = torch.argsort(pp % L)
+    return KVCache(k=kk[:, order], v=vv[:, order], slot_pos=pp[order])
 
 
 def attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -342,38 +367,127 @@ def attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     are written into `cache`'s tensors in place (slice assignment, by a
     host integer: no copy from the host and no wait on the card), so the
     returned cache holds the same tensors and the one passed in is
-    updated too. A slot past the cache raises instead of being clamped.
+    updated too: a caller that decodes twice from one cache gives each
+    decode a copy of its own. A slot past the cache raises instead of
+    being clamped. On DTensors, `_attention_decode_sharded`.
     """
-    cdt = x.dtype
-    B = x.shape[0]
-    L = cache.k.shape[1]
-    dev = x.device
-    q = _proj(x, p["wq"], "bsd,dnh->bsnh")
-    k_new = _proj(x, p["wk"], "bsd,dkh->bskh")
-    v_new = _proj(x, p["wv"], "bsd,dkh->bskh")
     pos = int(position)
-    pos_b = torch.full((B, 1), float(np.float32(pos)), dtype=torch.float32,
-                       device=dev)
-    q = rope(q, pos_b, cfg.rope_theta)
-    k_new = rope(k_new, pos_b, cfg.rope_theta)
-
+    L = cache.k.shape[1]
     slot = pos % L if window > 0 else pos
     if not 0 <= slot < L:
         raise IndexError(f"attention_decode: slot {slot} outside the cache "
                          f"of {L}")
+    if isinstance(x, DTensor):
+        return _attention_decode_sharded(p, x, cfg, pos, slot, cache,
+                                         window)
+    cdt = x.dtype
+    q, k_new, v_new = _decode_qkv(p, x, cfg, pos)
     k, v, slot_pos = cache
     k[:, slot:slot + 1] = k_new
     v[:, slot:slot + 1] = v_new
     slot_pos[slot] = pos
 
     scores = _gqa_scores(q, k)                                   # (B,K,G,1,L)
-    valid = (slot_pos >= 0) & (slot_pos <= pos)
-    if window:
-        valid &= slot_pos > pos - window
+    valid = _valid_slots(slot_pos, pos, window)
     probs = _masked_softmax(scores, valid[None, None, None, None, :]).to(cdt)
     out = _gqa_out(probs, v)
     out = _proj(out, p["wo"], "bsnh,nhd->bsd")
     return out, KVCache(k, v, slot_pos)
+
+
+def _decode_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: int):
+    """The new token's q (B,1,N,H), k and v (B,1,K,H), RoPE at `pos`
+    applied to q and k (of the heads of the weights given)."""
+    q = _proj(x, p["wq"], "bsd,dnh->bsnh")
+    k_new = _proj(x, p["wk"], "bsd,dkh->bskh")
+    v_new = _proj(x, p["wv"], "bsd,dkh->bskh")
+    pos_b = torch.full((x.shape[0], 1), float(np.float32(pos)),
+                       dtype=torch.float32, device=x.device)
+    return (rope(q, pos_b, cfg.rope_theta),
+            rope(k_new, pos_b, cfg.rope_theta), v_new)
+
+
+def _valid_slots(slot_pos: torch.Tensor, pos: int,
+                 window: int) -> torch.Tensor:
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window:
+        valid &= slot_pos > pos - window
+    return valid
+
+
+def _attention_decode_sharded(p: dict, x: DTensor, cfg: ModelConfig,
+                              pos: int, slot: int, cache: KVCache,
+                              window: int):
+    """`attention_decode` on DTensors: x (B, 1, d) with its rows split
+    over the data axes, the projections' heads over `model`, the cache's
+    slots over `model` (`rules.cache_pspecs`: each rank holds L / M slots
+    of every kv head) or whole where L does not divide. On each rank's
+    local tensors (`place.on_local`), a split softmax:
+
+    1. q, k and v of the new token on the rank's heads, gathered over
+       `model` (`place.whole`, the ledger's all-gather: B × (N + 2K) × H
+       values; a replicated `wk`/`wv` gives them whole already);
+    2. the rank that holds slot `slot` writes it, in place, and every
+       rank writes `slot_pos` (replicated);
+    3. each rank's scores over its own slots for every head, masked as
+       the reference masks them (a slot empty, ahead of `pos` or out of
+       the window); their max over `model` (`pmax`), exp(s − max) where
+       valid and exactly 0 elsewhere, so that a rank without a valid
+       slot adds 0 and no NaN; the sum and the unnormalised output
+       p · v summed over `model` (`psum_stats`), in f32;
+    4. the output divided by the sum, and `wo` applied to the rank's own
+       heads: a partial sum over `model`, all-reduced where it joins the
+       residual stream.
+
+    DTensor's own ops over the split cache would gather it whole, up to
+    32k slots a layer."""
+    mesh = x.device_mesh
+    jm = mesh.mesh_dim_names.index("model")
+    kpl = cache.k.placements
+    L = cache.k.shape[1]
+    split = kpl[jm].is_shard() and mesh.size(jm) > 1
+    if split and kpl[jm] != Shard(1):
+        raise ValueError(f"attention_decode: cache placed {kpl}")
+    n = L // mesh.size(jm) if split else L
+    lo = mesh.get_local_rank(jm) * n if split else 0
+    wpl = {k: w.placements for k, w in p.items()}
+    N, H = p["wq"].shape[1], p["wq"].shape[2]
+    heads = balanced(N, mesh)
+    wo_split = wpl["wo"][jm].is_shard()
+
+    def local(xl, w, k, v, slot_pos):
+        cdt = xl.dtype
+        q, k_new, v_new = (
+            whole(t, wpl[name], mesh, 2, weight_dim=1) for t, name in
+            zip(_decode_qkv(w, xl, cfg, pos), ("wq", "wk", "wv")))
+        if lo <= slot < lo + n:
+            k[:, slot - lo:slot - lo + 1] = k_new
+            v[:, slot - lo:slot - lo + 1] = v_new
+        slot_pos[slot] = pos
+        valid = _valid_slots(slot_pos[lo:lo + n], pos, window)
+        s = torch.where(valid, _gqa_scores(q, k).to(torch.float32), NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)                         # (B,K,G,1,1)
+        if split:
+            m = pmax(m, mesh, "model")
+        e = torch.where(valid, torch.exp(s - m), 0.0)
+        den = e.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bkgst,btkh->bkgsh", e, v.to(torch.float32))
+        if split:
+            den = psum_stats(den, mesh, "model")
+            o = psum_stats(o, mesh, "model")
+        # rows with no valid slot anywhere: zeros, as `_masked_softmax`
+        o = torch.where(den > 0, o / torch.clamp_min(den, 1e-30), 0.0)
+        B, K, G = o.shape[:3]
+        o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, K * G, H).to(cdt)
+        wo = w["wo"]
+        if wo_split:
+            o = o[:, :, heads[0]:heads[1]]
+        return _proj(o, wo, "bsnh,nhd->bsd")
+
+    out_pl = block_placements(x) if wo_split else tuple(
+        q if q.is_shard() else Replicate() for q in x.placements)
+    out = on_local(local, x, out_pl, x, p, cache.k, cache.v, cache.slot_pos)
+    return placed_as(out, x), cache
 
 
 def normal(gen: torch.Generator, shape, scale: float,

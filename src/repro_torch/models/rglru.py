@@ -29,9 +29,11 @@ from torch.distributed.tensor import DTensor
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
 from repro_torch.sharding.place import (
-    balanced, block, block_placements, gather_blocks, grad_placed_as_input,
-    on_local, placed_as,
+    balanced, block, block_placements, channel_split, gather_blocks,
+    grad_placed_as_input, on_local, placed_as, reshard, rows_placements,
+    whole,
 )
+from repro_torch.sharding.rules import cache_placements
 
 
 class RecurrentCache(NamedTuple):
@@ -109,22 +111,30 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
 
 
-def recurrent_block_train(p: dict, x: torch.Tensor,
-                          cfg: ModelConfig) -> torch.Tensor:
-    """Griffin recurrent block, full sequence. x: (B, S, d_model). On
-    DTensors, channel parallel (`_recurrent_block_sharded`)."""
+def recurrent_block_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                          with_cache: bool = False):
+    """Griffin recurrent block, full sequence. x: (B, S, d_model). With
+    `with_cache` (the prefill), also the `RecurrentCache` it leaves: the
+    last RG-LRU state (f32) and the conv window's last k - 1 inputs, from
+    the block's own h and u. On DTensors, channel parallel
+    (`_recurrent_block_sharded`), the cache placed as `rules.cache_pspecs`
+    places it."""
     if isinstance(x, DTensor):
-        return _recurrent_block_sharded(p, x, cfg)
+        return _recurrent_block_sharded(p, x, cfg, with_cache)
     cdt = x.dtype
     gate = _gelu(torch.einsum("bsd,de->bse", x, p["w_gate"].to(cdt)))
-    u = torch.einsum("bsd,de->bse", x, p["w_x"].to(cdt))
-    u = _causal_depthwise_conv(u, p["conv_w"])
+    u_in = torch.einsum("bsd,de->bse", x, p["w_x"].to(cdt))
+    u = _causal_depthwise_conv(u_in, p["conv_w"])
     h = rglru_scan(p, u, cfg.rglru.c)
-    return torch.einsum("bse,ed->bsd", h * gate, p["w_o"].to(cdt))
+    out = torch.einsum("bse,ed->bsd", h * gate, p["w_o"].to(cdt))
+    if not with_cache:
+        return out
+    return out, RecurrentCache(h=h[:, -1].to(torch.float32),
+                               conv=u_in[:, -(cfg.rglru.conv_kernel - 1):])
 
 
-def _recurrent_block_sharded(p: dict, x: DTensor,
-                             cfg: ModelConfig) -> DTensor:
+def _recurrent_block_sharded(p: dict, x: DTensor, cfg: ModelConfig,
+                             with_cache: bool = False):
     """`recurrent_block_train` on DTensors: x (B, S, d) with its rows
     split over the data axes and replicated over `model`; each rank runs
     its channels [lo, hi) of D (`balanced`) on its local tensors
@@ -136,12 +146,16 @@ def _recurrent_block_sharded(p: dict, x: DTensor,
     need u whole. `w_o` is row-parallel: the output is a partial sum over
     `model`, all-reduced where it joins the residual stream. Where D
     does not divide the model axis the rules replicate these weights:
-    each rank computes u whole and takes its channels from it."""
+    each rank computes u whole and takes its channels from it. With
+    `with_cache` (the prefill), also the `RecurrentCache` of the rank's
+    channels: the last state, and the conv window's inputs moved to
+    `cache_pspecs`' layout (`place.reshard`)."""
     mesh = x.device_mesh
     x = grad_placed_as_input(x)
     D = p["w_x"].shape[1]
     lo, hi = balanced(D, mesh)
     pl = {k: v.placements for k, v in p.items()}
+    k = cfg.rglru.conv_kernel
 
     def local(xl, q):
         cdt = xl.dtype
@@ -153,29 +167,38 @@ def _recurrent_block_sharded(p: dict, x: DTensor,
         w_x, conv_w = own("w_x", 1), own("conv_w", 1)
         if q["w_x"].shape[1] == hi - lo and q["conv_w"].shape[1] == hi - lo:
             # the rank's channels of u, then u over every channel
-            u_own = _causal_depthwise_conv(
-                torch.einsum("bsd,de->bse", xl, w_x.to(cdt)), conv_w)
+            u_in = torch.einsum("bsd,de->bse", xl, w_x.to(cdt))
+            u_own = _causal_depthwise_conv(u_in, conv_w)
             u = gather_blocks(u_own, mesh, ("model",), 2)
         else:
-            u = _causal_depthwise_conv(
-                torch.einsum("bsd,de->bse", xl, q["w_x"].to(cdt)),
-                q["conv_w"])
-            u_own = u[..., lo:hi]
+            u_in = torch.einsum("bsd,de->bse", xl, q["w_x"].to(cdt))
+            u = _causal_depthwise_conv(u_in, q["conv_w"])
+            u_own, u_in = u[..., lo:hi], u_in[..., lo:hi]
         gates = {k: own(k, 1 if k.startswith("w_") else 0)
                  for k in ("w_a", "w_i", "b_a", "b_i", "lam")}
         a, b = _rglru_gates(gates, u, cfg.rglru.c, u_out=u_own)
         h = _linear_scan(a, b).to(cdt)
-        return torch.einsum("bse,ed->bsd", h * gate, own("w_o", 0).to(cdt))
+        out = torch.einsum("bse,ed->bsd", h * gate, own("w_o", 0).to(cdt))
+        if not with_cache:
+            return out
+        return out, h[:, -1].to(torch.float32), u_in[:, -(k - 1):]
 
-    out = on_local(local, x, block_placements(x), x, p)
-    return placed_as(out, x)
+    if not with_cache:
+        return placed_as(on_local(local, x, block_placements(x), x, p), x)
+    hpl, cpl = channel_split(x, D, 1), channel_split(x, D, 2)
+    out, h, conv = on_local(local, x, (block_placements(x), hpl, cpl), x, p)
+    conv = reshard(conv, cache_placements(mesh, "conv", conv.shape,
+                                          x.shape[0]))
+    return placed_as(out, x), RecurrentCache(h=h, conv=conv)
 
 
 def recurrent_block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
                            cache: RecurrentCache
                            ) -> Tuple[torch.Tensor, RecurrentCache]:
     """One-token decode. x: (B, 1, d_model). Returns a new cache; the one
-    given is not written."""
+    given is not written. On DTensors, `_recurrent_decode_sharded`."""
+    if isinstance(x, DTensor):
+        return _recurrent_decode_sharded(p, x, cfg, cache)
     cdt = x.dtype
     gate = _gelu(torch.einsum("bsd,de->bse", x, p["w_gate"].to(cdt)))
     u_in = torch.einsum("bsd,de->bse", x, p["w_x"].to(cdt))
@@ -185,6 +208,54 @@ def recurrent_block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y, h_new = rglru_step(p, u, cache.h, cfg.rglru.c)
     out = torch.einsum("bse,ed->bsd", y * gate, p["w_o"].to(cdt))
     return out, RecurrentCache(h=h_new, conv=conv_new)
+
+
+def _recurrent_decode_sharded(p: dict, x: DTensor, cfg: ModelConfig,
+                              cache: RecurrentCache):
+    """`recurrent_block_decode` on DTensors, channel parallel as the
+    block (`_recurrent_block_sharded`): the state `h` holds the rank's
+    rows and channels (`cache_pspecs`' P(dp, "model")). The conv
+    window's layout is `cache_pspecs`' (its batch split over `model`),
+    so it is moved to the rank's rows and every channel
+    (`place.reshard`: B × (k − 1) × D); the new input u_in is gathered
+    over `model` (`place.whole`), the conv runs on every channel, the
+    gates take u whole and the rank's channels, and the new window goes
+    back to the cache's layout. `w_o` is row-parallel: the output is a
+    partial sum over `model`."""
+    mesh = x.device_mesh
+    D = p["w_x"].shape[1]
+    lo, hi = balanced(D, mesh)
+    pl = {k: v.placements for k, v in p.items()}
+    hpl = channel_split(x, D, 1)
+    if tuple(cache.h.placements) != hpl:
+        raise ValueError(f"recurrent decode: h placed {cache.h.placements}")
+    window = reshard(cache.conv, rows_placements(x))
+
+    def local(xl, q, h, window):
+        cdt = xl.dtype
+
+        def own(name, dim):
+            return block(q[name], pl[name], mesh, dim, lo, hi)
+
+        gate = _gelu(torch.einsum("bsd,de->bse", xl, own("w_gate", 1).to(cdt)))
+        u_in = whole(torch.einsum("bsd,de->bse", xl, q["w_x"].to(cdt)),
+                     pl["w_x"], mesh, 2, weight_dim=1)
+        u = _causal_depthwise_conv(
+            u_in, whole(q["conv_w"], pl["conv_w"], mesh, 1), carry=window)
+        window = torch.cat([window[:, 1:], u_in.to(window.dtype)], dim=1)
+        gates = {k: own(k, 1 if k.startswith("w_") else 0)
+                 for k in ("w_a", "w_i", "b_a", "b_i", "lam")}
+        a, b = _rglru_gates(gates, u, cfg.rglru.c, u_out=u[..., lo:hi])
+        h_new = a[:, 0] * h.to(torch.float32) + b[:, 0]
+        out = torch.einsum("bse,ed->bsd", h_new[:, None].to(cdt) * gate,
+                           own("w_o", 0).to(cdt))
+        return out, h_new, window
+
+    out, h, window = on_local(
+        local, x, (block_placements(x), hpl, rows_placements(x)), x, p,
+        cache.h, window)
+    window = reshard(window, cache.conv.placements)
+    return placed_as(out, x), RecurrentCache(h=h, conv=window)
 
 
 def init_recurrent_cache(batch: int, cfg: ModelConfig,

@@ -28,9 +28,10 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
 from repro_torch.models.rglru import _causal_depthwise_conv
 from repro_torch.sharding.place import (
-    balanced, block, block_placements, grad_placed_as_input, on_local,
-    placed_as, whole,
+    balanced, block, block_placements, channel_split, grad_placed_as_input,
+    on_local, placed_as, reshard, rows_placements, whole,
 )
+from repro_torch.sharding.rules import cache_placements
 
 
 class SsdCache(NamedTuple):
@@ -146,18 +147,23 @@ def _conv_split(xbc: torch.Tensor, cfg: ModelConfig):
 
 
 def ssd_block_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                    return_state: bool = False):
+                    return_state: bool = False, with_cache: bool = False):
     """Full-sequence Mamba-2 block. x: (B, S, d_model). With
-    `return_state`, also the final SSM state (B, H, P, N) in float32. On
-    DTensors, head parallel (`_ssd_block_sharded`; no state)."""
+    `return_state`, also the final SSM state (B, H, P, N) in float32;
+    with `with_cache` (the prefill), the `SsdCache` it leaves instead:
+    that state and the conv window's last k - 1 inputs, the block's own
+    projection's x ‖ B ‖ C columns. On DTensors, head parallel
+    (`_ssd_block_sharded`), the cache placed as `rules.cache_pspecs`
+    places it."""
+    if return_state:
+        out, cache = ssd_block_train(p, x, cfg, with_cache=True)
+        return out, cache.state
     if isinstance(x, DTensor):
-        if return_state:
-            raise ValueError("ssd_block_train: no state on DTensors")
-        return _ssd_block_sharded(p, x, cfg)
+        return _ssd_block_sharded(p, x, cfg, with_cache)
     sc = cfg.ssd
     z, xin, Bc, Cc, dt = _split_proj(p, x, cfg)
-    xbc = torch.cat([xin, Bc, Cc], dim=-1)
-    xbc = F.silu(_causal_depthwise_conv(xbc, p["conv_w"]))
+    xbc_in = torch.cat([xin, Bc, Cc], dim=-1)
+    xbc = F.silu(_causal_depthwise_conv(xbc_in, p["conv_w"]))
     xin, Bc, Cc = _conv_split(xbc, cfg)
 
     x_dt, dtA, Bh, Ch, xh = _prep(p, xin, Bc, Cc, dt, cfg)
@@ -166,12 +172,14 @@ def ssd_block_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y = y.reshape(x.shape[0], x.shape[1], sc.n_heads * sc.head_dim)
     y = y * F.silu(z)
     out = torch.einsum("bse,ed->bsd", y, p["w_out"].to(y.dtype))
-    if return_state:
-        return out, final
-    return out
+    if not with_cache:
+        return out
+    return out, SsdCache(state=final,
+                         conv=xbc_in[:, -(sc.conv_kernel - 1):])
 
 
-def _ssd_block_sharded(p: dict, x: DTensor, cfg: ModelConfig) -> DTensor:
+def _ssd_block_sharded(p: dict, x: DTensor, cfg: ModelConfig,
+                       with_cache: bool = False):
     """`ssd_block_train` on DTensors: x (B, S, d) with its rows split over
     the data axes and replicated over `model`; each rank runs its heads
     [lo, hi) of H (`balanced`) on its local tensors (`place.on_local`).
@@ -187,7 +195,11 @@ def _ssd_block_sharded(p: dict, x: DTensor, cfg: ModelConfig) -> DTensor:
     the rank's heads where H divides the model axis (taken whole and
     sliced where the rules replicate them). `ssd_chunked` runs on the
     rank's heads; `w_out`'s output is a partial sum over `model`,
-    all-reduced where it joins the residual stream."""
+    all-reduced where it joins the residual stream. With `with_cache`
+    (the prefill), also the `SsdCache`: the rank's heads' final state,
+    and the conv window's last inputs, the x ‖ B ‖ C columns of the
+    gathered `w_in` on the last k − 1 positions, moved to
+    `cache_pspecs`' layout (`place.reshard`)."""
     sc = cfg.ssd
     H, P, gn = sc.n_heads, sc.head_dim, sc.n_groups * sc.state_dim
     d_in = H * P
@@ -218,20 +230,35 @@ def _ssd_block_sharded(p: dict, x: DTensor, cfg: ModelConfig) -> DTensor:
                for k in ("dt_bias", "A_log", "D")}
         x_dt, dtA, Bh, Ch, xh = _prep(own, xin, Bc, Cc, dt, cfg,
                                       heads=(lo, hi))
-        y, _ = ssd_chunked(x_dt, dtA, Bh, Ch, sc.chunk)
+        y, final = ssd_chunked(x_dt, dtA, Bh, Ch, sc.chunk)
         y = y + xh * own["D"].to(y.dtype)[None, None, :, None]
         y = y.reshape(xl.shape[0], xl.shape[1], h * P) * F.silu(z)
         w_out = block(q["w_out"], pl["w_out"], mesh, 0, lo * P, hi * P)
-        return torch.einsum("bse,ed->bsd", y, w_out.to(y.dtype))
+        out = torch.einsum("bse,ed->bsd", y, w_out.to(y.dtype))
+        if not with_cache:
+            return out
+        tail = xl[:, -(sc.conv_kernel - 1):]
+        conv = torch.einsum("bsd,de->bse", tail,
+                            w_in[:, d_in:2 * d_in + 2 * gn].to(xl.dtype))
+        return out, final, conv
 
-    out = on_local(local, x, block_placements(x), x, p)
-    return placed_as(out, x)
+    if not with_cache:
+        return placed_as(on_local(local, x, block_placements(x), x, p), x)
+    out, state, conv = on_local(
+        local, x, (block_placements(x), channel_split(x, H, 1),
+                   rows_placements(x)), x, p)
+    conv = reshard(conv, cache_placements(mesh, "conv", conv.shape,
+                                          x.shape[0]))
+    return placed_as(out, x), SsdCache(state=state, conv=conv)
 
 
 def ssd_block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
                      cache: SsdCache) -> Tuple[torch.Tensor, SsdCache]:
     """One-token decode. x: (B, 1, d_model); recurrent state update:
-    h' = exp(dtA) h + B (dt x), y = C h' + D x."""
+    h' = exp(dtA) h + B (dt x), y = C h' + D x. Returns a new cache. On
+    DTensors, `_ssd_decode_sharded`."""
+    if isinstance(x, DTensor):
+        return _ssd_decode_sharded(p, x, cfg, cache)
     sc = cfg.ssd
     f32 = torch.float32
     z, xin, Bc, Cc, dt = _split_proj(p, x, cfg)
@@ -253,6 +280,69 @@ def ssd_block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y = y * F.silu(z)
     out = torch.einsum("bse,ed->bsd", y, p["w_out"].to(y.dtype))
     return out, SsdCache(state=state, conv=conv_new)
+
+
+def _ssd_decode_sharded(p: dict, x: DTensor, cfg: ModelConfig,
+                        cache: SsdCache) -> Tuple[DTensor, SsdCache]:
+    """`ssd_block_decode` on DTensors, head parallel as the block
+    (`_ssd_block_sharded`): the state holds the rank's rows and heads
+    (`cache_pspecs`' P(dp, "model", None, None)). The projection's
+    columns are split evenly over `model`, not by heads, so its output
+    for the one token is gathered whole (`place.whole`: B × (2 H P + 2
+    G N + H) values, where gathering `w_in` would move all of it); so is
+    `conv_w` (k × conv_dim). The conv window's layout is
+    `cache_pspecs`' (its batch split over `model`): it is moved to the
+    rank's rows and every column (`place.reshard`, B × (k − 1) ×
+    conv_dim), the conv runs on the rank's heads' x columns and all of B
+    and C, and the new window goes back to the cache's layout. `w_out`
+    is row-parallel: the output is a partial sum over `model`."""
+    sc = cfg.ssd
+    H, P, gn = sc.n_heads, sc.head_dim, sc.n_groups * sc.state_dim
+    d_in = H * P
+    mesh = x.device_mesh
+    lo, hi = balanced(H, mesh)
+    h = hi - lo
+    pl = {k: v.placements for k, v in p.items()}
+    spl = channel_split(x, H, 1)
+    if tuple(cache.state.placements) != spl:
+        raise ValueError(f"ssd decode: state placed {cache.state.placements}")
+    window = reshard(cache.conv, rows_placements(x))
+
+    def local(xl, q, state, window):
+        cdt, dev, f32 = xl.dtype, xl.device, torch.float32
+        zx = whole(torch.einsum("bsd,de->bse", xl, q["w_in"].to(cdt)),
+                   pl["w_in"], mesh, 2, weight_dim=1)
+        xbc_in = zx[..., d_in:2 * d_in + 2 * gn]
+        cols = torch.cat([torch.arange(lo * P, hi * P, device=dev),
+                          d_in + torch.arange(2 * gn, device=dev)])
+        conv_w = whole(q["conv_w"], pl["conv_w"], mesh, 1)
+        xbc = F.silu(_causal_depthwise_conv(xbc_in[..., cols],
+                                            conv_w[:, cols],
+                                            carry=window[..., cols]))
+        window = torch.cat([window[:, 1:], xbc_in.to(window.dtype)], dim=1)
+        xin, Bc, Cc = torch.split(xbc, [h * P, gn, gn], dim=-1)
+        z = zx[..., lo * P:hi * P]
+        dt = zx[..., 2 * d_in + 2 * gn + lo:2 * d_in + 2 * gn + hi]
+        own = {k: block(q[k], pl[k], mesh, 0, lo, hi)
+               for k in ("dt_bias", "A_log", "D")}
+        x_dt, dtA, Bh, Ch, xh = _prep(own, xin, Bc, Cc, dt, cfg,
+                                      heads=(lo, hi))
+        dA = torch.exp(dtA[:, 0]).to(f32)
+        outer = torch.einsum("bhp,bhn->bhpn", x_dt[:, 0].to(f32),
+                             Bh[:, 0].to(f32))
+        state = state * dA[..., None, None] + outer
+        y = torch.einsum("bhn,bhpn->bhp", Ch[:, 0].to(f32), state)
+        y = y.to(cdt) + xh[:, 0] * own["D"].to(cdt)[None, :, None]
+        y = y.reshape(xl.shape[0], 1, h * P) * F.silu(z)
+        w_out = block(q["w_out"], pl["w_out"], mesh, 0, lo * P, hi * P)
+        return (torch.einsum("bse,ed->bsd", y, w_out.to(y.dtype)), state,
+                window)
+
+    out, state, window = on_local(
+        local, x, (block_placements(x), spl, rows_placements(x)), x, p,
+        cache.state, window)
+    window = reshard(window, cache.conv.placements)
+    return placed_as(out, x), SsdCache(state=state, conv=window)
 
 
 def init_ssd_cache(batch: int, cfg: ModelConfig, device="cuda") -> SsdCache:

@@ -29,10 +29,18 @@ def make_cell(device="cuda", arch: str = ARCH, **changes):
     cfg = get_config(arch).replace(**changes)
     params = init_params(
         torch.Generator(device=device).manual_seed(PARAM_SEED), cfg)
+    return cfg, params, make_prompt(cfg, device)
+
+
+def make_prompt(cfg, device="cuda", batch: int = BATCH) -> torch.Tensor:
+    """The first `batch` rows of the cell's (BATCH, PROMPT) int32 prompt
+    of random ids below `cfg.vocab` from seed PROMPT_SEED, on
+    `device`."""
+    device = torch.device(device)
     prompt = torch.randint(
         0, cfg.vocab, (BATCH, PROMPT), device=device, dtype=torch.int32,
         generator=torch.Generator(device=device).manual_seed(PROMPT_SEED))
-    return cfg, params, prompt
+    return prompt[:batch].contiguous()
 
 
 def make_frontend(cfg, device="cuda", batch: int | None = None):

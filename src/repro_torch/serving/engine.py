@@ -1,5 +1,12 @@
 """Serving steps: prefill and single-token decode, plus a simple batched
-greedy engine (the port of the JAX package's `serving/engine.py`)."""
+greedy engine (the port of the JAX package's `serving/engine.py`).
+
+The two steps also run sharded, as the reference's dry run lowers them:
+on parameters placed by `rules.param_pspecs`, a batch (or a token) by
+`batch_pspecs` and caches by `cache_pspecs` (DTensors, one process a
+rank). The prefill's caches come out placed by `cache_pspecs`, and the
+decode step's next token is the argmax of the vocab-split logits
+(`sharding.place.argmax_last`, the lowest index winning a tie)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,6 +17,7 @@ from repro_torch.models import (
     Batch, forward_decode, forward_prefill,
 )
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.place import argmax_last
 
 
 def frontend_offset(cfg: ModelConfig,
@@ -33,8 +41,7 @@ def make_serve_step(cfg: ModelConfig):
     """ONE new token against a pre-existing KV/state cache."""
     def serve_step(params, token, pos, caches):
         logits, caches = forward_decode(params, cfg, token, pos, caches)
-        next_token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-        return next_token, logits, caches
+        return argmax_last(logits[:, -1]), logits, caches
     return serve_step
 
 

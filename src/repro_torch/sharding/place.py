@@ -21,10 +21,12 @@ its order of splits (mesh dim by mesh dim).
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.sharding.rules import placements
-from repro_torch.substrate.collectives import all_gather, reduce_scatter
+from repro_torch.substrate.collectives import (
+    all_gather, all_to_all, pmax, pmin, reduce_scatter,
+)
 from repro_torch.tree import map_leaves, named_leaves
 
 
@@ -212,19 +214,41 @@ def block(t: torch.Tensor, pl, mesh, dim: int, lo: int, hi: int,
     return whole(t, pl, mesh, dim, axis).narrow(dim, lo, hi - lo)
 
 
-def whole(t: torch.Tensor, pl, mesh, dim: int,
-          axis: str = "model") -> torch.Tensor:
+def whole(t: torch.Tensor, pl, mesh, dim: int, axis: str = "model",
+          weight_dim: int | None = None) -> torch.Tensor:
     """The local tensor `t` (placed by `pl`) whole on dim `dim` over the
     mesh dim `axis`: gathered (`gather_blocks`) where it is split there,
     else `t` (replicated: `fit_spec` dropped an axis that does not
-    divide)."""
+    divide). With `weight_dim`, `pl` is a weight's, whose dim
+    `weight_dim` splits `t`'s dim `dim` (a product's output columns)."""
     j = mesh.mesh_dim_names.index(axis)
     p = pl[j]
     if not p.is_shard() or mesh.size(j) == 1:
         return t
-    if p.dim != dim:
+    if p.dim != (dim if weight_dim is None else weight_dim):
         raise ValueError(f"whole: placed {tuple(pl)}, not split on dim {dim}")
     return gather_blocks(t, mesh, (axis,), dim)
+
+
+def rows_placements(x: DTensor) -> tuple:
+    """The placements of a tensor whose dim 0 is split as `x`'s rows (the
+    batch over the data axes) and which is replicated elsewhere."""
+    return tuple(q if q == Shard(0) else Replicate() for q in x.placements)
+
+
+def channel_split(x: DTensor, n: int, dim: int,
+                  axis: str = "model") -> tuple:
+    """The placements of a per-channel tensor (a serving cache's state)
+    whose rows are `x`'s and whose dim `dim`, of n channels or heads, is
+    split evenly over `axis`, each rank holding the ones it computes
+    (`balanced`); n must divide."""
+    mesh = x.device_mesh
+    j = mesh.mesh_dim_names.index(axis)
+    if n % mesh.size(j):
+        raise ValueError(f"{n} channels do not split over {axis} of "
+                         f"{mesh.size(j)}: the cache would be whole")
+    return tuple(Shard(dim) if i == j else q
+                 for i, q in enumerate(rows_placements(x)))
 
 
 def split_dims(x: DTensor, axis: str = "model") -> set:
@@ -279,3 +303,99 @@ def block_placements(x: DTensor, axis: str = "model") -> tuple:
     return tuple(Partial() if j == jm and mesh.size(j) > 1
                  else (p if p.is_shard() else Replicate())
                  for j, p in enumerate(x.placements))
+
+
+def reshard(x: DTensor, pl) -> DTensor:
+    """`x` placed as `pl`, each mesh dim's change through the ledger:
+    `Shard(a)` to `Replicate` a gather, `Shard(a)` to `Shard(b)` an
+    all-to-all (`collectives.all_to_all`), `Replicate` to `Shard(b)`
+    each rank keeping its block (nothing is sent); in that order, the
+    gathers minor mesh dim first and the blocks major first, so that a
+    tensor dim split over several mesh dims (the batch over `pod` and
+    `data`) is split as DTensor splits it. Splits are even. The serving
+    caches move between the layouts their producers give and
+    `rules.cache_pspecs`' this way (the attention's head split to the
+    cache's sequence split, a batch split over `model`); DTensor's own
+    `redistribute` would gather them whole first."""
+    mesh, src, pl = x.device_mesh, list(x.placements), list(pl)
+    names = mesh.mesh_dim_names
+    if any(p.is_partial() for p in src + pl):
+        raise ValueError(f"reshard: {src} -> {pl}")
+    # a mesh dim of one rank changes nothing
+    changed = [j for j in range(mesh.ndim)
+               if src[j] != pl[j] and mesh.size(j) > 1]
+    gathers = [j for j in changed if pl[j].is_replicate()]
+    out = x.to_local()
+    for j in reversed(gathers):
+        out = all_gather(out, mesh, names[j], dim=src[j].dim)
+    for j in changed:
+        a, b = src[j], pl[j]
+        if a.is_shard() and b.is_shard():
+            # the splits of the other mesh dims: those left after the
+            # gathers, and the blocks taken after this all-to-all
+            others = [src[k] for k in range(mesh.ndim) if k != j
+                      and k not in gathers and mesh.size(k) > 1] + [
+                pl[k] for k in changed if k != j and src[k].is_replicate()]
+            if any(q.is_shard() and q.dim in (a.dim, b.dim)
+                   for q in others):
+                raise ValueError(f"reshard: {src} -> {pl} moves a split "
+                                 "another mesh dim shares")
+            out = all_to_all(out, mesh, names[j], split_dim=b.dim,
+                             concat_dim=a.dim)
+    for j in changed:
+        if src[j].is_replicate():
+            n, d = mesh.size(j), pl[j].dim
+            if out.shape[d] % n:
+                raise ValueError(f"reshard: dim {d} of {tuple(out.shape)} "
+                                 f"does not split over {n} ranks")
+            out = out.chunk(n, d)[mesh.get_local_rank(j)]
+    return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False)
+
+
+def local_offset(x: DTensor, dim: int) -> int:
+    """The global index, on dim `dim`, of this rank's block of `x` (split
+    evenly there, or not at all)."""
+    mesh, off, n = x.device_mesh, 0, x.shape[dim]
+    for j, p in enumerate(x.placements):
+        if p.is_shard() and p.dim == dim:
+            k = mesh.size(j)
+            if n % k:
+                raise ValueError(f"local_offset: dim {dim} of "
+                                 f"{tuple(x.shape)} is split unevenly")
+            n //= k
+            off = off * k + mesh.get_local_rank(j)
+    return off * n
+
+
+def argmax_last(x: torch.Tensor) -> torch.Tensor:
+    """`torch.argmax` over the last dim as int32, of a DTensor whose last
+    dim may be split (vocab-parallel logits): each rank's argmax of its
+    block (the first of equal maxima), the largest of those values over
+    the ranks that split the dim (`pmax`), then the lowest index among
+    the ranks that hold it (`pmin`): the lowest index wins a tie, as in
+    `torch.argmax` and the reference's `jnp.argmax`. The result is
+    placed as `x`'s other dims and replicated over the split; a plain
+    tensor's is `torch.argmax`'s."""
+    if not isinstance(x, DTensor):
+        return torch.argmax(x, dim=-1).to(torch.int32)
+    mesh, d = x.device_mesh, x.ndim - 1
+    if any(p.is_partial() for p in x.placements):
+        x = x.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                  for p in x.placements])
+    split = [j for j, p in enumerate(x.placements)
+             if p.is_shard() and p.dim == d]
+    xl = x.to_local()
+    idx = torch.argmax(xl, dim=-1, keepdim=True)
+    val = torch.gather(xl, -1, idx)[..., 0].to(torch.float32)
+    idx = idx[..., 0] + local_offset(x, d)
+    names = mesh.mesh_dim_names
+    best = val
+    for j in split:
+        best = pmax(best, mesh, names[j])
+    cand = torch.where(val == best, idx, torch.iinfo(idx.dtype).max)
+    for j in split:
+        cand = pmin(cand, mesh, names[j])
+    out = [Replicate() if j in split else p
+           for j, p in enumerate(x.placements)]
+    return DTensor.from_local(cand.to(torch.int32), mesh, out,
+                              run_check=False)

@@ -297,18 +297,38 @@ def cache_pspecs(mesh, caches, batch_size: int):
     return map_leaves(spec, caches)
 
 
+def cache_placements(mesh, field: str, shape, batch_size: int) -> tuple:
+    """The placements `cache_pspecs` gives a cache leaf named `field`
+    (`k`, `v`, `slot_pos`, `h`, `conv`, `state`, `enc_out`) of `shape`,
+    for a batch of `batch_size`: where a serving step builds a cache
+    leaf, it places it by the rules' own match."""
+    import torch
+    leaf = torch.empty(tuple(shape), device="meta")
+    spec = cache_pspecs(mesh, {"stack": [{field: leaf}]},
+                        batch_size)["stack"][0][field]
+    return placements(spec, mesh)
+
+
 def placements(spec: P, mesh) -> tuple:
     """The DTensor placements of `spec` on `mesh` (a `DeviceMesh` or a
     mapping of axis sizes, in mesh order): for each mesh dim, `Shard(i)`
-    if tensor dim i names that axis, else `Replicate()`.
+    if tensor dim i names that axis, else `Replicate()`. A data axis
+    (`dp_axes`) of one rank is `Replicate()` whatever the spec names
+    there: its one block is the whole dim either way, and DTensor
+    refuses to flatten a dim of size 1 that a mesh dim splits (an einsum
+    over a batch of 1 at (1, M)). A `model` axis of one rank keeps its
+    `Shard`, as the train step at (N, 1) was built and tested with it.
 
     A dim that names several axes, as ("data", "model"), is split major
     to minor as JAX splits it: rank (d, m) holds block d · M + m. DTensor
     splits a dim sharded on several mesh dims in mesh-dim order, so the
     tuple must list its axes in mesh order (every rule does); another
     order raises."""
-    names = list(axis_sizes(mesh))
+    sizes = axis_sizes(mesh)
+    names = list(sizes)
+    one_rank = {a for a in dp_axes(mesh) if sizes[a] == 1}
     out = [Replicate()] * len(names)
+    named = set()
     for i, ax in enumerate(spec):
         axes = ax if isinstance(ax, tuple) else (() if ax is None else (ax,))
         order = [names.index(a) for a in axes]
@@ -316,10 +336,12 @@ def placements(spec: P, mesh) -> tuple:
             raise ValueError(f"placements: {spec} splits dim {i} over "
                              f"{axes}, not in the mesh's order {names}")
         for j in order:
-            if not isinstance(out[j], Replicate):
+            if j in named:
                 raise ValueError(f"placements: {spec} names mesh axis "
                                  f"{names[j]!r} on two dims")
-            out[j] = Shard(i)
+            named.add(j)
+            if names[j] not in one_rank:
+                out[j] = Shard(i)
     return tuple(out)
 
 

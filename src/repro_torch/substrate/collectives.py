@@ -103,6 +103,25 @@ def all_to_all_experts(x: torch.Tensor, group=None, axis: str = "model",
     return torch.movedim(out, 0, concat_axis)
 
 
+def all_to_all(x: torch.Tensor, group=None, axis: str = "model", *,
+               split_dim: int, concat_dim: int) -> torch.Tensor:
+    """All-to-all over `axis`, tiled: dim `split_dim` of `x` is cut into
+    one equal block a rank, block j goes to rank j, and the blocks
+    received are concatenated on dim `concat_dim` in rank order (a
+    tensor split on `concat_dim` becomes one split on `split_dim`:
+    `sharding.place.reshard`)."""
+    g = resolve_group(group, axis)
+    k = dist.get_world_size(g)
+    if x.shape[split_dim] % k:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split over {k} ranks")
+    _record("all_to_all", x, g, axis)
+    blocks = torch.stack(x.chunk(k, split_dim)).contiguous()
+    out = torch.empty_like(blocks)
+    dist.all_to_all_single(out, blocks, group=g)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
 def _all_reduce(op_name: str, reduce_op, x: torch.Tensor, group,
                 axis: str) -> torch.Tensor:
     g = resolve_group(group, axis)

@@ -15,7 +15,14 @@
   rank-0 FLOPs equal a quarter of the unsharded step's, counted by
   `torch.utils.flop_counter.FlopCounterMode` on fake tensors: the batch
   is split over `data` and every product's heads, ffn width or
-  vocabulary over `model`.
+  vocabulary over `model`;
+* the reduced `prefill_32k`, `decode_32k` and `long_500k` records of
+  granite-3-2b, deepseek-moe-16b and mamba2-1.3b on a fake 2 x 2 group
+  (one subprocess): each `ok`, with collective bytes and model FLOPs of
+  2 · active parameters · tokens; granite's prefill at a quarter of the
+  unsharded prefill's FLOPs (`FlopCounterMode`), its decode steps at the
+  count the split gives (the formula in
+  `test_dryrun_decode_flops_follow_the_split`).
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from repro.training.step import init_train_state as jax_init_train_state
 import repro_torch.configs as tconfigs
 from repro_torch.launch.hlo import Counters, roofline
 from repro_torch.launch.mesh import HW
+from repro_torch.launch.specs import SHAPES
 from repro_torch.models import Batch
 from repro_torch.substrate import REPO_ROOT
 from repro_torch.training.step import init_train_state, make_train_step
@@ -197,3 +205,93 @@ def test_dryrun_runs_the_moe_and_ssm_sharded_step(tmp_path, arch):
     assert rec["microbatches"] == 1
     assert rec["flops_per_chip"] == \
         f.get_total_flops() / 16 + _routed_and_replicated_flops(tc, B * S, 4)
+
+
+SERVE_ARCHS = ["granite-3-2b", "deepseek-moe-16b", "mamba2-1.3b"]
+SERVE_SHAPES = ["prefill_32k", "decode_32k", "long_500k"]
+
+
+@pytest.fixture(scope="module")
+def serve_records(tmp_path_factory):
+    """The reduced prefill, decode and `long_500k` records of three
+    family kinds on a fake 2 x 2 group, from one dry run (a subprocess)."""
+    out = tmp_path_factory.mktemp("dryrun_serve")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO_ROOT, "src"),
+               OMP_NUM_THREADS="2")
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         ",".join(SERVE_ARCHS), "--shape", ",".join(SERVE_SHAPES),
+         "--mesh", "2x2", "--reduced", "--out", str(out)],
+        capture_output=True, text=True, timeout=300, cwd=REPO_ROOT, env=env)
+    assert run.returncode == 0, run.stderr[-3000:]
+    return {(a, s): json.loads(
+        (out / f"{a}__{s}__2x2__reduced.json").read_text())
+        for a in SERVE_ARCHS for s in SERVE_SHAPES}
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+@pytest.mark.parametrize("shape", SERVE_SHAPES)
+def test_dryrun_counts_the_sharded_serving_steps(serve_records, arch,
+                                                 shape):
+    """Each record ran its step (`status: "ok"`, no `bytes_only`), moved
+    bytes over the ranks, and counts 2 · active parameters · tokens as
+    its model FLOPs: B · S tokens for the prefill, B for a decode
+    step."""
+    rec = serve_records[(arch, shape)]
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert "bytes_only" not in json.dumps(rec)
+    assert rec["collective_bytes_per_chip"]["total"] > 0
+    assert rec["microbatches"] == 0
+    info = SHAPES[shape]
+    tc = tconfigs.smoke(tconfigs.get_config(arch))
+    tokens = info["batch"] * (info["seq"] if info["mode"] == "prefill"
+                              else 1)
+    assert rec["model_flops"] == 2 * tc.active_param_count() * tokens
+    assert rec["flops_per_chip"] > 0
+    assert rec["roofline"]["bottleneck"] in ("compute", "memory",
+                                             "collective")
+
+
+def test_dryrun_prefill_flops_are_a_quarter_of_the_unsharded(serve_records):
+    """Granite's sharded prefill on 2 x 2: the batch split over `data`,
+    every product's heads, ffn width or vocabulary over `model`, so rank
+    0's FLOPs are a quarter of the unsharded prefill's, counted by
+    `FlopCounterMode` on fake tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import make_prefill_step
+    info = SHAPES["prefill_32k"]
+    B, S = info["batch"], info["seq"]
+    tc = tconfigs.smoke(tconfigs.get_config("granite-3-2b"))
+    with FakeTensorMode():
+        params = init_params(torch.Generator(), tc)
+        tok = torch.zeros((B, S), dtype=torch.int32)
+        with FlopCounterMode(display=False) as f:
+            make_prefill_step(tc, cache_len=S)(params, Batch(tok))
+    rec = serve_records[("granite-3-2b", "prefill_32k")]
+    assert rec["flops_per_chip"] == f.get_total_flops() / 4
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_dryrun_decode_flops_follow_the_split(serve_records, shape):
+    """Granite's decode step on 2 x 2, rank 0: its B / 2 rows, and over
+    `model` M = 2 its share of the heads, the ffn width and the
+    vocabulary, and L / M of the cache's L slots for every one of the N
+    heads (the split softmax). Per layer, 2 · (B / 2) · [d H (N + 2K) / M
+    (q, k, v) + 2 N H L / M (the scores and p · v) + N H d / M (wo) +
+    3 d F / M (the gated MLP)], and the head's 2 · (B / 2) · d · V / M.
+    `long_500k` is the sliding-window form: L is the window."""
+    info = SHAPES[shape]
+    tc = tconfigs.smoke(tconfigs.get_config("granite-3-2b"))
+    if shape == "long_500k":
+        tc = tconfigs.smoke(tc.replace(window=4096))
+    B, M = info["batch"], 2
+    rows = max(B // 2, 1) if B % 2 == 0 else B
+    L = min(info["seq"], tc.window) if tc.window else info["seq"]
+    d, N, K, H = tc.d_model, tc.n_heads, tc.n_kv_heads, tc.resolved_head_dim
+    layer = (d * H * (N + 2 * K) // M + 2 * N * H * L // M
+             + N * H * d // M + 3 * d * tc.d_ff // M)
+    want = 2 * rows * (tc.n_layers * layer + d * tc.padded_vocab // M)
+    rec = serve_records[("granite-3-2b", shape)]
+    assert rec["flops_per_chip"] == want
