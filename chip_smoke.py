@@ -244,6 +244,24 @@ Phases, each of which raises on failure (exit code != 0):
         and each gradient leaf within 1e-4 * max|g| of the plain path's;
         `adamw_update` on two copies of the state with the same
         gradients gives the same bits.
+   10c. the families that fit one card, unreduced in bf16 by 10a's
+        procedure (`train_family_phase`, TRAIN10C), each after the last
+        one's memory is freed: internvl2-2b (its 1024 stub patches ahead
+        of each sequence: S = 3072), seamless-m4t-medium (4096 stub
+        frames through its non-causal encoder), mamba2-1.3b and
+        minitron-4b. Each: one loss and gradient through the kernels at
+        4 x 2048 (`flash_attention` exactly 48, 36 with 12 inside the
+        encoder, 0 and 64 times, and nothing else) and one on the plain
+        path (no launch): the loss within 1e-4 relative, the norm within
+        1e-3, each leaf within 0.05 relative l2 or 2 x the plain path's
+        distance from the f32 control (the same weights upcast on the
+        plain path, the bf16 gradients waiting on the host); then the
+        AdamW state and 4 steps (minitron-4b's at 1 x 2048: its 54.6 GiB
+        of state leave no room for more sequences' f32 logits over
+        256000 tokens), every loss finite and the last below the first, the
+        step wall, tokens/s, the share of the bf16 peak, peak memory,
+        and one more step under `torch.profiler`: device busy and idle
+        share by part.
 
 11. sharded training (`launch/train.py`'s sharded path: the rules as
    DTensor placements, ZeRO-1 AdamW), each rank a process on the one
@@ -275,7 +293,11 @@ Phases, each of which raises on failure (exit code != 0):
         the elements past the 1e-5 alone, each parameter its master's
         bits.
    Phase 3 and 5 gain #9 at 11a's per-rank shape, with its lse, beside
-   SDPA.
+   SDPA, and at 10c's four instances with the lse (internvl2-2b's (4,
+   3072, 16, 8, 128), the seamless encoder's (4, 4096, 16, 16, 64) not
+   causal and its decoder's (4, 2048, 16, 16, 64), minitron-4b's (4,
+   2048, 24, 8, 128)), each beside SDPA's forward with a gradient and,
+   for the backward, the plain blockwise one beside SDPA's.
 
 12. the MoE, RG-LRU hybrid and SSM families trained sharded on 2 gloo
    ranks of the one card as a (1, 2) mesh (`train_zoo_sharded_phase`),
@@ -284,8 +306,9 @@ Phases, each of which raises on failure (exit code != 0):
    and 2 MoE layers, expert parallel, the global batch's routing), 12b
    qwen3-moe-30b-a3b at 2 of 48, 12c recurrentgemma-9b at one (rec, rec,
    local_attn) group of 38 layers with the batch cut to 2 x 2048 (its
-   256k-vocabulary logits), 12d mamba2-1.3b unreduced (head parallel,
-   `w_in` and `conv_w` gathered through the ledger). Each family's
+   256k-vocabulary logits), 12d mamba2-1.3b at 24 of 48 layers (head
+   parallel, `w_in` and `conv_w` gathered through the ledger; 10c trains
+   it unreduced on one card). Each family's
    unsharded bf16 kernel run (one loss and gradient, remat) is taken
    first in this process, saved and freed; then, in one pair of ranks,
    each family's loss and gradient through the kernels (#9 on each
@@ -337,7 +360,8 @@ Phases, each of which raises on failure (exit code != 0):
 
 It prints one JSON line of kernels (launches per run from phases 4-4c,
 6, 7c, 9 and 10, #9 with its lse taking 10a's kernel loss-and-gradient
-run's, its 11a per-rank row 11a's rank 0's, its phase 12 per-rank rows
+run's, its 10c rows each family's kernel loss-and-gradient run's, its
+11a per-rank row 11a's rank 0's, its phase 12 per-rank rows
 12a-12c's rank 0's and its phase 13 per-rank rows 13a-13b's rank 0's;
 phase 8's, over its ranks and its own fits, as `launches_phase8`, phase
 11's, over its 11a ranks, as `launches_phase11`, phase 12's, over its
@@ -425,6 +449,25 @@ TOL_TRAIN_GRAD = 0.05
 # the plain path's (measured 0.955 there): the kernel's forward keeps q.k
 # in f32, so its gradient is to be no further from the f32 one
 TOL_TRAIN_GRAD_F32 = 1.1
+# phase 10c: the families that fit one card, trained there unreduced in
+# bf16 by 10a's procedure (its seeds and batch, remat): (run, arch, the
+# AdamW steps' batch). Each loss and gradient on both paths, and the f32
+# control, at TRAIN_BATCH; each leaf of the kernel path's gradient held
+# to the plain path's by TOL_TRAIN_GRAD or ZOO12_NOISE times the plain
+# path's own distance from the f32 control, whichever is larger (phase
+# 12's bar). minitron-4b's steps take 1 x 2048: its train state (bf16
+# parameters, f32 master and moments) is 54.64 GiB, and its loss and
+# gradient at 4 x 2048 peak at 48.51 GiB with its parameters alone
+# (H100 80GB HBM3, 700 W), so 46.8 GiB more of master and moments do
+# not fit; at 2 x 2048 the steps ran out of memory in this script (3.91
+# GiB asked with 74.55 GiB allocated of 79.18: earlier phases hold about
+# 3.4 GiB), its f32 logits over 256000 tokens and their gradient's
+# temporaries taking about 6 GiB a sequence
+TRAIN10C = (("10c-vlm", "internvl2-2b", TRAIN_BATCH),
+            ("10c-audio", "seamless-m4t-medium", TRAIN_BATCH),
+            ("10c-ssm", "mamba2-1.3b", TRAIN_BATCH),
+            ("10c-dense", "minitron-4b", 1))
+TRAIN10C_STEPS = 4                      # then one more under the profiler
 # phase 11: granite-3-2b trained sharded on gloo ranks of the one card.
 # 11a: phase 10a's weights and batch, bf16, a (1, TP_MODEL) mesh; held to
 # 10a's kernel run with 10a's bars; then TP_STEPS AdamW steps. 11b: an f32
@@ -456,7 +499,10 @@ MAX_SLOPED_11B = 1e-3
 # remat, 10a's seeds and AdamW settings: (run, arch, changes, batch), the
 # depth cut so that both ranks' state (about 20 B a parameter) and the
 # batch's activations fit the card; recurrentgemma-9b's 256k-vocabulary
-# logits also cut its batch to 2 x 2048. Each is held to its unsharded
+# logits also cut its batch to 2 x 2048; mamba2-1.3b (whole on each rank)
+# is cut to half its layers for the script's time: its gloo-bound
+# sharded steps took about 20 s each at 48 (H100 80GB HBM3, 700 W), and
+# phase 10c trains it unreduced on one card. Each is held to its unsharded
 # bf16 kernel run, taken first here, by 11a's bars; an MoE's share of
 # tokens whose top-k set flips at the first MoE layer by
 # TOL_ROUTE_FLIPS. Then ZOO12_STEPS AdamW steps. A leaf whose gradient
@@ -472,7 +518,7 @@ ZOO12_NOISE = 2.0
 ZOO12 = (("12a", "deepseek-moe-16b", {"n_layers": 3}, TRAIN_BATCH),
          ("12b", "qwen3-moe-30b-a3b", {"n_layers": 2}, TRAIN_BATCH),
          ("12c", "recurrentgemma-9b", {"n_layers": 3}, 2),
-         ("12d", "mamba2-1.3b", {}, TRAIN_BATCH))
+         ("12d", "mamba2-1.3b", {"n_layers": 24}, TRAIN_BATCH))
 ZOO12_STEPS = 2
 # 12e: f32 copies on SHARDED_MESH_11B's ranks, the fewest layers that
 # hold one of each kind (deepseek-moe-16b: its dense head and one MoE
@@ -1894,13 +1940,13 @@ def zoo_phase(dev, card) -> dict:
             "flash_attention_noncausal": runs["flash_attention_noncausal"]}
 
 
-def flash_backward_times(shape, qkv, card) -> dict:
+def flash_backward_times(shape, qkv, card, causal: bool = True) -> dict:
     """The training attention's backward at `shape` (B, S, N, K, H),
-    causal: the plain blockwise backward as the training path runs it
+    causal or not: the plain blockwise backward as the training path runs it
     after the kernel (`flash_attention_bwd` from the kernel's out and lse,
     scores in f32) and SDPA's backward (`torch.autograd.grad` through its forward),
-    by CUDA events, beside their bound (5 products of the causal pairs,
-    2.5 x the forward's; q, k, v, out, dout and lse read, dq, dk, dv
+    by CUDA events, beside their bound (5 products of the pairs the mask
+    keeps, 2.5 x the forward's; q, k, v, out, dout and lse read, dq, dk, dv
     written)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch.timing import time_ms
@@ -1909,23 +1955,24 @@ def flash_backward_times(shape, qkv, card) -> dict:
     q, k, v = qkv
     gen = torch.Generator(device=q.device).manual_seed(3)
     dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
-    out, lse = flash_ops.flash_attention_fwd_lse(q, k, v)
+    out, lse = flash_ops.flash_attention_fwd_lse(q, k, v, causal=causal)
     plain_ms = time_ms(lambda: ac.flash_attention_bwd(
-        q, k, v, out, lse, dout, causal=True, window=0, scores_f32=True),
+        q, k, v, out, lse, dout, causal=causal, window=0, scores_f32=True),
         reps=5, warm=1)
     req = [t.transpose(1, 2).detach().requires_grad_() for t in qkv]
     o = torch.nn.functional.scaled_dot_product_attention(
-        *req, is_causal=True, enable_gqa=True)
+        *req, is_causal=causal, enable_gqa=True)
     d_t = dout.transpose(1, 2)
     lib_ms = time_ms(lambda: torch.autograd.grad(o, req, d_t,
                                                  retain_graph=True))
-    pairs = fb * fn * flash_pairs(fs, True, 0)
+    pairs = fb * fn * flash_pairs(fs, causal, 0)
     elems = fb * fs * fh
     bwd_bound, how = bound(2.5 * 4 * pairs * fh,
                            2 * (3 * fn * elems + 2 * fk * elems)
                            + 4 * fb * fn * fs + 2 * (fn + 2 * fk) * elems,
                            PEAK_BF16_FLOPS)
-    print(f"time flash backward at {shape} bf16 causal: plain blockwise "
+    print(f"time flash backward at {shape} bf16 causal={causal}: plain "
+          f"blockwise "
           f"{plain_ms:.4f} ms, SDPA's backward {lib_ms:.4f} ms, bound "
           f"{bwd_bound:.4f} ms ({how}) {card}")
     return {"plain_bwd_ms": plain_ms, "library_bwd_ms": lib_ms,
@@ -1933,16 +1980,48 @@ def flash_backward_times(shape, qkv, card) -> dict:
 
 
 def train_forward_flops(cfg, b: int, s: int) -> float:
-    """A forward pass of a dense decoder over b x s tokens: the
-    projections and the MLP (2 flops a weight a token), the head, and each
-    layer's causal attention (4 H flops a visible (query, key) pair a
-    head)."""
-    d, n, k, h = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
-        cfg.resolved_head_dim
-    per_token = cfg.n_layers * 2 * (d * n * h + 2 * d * k * h + n * h * d
-                                    + 3 * d * cfg.d_ff)
-    attn = cfg.n_layers * 4 * b * n * flash_pairs(s, True, 0) * h
-    return b * s * (per_token + 2 * d * cfg.padded_vocab) + attn
+    """A forward pass over b sequences of s tokens, for the dense, VLM,
+    enc-dec and SSD stacks (not the MoE's): 2 flops a weight a position
+    for every weight a product applies (a layer's over the decoder's
+    positions, the VLM's patches included; the encoder's, and the cross
+    attention's k and v, over the frames; the head over the tokens; the
+    SSD block's depthwise conv too), 4 H flops a visible (query, key)
+    pair a head for each attention (causal self attention, the encoder's
+    and the cross attention's over every frame), and the SSD block's
+    chunked scan, 2 Q (N + P) + 4 N P a position a head (chunk Q, state
+    N, head dim P: the intra-chunk scores and output, the chunk states
+    and the inter-chunk output)."""
+    from repro_torch.models.backbone import _stack_kinds
+    from repro_torch.tree import named_leaves
+    frames = cfg.n_frontend_tokens if cfg.arch_type == "encdec" else 0
+    s_dec = s + (cfg.n_frontend_tokens if cfg.arch_type == "vlm" else 0)
+    leaves = named_leaves(init_params_shapes(cfg))
+    weights = 0
+    for name, t in leaves.items():
+        if t.ndim < 2 or (name == "embed" and "head" in leaves):
+            continue
+        if name in ("embed", "head"):
+            positions = s
+        elif name.startswith("encoder/") or name.endswith(
+                ("/cross/wk", "/cross/wv")):
+            positions = frames
+        else:
+            positions = s_dec
+        weights += t.numel() * positions
+    n, h = cfg.n_heads, cfg.resolved_head_dim
+    kinds = _stack_kinds(cfg)
+    n_attn = sum(k in ("attn", "local_attn") for k in kinds)
+    attn = n_attn * 4 * b * n * flash_pairs(s_dec, True, cfg.window) * h
+    if frames:
+        attn += 4 * b * n * h * (cfg.n_encoder_layers * frames * frames
+                                 + n_attn * s * frames)
+    scan = 0
+    if cfg.ssd is not None:
+        sc = cfg.ssd
+        scan = sum(k == "ssd" for k in kinds) * b * s * sc.n_heads * (
+            2 * sc.chunk * (sc.state_dim + sc.head_dim)
+            + 4 * sc.state_dim * sc.head_dim)
+    return 2 * b * weights + attn + scan
 
 
 def train_profile(prof, wall_s: float) -> dict:
@@ -2007,6 +2086,57 @@ def train_profile(prof, wall_s: float) -> dict:
     return out
 
 
+def free_card() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def train_batch(cfg, dev, batch: int = TRAIN_BATCH):
+    """One batch of `synthetic_lm_batches` from TRAIN_BATCH_SEED: `batch`
+    sequences of TRAIN_SEQ tokens, and the stub frontend (the VLM's
+    patches, the enc-dec's frames: (batch, n_frontend_tokens, d_model))
+    where `cfg` has one."""
+    from repro_torch.data.synth_tokens import synthetic_lm_batches
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_BATCH_SEED)
+    fe = (cfg.n_frontend_tokens, cfg.d_model) if cfg.frontend else None
+    return next(synthetic_lm_batches(gen, vocab=cfg.vocab, batch=batch,
+                                     seq=TRAIN_SEQ, frontend_shape=fe))
+
+
+def grads_on(cfg, params, batch, use_kernel):
+    """make_grad_fn's (loss, gradients) with remat, the launch counts
+    zeroed just before and read just after, and the wall time."""
+    from repro_torch.kernels.common import LAUNCHES, reset_launches
+    from repro_torch.training.step import make_grad_fn
+    fn = make_grad_fn(cfg, remat=True, use_kernel=use_kernel)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, _, grads = fn(params, batch)
+    torch.cuda.synchronize()
+    return loss, grads, dict(LAUNCHES), time.perf_counter() - t0
+
+
+def worst_leaf_of(gk, gp):
+    """The worst leaf's relative l2 error of `gk` against `gp`, and its
+    name."""
+    from repro_torch.tree import named_leaves, tree_leaves
+    worst, name = 0.0, "?"
+    for (leaf, a), b in zip(named_leaves(gk).items(), tree_leaves(gp)):
+        rel = rel_l2(a, b)
+        if rel >= worst:
+            worst, name = rel, leaf
+    return worst, name
+
+
+def want_launches(n: int) -> dict:
+    """Every kernel's count 0 but flash_attention's, `n`."""
+    from repro_torch.kernels.common import LAUNCHES
+    want = dict.fromkeys(LAUNCHES, 0)
+    want["flash_attention"] = n
+    return want
+
+
 def train_phase(dev, card, save_dir) -> dict:
     """Phase 10: training. 10a granite-3-2b unreduced in bf16 (loss and
     gradient on both paths, 8 steps, the step's time, a profile); 10b an
@@ -2016,54 +2146,16 @@ def train_phase(dev, card, save_dir) -> dict:
     path's loss, its global gradient norm and the gradients of
     `SHARDED_LEAVES`."""
     from repro_torch.configs import get_config
-    from repro_torch.data.synth_tokens import synthetic_lm_batches
-    from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.models import init_params
     from repro_torch.optim.adamw import AdamWState, adamw_update, global_norm
     from repro_torch.serving import cell
     from repro_torch.training.step import (
-        TrainState, init_train_state, make_grad_fn, make_train_step,
+        TrainState, init_train_state, make_train_step,
     )
     from repro_torch.tree import named_leaves, tree_leaves, tree_map
     from torch.profiler import ProfilerActivity, profile
 
-    def free():
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-
-    def batch_of(cfg):
-        gen = torch.Generator(device=dev).manual_seed(TRAIN_BATCH_SEED)
-        return next(synthetic_lm_batches(gen, vocab=cfg.vocab,
-                                         batch=TRAIN_BATCH, seq=TRAIN_SEQ))
-
-    def grads_on(cfg, params, batch, use_kernel):
-        """make_grad_fn's (loss, gradients) with the launch counts zeroed
-        just before and read just after, and the wall time."""
-        fn = make_grad_fn(cfg, remat=True, use_kernel=use_kernel)
-        torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
-        loss, _, grads = fn(params, batch)
-        torch.cuda.synchronize()
-        return loss, grads, dict(LAUNCHES), time.perf_counter() - t0
-
-    def compare(gk, gp):
-        """The worst leaf's relative l2 error and its name."""
-        worst, name = 0.0, "?"
-        for (leaf, a), b in zip(named_leaves(gk).items(), tree_leaves(gp)):
-            num = torch.linalg.vector_norm((a.float() - b.float()).ravel())
-            den = torch.linalg.vector_norm(b.float().ravel())
-            rel = (num / torch.clamp_min(den, 1e-30)).item()
-            if rel >= worst:
-                worst, name = rel, leaf
-        return worst, name
-
-    def want_launches(n):
-        want = dict.fromkeys(LAUNCHES, 0)
-        want["flash_attention"] = n
-        return want
-
-    free()
+    free_card()
     out = {}
     # ---- 10a. granite-3-2b unreduced, bf16 --------------------------------
     cfg = get_config(cell.ARCH)
@@ -2073,7 +2165,7 @@ def train_phase(dev, card, save_dir) -> dict:
     params = init_params(
         torch.Generator(device=dev).manual_seed(cell.PARAM_SEED), cfg)
     n_params = sum(p.numel() for p in tree_leaves(params))
-    batch = batch_of(cfg)
+    batch = train_batch(cfg, dev)
     tokens = batch.tokens.numel()
     loss_k, grads_k, launches_k, wall_k = grads_on(cfg, params, batch, None)
     check(launches_k == want_launches(2 * cfg.n_layers),
@@ -2086,7 +2178,7 @@ def train_phase(dev, card, save_dir) -> dict:
     lk, lp = loss_k.item(), loss_p.item()
     check(math.isfinite(lk) and math.isfinite(gn_k) and gn_k > 0,
           f"10a loss {lk}, grad_norm {gn_k}")
-    worst, worst_leaf = compare(grads_k, grads_p)
+    worst, worst_leaf = worst_leaf_of(grads_k, grads_p)
     # the control: the same loss's gradient in f32 at the same (bf16)
     # weights on the plain path, from which each bf16 path's gradient
     # is off by its own rounding
@@ -2094,8 +2186,8 @@ def train_phase(dev, card, save_dir) -> dict:
     loss_32, grads_32, _, _ = grads_on(
         cfg_f32, tree_map(lambda p: p.float(), params), batch, False)
     l32 = loss_32.item()
-    worst_k32, leaf_k32 = compare(grads_k, grads_32)
-    worst_p32, leaf_p32 = compare(grads_p, grads_32)
+    worst_k32, leaf_k32 = worst_leaf_of(grads_k, grads_32)
+    worst_p32, leaf_p32 = worst_leaf_of(grads_p, grads_32)
     print(f"phase 10a {cfg.name} unreduced ({cfg.n_layers} layers, d "
           f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters, bf16), batch "
           f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat: "
@@ -2127,7 +2219,7 @@ def train_phase(dev, card, save_dir) -> dict:
                           .items() if sharded_leaf(name, cfg)}},
                f"{save_dir}/ref10a.pt")
     del params, grads_k, grads_p, grads_32
-    free()
+    free_card()
 
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(
@@ -2188,14 +2280,14 @@ def train_phase(dev, card, save_dir) -> dict:
     out.update(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
                peak_gib=peak_gib, mfu=mfu, losses=losses, profile=rep)
     del state, m
-    free()
+    free_card()
 
     # ---- 10b. an f32 copy at 4 layers -------------------------------------
     cfg32 = cfg.replace(n_layers=TRAIN_F32_LAYERS, param_dtype="float32",
                         compute_dtype="float32")
     s32 = init_train_state(
         torch.Generator(device=dev).manual_seed(cell.PARAM_SEED), cfg32)
-    b32 = batch_of(cfg32)
+    b32 = train_batch(cfg32, dev)
     l32k, g32k, launches32, _ = grads_on(cfg32, s32.params, b32, None)
     check(launches32 == want_launches(2 * TRAIN_F32_LAYERS),
           f"10b kernel path launches {launches32}")
@@ -2227,8 +2319,213 @@ def train_phase(dev, card, save_dir) -> dict:
           f"gradient leaf {worst32:.3g} of max|g| (bar {TOL_FIT}); "
           f"adamw_update on two copies: the same bits {card}")
     del s32, g32k, g32p, copies, done
-    free()
+    free_card()
     return out
+
+
+def train10c_flash_shapes() -> dict:
+    """{row: (shape, causal)}: #9 with its lse at the (B, S, N, K, H) of
+    phase 10c's loss-and-gradient runs (TRAIN_BATCH): internvl2-2b's over
+    its patches and tokens, seamless-m4t-medium's encoder over its frames
+    (not causal) and its decoder, and minitron-4b's."""
+    from repro_torch.configs import get_config
+
+    def shape(arch, s):
+        c = get_config(arch)
+        return (TRAIN_BATCH, s, c.n_heads, c.n_kv_heads, c.resolved_head_dim)
+
+    vlm = get_config("internvl2-2b")
+    audio = get_config("seamless-m4t-medium")
+    return {
+        "flash_attention_lse_vlm": (
+            shape(vlm.name, TRAIN_SEQ + vlm.n_frontend_tokens), True),
+        "flash_attention_lse_noncausal": (
+            shape(audio.name, audio.n_frontend_tokens), False),
+        "flash_attention_lse_audio_dec": (shape(audio.name, TRAIN_SEQ), True),
+        "flash_attention_lse_h128": (shape("minitron-4b", TRAIN_SEQ), True),
+    }
+
+
+def train_family(label, arch, step_batch, dev, card) -> dict:
+    """One run of phase 10c: `arch` unreduced in bf16 from 10a's seeds.
+    The loss and gradient with remat on the kernel path (#9 exactly
+    `flash_launches` times, the encoder's launches counted on their own,
+    nothing else) and on the plain path (no launch), held to each other
+    by 10a's loss and norm bars and each leaf by TOL_TRAIN_GRAD or
+    ZOO12_NOISE times the plain path's distance from the f32 control (the
+    same weights upcast, the plain path, computed with the two bf16
+    gradients moved to the host); then the AdamW state and
+    TRAIN10C_STEPS steps at `step_batch` x TRAIN_SEQ, every loss finite
+    and the last below the first, and one more step under the profiler.
+    Returns #9's launches of the kernel run (all, and the encoder's) and
+    the step's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.serving import cell
+    from repro_torch.training.step import init_train_state, make_train_step
+    from repro_torch.tree import named_leaves, tree_map
+    from torch.profiler import ProfilerActivity, profile
+
+    t_run = time.perf_counter()
+    free_card()
+    cfg = get_config(arch)
+    base = torch.cuda.memory_allocated()
+    params = init_params(
+        torch.Generator(device=dev).manual_seed(cell.PARAM_SEED), cfg)
+    n_params = sum(t.numel() for t in named_leaves(params).values())
+    batch = train_batch(cfg, dev)
+    want = flash_launches(cfg)
+    n_enc = cfg.n_encoder_layers if cfg.arch_type == "encdec" else 0
+    enc: list = []
+    torch.cuda.reset_peak_memory_stats()
+    with encoder_launches(enc):
+        loss_k, grads_k, launches_k, wall_k = grads_on(cfg, params, batch,
+                                                       None)
+    peak_k = (torch.cuda.max_memory_allocated() - base) / 2**30
+    check(launches_k == want_launches(want) and
+          enc == ([n_enc] if n_enc else []),
+          f"{label} kernel path launches {launches_k}, the encoder's {enc}: "
+          f"expected flash_attention={want} (the encoder's {n_enc} once, "
+          f"each decoder layer's forward and recompute) and nothing else")
+    loss_p, grads_p, launches_p, wall_p = grads_on(cfg, params, batch, False)
+    check(launches_p == want_launches(0),
+          f"{label} plain path launches {launches_p}")
+    lk, lp = loss_k.item(), loss_p.item()
+    gn_k, gn_p = global_norm(grads_k).item(), global_norm(grads_p).item()
+    check(math.isfinite(lk) and math.isfinite(gn_k) and gn_k > 0,
+          f"{label} loss {lk}, grad_norm {gn_k}")
+    flat_k, flat_p = named_leaves(grads_k), named_leaves(grads_p)
+    kp = {n: rel_l2(flat_k[n], flat_p[n]) for n in flat_k}
+    # the f32 control needs the room: the bf16 gradients wait on the host
+    t0 = time.perf_counter()
+    host_k = {n: t.cpu() for n, t in flat_k.items()}
+    host_p = {n: t.cpu() for n, t in flat_p.items()}
+    host_s = time.perf_counter() - t0
+    del grads_k, grads_p, flat_k, flat_p
+    params = tree_map(lambda t: t.float(), params)
+    free_card()
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    loss_32, g32, _, wall_32 = grads_on(cfg32, params, batch, False)
+    del params
+    g32 = named_leaves(g32)
+    l32 = loss_32.item()
+    noise = {n: rel_l2(host_p[n].to(dev), g) for n, g in g32.items()}
+    k32 = {n: rel_l2(host_k[n].to(dev), g) for n, g in g32.items()}
+    del g32, host_k, host_p
+    bars = {n: max(TOL_TRAIN_GRAD, ZOO12_NOISE * noise[n]) for n in kp}
+    near = max(kp, key=lambda n: kp[n] / bars[n])
+    worst_k32, worst_p32 = max(k32, key=k32.get), max(noise, key=noise.get)
+    enc_note = (f" ({enc[0]} in the encoder, once: it runs outside the "
+                f"checkpoints)" if n_enc else "")
+    print(f"phase {label} {cfg.name} unreduced ({cfg.n_layers} layers"
+          + (f" and {n_enc} encoder layers" if n_enc else "") +
+          f", d {cfg.d_model}, {n_params / 1e9:.3f} B parameters, bf16), "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}"
+          + (f" with {cfg.n_frontend_tokens} {cfg.frontend} positions a "
+             f"sequence" if cfg.frontend else "") +
+          f", remat: loss kernel {lk:.6f} plain {lp:.6f} (rel "
+          f"{abs(lk - lp) / abs(lp):.3g}, bar {TOL_TRAIN_LOSS}); grad_norm "
+          f"kernel {gn_k:.6g} plain {gn_p:.6g} (rel "
+          f"{abs(gn_k - gn_p) / gn_p:.3g}, bar {TOL_TRAIN_GNORM}); the leaf "
+          f"nearest its bar of {len(kp)}: {near} relative l2 {kp[near]:.4g}, "
+          f"bar {bars[near]:.4g} (the larger of {TOL_TRAIN_GRAD} and "
+          f"{ZOO12_NOISE} x the plain path's {noise[near]:.4g} off the f32 "
+          f"control), the worst leaf {max(kp.values()):.4g}; flash launches "
+          f"{launches_k['flash_attention']}{enc_note} / "
+          f"{launches_p['flash_attention']}"
+          + ("" if want else " (no kernel on this family's path)") +
+          f"; loss-and-grad wall {wall_k * 1e3:.1f} ms (plain "
+          f"{wall_p * 1e3:.1f}), peak {peak_k:.2f} GiB {card}")
+    print(f"phase {label} f32 control (the same weights upcast, plain path, "
+          f"{wall_32 * 1e3:.1f} ms; the bf16 gradients moved to the host in "
+          f"{host_s:.1f} s): loss {l32:.6f} (kernel rel "
+          f"{abs(lk - l32) / abs(l32):.3g}, plain rel "
+          f"{abs(lp - l32) / abs(l32):.3g}); the worst leaf off the f32 "
+          f"gradient: kernel path {k32[worst_k32]:.4g} at {worst_k32}, plain "
+          f"path {noise[worst_p32]:.4g} at {worst_p32} {card}")
+    check(abs(lk - lp) <= TOL_TRAIN_LOSS * abs(lp),
+          f"{label} loss: kernel {lk} vs plain {lp}")
+    check(abs(gn_k - gn_p) <= TOL_TRAIN_GNORM * gn_p,
+          f"{label} grad_norm: kernel {gn_k} vs plain {gn_p}")
+    check(kp[near] <= bars[near], f"{label} gradient {near}: relative l2 "
+          f"error {kp[near]} > {bars[near]}")
+    free_card()
+
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(
+        torch.Generator(device=dev).manual_seed(cell.PARAM_SEED), cfg)
+    state_gib = (torch.cuda.memory_allocated() - base) / 2**30
+    if step_batch != TRAIN_BATCH:
+        batch = train_batch(cfg, dev, step_batch)
+    tokens = batch.tokens.numel()
+    step = make_train_step(cfg, peak_lr=TRAIN_LR, warmup=1, total_steps=100)
+    losses, norms, walls = [], [], []
+    for _ in range(TRAIN10C_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        walls.append(time.perf_counter() - t0)
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"{label} losses {losses}, grad norms {norms}")
+    check(losses[-1] < losses[0], f"{label} the loss did not fall: {losses}")
+    step_s = sum(walls[1:]) / len(walls[1:])
+    fwd = train_forward_flops(cfg, step_batch, TRAIN_SEQ)
+    mfu = 3 * fwd / step_s / PEAK_BF16_FLOPS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rep = train_profile(prof, wall)
+    idle = max(0.0, 1 - rep["busy_ms"] / (step_s * 1e3))
+    del prof, state, m, batch
+    cut = "" if step_batch == TRAIN_BATCH else \
+        f" (the batch cut from {TRAIN_BATCH}: the state and the logits)"
+    print(f"phase {label} train state {state_gib:.2f} GiB; "
+          f"{TRAIN10C_STEPS} steps of make_train_step at batch {step_batch}"
+          f" x {TRAIN_SEQ}{cut} (peak_lr {TRAIN_LR}, warmup 1): losses "
+          f"{[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in norms]}; step wall {step_s * 1e3:.1f} ms "
+          f"(mean of steps 2-{TRAIN10C_STEPS}; all "
+          f"{[round(w * 1e3, 1) for w in walls]}), {tokens / step_s:.0f} "
+          f"tokens/s; model FLOPs 3 x forward {3 * fwd / 1e12:.1f} TFLOP a "
+          f"step ({mfu:.4f} of the bf16 peak); peak memory {peak_gib:.2f} "
+          f"GiB (state included) {card}")
+    print(f"phase {label} profile of one step: wall {rep['wall_ms']:.1f} ms,"
+          f" device busy {rep['busy_ms']:.1f} ms, idle share "
+          f"{rep['idle_share']:.4f} of its wall and {idle:.4f} of the "
+          f"unprofiled steps' (the profiler's own host cost is in the "
+          f"first), {rep['kernels']} kernels; by part: "
+          + ", ".join(f"{k} {rep[k]:.1f} ms" for k in (
+              "GEMMs", "flash #9 forward", "plain attention backward",
+              "elementwise and other", "optimizer")) +
+          f"; {time.perf_counter() - t_run:.1f} s for the run {card}")
+    free_card()
+    return {"launches": launches_k["flash_attention"],
+            "encoder": enc[0] if enc else 0, "step_ms": step_s * 1e3,
+            "tokens_per_s": tokens / step_s, "mfu": mfu,
+            "peak_gib": peak_gib, "idle_share": idle,
+            "losses": losses}
+
+
+def train_family_phase(dev, card) -> dict:
+    """Phase 10c: each run of TRAIN10C by `train_family`, after the last
+    one's memory is freed. Returns #9's launches by row of
+    `train10c_flash_shapes`."""
+    runs = {arch: train_family(label, arch, batch, dev, card)
+            for label, arch, batch in TRAIN10C}
+    audio = runs["seamless-m4t-medium"]
+    return {"flash_attention_lse_vlm": runs["internvl2-2b"]["launches"],
+            "flash_attention_lse_noncausal": audio["encoder"],
+            "flash_attention_lse_audio_dec":
+                audio["launches"] - audio["encoder"],
+            "flash_attention_lse_h128": runs["minitron-4b"]["launches"]}
 
 
 def sharded_leaf(name: str, cfg) -> bool:
@@ -2581,14 +2878,17 @@ def config_of(arch: str, changes: dict):
 
 
 def flash_launches(cfg) -> int:
-    """#9's launches in one remat loss-and-gradient of `cfg`: two for each
-    attention layer of the scanned stack (the forward and the recompute),
-    one for each of the tail's (the MoE head), which runs outside remat."""
+    """#9's launches in one remat loss-and-gradient of `cfg` at sequences
+    that take the long branch: two for each attention layer of the
+    scanned stack (the forward and the recompute), one for each of the
+    tail's (the MoE head) and of the encoder's, which run outside
+    remat."""
     from repro_torch.models.backbone import stack_plan
     pat, n_groups, tail = stack_plan(cfg)
     attn = ("attn", "local_attn", "moe")
+    encoder = cfg.n_encoder_layers if cfg.arch_type == "encdec" else 0
     return 2 * sum(k in attn for k in pat * n_groups) + \
-        sum(k in attn for k in tail)
+        sum(k in attn for k in tail) + encoder
 
 
 def f32_sharded_check(label, arch, changes, dev, card, tmp,
@@ -3861,6 +4161,22 @@ def main() -> None:
     for name, (shape, causal, window) in zoo_flash.items():
         errs[name], zoo_qkv[name] = check_flash(shape, bf16, causal=causal,
                                                 window=window)
+    # phase 10c's instances with the lse: internvl2-2b's over its patches
+    # and seamless-m4t-medium's non-causal encoder are phase 9's prefill
+    # shapes and minitron-4b's is FLASH_H128, each checked above with its
+    # lse; the seamless decoder's is new
+    checked = {(FLASH_H128, True): flash_qkv128,
+               **{(z[0], z[1]): zoo_qkv[name] for name, z in zoo_flash.items()
+                  if not z[2]}}
+    train10c_flash, train10c_qkv = train10c_flash_shapes(), {}
+    for name, (shape, causal) in train10c_flash.items():
+        if (shape, causal) not in checked:
+            _, checked[(shape, causal)] = check_flash(shape, bf16,
+                                                      causal=causal)
+        train10c_qkv[name] = checked[(shape, causal)]
+        errs[name] = lse_abs[(shape, bf16)]
+        print(f"check {name} {shape} causal={causal}: the output and the "
+              f"lse held above, max |lse - plain| {errs[name]:.3g}")
     check_flash((1, 200, 4, 1, 128), bf16)
     check_flash((1, 512, 4, 1, 256), bf16, window=64)
     check_flash((1, 300, 4, 2, 64), bf16, window=40)
@@ -4169,7 +4485,7 @@ def main() -> None:
                     fq.transpose(1, 2), fkk.transpose(1, 2),
                     fv.transpose(1, 2), is_causal=causal, enable_gqa=True))
 
-    def flash_lse_row(name, shape, qkv, window=0):
+    def flash_lse_row(name, shape, qkv, window=0, causal=True):
         """#9 with its lse, as the training forward launches it: q, k, v
         and out once each, and the lse; beside SDPA's forward on inputs
         that require a gradient (it then writes its own logsumexp). SDPA
@@ -4182,17 +4498,18 @@ def main() -> None:
         req = [t.transpose(1, 2).detach().requires_grad_() for t in qkv]
         return (name, "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention/kernel.py:83",
-                bound(flash_flops(shape, window=window),
+                bound(flash_flops(shape, causal, window),
                       2 * (2 * fb * fs * fn * fh + 2 * fb * fs * fk * fh)
                       + 4 * fb * fn * fs, PEAK_BF16_FLOPS),
                 lambda: flash_ops.launch(fq, fkk, fv, f_out, lse=f_lse,
-                                         window=window),
-                lambda: flash_ops.flash_attention_fwd_lse(fq, fkk, fv,
-                                                          window=window),
+                                         causal=causal, window=window),
                 lambda: flash_ops.flash_attention_fwd_lse(
-                    fq, fkk, fv, window=window, use_kernel=False),
+                    fq, fkk, fv, causal=causal, window=window),
+                lambda: flash_ops.flash_attention_fwd_lse(
+                    fq, fkk, fv, causal=causal, window=window,
+                    use_kernel=False),
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    *req, is_causal=True, enable_gqa=True))
+                    *req, is_causal=causal, enable_gqa=True))
 
     # the weighted launch's yardstick: one bmm on (w X)' computed aside
     Xwt = (X * w[..., None]).transpose(1, 2)
@@ -4206,6 +4523,8 @@ def main() -> None:
         flash_lse_row("flash_attention_lse_tp2", flash_tp, flash_qkv_tp),
         *(flash_lse_row(name, shape, zoo12_qkv[name], window)
           for name, (shape, window) in zoo12_flash.items()),
+        *(flash_lse_row(name, shape, train10c_qkv[name], causal=causal)
+          for name, (shape, causal) in train10c_flash.items()),
         *(flash_row(name, shape, zoo_qkv[name], causal, window)
           for name, (shape, causal, window) in zoo_flash.items()),
         *(flash_row(name, shape, serve13_qkv[name], causal, window)
@@ -4365,6 +4684,7 @@ def main() -> None:
               "flash_attention_lse_tp2": flash_tp,
               **{name: z[0] for name, z in zoo_flash.items()},
               **{name: z[0] for name, z in zoo12_flash.items()},
+              **{name: z[0] for name, z in train10c_flash.items()},
               **{name: z[0] for name, z in serve13_flash.items()}}
     # the redesigned kernels' least work, for their achieved rate
     row_flops = {"flash_attention": flash_flops(flash_path),
@@ -4373,6 +4693,8 @@ def main() -> None:
                  "flash_attention_lse_tp2": flash_flops(flash_tp),
                  **{name: flash_flops(shape, window=window)
                     for name, (shape, window) in zoo12_flash.items()},
+                 **{name: flash_flops(shape, causal)
+                    for name, (shape, causal) in train10c_flash.items()},
                  **{name: flash_flops(*z) for name, z in zoo_flash.items()},
                  **{name: flash_flops(*z)
                     for name, z in serve13_flash.items()},
@@ -4424,6 +4746,9 @@ def main() -> None:
           f"device only {floor_g:.4f} ms ({floor_how}) {card}")
     next(r for r in kernels if r["name"] == "flash_attention_lse").update(
         flash_backward_times(flash_path, flash_qkv, card))
+    for name, (shape, causal) in train10c_flash.items():
+        next(r for r in kernels if r["name"] == name).update(
+            flash_backward_times(shape, train10c_qkv[name], card, causal))
     next(r for r in kernels if r["name"] == "group_threshold").update(
         launch_floor_ms=floor_ms, launch_floor_graph_ms=floor_g)
 
@@ -4527,6 +4852,11 @@ def main() -> None:
         trained = train_phase(dev, card, tmp11)
 
         print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+              "phase 10c")
+        # ---- 10c. the families that fit the card, unreduced ---------------
+        launches_10c = train_family_phase(dev, card)
+
+        print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
               "phase 11")
         # ---- 11. sharded training -----------------------------------------
         sharded = train_sharded_phase(dev, card, tmp11)
@@ -4563,6 +4893,7 @@ def main() -> None:
                     **launches_9,
                     "flash_attention_lse": trained["launches"],
                     "flash_attention_lse_tp2": sharded["launches_11a"],
+                    **launches_10c,
                     **zoo_sharded["launches"], **serving["launches"]}
     print(json.dumps({"kernels": [
         {**row, "launches": run_launches[row["name"]],
