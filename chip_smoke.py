@@ -358,6 +358,28 @@ Phases, each of which raises on failure (exit code != 0):
    Phase 3 and 5 gain #9 without the lse at 13a-13b's five per-rank
    prefill shapes, beside SDPA.
 
+14. the launch-plan autotuning (`autotune_phase`, `kernels/autotune.py`)
+   under a fresh cache directory of its own:
+   14a. each plan of each swept kernel, through its wrapper's `block=`,
+        held to the plain version within 1e-5 * max|plain| (the FISTA
+        step and the rank-n update also to the rule's bits), timed by
+        events (mean of 20) and by graph, then swept, with the rule's
+        choice and the sweep's winner: the FISTA step at phase 4's
+        (16, 1024, 1) and (16, 1024, 1024), the rank-n update at phase
+        4's (16, 512, 1024) and 7c's (8, 1024, 256), the fused logistic
+        gradient at (16, 512, 1024) and (4, 256, 8192);
+   14b. `dsml_fit` on phase 4's data with the swept plans, its three
+        plans memory hits: beta_u and the support bit for bit phase 4's;
+   14c. the memory cache cleared, the fit again: its three plans disk
+        hits, no sweep (the `autotune.cache` counter), phase 4's bits.
+
+The engine's plans (`block=None` on the card) are the ones timed fastest
+(`kernels/autotune.py`), in a cache directory of the run's own that the
+ranks inherit. Every timed engine call runs after a warm-up call of its
+shapes (or a service that warmed them when it started: 7b and 7c give
+`chunk_n`), so no sweep falls inside a timed window, and a sweep's
+launches are not counted.
+
 It prints one JSON line of kernels (launches per run from phases 4-4c,
 6, 7c, 9 and 10, #9 with its lse taking 10a's kernel loss-and-gradient
 run's, its 10c rows each family's kernel loss-and-gradient run's, its
@@ -789,7 +811,8 @@ def stream_phase(dev, card, data, res, cdata, cres, cfit_args, lam, mu,
     client_rows = np.random.default_rng(11).standard_normal(
         (4096, P)).astype(np.float32)
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_stream_")
-    kw = dict(lam=lam, mu=mu, Lam=Lam, refit_every=1024, device=dev)
+    kw = dict(lam=lam, mu=mu, Lam=Lam, refit_every=1024, device=dev,
+              chunk_n=256)
     svc = StreamingDsmlService(M, P, guard=True, ckpt_dir=ckpt_dir, **kw)
     # each generation's publication, bracketed by the host clock
     published = {0: (float("-inf"), float("-inf"),
@@ -1006,7 +1029,7 @@ def stream_phase(dev, card, data, res, cdata, cres, cfit_args, lam, mu,
     svc_i = StreamingDsmlService(
         m_i, p_i, lam=0.4, mu=0.2, Lam=1.0, guard=False, refit_every=n_i,
         max_refit_interval=4 * n_i, lasso_iters=200, debias_iters=200,
-        refit_tol=1e-5, device=dev)
+        refit_tol=1e-5, device=dev, chunk_n=n_i)
     torch.cuda.synchronize()
     reset_launches()
     times_i, refits_i = [], []
@@ -3699,6 +3722,210 @@ def serve_sharded_phase(dev, card, tmp) -> dict:
     return {"launches": rank0, "launches_phase13": both}
 
 
+def autotune_phase(dev, card, data, res, fit_args) -> dict:
+    """Phase 14: the launch-plan autotuning (`kernels/autotune.py`) under
+    a fresh cache directory. 14a: each plan of each swept kernel at phase
+    4's shapes (the lasso's and the debias's FISTA step, the fit's rank-n
+    update, the logistic gradient at phase 4b's and the large-p point's)
+    and at 7c's ingest shape, launched through its wrapper's `block=` and
+    held to the plain version (the regression kernels also to the rule's
+    bits), timed (events, mean of 20, and graph), then swept, with the
+    rule's choice and the winner. 14b: `dsml_fit` on phase 4's data with
+    the autotuned plans, bit for bit phase 4's beta_u and support. 14c:
+    the same lookups again are memory hits, and after the memory cache is
+    cleared disk hits: no sweep (`autotune.cache`). Returns the sweeps by
+    kernel and shape, for the record."""
+    from repro_torch import obs
+    from repro_torch.core import dsml_fit
+    from repro_torch.core.engine import power_iteration_batched
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.ista_step import ops as ista_ops
+    from repro_torch.kernels.logistic_grad import ops as logistic_ops
+    from repro_torch.kernels.rank_update import ops as rank_ops
+    from repro_torch.launch.timing import graph_ms, time_ms
+
+    t_phase = time.perf_counter()
+    old_dir = os.environ.get("REPRO_TORCH_CACHE_DIR")
+    tmp = tempfile.TemporaryDirectory(prefix="chip14_")
+    os.environ["REPRO_TORCH_CACHE_DIR"] = tmp.name
+    autotune.clear_memory_cache()
+    obs.reset()
+
+    def events(event: str) -> float:
+        return obs.counter_total("autotune.cache", event=event)
+
+    def label(cand) -> str:
+        return "x".join(map(str, cand)) if isinstance(cand, tuple) \
+            else str(cand)
+
+    def swept(kernel, candidates, lookup):
+        """The lookup's winner and each candidate's time in its sweep."""
+        def total(cand):
+            h = obs.hist_stats("autotune.candidate_us", kernel=kernel,
+                               candidate=label(cand))
+            return h["sum"] if h else 0.0
+        before = {c: total(c) for c in candidates}
+        misses = events("miss_sweep")
+        won = lookup()
+        check(events("miss_sweep") == misses + 1,
+              f"14a {kernel}: the first lookup did not sweep")
+        return won, {label(c): total(c) - before[c] for c in candidates}
+
+    sweeps = {}
+
+    def each_plan(kernel, shape, candidates, rule, call, plain, kern,
+                  lookup, exact):
+        want = plain()
+        base = call(None)
+        times = {}
+        for cand in candidates:
+            got = call(cand)
+            for a, b in zip(got, want):
+                err, scale = max_err(a, b)
+                check(err <= TOL_KERNEL * scale, f"14a {kernel} {shape} "
+                      f"block={cand}: err {err} > {TOL_KERNEL} * {scale}")
+            check(not exact or all(torch.equal(a, b)
+                                   for a, b in zip(got, base)),
+                  f"14a {kernel} {shape} block={cand}: not the rule's bits")
+            fn = kern(cand)
+            times[label(cand)] = (time_ms(fn), graph_ms(fn)[0])
+        won, sweep_us = swept(kernel, candidates, lookup)
+        check(won in candidates, f"14a {kernel} {shape}: winner {won}")
+        sweeps[f"{kernel} {shape}"] = dict(
+            rule=label(rule), winner=label(won), sweep_us=sweep_us,
+            events_ms={k: v[0] for k, v in times.items()},
+            graph_ms={k: v[1] for k, v in times.items()})
+        print(f"phase 14a {kernel} at {shape}: every plan within "
+              f"{TOL_KERNEL} * max|plain|"
+              f"{' and the rule' + chr(39) + 's bits' if exact else ''}; "
+              f"events / graph ms "
+              + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f}"
+                          for k, v in times.items())
+              + f"; rule {label(rule)}, sweep winner {label(won)} (sweep "
+              f"us: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                  sweep_us.items()) + f") {card}")
+
+    try:
+        # ---- 14a. every plan of the FISTA step: phase 4's shapes -------
+        Sig, _ = rank_ops.rank_update(data.Xs, data.ys, use_kernel=False)
+        etas = 1.0 / torch.clamp_min(power_iteration_batched(Sig), 1e-12)
+        lams = torch.full((M,), 0.05, device=dev)
+        g = torch.Generator(device=dev).manual_seed(14)
+        for r in (1, P):
+            z = 0.3 * torch.randn((M, P, r), generator=g, device=dev)
+            x = z + 0.1 * torch.randn((M, P, r), generator=g, device=dev)
+            c = 0.5 * torch.randn((M, P, r), generator=g, device=dev)
+            xn, zn = torch.empty_like(z), torch.empty_like(z)
+            args = (Sig, z, x, c, etas, lams, np.float32(0.6))
+            rule = ista_ops.kernel_gemv_plan(M, P, dev)[:2] if r == 1 \
+                else ista_ops.kernel_gemm_plan(M, P, r, dev)[:2]
+            each_plan(
+                "fista_step", (M, P, r), autotune.block_candidates(M, P, r),
+                rule, lambda b: ista_ops.fista_step_batched(*args, block=b),
+                lambda: ista_ops.fista_step_batched(*args, use_kernel=False),
+                lambda b: lambda: ista_ops.launch(
+                    *args, xn, zn, ista_ops.check_block("14a", r, b)),
+                lambda: autotune.autotune_block(M, P, r, device=dev),
+                exact=True)
+            del z, x, c, xn, zn, args
+        del Sig
+        # ---- the rank-n update: the fit's and 7c's ingest shapes -------
+        for m, n, p in ((M, N, P), INGEST):
+            if (m, n, p) == (M, N, P):
+                X, y = data.Xs, data.ys
+            else:
+                X = torch.randn((m, n, p), generator=g, device=dev)
+                y = torch.randn((m, n), generator=g, device=dev)
+            Sout = torch.empty((m, p, p), device=dev)
+            cout = torch.empty((m, p), device=dev)
+            tile = rank_ops.kernel_rank_plan(m, p, dev)[0]
+            each_plan(
+                "rank_update", (m, n, p), autotune.rank_candidates(m, n, p),
+                next(t for t in rank_ops.RANK_TILES if t[0] == tile),
+                lambda b: rank_ops.rank_update(X, y, block=b),
+                lambda: rank_ops.rank_update(X, y, use_kernel=False),
+                lambda b: lambda: rank_ops.launch(
+                    X, y, None, Sout, cout, rank_ops.check_block("14a", b)),
+                lambda: autotune.autotune_rank_block(m, n, p, device=dev),
+                exact=True)
+            del X, y, Sout, cout
+        # ---- the fused logistic gradient: 4b's and the large-p point ---
+        sms, optin = logistic_ops._device_limits(dev)
+        for m, n, p in ((M, N, P), LARGE_P):
+            X = torch.randn((m, n, p), generator=g, device=dev)
+            y = torch.where(torch.rand((m, n), generator=g, device=dev)
+                            < 0.5, 1.0, -1.0)
+            B = torch.randn((m, p), generator=g, device=dev) / np.sqrt(p)
+            G = torch.empty((m, p), device=dev)
+
+            def kern(b, m=m, n=n, p=p, X=X, y=y, B=B, G=G):
+                pl = logistic_ops.plan(m, n, p, sms, optin, vec=True,
+                                       cluster=b)
+                work = torch.empty((m, pl.chunks, p), device=dev)
+                cnt = torch.zeros(m * b, dtype=torch.int32, device=dev)
+                return lambda: logistic_ops.launch(X, y, B, G, work, cnt, b)
+
+            each_plan(
+                "logistic_grad", (m, n, p),
+                autotune.logistic_candidates(m, n, p),
+                logistic_ops.kernel_plan(m, n, p, True, dev)[0].cluster,
+                lambda b: (logistic_ops.logistic_grad(X, y, B, block=b),),
+                lambda: (logistic_ops.logistic_grad(X, y, B,
+                                                    use_kernel=False),),
+                kern, lambda: autotune.autotune_logistic_block(
+                    m, n, p, device=dev),
+                exact=False)
+            del X, y, B, G
+
+        # ---- 14b. dsml_fit with the autotuned plans ---------------------
+        misses, hits = events("miss_sweep"), events("hit_memory")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = dsml_fit(*fit_args)
+        torch.cuda.synchronize()
+        fit_ms = (time.perf_counter() - t0) * 1e3
+        check(events("miss_sweep") == misses
+              and events("hit_memory") == hits + 3,
+              "14b: dsml_fit did not find its three plans in memory")
+        check(bool(torch.equal(fit.beta_u, res.beta_u))
+              and bool(torch.equal(fit.support, res.support)),
+              "14b: the autotuned dsml_fit is not phase 4's bits")
+        print(f"phase 14b dsml_fit (m={M}, n={N}, p={P}) with the autotuned "
+              f"plans (" + ", ".join(
+                  f"{k}: {sweeps[k]['winner']}" for k in (
+                      f"fista_step {(M, P, 1)}", f"fista_step {(M, P, P)}",
+                      f"rank_update {(M, N, P)}")) + f"): beta_u and the "
+              f"support bit for bit phase 4's; wall {fit_ms:.1f} ms {card}")
+
+        # ---- 14c. the warm lookups: memory, then disk ------------------
+        autotune.clear_memory_cache()
+        fit = dsml_fit(*fit_args)
+        check(events("miss_sweep") == misses and events("hit_disk") == 3,
+              f"14c: after the memory cache was cleared, dsml_fit swept "
+              f"({events('miss_sweep') - misses}) or missed the file "
+              f"({events('hit_disk')} disk hits)")
+        check(bool(torch.equal(fit.beta_u, res.beta_u)),
+              "14c: the fit from the file's plans is not phase 4's bits")
+        entries = json.loads(autotune.cache_path().read_text())
+        check(autotune.cache_path().name == "repro_torch_autotune.json"
+              and len(entries) == len(sweeps),
+              f"14c: the cache file holds {sorted(entries)}")
+        print(f"phase 14c lookups after the sweeps: {events('hit_memory'):.0f}"
+              f" memory hits, {events('hit_disk'):.0f} disk hits, "
+              f"{events('miss_sweep'):.0f} sweeps in all (one a key, "
+              f"{len(entries)} keys in {autotune.cache_path().name}: "
+              f"{entries})")
+    finally:
+        autotune.clear_memory_cache()
+        if old_dir is None:
+            os.environ.pop("REPRO_TORCH_CACHE_DIR", None)
+        else:
+            os.environ["REPRO_TORCH_CACHE_DIR"] = old_dir
+        tmp.cleanup()
+    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s {card}")
+    return sweeps
+
+
 def init_params_shapes(cfg):
     """`init_params`' tree for `cfg` on the `meta` device (names and
     shapes, no memory)."""
@@ -3748,6 +3975,10 @@ def main() -> None:
     from repro_torch.serving import cell
 
     dev = torch.device("cuda")
+    # the engine's autotuned plans (`kernels/autotune.py`) are timed into a
+    # cache of this run's own, which the ranks of phases 8-13 inherit
+    run_cache = tempfile.TemporaryDirectory(prefix="chip_autotune_")
+    os.environ["REPRO_TORCH_CACHE_DIR"] = run_cache.name
 
     t_start = time.perf_counter()
     # ---- 1. the card ------------------------------------------------------
@@ -4327,6 +4558,7 @@ def main() -> None:
                                                400))}
     for fn, args in baselines.values():         # warm-up: first-call costs
         fn(*args[:-1], 5)
+    solve_lasso_eq2_grid(Sig0, c0, grid, iters=5)   # and the grid's plan
     torch.cuda.synchronize()
     reset_launches()
     t4c = time.perf_counter()
@@ -4872,6 +5104,12 @@ def main() -> None:
     # ---- 13. serving sharded ----------------------------------------------
     serving = serve_sharded_phase(dev, card, tmp13.name)
     tmp13.cleanup()
+
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+          "phase 14")
+    # ---- 14. the launch-plan autotuning -----------------------------------
+    autotune_phase(dev, card, data, res, fit_args)
+    run_cache.cleanup()
 
     # launches per run: the regression rows from phase 4, the logistic
     # rows from phase 4b (the unfused pair is not on either path), the

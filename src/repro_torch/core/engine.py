@@ -17,6 +17,16 @@ momentum schedule are the reference's, so the iterates agree with it.
 The Section-4 logistic lasso is not a quadratic on (Sigma, c): its loop
 (`solve_logistic_lasso_batched`) re-reads the raw samples through one
 launch of the fused `logistic_grad` kernel per iteration.
+
+Launch plans (`block=`): `sufficient_stats`, `solve_lasso_batched`,
+`solve_lasso_grid` and `solve_logistic_lasso_batched` take an explicit
+plan of their kernel's table (see the wrappers in `kernels/*/ops.py`),
+which always wins and never touches the autotune cache; with
+`block=None` on CUDA tensors they take the plan timed fastest on the
+card for the shape (`kernels/autotune.py`), resolved once per solve;
+the plain path never consults the cache. `solve_lasso_eq2`,
+`solve_lasso_eq2_grid` and `inverse_hessian_batched` resolve None the
+same way.
 """
 from __future__ import annotations
 
@@ -29,8 +39,10 @@ from repro_torch.core.prox import soft_threshold
 from repro_torch.core.solvers import (
     fista_momentum, lasso_stats_step_scale, power_iteration,
 )
-from repro_torch.kernels.ista_step.ops import fista_step_batched
-from repro_torch.kernels.logistic_grad.ops import logistic_grad
+from repro_torch.kernels import autotune
+from repro_torch.kernels.ista_step.ops import check_block, fista_step_batched
+from repro_torch.kernels.logistic_grad.ops import check_cluster, logistic_grad
+from repro_torch.kernels.rank_update import ops as rank_ops
 from repro_torch.kernels.rank_update.ops import rank_update
 
 
@@ -40,17 +52,68 @@ def power_iteration_batched(Sigmas: torch.Tensor,
     return power_iteration(Sigmas, iters=iters)
 
 
+def _on_kernel(use_kernel: bool | None, device: torch.device) -> bool:
+    """Whether a call launches kernels, for the block policies: the CPU
+    never does (a CPU tensor with `use_kernel=True` raises in the
+    wrapper)."""
+    return use_kernel is not False and device.type == "cuda"
+
+
+def resolve_block_policy(m: int, p: int, r: int, dtype, block,
+                         use_kernel: bool | None, device: torch.device):
+    """The FISTA step's plan for a (m, p, r) solve: an explicit `block`
+    (validated on every path) wins; else, where kernels launch, the
+    autotuned winner for the card and shape (timed once on a miss), and
+    None (the rule's plan) on the plain path."""
+    if block is not None:
+        check_block("resolve_block_policy", r, block)
+        return block
+    if not _on_kernel(use_kernel, device):
+        return None
+    return autotune.autotune_block(m, p, r, dtype=dtype, device=device)
+
+
+def resolve_logistic_block_policy(m: int, n: int, p: int, dtype, block,
+                                  use_kernel: bool | None,
+                                  device: torch.device):
+    """The fused logistic gradient's cluster size for a (m, n, p) batch,
+    as `resolve_block_policy` resolves the FISTA step's."""
+    if block is not None:
+        check_cluster("resolve_logistic_block_policy", p, block)
+        return block
+    if not _on_kernel(use_kernel, device):
+        return None
+    return autotune.autotune_logistic_block(m, n, p, dtype=dtype,
+                                            device=device)
+
+
+def resolve_rank_block_policy(m: int, n: int, p: int, dtype, block,
+                              use_kernel: bool | None, device: torch.device):
+    """The rank-n update's tile for a (m, n, p) chunk, as
+    `resolve_block_policy` resolves the FISTA step's."""
+    if block is not None:
+        rank_ops.check_block("resolve_rank_block_policy", block)
+        return block
+    if not _on_kernel(use_kernel, device):
+        return None
+    return autotune.autotune_rank_block(m, n, p, dtype=dtype, device=device)
+
+
 def sufficient_stats(Xs: torch.Tensor, ys: torch.Tensor,
                      weights: torch.Tensor | None = None, *,
-                     use_kernel: bool | None = None
+                     use_kernel: bool | None = None, block=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-task empirical covariance and correlation.
 
     Xs: (m, n, p), ys: (m, n) -> Sigmas (m, p, p), cs (m, p); optional
     per-sample `weights` (m, n), still normalized by n. One launch of
-    the fused rank-n kernel (`kernels/rank_update`) on CUDA tensors.
+    the fused rank-n kernel (`kernels/rank_update`) on CUDA tensors, with
+    `block` (an entry of RANK_TILES) or the autotuned tile.
     """
-    return rank_update(Xs, ys, weights, use_kernel=use_kernel)
+    if Xs.ndim == 3:         # else rank_update raises on the shape
+        block = resolve_rank_block_policy(*Xs.shape, Xs.dtype, block,
+                                          use_kernel, Xs.device)
+    return rank_update(Xs, ys, weights, use_kernel=use_kernel, block=block)
 
 
 def _fista_loop(body, init, iters: int, tol, check_every: int, residual):
@@ -83,7 +146,7 @@ def _fista_loop(body, init, iters: int, tol, check_every: int, residual):
 def solve_lasso_batched(Sigmas: torch.Tensor, cs: torch.Tensor, lam, *,
                         iters: int = 400, etas: torch.Tensor | None = None,
                         beta0: torch.Tensor | None = None,
-                        use_kernel: bool | None = None,
+                        use_kernel: bool | None = None, block=None,
                         tol=None, check_every: int = 25,
                         return_iters: bool = False):
     """FISTA on a batch of sufficient-statistics lasso problems.
@@ -100,11 +163,15 @@ def solve_lasso_batched(Sigmas: torch.Tensor, cs: torch.Tensor, lam, *,
     prox-gradient KKT residual max|x - soft(x - eta(Sigma x - c),
     eta lam)| drops to `tol`; the residual is one more launch of the
     fused step with zero momentum, whose x_next is the ISTA step.
-    `return_iters` additionally returns the iterations run.
+    `return_iters` additionally returns the iterations run. `block` is a
+    plan of the step's table (GEMV_PLANS for r = 1, GEMM_TILES for
+    r > 1) or None for the autotuned one.
     """
     squeeze = cs.ndim == 2
     C = cs[..., None] if squeeze else cs
-    m = C.shape[0]
+    m, p, r = C.shape
+    block = resolve_block_policy(m, p, r, C.dtype, block, use_kernel,
+                                 C.device)
     if etas is None:
         etas = 1.0 / torch.clamp_min(power_iteration_batched(Sigmas), 1e-12)
     etas = torch.as_tensor(etas, dtype=C.dtype, device=C.device)
@@ -114,7 +181,7 @@ def solve_lasso_batched(Sigmas: torch.Tensor, cs: torch.Tensor, lam, *,
 
     def step(Z, X, theta):
         return fista_step_batched(Sigmas, Z, X, C, etas, lams, theta,
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, block=block)
 
     if beta0 is None:
         X0 = torch.zeros_like(C)
@@ -170,7 +237,8 @@ def solve_lasso_eq2(Sigmas: torch.Tensor, cs: torch.Tensor, lam, *,
 
 def solve_lasso_grid(Sigmas: torch.Tensor, cs: torch.Tensor, lams, *,
                      iters: int = 400, etas: torch.Tensor | None = None,
-                     use_kernel: bool | None = None) -> torch.Tensor:
+                     use_kernel: bool | None = None,
+                     block=None) -> torch.Tensor:
     """Solve every (task, lambda) pair of a tuning grid in ONE batch.
 
     Sigmas (m, p, p), cs (m, p), lams (k,) -> (k, m, p). The engine takes
@@ -180,18 +248,22 @@ def solve_lasso_grid(Sigmas: torch.Tensor, cs: torch.Tensor, lams, *,
     `solve_lasso_batched` of `iters` steps (on CUDA tensors, one launch of
     the fused FISTA kernel over the k*m tasks per step). Step sizes
     depend only on Sigma and are shared across the grid; default
-    1/lambda_max per task."""
+    1/lambda_max per task. `block` (a GEMV_PLANS entry, or None for the
+    autotuned plan of the k*m-task solve) is resolved once."""
     m, p = cs.shape
     lams = torch.as_tensor(lams, dtype=cs.dtype, device=cs.device)
     lams = lams.reshape(-1)
     k = lams.shape[0]
+    block = resolve_block_policy(k * m, p, 1, cs.dtype, block, use_kernel,
+                                 cs.device)
     if etas is None:
         etas = 1.0 / torch.clamp_min(power_iteration_batched(Sigmas), 1e-12)
     etas = torch.as_tensor(etas, dtype=cs.dtype, device=cs.device)
     B = solve_lasso_batched(Sigmas.repeat(k, 1, 1), cs.repeat(k, 1),
                             lams.repeat_interleave(m), iters=iters,
                             etas=etas.reshape(-1).repeat(k),
-                            use_kernel=use_kernel, check_every=25)
+                            use_kernel=use_kernel, block=block,
+                            check_every=25)
     return B.reshape(k, m, p)
 
 
@@ -215,6 +287,7 @@ def solve_logistic_lasso_batched(Xs: torch.Tensor, ys: torch.Tensor, lam, *,
                                  momentum: bool = True, tol=None,
                                  check_every: int = 25,
                                  use_kernel: bool | None = None,
+                                 block=None,
                                  return_iters: bool = False):
     """One FISTA loop for a whole batch of l1-logistic regressions.
 
@@ -233,9 +306,13 @@ def solve_logistic_lasso_batched(Xs: torch.Tensor, ys: torch.Tensor, lam, *,
     after the kernel; `momentum=False` makes the loop plain proximal
     gradient. `tol=` stops early on the prox-gradient fixed-point residual
     every `check_every` iterations, and `return_iters` also returns the
-    iterations run, as in `solve_lasso_batched`.
+    iterations run, as in `solve_lasso_batched`. `block` is the fused
+    gradient's cluster size (`logistic_grad.ops.check_cluster`) or None
+    for the autotuned one.
     """
     m, n, p = Xs.shape
+    block = resolve_logistic_block_policy(m, n, p, Xs.dtype, block,
+                                          use_kernel, Xs.device)
     lam_t = torch.as_tensor(lam, dtype=Xs.dtype, device=Xs.device)
     lam_t = lam_t.reshape(-1).expand(m)
     if etas is None:
@@ -253,7 +330,8 @@ def solve_logistic_lasso_batched(Xs: torch.Tensor, ys: torch.Tensor, lam, *,
     def grad(B):
         # a transposing prox (group lasso, iCAP) leaves strided iterates;
         # the kernel takes contiguous ones
-        g = logistic_grad(Xs, ys, B.contiguous(), use_kernel=use_kernel)
+        g = logistic_grad(Xs, ys, B.contiguous(), use_kernel=use_kernel,
+                          block=block)
         return g if unit_scale else g * grad_scale
 
     if prox is None:

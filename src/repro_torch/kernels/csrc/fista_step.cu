@@ -507,15 +507,19 @@ void launch_gemv_rows(bool vec, int warps, const float* const* in,
         in[0], in[1], in[2], in[3], in[4], in[5], theta, Xn, Zn, p);
 }
 
+// `forced` is an index into GV_PLANS, or -1 for `gemv_plan`'s choice.
 template <bool MOMENTUM>
 int launch_gemv(const void* Sig, const void* Z, const void* Xp,
                 const void* C, const void* eta, const void* lam, float theta,
-                void* Xn, void* Zn, int m, int p, int device, void* stream) {
+                void* Xn, void* Zn, int m, int p, int device, void* stream,
+                int forced) {
+  if (forced < -1 || forced >= GV_NPLANS)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int sms = device_sms(device);
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-  const int plan = gemv_plan(m, p, sms);
+  const int plan = forced < 0 ? gemv_plan(m, p, sms) : forced;
   const int rows = GV_PLANS[plan][0], warps = GV_PLANS[plan][1];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(Sig) % 16 == 0 &&
@@ -539,16 +543,19 @@ bool aligned16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
+// `forced` is an index into PLAN_TILES, or -1 for `gemm_plan`'s choice.
 template <bool MOMENTUM>
 int launch_gemm(const void* Sig, const void* Z, const void* Xp,
                 const void* C, const void* eta, const void* lam, float theta,
                 void* Xn, void* Zn, int m, int p, int r, int device,
-                void* stream) {
+                void* stream, int forced) {
+  if (forced < -1 || forced >= 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int sms = device_sms(device);
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-  const int tile = gemm_plan(m, p, r, sms);
+  const int tile = forced < 0 ? gemm_plan(m, p, r, sms) : forced;
   // 16-byte copies need every row of Sigma and z, and every operand, on a
   // 16-byte boundary
   const bool vec = p % 4 == 0 && r % 4 == 0 && aligned16(Sig) &&
@@ -569,14 +576,21 @@ int launch_gemm(const void* Sig, const void* Z, const void* Xp,
 
 }  // namespace
 
+// Every launch entry takes `plan` last: -1 for the launch plan its rule
+// chooses, else the plan to launch (an index into GV_PLANS for the GEMV,
+// into PLAN_TILES for the SGEMM); an index out of range returns
+// cudaErrorInvalidValue and launches nothing. Every plan gives the same
+// bits.
+
 // Sigma (m, p, p); z, x, c (m, p); eta, lam (m,) -> x', z' (m, p).
 extern "C" int fista_step_gemv_f32(const void* Sig, const void* Z,
                                    const void* Xp, const void* C,
                                    const void* eta, const void* lam,
                                    float theta, void* Xn, void* Zn, int m,
-                                   int p, int device, void* stream) {
+                                   int p, int device, void* stream,
+                                   int plan) {
   return launch_gemv<true>(Sig, Z, Xp, C, eta, lam, theta, Xn, Zn, m, p,
-                           device, stream);
+                           device, stream, plan);
 }
 
 // Sigma (m, p, p); z, x, c (m, p, r); eta, lam (m,) -> x', z' (m, p, r).
@@ -584,9 +598,10 @@ extern "C" int fista_step_gemm_f32(const void* Sig, const void* Z,
                                    const void* Xp, const void* C,
                                    const void* eta, const void* lam,
                                    float theta, void* Xn, void* Zn, int m,
-                                   int p, int r, int device, void* stream) {
+                                   int p, int r, int device, void* stream,
+                                   int plan) {
   return launch_gemm<true>(Sig, Z, Xp, C, eta, lam, theta, Xn, Zn, m, p, r,
-                           device, stream);
+                           device, stream, plan);
 }
 
 // The ISTA step: Sigma (m, p, p); beta, c (m, p); eta, lam (m,) -> beta'
@@ -594,9 +609,9 @@ extern "C" int fista_step_gemm_f32(const void* Sig, const void* Z,
 extern "C" int ista_step_gemv_f32(const void* Sig, const void* B,
                                   const void* C, const void* eta,
                                   const void* lam, void* Out, int m, int p,
-                                  int device, void* stream) {
+                                  int device, void* stream, int plan) {
   return launch_gemv<false>(Sig, B, nullptr, C, eta, lam, 0.f, Out, nullptr,
-                            m, p, device, stream);
+                            m, p, device, stream, plan);
 }
 
 // The ISTA step: Sigma (m, p, p); beta, c (m, p, r); eta, lam (m,) ->
@@ -604,9 +619,10 @@ extern "C" int ista_step_gemv_f32(const void* Sig, const void* B,
 extern "C" int ista_step_gemm_f32(const void* Sig, const void* B,
                                   const void* C, const void* eta,
                                   const void* lam, void* Out, int m, int p,
-                                  int r, int device, void* stream) {
+                                  int r, int device, void* stream,
+                                  int plan) {
   return launch_gemm<false>(Sig, B, nullptr, C, eta, lam, 0.f, Out, nullptr,
-                            m, p, r, device, stream);
+                            m, p, r, device, stream, plan);
 }
 
 // The SGEMM's block tile for (m, p, r) on `device`: *bm, *bn and the SM

@@ -794,17 +794,36 @@ void grad_chunks(int m, int n, int csize, long long slice_floats,
   *chunks = static_cast<int>(cdiv(n, *rows));
 }
 
-GradPlan grad_plan(int m, int n, int p, bool vec, int sms, int optin) {
+// The largest cluster a row of p floats allows: a power of two, at most
+// CLUSTER_MAX, and no slice under THREADS vectors.
+int cluster_max(int p, bool vec) {
+  const int width = vec && p % 4 == 0 ? 4 : 1;
+  const long long pv = cdiv(p, width);
+  int cmax = 1;
+  while (cmax * 2 <= CLUSTER_MAX && (long long)cmax * 2 * THREADS <= pv)
+    cmax *= 2;
+  return cmax;
+}
+
+// Whether `csize` is a cluster size that `cluster_max` allows.
+bool cluster_allowed(int csize, int p, bool vec) {
+  return csize >= 1 && csize <= cluster_max(p, vec) &&
+         (csize & (csize - 1)) == 0;
+}
+
+// The plan for (m, n, p); `forced` > 0 takes that cluster size (one that
+// `cluster_allowed`) instead of the rule's, with the rule's chunks and
+// mode for it.
+GradPlan grad_plan(int m, int n, int p, bool vec, int sms, int optin,
+                   int forced = 0) {
   const int width = vec && p % 4 == 0 ? 4 : 1;
   const long long pv = cdiv(p, width);
   const long long want = (long long)BLOCKS_PER_SM * sms;
   const long long solo = (long long)SOLO_BLOCKS_PER_SM * sms;
-  int cmax = 1;                  // no slice under THREADS vectors
-  while (cmax * 2 <= CLUSTER_MAX && (long long)cmax * 2 * THREADS <= pv)
-    cmax *= 2;
+  const int cmax = cluster_max(p, vec);
   GradPlan pl{};
-  pl.cluster = cmax;
-  for (int cs = 1; cs <= cmax; cs *= 2) {
+  pl.cluster = forced > 0 ? forced : cmax;
+  for (int cs = 1; forced <= 0 && cs <= cmax; cs *= 2) {
     const long long sv = cdiv(pv, cs);
     int chunks, rows;
     grad_chunks(m, n, cs, sv * width, cs == 1 ? solo : want, &chunks,
@@ -956,16 +975,19 @@ extern "C" int logistic_grad_plan(int m, int n, int p, int vec, int device,
 }
 
 // X (m, n, p), y (m, n), B (m, p) -> G (m, p), in one launch with the
-// plan of `logistic_grad_plan`. work holds work_floats floats of scratch,
-// at least m * chunks * p; counters holds n_counters unsigned ints, at
-// least m * cluster, that are 0 on entry and 0 again when the kernel ends.
+// plan of `logistic_grad_plan`, or, where `plan` is not -1, with a cluster
+// of `plan` blocks (1, 2, 4 or 8, at most what `cluster_max` allows for
+// p; else cudaErrorInvalidValue and nothing launched) and the rule's
+// chunks and mode for it. work holds work_floats floats of scratch, at
+// least m * chunks * p; counters holds n_counters unsigned ints, at least
+// m * cluster, that are 0 on entry and 0 again when the kernel ends.
 // Where `ran` is not null it receives the plan launched (out[0..5] of
 // `logistic_grad_plan`).
 extern "C" int logistic_grad_f32(const void* X, const void* y, const void* B,
                                  void* work, long long work_floats,
                                  void* counters, long long n_counters,
                                  void* G, int m, int n, int p, int device,
-                                 void* stream, int* ran) {
+                                 void* stream, int* ran, int plan) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int sms = device_sms(device);
@@ -974,7 +996,9 @@ extern "C" int logistic_grad_f32(const void* X, const void* y, const void* B,
   if (m < 1 || n < 1 || p < 1) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = p % 4 == 0 && aligned16(X) && aligned16(B) &&
                    aligned16(work) && aligned16(G);
-  const GradPlan pl = grad_plan(m, n, p, vec, sms, optin);
+  if (plan != -1 && !cluster_allowed(plan, p, vec))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GradPlan pl = grad_plan(m, n, p, vec, sms, optin, plan);
   if ((long long)m * pl.chunks * p > work_floats ||
       (long long)m * pl.cluster > n_counters)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1014,16 +1038,30 @@ extern "C" int logistic_unfused_plan(int m, int n, int p, int device,
 
 // The unfused pair, two launches on one stream from one host call:
 // X (m, n, p), y (m, n), B (m, p) -> R (m, n) = y sigmoid(-y X b), then
-// X, R -> G (m, p) = -X' R / n.
+// X, R -> G (m, p) = -X' R / n. `plan` is -1 for `unfused_plan`'s launch
+// shapes, else z * 3 + c: the forward kernel takes Z_PLANS[z] and the
+// back-projection UNFUSED_COLS[c] (out of range: cudaErrorInvalidValue,
+// nothing launched).
 extern "C" int logistic_unfused_f32(const void* X, const void* y,
                                     const void* B, void* R, void* G, int m,
-                                    int n, int p, int device, void* stream) {
+                                    int n, int p, int device, void* stream,
+                                    int plan) {
+  constexpr int N_Z = sizeof(Z_PLANS) / sizeof(Z_PLANS[0]);
+  constexpr int N_COLS = sizeof(UNFUSED_COLS) / sizeof(UNFUSED_COLS[0]);
+  if (plan < -1 || plan >= N_Z * N_COLS)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int sms = device_sms(device);
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   int rpw = 0, wpr = 0, cols = 0;
-  unfused_plan(m, n, p, sms, &rpw, &wpr, &cols);
+  if (plan < 0) {
+    unfused_plan(m, n, p, sms, &rpw, &wpr, &cols);
+  } else {
+    rpw = Z_PLANS[plan / N_COLS][0];
+    wpr = Z_PLANS[plan / N_COLS][1];
+    cols = UNFUSED_COLS[plan % N_COLS];
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* Xf = static_cast<const float*>(X);
   const float* yf = static_cast<const float*>(y);

@@ -493,14 +493,18 @@ cudaError_t launch_plan(int tile, const float* X, const float* y,
              : launch_tile<32, 4, VEC, WITH_C>(X, y, w, Sigma, c, m, n, p, s);
 }
 
+// `forced` is an index into PLAN_TILES, or -1 for `rank_plan`'s choice.
 template <bool WITH_C>
 int launch_tiled(const void* X, const void* y, const void* w, void* Sigma,
-                 void* c, int m, int n, int p, int device, void* stream) {
+                 void* c, int m, int n, int p, int device, void* stream,
+                 int forced) {
+  if (forced < -1 || forced >= 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int sms = device_sms(device);
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-  const int tile = rank_plan(m, p, sms);
+  const int tile = forced < 0 ? rank_plan(m, p, sms) : forced;
   // 16-byte copies and stores need every row of X and Sigma on a 16-byte
   // boundary
   const bool vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
@@ -518,21 +522,26 @@ int launch_tiled(const void* X, const void* y, const void* w, void* Sigma,
 
 }  // namespace
 
+// The two tiled entries take `plan` last: -1 for `rank_plan`'s tile, else
+// the index into PLAN_TILES of the tile to launch (out of range:
+// cudaErrorInvalidValue, nothing launched). Every tile gives the same bits.
+
 // X (m, n, p), y (m, n), w (m, n) or null -> Sigma (m, p, p), c (m, p).
 // All float32, contiguous, on the device of `stream`.
 extern "C" int rank_update_f32(const void* X, const void* y, const void* w,
                                void* Sigma, void* c, int m, int n, int p,
-                               int device, void* stream) {
-  return launch_tiled<true>(X, y, w, Sigma, c, m, n, p, device, stream);
+                               int device, void* stream, int plan) {
+  return launch_tiled<true>(X, y, w, Sigma, c, m, n, p, device, stream,
+                            plan);
 }
 
 // The unfused pair's first dispatch: X (m, n, p), w (m, n) or null ->
 // Sigma (m, p, p).
 extern "C" int rank_update_sigma_f32(const void* X, const void* w,
                                      void* Sigma, int m, int n, int p,
-                                     int device, void* stream) {
+                                     int device, void* stream, int plan) {
   return launch_tiled<false>(X, nullptr, w, Sigma, nullptr, m, n, p, device,
-                             stream);
+                             stream, plan);
 }
 
 // The unfused pair's second dispatch: X (m, n, p), y (m, n), w (m, n) or

@@ -13,6 +13,17 @@ from the SM count; they are plain Python, so the CPU tests check them
 (the .cu applies the same rules, and `logistic_grad_plan` and
 `logistic_unfused_plan` return its choices).
 
+`block=` overrides a rule: for `logistic_grad` a cluster size, 1, 2, 4
+or 8 and at most what `cluster_max` allows for p (the rule's chunks and
+mode then follow for that size); for `logistic_grad_unfused` a
+`(rows_per_warp, warps_per_row, cols)` triple, the first two an entry of
+UNFUSED_Z_PLANS and `cols` one of UNFUSED_COLS; None for the rule's
+plan. On CUDA tensors the kernels launch exactly that plan; the plain
+versions ignore it. The plans differ in the order of their sums, so the
+gradients differ in the last bits (each within the kernels' 1e-5 bar).
+Anything else raises ValueError on every path, the CPU's too, the JAX
+package's TPU tilings (`128`, `(bn, bp)`) included.
+
 The fused kernel's ticket counters stay on the device between calls (the
 kernel leaves them at zero), one buffer a device, grown when a launch
 needs more: a call issues one kernel and no fill. Launches that share a
@@ -55,12 +66,14 @@ UNFUSED_WARPS = 8
 UNFUSED_Z_PLANS = ((2, 1), (1, 1), (1, 2), (1, 4), (1, 8))
 UNFUSED_COLS = (128, 64, 32)
 
+# the launch entries take the plan last (-1: the rule's)
 _GRAD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p,
                                           ctypes.c_longlong, ctypes.c_void_p] \
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                            ctypes.c_int]
 _PLAN_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
 _UNFUSED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
-    [ctypes.c_void_p]
+    [ctypes.c_void_p, ctypes.c_int]
 _UNFUSED_PLAN_ARGTYPES = [ctypes.c_int] * 4 + \
     [ctypes.POINTER(ctypes.c_int)] * 4
 _DEVICE: dict[int, tuple[int, int]] = {}
@@ -86,12 +99,25 @@ def _chunks(m: int, n: int, cluster: int, slice_floats: int,
     return -(-n // rows), rows
 
 
+def cluster_max(p: int, vec: bool | None = None) -> int:
+    """The largest cluster the fused kernel takes for rows of p floats: a
+    power of two, at most CLUSTER_MAX, and no slice under THREADS
+    vectors (`cluster_max` in the .cu)."""
+    pv = -(-p // (4 if p % 4 == 0 and vec is not False else 1))
+    cmax = 1
+    while cmax * 2 <= CLUSTER_MAX and cmax * 2 * THREADS <= pv:
+        cmax *= 2
+    return cmax
+
+
 def plan(m: int, n: int, p: int, sms: int, smem_optin: int,
-         vec: bool | None = None) -> Plan:
+         vec: bool | None = None, cluster: int | None = None) -> Plan:
     """Launch shape of the fused kernel for (m, n, p) on a card with `sms`
     SMs and `smem_optin` bytes of shared memory per block. The kernel
     takes float4 vectors where p % 4 == 0 and its pointers are 16-byte
-    aligned; `vec=False` plans for unaligned pointers.
+    aligned; `vec=False` plans for unaligned pointers. `cluster` forces
+    the cluster size (one `check_cluster` allows), with this rule's
+    chunks and mode for it.
 
     Cluster: the smallest C of 1, 2, 4, 8 (and no slice under THREADS
     vectors) whose row slice of ceil(p / C) floats a thread holds in at
@@ -109,12 +135,11 @@ def plan(m: int, n: int, p: int, sms: int, smem_optin: int,
     pv = -(-p // width)
     want = BLOCKS_PER_SM * sms
     solo = SOLO_BLOCKS_PER_SM * sms
-    cmax = 1
-    while cmax * 2 <= CLUSTER_MAX and cmax * 2 * THREADS <= pv:
-        cmax *= 2
-    cluster = cmax
+    cmax = cluster_max(p, vec)
+    forced = cluster is not None
+    cluster = cluster if forced else cmax
     c = 1
-    while c <= cmax:
+    while not forced and c <= cmax:
         sv = -(-pv // c)
         chunks, _ = _chunks(m, n, c, sv * width, solo if c == 1 else want)
         if -(-sv // THREADS) <= V_MAX and m * chunks * c >= want:
@@ -134,6 +159,39 @@ def plan(m: int, n: int, p: int, sms: int, smem_optin: int,
     if ring + _STATIC_SMEM <= smem_optin:
         return Plan(chunks, rows, cluster, "ring", vecs, ring)
     return Plan(chunks, rows, cluster, "twice", vecs, 0)
+
+
+def check_cluster(name: str, p: int, block) -> int:
+    """The fused launcher's `plan` for `block`: -1 for None (the rule),
+    else the cluster size `block`, which must be 1, 2, 4 or 8 and at most
+    `cluster_max(p)`. Raises ValueError for anything else."""
+    if block is None:
+        return -1
+    sizes = tuple(c for c in (1, 2, 4, 8) if c <= cluster_max(p))
+    if type(block) is int and block in sizes:
+        return block
+    raise ValueError(f"{name}: block={block!r} is not a cluster size the "
+                     f"fused kernel takes at p = {p} {sizes} (1, 2, 4, 8 up "
+                     f"to cluster_max), nor None for the rule's plan")
+
+
+def check_unfused_block(name: str, block) -> int:
+    """The unfused launcher's `plan` for `block`: -1 for None (the rule),
+    else z * len(UNFUSED_COLS) + c for `block` = (*UNFUSED_Z_PLANS[z],
+    UNFUSED_COLS[c]). Raises ValueError for anything else."""
+    if block is None:
+        return -1
+    entry = tuple(block) if isinstance(block, (list, tuple)) else block
+    if isinstance(entry, tuple) and len(entry) == 3 \
+            and all(type(b) is int for b in entry) \
+            and entry[:2] in UNFUSED_Z_PLANS and entry[2] in UNFUSED_COLS:
+        return (UNFUSED_Z_PLANS.index(entry[:2]) * len(UNFUSED_COLS)
+                + UNFUSED_COLS.index(entry[2]))
+    raise ValueError(f"{name}: block={block!r} is not (rows_per_warp, "
+                     f"warps_per_row, cols) with the first two an entry of "
+                     f"UNFUSED_Z_PLANS {UNFUSED_Z_PLANS} and cols one of "
+                     f"UNFUSED_COLS {UNFUSED_COLS}, nor None for the "
+                     f"rule's plan")
 
 
 def kernel_plan(m: int, n: int, p: int, vec: bool,
@@ -255,72 +313,82 @@ def ticket_counters(device: torch.device, size: int) -> torch.Tensor:
 
 
 def logistic_grad(Xs: torch.Tensor, ys: torch.Tensor, B: torch.Tensor, *,
-                  use_kernel: bool | None = None) -> torch.Tensor:
+                  use_kernel: bool | None = None, block=None) -> torch.Tensor:
     """All-tasks logistic gradient -X_t'(y_t sigmoid(-y_t X_t b_t))/n.
-    Xs (m, n, p), ys (m, n) in {-1, +1}, B (m, p); float32. Returns
+    Xs (m, n, p), ys (m, n) in {-1, +1}, B (m, p); float32; `block` a
+    cluster size (`check_cluster`) or None for the rule's plan. Returns
     (m, p). One launch of the fused kernel on CUDA tensors, and no
     other."""
+    cluster = check_cluster("logistic_grad", Xs.shape[-1], block)
     if not _check("logistic_grad", Xs, ys, B, use_kernel):
         return logistic_grad_ref(Xs, ys, B)
     m, n, p = Xs.shape
-    pl = plan(m, n, p, *_device_limits(Xs.device), vec=vectorized(Xs, B))
+    pl = plan(m, n, p, *_device_limits(Xs.device), vec=vectorized(Xs, B),
+              cluster=None if cluster < 0 else cluster)
     G = torch.empty((m, p), dtype=torch.float32, device=Xs.device)
     work = torch.empty((m, pl.chunks, p), dtype=torch.float32,
                        device=Xs.device)
-    launch(Xs, ys, B, G, work, ticket_counters(Xs.device, m * pl.cluster))
+    launch(Xs, ys, B, G, work, ticket_counters(Xs.device, m * pl.cluster),
+           cluster)
     return G
 
 
 def launch(Xs: torch.Tensor, ys: torch.Tensor, B: torch.Tensor,
-           G: torch.Tensor, work: torch.Tensor, counters: torch.Tensor
-           ) -> Plan:
+           G: torch.Tensor, work: torch.Tensor, counters: torch.Tensor,
+           cluster: int = -1) -> Plan:
     """Launch the fused kernel into the given outputs, with no checks: the
     operands are what `logistic_grad` passes (float32, contiguous, one
     CUDA device; Xs (m, n, p), ys (m, n), B and G (m, p), work at least
     m * chunks * p floats, counters at least m * cluster int32 zeros, for
-    `plan`'s chunks and cluster). The launcher applies the plan itself
-    and raises where work or counters fall short. The kernel leaves the
-    counters at zero, so a timing loop reuses them. Returns the plan
-    launched."""
+    `plan`'s chunks and cluster; `cluster` -1 for the rule's, else the
+    size to force). The launcher applies the plan itself and raises where
+    work or counters fall short or the cluster is not one it takes. The
+    kernel leaves the counters at zero, so a timing loop reuses them.
+    Returns the plan launched."""
     m, n, p = Xs.shape
     fn = _build.function("logistic_grad", "logistic_grad_f32", _GRAD_ARGTYPES)
     ran = (ctypes.c_int * 6)()
     _build.call(fn, Xs.data_ptr(), ys.data_ptr(), B.data_ptr(),
                 work.data_ptr(), work.numel(), counters.data_ptr(),
                 counters.numel(), G.data_ptr(), m, n, p, _index(Xs.device),
-                _build.stream(Xs.device), ran)
+                _build.stream(Xs.device), ran, cluster)
     LAUNCHES["logistic_grad"] += 1
     return _plan_of(ran)
 
 
 def logistic_grad_unfused(Xs: torch.Tensor, ys: torch.Tensor,
-                          B: torch.Tensor, *,
-                          use_kernel: bool | None = None) -> torch.Tensor:
+                          B: torch.Tensor, *, use_kernel: bool | None = None,
+                          block=None) -> torch.Tensor:
     """The same gradient in two kernels: the residual r = y sigmoid(-y X
     b), then -X' r / n. The fused kernel's baseline; X is read twice and
-    r passes through device memory."""
+    r passes through device memory. `block` is a (rows_per_warp,
+    warps_per_row, cols) plan (`check_unfused_block`) or None for the
+    rule's."""
+    plan_index = check_unfused_block("logistic_grad_unfused", block)
     if not _check("logistic_grad_unfused", Xs, ys, B, use_kernel):
         return logistic_backproject_ref(Xs, logistic_residual_ref(Xs, ys, B))
     m, n, p = Xs.shape
     z = torch.empty((m, n), dtype=torch.float32, device=Xs.device)
     G = torch.empty((m, p), dtype=torch.float32, device=Xs.device)
-    launch_unfused(Xs, ys, B, z, G)
+    launch_unfused(Xs, ys, B, z, G, plan_index)
     return G
 
 
 def launch_unfused(Xs: torch.Tensor, ys: torch.Tensor, B: torch.Tensor,
-                   z: torch.Tensor, G: torch.Tensor) -> None:
+                   z: torch.Tensor, G: torch.Tensor,
+                   plan_index: int = -1) -> None:
     """Both unfused kernels into the given outputs, with no checks: the
     operands are what `logistic_grad_unfused` passes. `z` (m, n) is the
     vector between them: it receives the residual r = y sigmoid(-y X b),
     which the second kernel reads to write G (m, p). One host call
     launches the two kernels on the current stream, each with its launch
-    shape from `unfused_plan`'s rule."""
+    shape from `unfused_plan`'s rule, or from `plan_index` as
+    `check_unfused_block` returns it."""
     m, n, p = Xs.shape
     fn = _build.function("logistic_grad", "logistic_unfused_f32",
                          _UNFUSED_ARGTYPES)
     _build.call(fn, Xs.data_ptr(), ys.data_ptr(), B.data_ptr(), z.data_ptr(),
                 G.data_ptr(), m, n, p, Xs.device.index,
-                _build.stream(Xs.device))
+                _build.stream(Xs.device), plan_index)
     LAUNCHES["logistic_z"] += 1
     LAUNCHES["logistic_backproject"] += 1

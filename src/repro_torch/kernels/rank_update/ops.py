@@ -11,6 +11,13 @@ version (`ref.py`) for CPU tensors.
 triangle it computes, plain Python so that the CPU tests check them; the
 kernel's launcher applies the same rule (`rank_update_plan` in the .cu
 returns its choice).
+
+`block=` overrides the rule with an entry of RANK_TILES, `(128, 8)` or
+`(32, 4)` (the tile's side and its threads' register tiles'), or None
+for the rule's tile. On CUDA tensors the Sigma kernel launches exactly
+that tile; the plain version ignores it. Every tile gives the same bits.
+Anything else raises ValueError on every path, the CPU's too, the JAX
+package's TPU tilings (`128`, `(bp, bn)`) included.
 """
 from __future__ import annotations
 
@@ -25,9 +32,11 @@ from repro_torch.kernels.common import (
 )
 from repro_torch.kernels.rank_update.ref import rank_update_ref
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the tiled entries take the plan last (-1: the rule's tile)
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
+    [ctypes.c_void_p, ctypes.c_int]
 _SIGMA_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
-    [ctypes.c_void_p]
+    [ctypes.c_void_p, ctypes.c_int]
 _C_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _PLAN_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
 
@@ -92,6 +101,19 @@ def kernel_rank_plan(m: int, p: int,
     return tile.value, blocks.value, sms.value
 
 
+def check_block(name: str, block) -> int:
+    """The launcher's `plan` for `block`: -1 for None (the rule), else the
+    index of `block` in RANK_TILES. Raises ValueError for anything else."""
+    if block is None:
+        return -1
+    entry = tuple(block) if isinstance(block, (list, tuple)) else block
+    if entry in RANK_TILES and all(type(b) is int for b in entry):
+        return RANK_TILES.index(entry)
+    raise ValueError(f"{name}: block={block!r} is not an entry of "
+                     f"RANK_TILES (tile, register tile) {RANK_TILES}, nor "
+                     f"None for the rule's tile")
+
+
 def _checked(name: str, Xs: torch.Tensor, ys: torch.Tensor,
              weights: torch.Tensor | None,
              use_kernel: bool | None) -> bool:
@@ -126,29 +148,33 @@ def _outputs(Xs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def rank_update(Xs: torch.Tensor, ys: torch.Tensor,
                 weights: torch.Tensor | None = None, *,
-                use_kernel: bool | None = None
+                use_kernel: bool | None = None, block=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sigma_t = X_t' W_t X_t / n and c_t = X_t' W_t y_t / n for all m
-    tasks. Xs (m, n, p); ys and optional weights (m, n); float32.
-    Returns (Sigmas (m, p, p), cs (m, p))."""
+    tasks. Xs (m, n, p); ys and optional weights (m, n); float32;
+    `block` an entry of RANK_TILES or None for the rule's tile. Returns
+    (Sigmas (m, p, p), cs (m, p))."""
+    plan = check_block("rank_update", block)
     if not _checked("rank_update", Xs, ys, weights, use_kernel):
         return rank_update_ref(Xs, ys, weights)
     Sigmas, cs = _outputs(Xs)
-    launch(Xs, ys, weights, Sigmas, cs)
+    launch(Xs, ys, weights, Sigmas, cs, plan)
     return Sigmas, cs
 
 
 def rank_update_unfused(Xs: torch.Tensor, ys: torch.Tensor,
                         weights: torch.Tensor | None = None, *,
-                        use_kernel: bool | None = None
+                        use_kernel: bool | None = None, block=None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """`rank_update` in two launches, Sigma alone and then c alone, as
     the reference's two-dispatch baseline computes it: X is read twice.
-    Same arguments and result as `rank_update`."""
+    Same arguments and result as `rank_update`; `block` is Sigma's
+    tile."""
+    plan = check_block("rank_update_unfused", block)
     if not _checked("rank_update_unfused", Xs, ys, weights, use_kernel):
         return rank_update_ref(Xs, ys, weights)
     Sigmas, cs = _outputs(Xs)
-    launch_sigma(Xs, weights, Sigmas)
+    launch_sigma(Xs, weights, Sigmas, plan)
     launch_c(Xs, ys, weights, cs)
     return Sigmas, cs
 
@@ -159,28 +185,29 @@ def _wptr(weights: torch.Tensor | None):
 
 # The launchers below take what the wrappers pass (float32, contiguous,
 # one CUDA device; Xs (m, n, p), ys and weights (m, n), Sigmas (m, p, p),
-# cs (m, p)) and check nothing: a timing loop calls them to time a kernel
-# alone.
+# cs (m, p); `plan` as `check_block` returns it, which the launcher
+# refuses out of range) and check nothing: a timing loop calls them to
+# time a kernel alone.
 
 def launch(Xs: torch.Tensor, ys: torch.Tensor, weights: torch.Tensor | None,
-           Sigmas: torch.Tensor, cs: torch.Tensor) -> None:
+           Sigmas: torch.Tensor, cs: torch.Tensor, plan: int = -1) -> None:
     """Launch the fused kernel into Sigmas and cs."""
     m, n, p = Xs.shape
     fn = _build.function("rank_update", "rank_update_f32", _ARGTYPES)
     _build.call(fn, Xs.data_ptr(), ys.data_ptr(), _wptr(weights),
                 Sigmas.data_ptr(), cs.data_ptr(), m, n, p,
-                Xs.device.index, _build.stream(Xs.device))
+                Xs.device.index, _build.stream(Xs.device), plan)
     LAUNCHES["rank_update"] += 1
 
 
 def launch_sigma(Xs: torch.Tensor, weights: torch.Tensor | None,
-                 Sigmas: torch.Tensor) -> None:
+                 Sigmas: torch.Tensor, plan: int = -1) -> None:
     """Launch the unfused pair's Sigma-only kernel into Sigmas."""
     m, n, p = Xs.shape
     fn = _build.function("rank_update", "rank_update_sigma_f32",
                          _SIGMA_ARGTYPES)
     _build.call(fn, Xs.data_ptr(), _wptr(weights), Sigmas.data_ptr(), m, n,
-                p, Xs.device.index, _build.stream(Xs.device))
+                p, Xs.device.index, _build.stream(Xs.device), plan)
     LAUNCHES["rank_update_sigma"] += 1
 
 

@@ -11,11 +11,15 @@ one run.
 file from a parent commit). It is built with the flags of
 `kernels/_build.py` into `--build-dir` (a new temporary directory by
 default) and put in place of the current library, for the runs that need
-it only. Every mode runs at the configuration of `chip_smoke.py` phases
-4, 4b and 4c (m = 16, n = 512, p = 1024, s = 16, seed 0), with the
-current kernel and with the earlier one, times both kernels alone in
-turns (earlier, current, current, earlier), each turn by CUDA events
-(mean of 20 launches issued from Python) and by `graph_ms` (the same 20
+it only. An earlier source whose launch entries lack the trailing
+`int plan` argument is called with it all the same (the callee never
+reads an extra trailing argument in the x86-64 calling convention), so
+it launches its own rule's plan whatever plan is asked. Every mode runs
+at the configuration of `chip_smoke.py` phases 4, 4b and 4c (m = 16,
+n = 512, p = 1024, s = 16, seed 0), with the current kernel and with
+the earlier one, times both kernels alone in turns (earlier, current,
+current, earlier), each turn by CUDA events (mean of 20 launches issued
+from Python) and by `graph_ms` (the same 20
 captured in a CUDA graph: the device time alone, which is what tells
 kernels apart where the host's issue time exceeds them), beside the
 PyTorch call that computes the same product, and prints the card's name

@@ -64,8 +64,11 @@ the generation (one `pmin` per mesh dim), so no rank returns before the
 file is there. A restore reads the same global file on every rank,
 agrees the generation with `pmin`, and takes the rank's task block.
 
-Not ported: the autotune cache warm-up (the port's kernels choose
-their tiles by plan functions).
+On a CUDA device the service warms the kernels' launch-plan cache when it
+starts (`kernels/autotune.py::warmup_cache`): the lasso's and the debias
+solve's plans at its (m, p), and, given the chunk's rows `chunk_n`, the
+ingest's and the logistic gradient's, so that no ingest or refit times
+plans. A sharded service takes the rules' plans on every rank.
 """
 from __future__ import annotations
 
@@ -79,6 +82,7 @@ from repro_torch.checkpoint.io import (
     CheckpointError, load_npz, npz_safe_dtype, restore_pytree, save_pytree,
 )
 from repro_torch.checkpoint.manifest import CheckpointStore
+from repro_torch.kernels.autotune import warmup_cache
 from repro_torch.stream.accumulate import ingest_sharded
 from repro_torch.stream.guard import IngestGuard, _guarded_fold
 from repro_torch.stream.health import RefitHealth, refit_health
@@ -129,7 +133,8 @@ class StreamingDsmlService:
     `use_kernel` goes to every kernel wrapper the service calls
     (`kernels/common.py`): on a CUDA device the default launches the
     kernels, `False` runs their plain versions there (the on-card
-    reference).
+    reference). `chunk_n`, the rows a chunk is expected to hold, lets
+    the start-up warm-up time the ingest's plans too.
     """
 
     _SYNC_POLICY = {
@@ -176,7 +181,8 @@ class StreamingDsmlService:
                  ckpt_keep: int = 3,
                  checkpoint_on_refit: bool = True,
                  mesh=None, data_axis: str = "data",
-                 task_axis: str = "task"):
+                 task_axis: str = "task",
+                 chunk_n: Optional[int] = None):
         if window is not None and mesh is not None:
             raise ValueError("sliding-window ingestion is host-only; "
                              "pass decay= for sharded non-stationarity")
@@ -227,6 +233,11 @@ class StreamingDsmlService:
         self.ckpt_store = CheckpointStore(ckpt_dir, keep=ckpt_keep) \
             if ckpt_dir is not None else None
         self.checkpoint_on_refit = checkpoint_on_refit
+        # time the kernels' launch plans for this workload's shapes (and,
+        # given the chunk's rows, the ingest's) before any chunk arrives
+        if use_kernel is not False:
+            warmup_cache(self.m_local, p, chunk_n, device=self.device,
+                         dtype=dtype)
         self.state = init_stream_state(self.m_local, p, dtype, self.device)
         self.window = init_window(window, m, p, dtype, self.device) \
             if window else None

@@ -962,3 +962,154 @@ def test_flash_attention_train_on_local_heads_launches_the_kernel(cuda):
     assert got["shape"] == [4, 2048, 16, 64] and got["dtensor"]
     assert got["row_err"] <= 1e-2, got
     assert got["grad_err"] <= 5e-2, got
+
+
+# ---- launch plans forced by block=, and the autotune sweep ----------------
+#
+# Every plan of every table launches exactly as given. The regression
+# kernels' plans give the rule's bits (no split-K, the same FMA chains in
+# the same order); the logistic plans sum in other orders, so they are
+# held to the plain version's bar.
+
+@pytest.mark.parametrize("m, p, r", [(16, 1024, 1), (3, 129, 1), (1, 1023, 1),
+                                     (3, 200, 200), (2, 130, 5),
+                                     (1, 1024, 1024)])
+def test_every_fista_plan_gives_the_rules_bits(cuda, m, p, r):
+    from repro_torch.kernels.autotune import block_candidates
+    Sig, b, c, etas, lams = _ista_inputs(cuda, m, p, r)
+    x = b + 0.1
+    theta = np.float32(0.6)
+    want = fista_step_batched(Sig, b, x, c, etas, lams, theta)
+    want_ista = ista_step_batched(Sig, b, c, etas, lams)
+    plain = fista_step_batched(Sig, b, x, c, etas, lams, theta,
+                               use_kernel=False)
+    _assert_close(want, plain)
+    key = "fista_step_gemv" if r == 1 else "fista_step_gemm"
+    for block in block_candidates(m, p, r):
+        before = LAUNCHES[key]
+        got = fista_step_batched(Sig, b, x, c, etas, lams, theta,
+                                 block=block)
+        assert LAUNCHES[key] == before + 1
+        assert all(torch.equal(a, w) for a, w in zip(got, want)), block
+        assert torch.equal(ista_step_batched(Sig, b, c, etas, lams,
+                                             block=block), want_ista), block
+        if m == 1:
+            assert torch.equal(ista_step(Sig[0], b[0], c[0], etas[0],
+                                         lams[0], block=block),
+                               want_ista[0]), block
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("m, n, p", [(16, 512, 1024), (8, 1024, 256),
+                                     (2, 7, 129)])
+def test_every_rank_tile_gives_the_rules_bits(cuda, m, n, p, weighted):
+    from repro_torch.kernels.rank_update.ops import RANK_TILES
+    g = torch.Generator(device=cuda).manual_seed(11)
+    X = torch.randn((m, n, p), generator=g, device=cuda)
+    y = torch.randn((m, n), generator=g, device=cuda)
+    w = 0.5 + torch.rand((m, n), generator=g, device=cuda) if weighted \
+        else None
+    want = rank_update(X, y, w)
+    _assert_close(want, rank_update(X, y, w, use_kernel=False))
+    for block in RANK_TILES:
+        got = rank_update(X, y, w, block=block)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), block
+        assert torch.equal(rank_update_unfused(X, y, w, block=block)[0],
+                           want[0]), block
+
+
+@pytest.mark.parametrize("m, n, p", [(16, 512, 1024), (4, 256, 8192),
+                                     (4, 64, 8196), (2, 7, 129)])
+def test_every_logistic_plan_matches_plain(cuda, m, n, p):
+    from repro_torch.kernels.autotune import logistic_candidates
+    from repro_torch.kernels.logistic_grad.ops import (
+        UNFUSED_COLS, UNFUSED_Z_PLANS,
+    )
+    X, y, B = _logistic_inputs(cuda, m, n, p)
+    want = logistic_grad(X, y, B, use_kernel=False)
+    props = torch.cuda.get_device_properties(cuda)
+    for cluster in logistic_candidates(m, n, p):
+        pl = plan(m, n, p, props.multi_processor_count,
+                  props.shared_memory_per_block_optin,
+                  vec=vectorized(X, B), cluster=cluster)
+        G = torch.empty((m, p), device=cuda)
+        work = torch.empty((m, pl.chunks, p), device=cuda)
+        ran = launch(X, y, B, G, work, ticket_counters(cuda, m * cluster),
+                     cluster)
+        assert ran == pl, (cluster, ran, pl)
+        got = logistic_grad(X, y, B, block=cluster)
+        _assert_close((got, G), (want, want))
+        assert torch.equal(got, G)
+        assert torch.equal(got, logistic_grad(X, y, B, block=cluster))
+    for rpw, wpr in UNFUSED_Z_PLANS:
+        for cols in UNFUSED_COLS:
+            got = logistic_grad_unfused(X, y, B, block=(rpw, wpr, cols))
+            _assert_close((got,), (want,))
+
+
+def test_a_plan_out_of_range_is_refused_at_launch(cuda):
+    """The launchers refuse a plan index out of their tables, and a
+    cluster the row does not allow, with an error and no launch."""
+    from repro_torch.kernels.ista_step import ops as ista_ops
+    from repro_torch.kernels.rank_update import ops as rank_ops
+    Sig, b, c, etas, lams = _ista_inputs(cuda, 2, 256, 1)
+    out = torch.empty_like(b)
+    for bad in (5, 99, -2):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            ista_ops.launch(Sig, b, b, c, etas, lams, 0.5, out,
+                            torch.empty_like(b), bad)
+    Z = torch.cat([b] * 4, -1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ista_ops.launch_ista(Sig, Z, Z, etas, lams, torch.empty_like(Z),
+                             "ista_step_batched", 2)
+    X = torch.randn((2, 16, 256), device=cuda)
+    y = torch.randn((2, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rank_ops.launch(X, y, None, torch.empty((2, 256, 256), device=cuda),
+                        torch.empty((2, 256), device=cuda), 2)
+    Xl, yl, Bl = _logistic_inputs(cuda, 4, 64, 1024)
+    G = torch.empty((4, 1024), device=cuda)
+    work = torch.empty((4, 64, 1024), device=cuda)
+    for bad in (2, 3, 16, 0):           # cluster_max(1024) is 1
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch(Xl, yl, Bl, G, work, ticket_counters(cuda, 64), bad)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch_unfused(Xl, yl, Bl, torch.empty((4, 64), device=cuda), G, 15)
+    with pytest.raises(ValueError, match="cluster size"):
+        logistic_grad(Xl, yl, Bl, block=2)
+    with pytest.raises(ValueError, match="GEMV_PLANS"):
+        fista_step_batched(Sig, b, b, c, etas, lams, 0.5, block=128)
+
+
+def test_a_sweep_caches_its_winner(cuda, tmp_path, monkeypatch):
+    """A sweep on the card times every plan, keeps the fastest in the
+    port's cache file and in memory, counts none of its launches, and
+    the engine's default (block=None) then launches that plan with the
+    rule's bits."""
+    from repro_torch import obs
+    from repro_torch.core.engine import solve_lasso_batched
+    from repro_torch.kernels import autotune
+    monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path))
+    autotune.clear_memory_cache()
+    obs.reset()
+    before = dict(LAUNCHES)
+    won = autotune.autotune_block(16, 1024, 1, device=cuda)
+    rank = autotune.autotune_rank_block(8, 1024, 256, device=cuda)
+    cluster = autotune.autotune_logistic_block(4, 256, 8192, device=cuda)
+    assert dict(LAUNCHES) == before
+    assert won in autotune.block_candidates(16, 1024, 1)
+    assert rank in autotune.rank_candidates(8, 1024, 256)
+    assert cluster in (1, 2, 4, 8)
+    entries = json.loads((tmp_path / autotune.CACHE_FILE).read_text())
+    assert len(entries) == 3
+    assert obs.hist_stats("autotune.candidate_us")["count"] == 5 + 2 + 4
+    assert autotune.autotune_block(16, 1024, 1, device=cuda) == won
+    assert obs.counter_total("autotune.cache", event="hit_memory") == 1
+    Sig, b, c, etas, lams = _ista_inputs(cuda, 16, 1024, 1)
+    got = solve_lasso_batched(Sig, c[..., 0], 0.05, iters=20, etas=etas)
+    assert obs.counter_total("autotune.cache", event="hit_memory") == 2
+    for block in autotune.block_candidates(16, 1024, 1):
+        assert torch.equal(solve_lasso_batched(Sig, c[..., 0], 0.05,
+                                               iters=20, etas=etas,
+                                               block=block), got)
+    autotune.clear_memory_cache()
