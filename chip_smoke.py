@@ -13,10 +13,10 @@ Phases, each of which raises on failure (exit code != 0):
    the rank-n update (`rank_update_kernel`), the logistic gradient
    (`logistic_grad_kernel`, `logistic_grad_rows_kernel`) and its unfused
    pair (`logistic_residual_kernel`, `logistic_backproject_kernel`), the
-   group threshold (`group_threshold_kernel`) and the bf16 Hopper flash
-   forward (`flash_fwd_wgmma`, one instance at each of H = 64, 128 and
-   256, and no bf16 instance of the f32 body `flash_fwd_kernel`) must not
-   spill;
+   group threshold (`group_threshold_kernel`), the bf16 Hopper flash
+   forward (`flash_fwd_wgmma`) and the f32 one (`flash_fwd_tf32x3`), one
+   instance of each at each of H = 64, 128 and 256, must not spill, and
+   the f32 one's SASS (`cuobjdump -sass`) must hold TF32 HMMA at each H;
 3. every kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at ragged ones, max abs error <= 1e-5 * max|plain|
    per output (both accumulate in f32, in another order); the rank-n
@@ -62,9 +62,13 @@ Phases, each of which raises on failure (exit code != 0):
    its row log-sum-exp the same bits twice and within 1e-5 (f32) and
    1e-4 (bf16) of max(1, |lse|) of the plain lse, and (1, 300, 4, 2, 64)
    non-causal with window 50 against T = 100, whose rows s >= 149 see no
-   key (lse -1e30), in both dtypes; and the kernels a bf16 call runs on
-   the card at H = 64, 128 and 256 (`torch.profiler`): `flash_fwd_wgmma`
-   of its H alone;
+   key (lse -1e30), in both dtypes; in f32 also at the f32 copies'
+   shapes (`f32_flash_shapes`: 10b's (4, 2048, 32, 8, 64), phase 6's
+   (2, 2048, 32, 8, 64), 9a's (2, 2048, 16, 16, 128) and a 13c-rg rank's
+   (1, 2048, 8, 1, 256) with window 2048) under the same bars; and the
+   kernels a call runs on the card (`torch.profiler`): a bf16 call at
+   H = 64, 128 and 256 `flash_fwd_wgmma` of its H alone, an f32 call at
+   those four shapes `flash_fwd_tf32x3` of its H alone;
 4. the regression path at full width: `dsml_fit` (DSML Algorithm 1) on
    m = 16 tasks, n = 512 samples, p = 1024 features, through the kernels
    (launch counts zeroed just before, read just after), then with
@@ -106,8 +110,14 @@ Phases, each of which raises on failure (exit code != 0):
    the floor of any launch, beside the group threshold's row; #9 with
    its lse at the training shape (4, 2048, 32, 8, 64) beside SDPA's
    forward on inputs that require a gradient, and the plain blockwise
-   attention backward and SDPA's backward at that shape; and each
-   fit's wall time on both paths;
+   attention backward and SDPA's backward at that shape; #9 in f32 at the
+   f32 copies' four shapes, each beside the floor of its full-f32
+   products as three TF32 products on the tensor cores (`bound_ms`,
+   495 / 3 TFLOP/s, the kernel's and SDPA's design), the FP32 FMA bound
+   (`fma_bound_ms`, 67 TFLOP/s) and SDPA in f32 (`sdpa_yardstick`: k
+   and v expanded outside the call where `enable_gqa` takes the math
+   path, `library_note`); and
+   each fit's wall time on both paths;
 6. the serving path at full width, the cell of
    `repro_torch/serving/cell.py`: granite-3-2b (40 layers, d 2048, 32/8
    heads of 64, bf16) from a seeded `torch.Generator`, `greedy_generate`
@@ -385,10 +395,12 @@ It prints one JSON line of kernels (launches per run from phases 4-4c,
 run's, its 10c rows each family's kernel loss-and-gradient run's, its
 11a per-rank row 11a's rank 0's, its phase 12 per-rank rows
 12a-12c's rank 0's and its phase 13 per-rank rows 13a-13b's rank 0's;
-phase 8's, over its ranks and its own fits, as `launches_phase8`, phase
-11's, over its 11a ranks, as `launches_phase11`, phase 12's, over its
-ranks, as `launches_phase12`, and phase 13's, over its 13a-13b ranks, as
-`launches_phase13`) and, last, the result line. With no CUDA device it
+its f32 rows the f32 copy that launches each: 10b's kernel
+loss-and-gradient run, phase 6's and 9a's kernel generate, 13c-rg's rank
+0; phase 8's, over its ranks and its own fits, as `launches_phase8`,
+phase 11's, over its 11a ranks, as `launches_phase11`, phase 12's, over
+its ranks, as `launches_phase12`, and phase 13's, over its 13a-13c ranks,
+as `launches_phase13`) and, last, the result line. With no CUDA device it
 raises before printing any result.
 """
 from __future__ import annotations
@@ -398,6 +410,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -412,9 +425,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # published H100 SXM peaks (NVIDIA data sheet): f32 FMA outside the tensor
-# cores, dense bf16 on the tensor cores, and HBM3 bandwidth
+# cores, dense bf16 and TF32 on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12                # dense TF32 on the tensor cores
+# full-f32 products as three TF32 products (hi.lo, lo.hi, hi.hi)
+PEAK_TF32X3_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12
 
 M, N, P, S = 16, 512, 1024, 16          # the main path's configuration
@@ -423,6 +439,8 @@ INGEST = (8, 1024, 256)                 # benchmarks/stream_bench.py
 # (B, S, N, K, H): minitron-4b's attention (configs/registry.py) at the
 # serving cell's batch and prompt
 FLASH_H128 = (4, 2048, 24, 8, 128)
+# prompts of the f32 serving copies (phase 6, 9a): the first two of the batch
+F32_COPY_BATCH = 2
 TOL_KERNEL = 1e-5                       # x max|plain|, per output
 TOL_FIT = 1e-4                          # x max|.|, after chained FISTA steps
 TOL_FLASH = 2e-5                        # x max|plain|, f32
@@ -638,17 +656,19 @@ def pct(values, q: float) -> float:
     return float(np.quantile(np.asarray(values, dtype=np.float64), q))
 
 
-def device_kernel_names(fn) -> list[str]:
-    """The names of the kernels one call of `fn` runs on the card, by
-    `torch.profiler`."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.name[:120] for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+def tf32_hmma(lib: Path) -> dict[str, int]:
+    """{H: TF32 HMMA instructions in `flash_fwd_tf32x3<H>`'s SASS} of the
+    built flash library, by `cuobjdump -sass` from the CUDA toolkit."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*flash_fwd_tf32x3ILi(\d+)E", part)
+        if m:
+            out[m.group(1)] = len(re.findall(r"HMMA[.\w]*TF32", part))
+    return out
 
 
 def flash_pairs(s: int, causal: bool, window: int) -> int:
@@ -680,6 +700,35 @@ def zoo_flash_shapes(get_config) -> dict:
         "flash_attention_noncausal": (shape(audio.name,
                                             audio.n_frontend_tokens),
                                       False, 0),
+    }
+
+
+def f32_flash_shapes() -> dict:
+    """#9's float32 instances, from the f32 copies that launch them:
+    {row: ((B, S, N, the kv heads read, H), window, lse)}. 10b's training
+    copy of granite-3-2b (TRAIN_BATCH x TRAIN_SEQ, with the lse), phase
+    6's granite-3-2b copy and 9a's deepseek-moe-16b copy (F32_COPY_BATCH
+    prompts), and a rank of 13c-rg's recurrentgemma-9b copy on
+    SHARDED_MESH_11B (its share of the batch and of the q heads, the one
+    kv head replicated, the window)."""
+    from repro_torch.serving import cell
+
+    def shape(arch, b, split=1, s=cell.PROMPT):
+        c = config_of(arch, {})
+        n, k = c.n_heads // split, c.n_kv_heads
+        kv = k // split if k % split == 0 else max(1, n // (c.n_heads // k))
+        return (b, s, n, kv, c.resolved_head_dim)
+
+    rg = config_of("recurrentgemma-9b", {})
+    data, model = SHARDED_MESH_11B
+    return {
+        "flash_attention_f32_lse": (
+            shape(cell.ARCH, TRAIN_BATCH, s=TRAIN_SEQ), 0, True),
+        "flash_attention_f32": (shape(cell.ARCH, F32_COPY_BATCH), 0, False),
+        "flash_attention_f32_h128": (shape(ZOO_MOE, F32_COPY_BATCH), 0,
+                                     False),
+        "flash_attention_f32_h256": (
+            shape(rg.name, SERVE13C_BATCH // data, model), rg.window, False),
     }
 
 
@@ -1797,7 +1846,8 @@ def serve_family(card, label, cfg, params, prompt, fe, want_flash,
 
 def f32_copy_check(card, label, cfg, params, prompt, steps, want_flash):
     """An f32 copy: the kernel and plain paths give identical tokens and
-    last logits within TOL_FIT · max|logits|."""
+    last logits within TOL_FIT · max|logits|. Returns the kernel run's
+    flash launches."""
     out, gen_s, launches = generate(params, cfg, prompt, steps)
     serve_checks(f"{label} f32", cfg, out, prompt, steps, launches,
                  want_flash)
@@ -1820,6 +1870,7 @@ def f32_copy_check(card, label, cfg, params, prompt, steps, want_flash):
           f"max abs err {err:.3g} (max|logits| {scale:.3g}){flips}; launches "
           f"{launches['flash_attention']} flash; generate "
           f"{gen_s * 1e3:.1f} ms {card}")
+    return launches["flash_attention"]
 
 
 def zoo_phase(dev, card) -> dict:
@@ -1854,8 +1905,9 @@ def zoo_phase(dev, card) -> dict:
     cfg32, p32, _, _ = zoo_model(ZOO_MOE, dev, n_layers=ZOO_MOE_F32_LAYERS,
                                  param_dtype="float32",
                                  compute_dtype="float32")
-    f32_copy_check(card, f"9a {cfg.name}", cfg32, p32, prompt[:2], 8,
-                   ZOO_MOE_F32_LAYERS)
+    runs["flash_attention_f32_h128"] = f32_copy_check(
+        card, f"9a {cfg.name}", cfg32, p32, prompt[:F32_COPY_BATCH], 8,
+        ZOO_MOE_F32_LAYERS)
     del p32
 
     # ---- 9b. the other families, each after the last one's memory -------
@@ -1960,7 +2012,8 @@ def zoo_phase(dev, card) -> dict:
     return {"flash_attention_moe": runs["flash_attention_moe"],
             "flash_attention_vlm": runs["internvl2-2b"],
             "flash_attention_h256": runs["recurrentgemma-9b"],
-            "flash_attention_noncausal": runs["flash_attention_noncausal"]}
+            "flash_attention_noncausal": runs["flash_attention_noncausal"],
+            "flash_attention_f32_h128": runs["flash_attention_f32_h128"]}
 
 
 def flash_backward_times(shape, qkv, card, causal: bool = True) -> dict:
@@ -2341,6 +2394,7 @@ def train_phase(dev, card, save_dir) -> dict:
           f"plain {l32p.item():.7f} (rel {rel:.3g}, bar {TOL_KERNEL}); worst "
           f"gradient leaf {worst32:.3g} of max|g| (bar {TOL_FIT}); "
           f"adamw_update on two copies: the same bits {card}")
+    out["launches_f32"] = launches32["flash_attention"]
     del s32, g32k, g32p, copies, done
     free_card()
     return out
@@ -3514,6 +3568,10 @@ SERVE13_ROWS = {"13a": "flash_attention_tp2",
                 "13b-audio": "flash_attention_noncausal_tp2"}
 
 
+# 13c's run whose #9 per-rank instance is an f32 row of its own
+SERVE13C_ROWS = {"13c-rg": "flash_attention_f32_h256"}
+
+
 def serve13_flash_shapes() -> dict:
     """{row: ((B, S, N / TP_MODEL, the kv heads a rank reads, H), causal,
     window)}: #9 without its lse at the per-rank shapes of phase 13's
@@ -3710,6 +3768,10 @@ def serve_sharded_phase(dev, card, tmp) -> dict:
               "unsharded f32 run's")
         check(max(r0["errs"]) <= TOL_FIT, f"{run['label']}: logits "
               f"{max(r0['errs'])} of max|logits| off the unsharded f32 run")
+        if run["label"] in SERVE13C_ROWS:
+            fl = [g["launches"]["flash_attention"] for g in got]
+            row = SERVE13C_ROWS[run["label"]]
+            rank0[row], both[row] = fl[0], sum(fl)
         moe = run["changes"].get("moe")
         print(f"phase {run['label']} {cfg.name} f32 at {cfg.n_layers} "
               f"layers{f' {moe}' if moe else ''}, mesh "
@@ -3946,7 +4008,10 @@ def main() -> None:
     )
     from repro_torch.kernels import _build
     from repro_torch.configs import get_config
-    from repro_torch.launch.timing import graph_ms, time_ms, time_ms_cold
+    from repro_torch.launch.timing import (
+        device_kernel_names, graph_ms, kernel_launches, sdpa_yardstick,
+        time_ms, time_ms_cold,
+    )
     from repro_torch.kernels.common import LAUNCHES, reset_launches
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -4020,17 +4085,23 @@ def main() -> None:
                                        "logistic_residual_kernel",
                                        "logistic_backproject_kernel",
                                        "group_threshold_kernel",
-                                       "flash_fwd_wgmma")):
+                                       "flash_fwd_wgmma",
+                                       "flash_fwd_tf32x3")):
                 check(" 0 bytes spill stores" in line,
                       f"a redesigned kernel spills: {line}")
     flash_log = "\n".join(ptxas_lines(_build.BUILD_LOG["flash_attention"]))
-    wgmma = sorted(set(re.findall(r"flash_fwd_wgmmaILi(\d+)E", flash_log)),
-                   key=int)
-    check(wgmma == ["64", "128", "256"] and
-          "flash_fwd_kernelI13__nv_bfloat16" not in flash_log,
-          f"flash_attention.cu built flash_fwd_wgmma at H = {wgmma} and "
-          f"a bf16 flash_fwd_kernel: "
-          f"{'flash_fwd_kernelI13__nv_bfloat16' in flash_log}")
+    built = {name: sorted(set(re.findall(name + r"ILi(\d+)E", flash_log)),
+                          key=int)
+             for name in ("flash_fwd_wgmma", "flash_fwd_tf32x3")}
+    check(all(h == ["64", "128", "256"] for h in built.values()) and
+          "flash_fwd_kernel" not in flash_log,
+          f"flash_attention.cu built {built} and the old f32 body: "
+          f"{'flash_fwd_kernel' in flash_log}")
+    # the f32 body's products run on the tensor cores, as TF32 HMMA
+    hmma = tf32_hmma(_build.BUILD_DIR / "libflash_attention.so")
+    check(sorted(hmma, key=int) == ["64", "128", "256"] and
+          all(hmma.values()), f"flash_fwd_tf32x3's TF32 HMMA by H: {hmma}")
+    print(f"SASS flash_fwd_tf32x3: TF32 HMMA instructions by H {hmma}")
 
     print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
           "phase 3")
@@ -4362,6 +4433,11 @@ def main() -> None:
     check_flash((1, 200, 4, 1, 128), f32)
     check_flash((1, 512, 4, 1, 256), f32, window=64)
     check_flash((2, 256, 8, 2, 64), f32, causal=False)
+    # the f32 copies' instances (10b with its lse, 6, 9a, 13c-rg's rank)
+    f32_flash, f32_qkv = f32_flash_shapes(), {}
+    for name, (shape, window, lse) in f32_flash.items():
+        err, f32_qkv[name] = check_flash(shape, f32, window=window)
+        errs[name] = lse_abs[(shape, f32)] if lse else err
     errs["flash_attention"], flash_qkv = check_flash(flash_path, bf16)
     errs["flash_attention_lse"] = lse_abs[(flash_path, bf16)]
     errs["flash_attention_h128"], flash_qkv128 = check_flash(FLASH_H128, bf16)
@@ -4435,6 +4511,21 @@ def main() -> None:
         print(f"flash launch at {shape} bf16: "
               f"{flash_ops.launch_plan(fb_, fs_, fn_, fh_, bf16)}; runs "
               f"{[n for n in names if 'flash' in n]}")
+
+    # and every f32 call the 3xTF32 body of its head dim alone, launched
+    # as `launch_plan` says
+    for name, (shape, window, _) in f32_flash.items():
+        runs = kernel_launches(
+            lambda: flash_attention(*f32_qkv[name], window=window))
+        fb_, fs_, fn_, _, fh_ = shape
+        plan = flash_ops.launch_plan(fb_, fs_, fn_, fh_, f32)
+        want = {"grid": [fb_ * fn_, -(-fs_ // plan.rows), 1],
+                "block": [plan.threads, 1, 1], "smem": plan.smem_bytes}
+        check(plan.design == "tf32x3" and len(runs) == 1 and
+              f"flash_fwd_tf32x3<{fh_}>" in runs[0]["name"] and
+              {k: runs[0][k] for k in want} == want,
+              f"flash_attention {shape} f32 ran {runs}, its plan {plan}")
+        print(f"flash launch at {shape} f32: {plan}; runs {runs}")
 
     print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
           "phase 4")
@@ -4694,30 +4785,34 @@ def main() -> None:
         fb, fs, fn, _, fh = shape
         return 4 * fb * fn * flash_pairs(fs, causal, window) * fh
 
-    def flash_row(name, shape, qkv, causal=True, window=0):
-        """The pairs the mask keeps (the causal triangle, or all) on the
-        bf16 tensor cores; q, k, v and out once each. SDPA has no window:
-        a row's window covers its whole prompt (window >= S)."""
+    def flash_row(name, shape, qkv, causal=True, window=0,
+                  peak=PEAK_BF16_FLOPS):
+        """The pairs the mask keeps (the causal triangle, or all) at the
+        peak rate `peak` (the bf16 tensor cores, or 3xTF32 for f32); q,
+        k, v and out once each. SDPA has no window: a row's window covers
+        its whole prompt (window >= S); `sdpa_yardstick` expands k and v
+        outside the call where `enable_gqa` takes the math path (f32)."""
         fb, fs, fn, fk, fh = shape
         check(window == 0 or window >= fs, f"{name}: SDPA has no window")
         fq, fkk, fv = qkv
         f_out = torch.empty_like(fq)
+        lib, library_note[name] = sdpa_yardstick(fq, fkk, fv, causal)
         return (name, "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention/kernel.py:83",
                 bound(flash_flops(shape, causal, window),
-                      2 * (2 * fb * fs * fn * fh + 2 * fb * fs * fk * fh),
-                      PEAK_BF16_FLOPS),
+                      fq.element_size()
+                      * (2 * fb * fs * fn * fh + 2 * fb * fs * fk * fh),
+                      peak),
                 lambda: flash_ops.launch(fq, fkk, fv, f_out, causal=causal,
                                          window=window),
                 lambda: flash_attention(fq, fkk, fv, causal=causal,
                                         window=window),
                 lambda: flash_attention(fq, fkk, fv, causal=causal,
                                         window=window, use_kernel=False),
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    fq.transpose(1, 2), fkk.transpose(1, 2),
-                    fv.transpose(1, 2), is_causal=causal, enable_gqa=True))
+                lib)
 
-    def flash_lse_row(name, shape, qkv, window=0, causal=True):
+    def flash_lse_row(name, shape, qkv, window=0, causal=True,
+                      peak=PEAK_BF16_FLOPS):
         """#9 with its lse, as the training forward launches it: q, k, v
         and out once each, and the lse; beside SDPA's forward on inputs
         that require a gradient (it then writes its own logsumexp). SDPA
@@ -4727,12 +4822,14 @@ def main() -> None:
         fq, fkk, fv = qkv
         f_out = torch.empty_like(fq)
         f_lse = torch.empty((fb, fn, fs), device=dev)
-        req = [t.transpose(1, 2).detach().requires_grad_() for t in qkv]
+        lib, library_note[name] = sdpa_yardstick(fq, fkk, fv, causal,
+                                                 grad=True)
         return (name, "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention/kernel.py:83",
                 bound(flash_flops(shape, causal, window),
-                      2 * (2 * fb * fs * fn * fh + 2 * fb * fs * fk * fh)
-                      + 4 * fb * fn * fs, PEAK_BF16_FLOPS),
+                      fq.element_size()
+                      * (2 * fb * fs * fn * fh + 2 * fb * fs * fk * fh)
+                      + 4 * fb * fn * fs, peak),
                 lambda: flash_ops.launch(fq, fkk, fv, f_out, lse=f_lse,
                                          causal=causal, window=window),
                 lambda: flash_ops.flash_attention_fwd_lse(
@@ -4740,8 +4837,20 @@ def main() -> None:
                 lambda: flash_ops.flash_attention_fwd_lse(
                     fq, fkk, fv, causal=causal, window=window,
                     use_kernel=False),
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    *req, is_causal=causal, enable_gqa=True))
+                lib)
+
+    library_note: dict = {}   # flash rows: how SDPA was called
+    # the f32 rows: bound by full-f32 products as three TF32 products on
+    # the tensor cores (the kernel's and SDPA's design), and beside it the
+    # FP32 FMA bound
+    f32_rows = [
+        (flash_lse_row if lse else flash_row)(
+            name, shape, f32_qkv[name], window=window,
+            peak=PEAK_TF32X3_FLOPS)
+        for name, (shape, window, lse) in f32_flash.items()]
+    fma_bound = {name: flash_flops(shape, window=window)
+                 / PEAK_F32_FLOPS * 1e3
+                 for name, (shape, window, _) in f32_flash.items()}
 
     # the weighted launch's yardstick: one bmm on (w X)' computed aside
     Xwt = (X * w[..., None]).transpose(1, 2)
@@ -4761,6 +4870,7 @@ def main() -> None:
           for name, (shape, causal, window) in zoo_flash.items()),
         *(flash_row(name, shape, serve13_qkv[name], causal, window)
           for name, (shape, causal, window) in serve13_flash.items()),
+        *f32_rows,
         ("rank_update", "src/repro_torch/kernels/csrc/rank_update.cu",
          "src/repro/kernels/rank_update/kernel.py:121", rank_bound,
          lambda: rank_ops.launch(X, y, None, S_out, c_out),
@@ -4917,7 +5027,8 @@ def main() -> None:
               **{name: z[0] for name, z in zoo_flash.items()},
               **{name: z[0] for name, z in zoo12_flash.items()},
               **{name: z[0] for name, z in train10c_flash.items()},
-              **{name: z[0] for name, z in serve13_flash.items()}}
+              **{name: z[0] for name, z in serve13_flash.items()},
+              **{name: z[0] for name, z in f32_flash.items()}}
     # the redesigned kernels' least work, for their achieved rate
     row_flops = {"flash_attention": flash_flops(flash_path),
                  "flash_attention_h128": flash_flops(FLASH_H128),
@@ -4930,6 +5041,8 @@ def main() -> None:
                  **{name: flash_flops(*z) for name, z in zoo_flash.items()},
                  **{name: flash_flops(*z)
                     for name, z in serve13_flash.items()},
+                 **{name: flash_flops(shape, window=window)
+                    for name, (shape, window, _) in f32_flash.items()},
                  "fista_step_gemm": 2 * m * p * p * p,
                  "ista_step_gemm": 2 * p * p * p,
                  "rank_update": rank_work(m, n, p)[0],
@@ -4960,6 +5073,17 @@ def main() -> None:
             # the backend SDPA picks, by the kernels it runs on the card
             row["library_kernels"] = device_kernel_names(lib)
             print(f"library {name}: SDPA runs {row['library_kernels']}")
+        if name in library_note:
+            row["library_note"] = library_note[name]
+        if name in fma_bound:
+            row["fma_bound_ms"] = fma_bound[name]
+            print(f"f32 {name}: SDPA with {library_note[name]}; kernel "
+                  f"{g_ms:.4f} ms by graph against the 3xTF32 bound "
+                  f"{bound_ms:.4f} ({bound_ms / g_ms:.1%} of its rate) and "
+                  f"the FMA bound {fma_bound[name]:.4f} "
+                  f"({fma_bound[name] / g_ms:.1%}); kernel / SDPA "
+                  f"{g_ms / lg_ms:.3f} by graph, {ms / lib_ms:.3f} by "
+                  f"events {card}")
         if name in row_flops:
             row["tflops"] = row_flops[name] / ms / 1e9
             row["graph_tflops"] = row_flops[name] / g_ms / 1e9
@@ -5042,7 +5166,7 @@ def main() -> None:
 
     cfg32, p32, _ = cell.make_cell(dev, n_layers=4, param_dtype="float32",
                                    compute_dtype="float32")
-    prompt32 = prompt[:2]
+    prompt32 = prompt[:F32_COPY_BATCH]
     out32, gen32_s, launches32 = generate(p32, cfg32, prompt32, 8)
     serve_checks(f"{cfg.name} f32 4 layers", cfg32, out32, prompt32, 8,
                  launches32, cfg32.n_layers)
@@ -5130,6 +5254,8 @@ def main() -> None:
                     "flash_attention": serve_launches["flash_attention"],
                     **launches_9,
                     "flash_attention_lse": trained["launches"],
+                    "flash_attention_f32_lse": trained["launches_f32"],
+                    "flash_attention_f32": launches32["flash_attention"],
                     "flash_attention_lse_tp2": sharded["launches_11a"],
                     **launches_10c,
                     **zoo_sharded["launches"], **serving["launches"]}

@@ -95,12 +95,38 @@
 //   H = 256 a score carries four times the products, and a build without
 //   the softmax ran about a sixth faster, one without the output stores
 //   within the spread (`PERF.md`).
-// * float32 at every H keeps the first design (`flash_fwd_kernel`): one
-//   block of 4 warps per 64 query rows, each tile loaded with 16-byte
-//   loads and then computed behind two barriers. No tensor-core path
-//   keeps full f32 (TF32 keeps about three digits), so both products are
-//   FP32 FMA in `mma.sync`'s m16n8 fragment layout, and P goes through a
-//   per-warp shared tile.
+// * float32 at every H (`flash_fwd_tf32x3`): full f32 on the tensor cores.
+//   Each operand x is split into hi = x rounded to TF32 and lo = (x - hi)
+//   rounded to TF32 (`cvt.rna.tf32.f32`), and each product a b is taken as
+//   three TF32 products (lo.hi and hi.lo, then hi.hi) in `mma.sync` m16n8k8
+//   with f32 accumulation: about 2^-21 relative error a product, against 2^-11
+//   for one TF32 product, which could not meet the f32 bars. Never one TF32
+//   product. What bounds it: the tensor cores at a third of the TF32 rate, 3 x
+//   68.7 GFLOP / 495 TFLOP/s = 0.416 ms at the training copy's (4, 2048, 32,
+//   8, 64), against 1.025 ms for the same work in FP32 FMA (67 TFLOP/s); and
+//   the phases of a tile (S, the softmax, P V), which run one after another in
+//   a warp and hardly overlap (on the H100, builds of an earlier version
+//   without one of them each saved about that part's time). One block takes
+//   128 query rows of one (batch, head) in 8 warps at H = 64 and 128, 64 rows
+//   in 4 warps at 256 (shared memory); keys come in tiles of 32 (16 at H =
+//   256) through a `cp.async` ring of 3 stages at H = 64 and 2 at 128 and 256,
+//   and the block splits each tile of K and V into hi and lo once, into shared
+//   memory, for all its warps. Rows are padded to H + 4 words, so that K's B
+//   fragments (key g, column t: bank 4g + t) and V's (key 2t, column g: bank
+//   8t + g) load without bank conflicts. Q is split once into registers at H =
+//   64, and a k-step at a time from shared memory at 128 and 256. S and O stay
+//   in the m16n8 accumulator layout; P V reads P's accumulator fragment as its
+//   A fragment in place, by numbering the 8 keys of a k-step 0, 2, 4, 6, 1, 3,
+//   5, 7 in A's columns and V's rows alike. A tile's P V is summed in
+//   accumulators of its own, the small terms apart from hi.hi, and added to
+//   the rescaled O once, rounded to nearest (one accumulator over the whole
+//   row carried the tensor cores' truncation into row errors several times
+//   larger). The softmax takes exp2 with log2(e) folded into the scale. A warp
+//   skips the tiles none of its rows sees, and evaluates the mask only on
+//   tiles that cross T's end, the diagonal or the window's edge for one of its
+//   rows. Not `wgmma`: its TF32 operands must be K-major in shared memory, and
+//   V, P V's B, is not (it would take a transpose and hi and lo copies of
+//   every V tile in shared memory).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,8 +137,6 @@
 
 namespace {
 
-constexpr int WARPS = 4;             // 16 query rows each
-constexpr int BQ = 16 * WARPS;       // query rows per block
 constexpr float NEG_INF = -1e30f;
 
 struct Args {
@@ -128,217 +152,346 @@ struct Args {
   float* lse;
 };
 
-template <int H>
-struct Tile {
-  static constexpr int BK = H <= 128 ? 64 : 32;   // key rows
-  static constexpr int LD = H + 4;                 // smem row
-  static constexpr int LDP = BK + 4;               // P row
-  static constexpr size_t smem() {
-    return (size_t)(BQ + 2 * BK) * LD * sizeof(float) +
-           (size_t)WARPS * 16 * LDP * sizeof(float);
-  }
-};
-
-// rows [row0, row0 + ROWS) of a (rows, H) slab with row stride `stride`
-// into shared memory at row stride LD; rows at or past `nrows` are zeros
-template <int H, int ROWS, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long stride, int row0,
-                                          int nrows) {
-  constexpr int CPR = H / 4;                   // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * CPR; i += 32 * WARPS) {
-    const int r = i / CPR, c = (i % CPR) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < nrows)
-      val = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) *
-                                                       stride + c);
-    *reinterpret_cast<float4*>(dst + r * LD + c) = val;
-  }
-}
-
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x low half
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// Fragment layout of one warp's 16 rows (the m16n8 accumulator of
-// mma.sync, filled here by FP32 FMA): lane = 4 g + t holds, per 8-column
-// tile j, the entries (g, 8j + 2t), (g, 8j + 2t + 1), (g + 8, 8j + 2t),
-// (g + 8, 8j + 2t + 1). Scores S = Q K' over one key tile, in that
-// layout, unscaled.
-template <int H, int BK, int LD>
-__device__ __forceinline__ void scores(float (&s)[BK / 8][4],
-                                       const float* Qw, const float* Ks,
-                                       int g, int t) {
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j)
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll 4
-  for (int h = 0; h < H; h += 4) {
-    const float4 qa = *reinterpret_cast<const float4*>(Qw + g * LD + h);
-    const float4 qb = *reinterpret_cast<const float4*>(Qw + (g + 8) * LD + h);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const float4 k0 =
-          *reinterpret_cast<const float4*>(Ks + (j * 8 + 2 * t) * LD + h);
-      const float4 k1 =
-          *reinterpret_cast<const float4*>(Ks + (j * 8 + 2 * t + 1) * LD + h);
-      s[j][0] += qa.x * k0.x + qa.y * k0.y + qa.z * k0.z + qa.w * k0.w;
-      s[j][1] += qa.x * k1.x + qa.y * k1.y + qa.z * k1.z + qa.w * k1.w;
-      s[j][2] += qb.x * k0.x + qb.y * k0.y + qb.z * k0.z + qb.w * k0.w;
-      s[j][3] += qb.x * k1.x + qb.y * k1.y + qb.z * k1.z + qb.w * k1.w;
-    }
-  }
-}
+// ---- float32: 3xTF32 on mma.sync ------------------------------------------
 
-// acc += P V over one key tile; acc in the fragment layout over H / 8
-// column tiles. The warp's P tile goes through shared memory (16 x BK) so
-// that every lane reads whole rows of it
-template <int H, int BK, int LD, int LDP>
-__device__ __forceinline__ void pv(float (&acc)[H / 8][4],
-                                   const float (&p)[BK / 8][4],
-                                   const float* Vs, float* Pw, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    const int c = j * 8 + 2 * t;
-    Pw[g * LDP + c] = p[j][0];
-    Pw[g * LDP + c + 1] = p[j][1];
-    Pw[(g + 8) * LDP + c] = p[j][2];
-    Pw[(g + 8) * LDP + c + 1] = p[j][3];
-  }
-  __syncwarp();
-#pragma unroll 2
-  for (int kk = 0; kk < BK; ++kk) {
-    const float p0 = Pw[g * LDP + kk], p1 = Pw[(g + 8) * LDP + kk];
-    const float* vr = Vs + kk * LD + 2 * t;
-#pragma unroll
-    for (int j = 0; j < H / 8; ++j) {
-      const float2 vv = *reinterpret_cast<const float2*>(vr + j * 8);
-      acc[j][0] += p0 * vv.x;
-      acc[j][1] += p0 * vv.y;
-      acc[j][2] += p1 * vv.x;
-      acc[j][3] += p1 * vv.y;
-    }
-  }
-  __syncwarp();
-}
-
-__device__ __forceinline__ void store2(float* o, float a, float b) {
-  *reinterpret_cast<float2*>(o) = make_float2(a, b);
-}
-
+// The f32 body's block per H: warps of 16 query rows (8 where shared
+// memory holds Q, the ring and the split tile for them, H <= 128), keys a
+// tile, stages of the K/V ring, and padded rows (LD = H + 4: the B
+// fragments' loads are free of bank conflicts). Q stays in shared memory
+// for the whole key loop except at H = 64, where each warp keeps its split
+// rows in registers.
 template <int H>
-__global__ void __launch_bounds__(32 * WARPS)
-flash_fwd_kernel(const Args a) {
-  using TL = Tile<H>;
-  constexpr int BK = TL::BK, LD = TL::LD, LDP = TL::LDP;
+struct Tf32Tile {
+  static constexpr int WARPS = H <= 128 ? 8 : 4;
+  static constexpr int BQ = 16 * WARPS;              // query rows
+  static constexpr int BK = H <= 128 ? 32 : 16;      // keys a tile
+  static constexpr int STAGES = H == 64 ? 3 : 2;
+  static constexpr int LD = H + 4;
+  static constexpr bool Q_REGS = H == 64;
+  static constexpr int STAGE_FLOATS = 2 * BK * LD;   // K, then V
+  // Q, the ring, and the tile being computed split: K and V's hi, then
+  // K and V's lo
+  static constexpr int SMEM =
+      (BQ * LD + STAGES * STAGE_FLOATS + 2 * STAGE_FLOATS) * 4;
+};
+static_assert(Tf32Tile<64>::SMEM <= 232448 &&
+                  Tf32Tile<128>::SMEM <= 232448 &&
+                  Tf32Tile<256>::SMEM <= 232448,
+              "over a block's shared memory");
+
+// 16 bytes from global to shared memory, asynchronously; zeros where `in`
+// is false (src-size 0: the source is not read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// rows [row0, row0 + ROWS) of a (rows, H) slab with row stride `stride`
+// into shared memory at row stride LD, by cp.async; rows at or past
+// `nrows` are zeros
+template <int H, int ROWS, int LD, int THREADS>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          long long stride, int row0,
+                                          int nrows) {
+  constexpr int CPR = H / 4;                   // 16-byte chunks per row
+  for (int i = threadIdx.x; i < ROWS * CPR; i += THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 4;
+    const bool in = row0 + r < nrows;
+    cp_async16(dst + r * LD + c,
+               in ? src + (long long)(row0 + r) * stride + c : src, in);
+  }
+}
+
+// x = hi + lo: hi is x rounded to TF32 (10 mantissa bits, to nearest, ties
+// away), lo the remainder x - hi (exact in f32) rounded to TF32, so that
+// hi + lo holds x to about 2^-22 |x|. cvt leaves the 13 low bits
+// unspecified: hi's are cleared before the subtraction, and the tensor
+// cores ignore them in both.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi & 0xffffe000u);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// 2^x on the MUFU unit (about 2^-22 relative error; 0 below 2^-126)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d += a b on the tensor cores, one m16n8k8 TF32 product with f32
+// accumulation: a (16 x 8, row) a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); b (8 x 8, col) b0 (t, g), b1 (t + 4, g); d as the
+// accumulator layout below
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in full f32 as three TF32 products: the small terms lo.hi and
+// hi.lo first, then hi.hi (lo.lo, about 2^-22 of the product, is left out)
+__device__ __forceinline__ void mma_3x(float (&d)[4], const uint32_t (&ah)[4],
+                                       const uint32_t (&al)[4], uint32_t bh0,
+                                       uint32_t bh1, uint32_t bl0,
+                                       uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// One block a tile of BQ query rows of one (batch, head), 16 rows a warp,
+// looping over the key tiles through a cp.async ring. S and O are kept in
+// the m16n8 accumulator layout: lane = 4 g + t holds, per 8-column tile j,
+// the entries (g, 8j + 2t), (g, 8j + 2t + 1), (g + 8, 8j + 2t),
+// (g + 8, 8j + 2t + 1).
+template <int H>
+__global__ void __launch_bounds__(32 * Tf32Tile<H>::WARPS, 1)
+flash_fwd_tf32x3(const Args a) {
+  using TL = Tf32Tile<H>;
+  constexpr int WARPS = TL::WARPS, BQ = TL::BQ, BK = TL::BK, LD = TL::LD,
+                STAGES = TL::STAGES, THREADS = 32 * WARPS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BK * LD;
+  float* ring = Qs + BQ * LD;
+  uint32_t* hi = reinterpret_cast<uint32_t*>(ring + STAGES * TL::STAGE_FLOATS);
+  uint32_t* lo = hi + TL::STAGE_FLOATS;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  float* Pw = Vs + BK * LD + warp * 16 * LDP;
-
   const int b = blockIdx.x / a.N, n = blockIdx.x % a.N, kvh = n / a.G;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest tiles first
   const float* qp = static_cast<const float*>(a.q) + b * a.qb + n * a.qn;
   const float* kp = static_cast<const float*>(a.k) + b * a.kb + kvh * a.kn;
   const float* vp = static_cast<const float*>(a.v) + b * a.vb + kvh * a.vn;
   float* op = static_cast<float*>(a.o) + b * a.ob + n * a.on;
+  // scores in log2 units: the softmax takes exp2
+  const float scale_log2 = a.scale * 1.4426950408889634f;
 
-  load_tile<H, BQ, LD>(Qs, qp, a.qs, q0, a.S);
   // the key tiles any row of this block can see
   const int q_last = min(q0 + BQ, a.S) - 1;
   const int k_end = a.causal ? min(a.T, q_last + 1) : a.T;
   const int k_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  const int kt_end = (k_end + BK - 1) / BK;
+  const int kt0 = k_begin / BK;
+  const int tiles = max(0, (k_end + BK - 1) / BK - kt0);
 
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  // the ring: Q with the first tile in one group, then a tile a group;
+  // tile i goes to stage i % STAGES, K then V
+  auto load_kv = [&](int i) {
+    float* st = ring + (i % STAGES) * TL::STAGE_FLOATS;
+    const int k0 = (kt0 + i) * BK;
+    copy_rows<H, BK, LD, THREADS>(st, kp, a.ks, k0, a.T);
+    copy_rows<H, BK, LD, THREADS>(st + BK * LD, vp, a.vs, k0, a.T);
+  };
+  copy_rows<H, BQ, LD, THREADS>(Qs, qp, a.qs, q0, a.S);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < tiles) load_kv(s);
+    cp_async_commit();
+  }
+
+  const float* Qw = Qs + warp * 16 * LD;
+  // this warp's Q split once, where registers allow (H = 64)
+  uint32_t qh[TL::Q_REGS ? H / 8 : 1][4], ql[TL::Q_REGS ? H / 8 : 1][4];
+  if constexpr (TL::Q_REGS) {
+    cp_async_wait<STAGES - 2>();      // Q (and the first tile) landed
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < H / 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split(Qw[(g + 8 * (e & 1)) * LD + 8 * kk + t + 4 * (e >> 1)],
+              qh[kk][e], ql[kk][e]);
+  }
+
+  const int row_lo = q0 + warp * 16;
+  const int row[2] = {row_lo + g, row_lo + g + 8};
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float acc[H / 8][4];
 #pragma unroll
   for (int j = 0; j < H / 8; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  for (int kt = k_begin / BK; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                  // every warp is done with the last tile
-    load_tile<H, BK, LD>(Ks, kp, a.ks, k0, a.T);
-    load_tile<H, BK, LD>(Vs, vp, a.vs, k0, a.T);
+  for (int i = 0; i < tiles; ++i) {
+    cp_async_wait<STAGES - 2>();      // tile i has landed
+    __syncthreads();                  // and every warp is done with i - 1
+    if (i + STAGES - 1 < tiles) load_kv(i + STAGES - 1);
+    cp_async_commit();
+    // the block splits tile i once, for every warp: K and V's hi and lo
+    {
+      const float* raw = ring + (i % STAGES) * TL::STAGE_FLOATS;
+      constexpr int CPR = H / 4;
+      for (int c4 = threadIdx.x; c4 < 2 * BK * CPR; c4 += THREADS) {
+        const int at = (c4 / CPR) * LD + (c4 % CPR) * 4;
+        const float4 x = *reinterpret_cast<const float4*>(raw + at);
+        uint4 h, l;
+        split(x.x, h.x, l.x);
+        split(x.y, h.y, l.y);
+        split(x.z, h.z, l.z);
+        split(x.w, h.w, l.w);
+        *reinterpret_cast<uint4*>(hi + at) = h;
+        *reinterpret_cast<uint4*>(lo + at) = l;
+      }
+    }
     __syncthreads();
 
-    float s[BK / 8][4];
-    scores<H, BK, LD>(s, Qs + warp * 16 * LD, Ks, g, t);
+    const int k0 = (kt0 + i) * BK;
+    // a tile no row of this warp sees adds nothing (m, l and O unchanged)
+    if ((a.causal && k0 > row_lo + 15) ||
+        (a.window > 0 && k0 + BK - 1 <= row_lo - a.window))
+      continue;
 
+    // S = Q K' over the tile: k-steps of 8 columns of H; B (k = h, n =
+    // key) from K's rows, b0 = K[8j + g][h + t], b1 = K[8j + g][h + t + 4]
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < H / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      if constexpr (TL::Q_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ah[e] = qh[kk][e], al[e] = ql[kk][e];
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split(Qw[(g + 8 * (e & 1)) * LD + 8 * kk + t + 4 * (e >> 1)],
+                ah[e], al[e]);
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const int o = (8 * j + g) * LD + 8 * kk + t;
+        mma_3x(s[j], ah, al, hi[o], hi[o + 4], lo[o], lo[o + 4]);
+      }
+    }
+
+    // the mask only where the tile crosses T's end, the diagonal or the
+    // window's edge for some row of the warp
+    const bool edge = k0 + BK > a.T ||
+                      (a.causal && k0 + BK - 1 > row_lo) ||
+                      (a.window > 0 && k0 <= row_lo + 15 - a.window);
+    auto visible = [&](int r, int key) {
+      return key < a.T && (!a.causal || key <= r) &&
+             (a.window <= 0 || key > r - a.window);
+    };
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = row[e / 2], key = k0 + j * 8 + 2 * t + (e & 1);
-        const bool vis = key < a.T && (!a.causal || key <= r) &&
-                         (a.window <= 0 || key > r - a.window);
-        s[j][e] = vis ? s[j][e] * a.scale : NEG_INF;
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+        const int key = k0 + j * 8 + 2 * t + (e & 1);
+        float x = s[j][e] * scale_log2;
+        if (edge && !visible(row[e / 2], key)) x = NEG_INF;
+        s[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
       }
     float alpha[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      alpha[i] = expf(m[i] - mx[i]);
-      m[i] = mx[i];
-      l[i] *= alpha[i];               // this lane's share of the row sum
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2_approx(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];               // this lane's share of the row sum
     }
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = row[e / 2], key = k0 + j * 8 + 2 * t + (e & 1);
-        const bool vis = key < a.T && (!a.causal || key <= r) &&
-                         (a.window <= 0 || key > r - a.window);
-        s[j][e] = vis ? expf(s[j][e] - m[e / 2]) : 0.f;   // p * mask
+        const int key = k0 + j * 8 + 2 * t + (e & 1);
+        s[j][e] = edge && !visible(row[e / 2], key)
+                      ? 0.f
+                      : exp2_approx(s[j][e] - m[e / 2]);   // p * mask
         l[e / 2] += s[j][e];
       }
+
+    // O += P V: k-steps of 8 keys, A's column c standing for key
+    // 8j + 2c (c < 4) or 8j + 2(c - 4) + 1, so that P's accumulator
+    // fragment is its A fragment as it lies (a0 = s[j][0], a1 = s[j][2],
+    // a2 = s[j][1], a3 = s[j][3]); V's B rows follow: b0 = V[8j + 2t],
+    // b1 = V[8j + 2t + 1], column 8 nt + g. The tile's product is summed
+    // apart from O, its small terms (lo.hi, hi.lo) apart from hi.hi, and
+    // added to the rescaled O once, rounded to nearest: the tensor cores'
+    // accumulation truncates, and over a long row of tiles in one
+    // accumulator that bias would add up
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
 #pragma unroll
-    for (int j = 0; j < H / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
+    for (int j = 0; j < BK / 8; ++j) {
+      split(s[j][0], ph[j][0], pl[j][0]);
+      split(s[j][2], ph[j][1], pl[j][1]);
+      split(s[j][1], ph[j][2], pl[j][2]);
+      split(s[j][3], ph[j][3], pl[j][3]);
     }
-    pv<H, BK, LD, LDP>(acc, s, Vs, Pw, g, t);
+#pragma unroll
+    for (int nt = 0; nt < H / 8; ++nt) {
+      float big[4] = {0.f, 0.f, 0.f, 0.f}, small[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const int o = (8 * j + 2 * t) * LD + 8 * nt + g;
+        mma_tf32(small, pl[j], hi[BK * LD + o], hi[BK * LD + o + LD]);
+        mma_tf32(small, ph[j], lo[BK * LD + o], lo[BK * LD + o + LD]);
+        mma_tf32(big, ph[j], hi[BK * LD + o], hi[BK * LD + o + LD]);
+      }
+      acc[nt][0] = fmaf(acc[nt][0], alpha[0], big[0] + small[0]);
+      acc[nt][1] = fmaf(acc[nt][1], alpha[0], big[1] + small[1]);
+      acc[nt][2] = fmaf(acc[nt][2], alpha[1], big[2] + small[2]);
+      acc[nt][3] = fmaf(acc[nt][3], alpha[1], big[3] + small[3]);
+    }
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] = fmaxf(l[i], 1e-30f);
-    if (row[i] >= a.S) continue;
-    // m + log(max(l, 1e-30)): m is NEG_INF where the row saw no key
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+    if (row[r] >= a.S) continue;
+    // m + log(max(l, 1e-30)) in natural-log units: m is NEG_INF where
+    // the row saw no key, kept as it is (the plain version's -1e30)
     if (a.lse != nullptr && t == 0)
-      a.lse[((long long)b * a.N + n) * a.S + row[i]] = m[i] + logf(l[i]);
-    float* orow = op + (long long)row[i] * a.os + 2 * t;
+      a.lse[((long long)b * a.N + n) * a.S + row[r]] =
+          (m[r] == NEG_INF ? NEG_INF : m[r] * 0.6931471805599453f) +
+          logf(l[r]);
+    float* orow = op + (long long)row[r] * a.os + 2 * t;
 #pragma unroll
     for (int j = 0; j < H / 8; ++j)
-      store2(orow + j * 8, acc[j][2 * i] / l[i], acc[j][2 * i + 1] / l[i]);
+      *reinterpret_cast<float2*>(orow + j * 8) =
+          make_float2(acc[j][2 * r] / l[r], acc[j][2 * r + 1] / l[r]);
   }
 }
 
 template <int H>
 int launch(const Args& a, int BH, int device, cudaStream_t stream) {
+  using TL = Tf32Tile<H>;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = Tile<H>::smem();
-  err = cudaFuncSetAttribute(flash_fwd_kernel<H>,
+  err = cudaFuncSetAttribute(flash_fwd_tf32x3<H>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+                             TL::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(BH, (a.S + BQ - 1) / BQ);
-  flash_fwd_kernel<H><<<grid, 32 * WARPS, smem, stream>>>(a);
+  const dim3 grid(BH, (a.S + TL::BQ - 1) / TL::BQ);
+  flash_fwd_tf32x3<H><<<grid, 32 * TL::WARPS, TL::SMEM, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1235,7 +1388,7 @@ int launch(const Args& x, int B, int device, cudaStream_t stream) {
 
 }  // namespace hopper
 
-// bf16 on the Hopper design, float32 on the first one
+// bf16 on the wgmma design, float32 on the 3xTF32 one
 int dispatch(const Args& a, bool bf16, int H, int B, int device,
              cudaStream_t stream) {
   switch (H) {

@@ -13,7 +13,8 @@ in float32, which the blockwise backward of `models/attention_core.py`
 reads: the kernel writes it beside the output (the .cu's `_lse` entry),
 and serving's `flash_attention` writes none.
 
-`launch_plan` says which of the .cu's two designs a call takes and its
+`launch_plan` says which of the .cu's two designs a call takes (bf16:
+`wgmma`; float32: `tf32x3`, three TF32 products a product) and its
 launch shape; it is plain Python, so the CPU tests check it. The lse
 output changes neither design's registers nor shared memory (it is
 written in the epilogue from m and l), so the plan is the same with it.
@@ -42,14 +43,16 @@ _ARGTYPES_LSE = _ARGTYPES[:4] + [ctypes.c_void_p] + _ARGTYPES[4:]
 
 
 class LaunchPlan(NamedTuple):
-    design: str          # "wgmma" (bf16: TMA, wgmma) or "fma" (float32)
+    design: str          # "wgmma" (bf16: TMA, wgmma) or "tf32x3" (float32:
+                         # three TF32 products on mma.sync, a cp.async ring)
     rows: int            # query rows per work item
     keys: int            # keys per tile
     stages: int          # K/V tiles in shared memory at once
     threads: int         # per block
     smem_bytes: int      # dynamic shared memory per block
-    items: int           # B N ceil(S / rows): one block each, or walked
-                         # by one persistent block per SM ("wgmma")
+    items: int           # B N ceil(S / rows): one block each ("tf32x3"),
+                         # or walked by one persistent block per SM
+                         # ("wgmma")
 
 
 def launch_plan(B: int, S: int, N: int, H: int,
@@ -61,8 +64,11 @@ def launch_plan(B: int, S: int, N: int, H: int,
     K/V stages in 128-byte swizzled panels (128 keys in three stages at
     H = 64 and 128; 64 keys in two at 256, where O's accumulator takes
     128 registers and three stages would not fit), the mbarriers, and
-    1024 bytes to align the base. float32 takes the first design (4
-    warps, 64 rows, K and V tiles with padded rows, per-warp P tiles)."""
+    1024 bytes to align the base. float32 takes the 3xTF32 design
+    (`Tf32Tile<H>`): warps of 16 rows, 8 at H = 64 and 128 and 4 at 256;
+    32 keys a tile (16 at 256) in a ring of 3 stages at H = 64 and 2 at
+    128 and 256; Q, the ring and the tile being computed split into hi
+    and lo words, in rows padded to H + 4."""
     if dtype == torch.bfloat16 and H in WGMMA_HEAD_DIMS:
         consumers = 3 if H == 64 else 2
         rows = 64 * consumers
@@ -75,9 +81,13 @@ def launch_plan(B: int, S: int, N: int, H: int,
                 + 8 * bars + 1024)
         return LaunchPlan("wgmma", rows, keys, stages, 128 * (consumers + 1),
                           smem, B * N * -(-S // rows))
-    rows, keys = 64, (64 if H <= 128 else 32)
-    smem = (rows + 2 * keys) * (H + 4) * 4 + 4 * 16 * (keys + 4) * 4
-    return LaunchPlan("fma", rows, keys, 1, 128, smem,
+    warps = 8 if H <= 128 else 4
+    rows, keys = 16 * warps, (32 if H <= 128 else 16)
+    stages = 3 if H == 64 else 2
+    # Q and the ring's stages of K and V, and the tile being computed split
+    # into hi and lo, in rows padded to H + 4 words
+    smem = (rows + 2 * stages * keys + 4 * keys) * (H + 4) * 4
+    return LaunchPlan("tf32x3", rows, keys, stages, 32 * warps, smem,
                       B * N * -(-S // rows))
 
 

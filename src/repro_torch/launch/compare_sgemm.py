@@ -67,13 +67,19 @@ device.
   `chip_smoke.py` phase 5's flash rows (`FLASH_ROWS`: the prefills of
   granite-3-2b, minitron-4b, deepseek-moe-16b, internvl2-2b,
   recurrentgemma-9b and seamless-m4t-medium's encoder at 4 x 2048
-  prompts) in bf16 and at three f32 shapes: both kernels must give the
-  same bits, except in bf16 at H = 256, where either may have its own
-  design and both must hold each query row within a relative l2 error of
-  1e-2 of the plain version on the f32 upcast (phase 3's bar). Times of
-  both at every bf16 row, beside SDPA (`scaled_dot_product_attention`,
-  `is_causal`, `enable_gqa`; no window: the rows' windows cover their
-  prompts).
+  prompts) in bf16, where both kernels must give the same bits, except
+  at H = 256, where either may have its own design and both must hold
+  each query row within a relative l2 error of 1e-2 of the plain version
+  on the f32 upcast (phase 3's bar); and in f32 at three small shapes
+  and at phase 5's four f32 rows (`FLASH_F32_ROWS`, the f32 copies'
+  instances), where the earlier file may have another design of the f32
+  products: the output and lse of each kernel within phase 3's f32 bars
+  of the plain version (2e-5 · max|plain|, 1e-4 a row, lse 1e-5 ·
+  max(1, |lse|)), and the current kernel's the same bits twice. Times of
+  both at every bf16 row and every f32 row (the training one with its
+  lse), beside SDPA (`timing.sdpa_yardstick`: `is_causal`, no window,
+  the rows' windows covering their prompts; a gradient for the lse row)
+  and the kernels SDPA runs.
 """
 from __future__ import annotations
 
@@ -112,14 +118,19 @@ from repro_torch.kernels.rank_update import ops as rank_ops
 from repro_torch.kernels.rank_update.ops import (
     rank_update, rank_update_unfused,
 )
-from repro_torch.launch.timing import graph_ms, time_ms
+from repro_torch.launch.timing import (
+    device_kernel_names, graph_ms, sdpa_yardstick, time_ms,
+)
 
 M, N, P, S = 16, 512, 1024, 16            # chip_smoke.py phases 4-4c
 INGEST = (8, 1024, 256)                   # benchmarks/stream_bench.py
 LARGE_P = (4, 256, 8192)                  # benchmarks/largep_logistic.py
 TOL_FIT = 1e-4                            # x max|.|, as chip_smoke.py
 TOL_KERNEL = 1e-5                         # x max|plain|, as chip_smoke.py
-TOL_FLASH_ROW = 1e-2                      # bf16, per query row, as phase 3
+# per query row (relative l2), as phase 3: bf16, f32
+TOL_FLASH_ROW = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+TOL_FLASH = 2e-5                          # x max|plain|, f32, as phase 3
+TOL_LSE = 1e-5                            # x max(1, |lse|), f32, as phase 3
 # (B, S, N, K, H), causal, window: chip_smoke.py phase 5's flash rows
 FLASH_ROWS = {
     "granite-3-2b": ((4, 2048, 32, 8, 64), True, 0),
@@ -131,6 +142,14 @@ FLASH_ROWS = {
 }
 FLASH_F32 = (((2, 256, 8, 2, 64), True, 0), ((1, 200, 4, 1, 128), True, 0),
              ((1, 512, 4, 1, 256), True, 64))
+# (B, S, N, K, H), window, lse: chip_smoke.py phase 5's f32 rows, the f32
+# copies' instances (`f32_flash_shapes`), causal
+FLASH_F32_ROWS = {
+    "10b granite-3-2b training": ((4, 2048, 32, 8, 64), 0, True),
+    "6 granite-3-2b": ((2, 2048, 32, 8, 64), 0, False),
+    "9a deepseek-moe-16b": ((2, 2048, 16, 16, 128), 0, False),
+    "13c-rg recurrentgemma-9b rank": ((1, 2048, 8, 1, 256), 2048, False),
+}
 _HALF_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
     [ctypes.c_void_p]
 _SLAB_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + \
@@ -551,42 +570,78 @@ def _compare_flash(earlier: ctypes.CDLL, dev: torch.device,
         den = torch.clamp_min(torch.linalg.vector_norm(ref, dim=-1), 1e-30)
         return torch.max(num / den).item()
 
+    def f32_bars(label, got, ref) -> bool:
+        """An f32 (out, lse) within phase 3's bars of the plain one."""
+        (out, lse), (ref_out, ref_lse) = got, ref
+        err = (torch.max(torch.abs(out - ref_out))
+               / torch.max(torch.abs(ref_out))).item()
+        rows = row_err(out, ref_out)
+        lse_err = (torch.abs(lse - ref_lse)
+                   / torch.clamp_min(torch.abs(ref_lse), 1.0)).max().item()
+        print(f"{label}: max abs err {err:.3g} of max|plain| (bar "
+              f"{TOL_FLASH}), worst row {rows:.3g} (bar "
+              f"{TOL_FLASH_ROW[torch.float32]}), lse {lse_err:.3g} (bar "
+              f"{TOL_LSE})")
+        return (err <= TOL_FLASH and rows <= TOL_FLASH_ROW[torch.float32]
+                and lse_err <= TOL_LSE)
+
     same = []
-    cases = [(name, shape, causal, window, torch.bfloat16)
+    # (name, shape, causal, window, dtype, timed, with the lse)
+    cases = [(name, shape, causal, window, torch.bfloat16, True, False)
              for name, (shape, causal, window) in FLASH_ROWS.items()]
-    cases += [(f"f32 {shape}", shape, causal, window, torch.float32)
-              for shape, causal, window in FLASH_F32]
-    for name, shape, causal, window, dtype in cases:
+    cases += [(f"f32 {shape}", shape, causal, window, torch.float32, False,
+               False) for shape, causal, window in FLASH_F32]
+    cases += [(f"f32 {name}", shape, True, window, torch.float32, True, lse)
+              for name, (shape, window, lse) in FLASH_F32_ROWS.items()]
+    for name, shape, causal, window, dtype, timed, with_lse in cases:
         q, k, v = inputs(*shape, dtype)
         label = f"flash_attention {name} {shape} {str(dtype)[6:]}"
-        new = flash_attention(q, k, v, causal=causal, window=window)
-        with _library("flash_attention", earlier):
-            old = flash_attention(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        if dtype == torch.bfloat16 and shape[4] == 256:
-            ref = flash_attention(q.float(), k.float(), v.float(),
-                                  causal=causal, window=window,
-                                  use_kernel=False)
-            errs = row_err(new, ref), row_err(old, ref)
-            print(f"{label}: worst row relative error current {errs[0]:.4g}, "
-                  f"earlier {errs[1]:.4g} (bar {TOL_FLASH_ROW}); "
-                  + ("the same bits" if torch.equal(new, old)
-                     else "other bits"))
-            same.append(max(errs) <= TOL_FLASH_ROW)
+        kw = dict(causal=causal, window=window)
+        if dtype == torch.float32:
+            # the two designs' f32 products differ (FP32 FMA in the
+            # earlier file, three TF32 products now): each within the
+            # f32 bars of the plain version, the current twice the same
+            new = flash_ops.flash_attention_fwd_lse(q, k, v, **kw)
+            again = flash_ops.flash_attention_fwd_lse(q, k, v, **kw)
+            with _library("flash_attention", earlier):
+                old = flash_ops.flash_attention_fwd_lse(q, k, v, **kw)
+            ref = flash_ops.flash_attention_fwd_lse(q, k, v, **kw,
+                                                    use_kernel=False)
+            torch.cuda.synchronize()
+            twice = all(torch.equal(a, b) for a, b in zip(new, again))
+            print(f"{label}: the current kernel twice: "
+                  + ("the same bits" if twice else "DIFFERENT BITS"))
+            same += [twice, f32_bars(f"{label} current", new, ref),
+                     f32_bars(f"{label} earlier", old, ref)]
         else:
-            same.append(_same(label, new, old))
-        if dtype != torch.bfloat16:
+            new = flash_attention(q, k, v, **kw)
+            with _library("flash_attention", earlier):
+                old = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if shape[4] == 256:
+                ref = flash_attention(q.float(), k.float(), v.float(), **kw,
+                                      use_kernel=False)
+                errs = row_err(new, ref), row_err(old, ref)
+                bar = TOL_FLASH_ROW[dtype]
+                print(f"{label}: worst row relative error current "
+                      f"{errs[0]:.4g}, earlier {errs[1]:.4g} (bar {bar}); "
+                      + ("the same bits" if torch.equal(new, old)
+                         else "other bits"))
+                same.append(max(errs) <= bar)
+            else:
+                same.append(_same(label, new, old))
+        if not timed:
             continue
         out = torch.empty_like(q)
+        lse = (torch.empty((shape[0], shape[2], shape[1]), device=dev)
+               if with_lse else None)
+        lib, note = sdpa_yardstick(q, k, v, causal, grad=with_lse)
         times[label] = {
             **_turns("flash_attention", earlier,
-                     lambda q=q, k=k, v=v, out=out, c=causal, w=window:
-                     flash_ops.launch(q, k, v, out, causal=c, window=w)),
-            **_library_row(
-                lambda q=q, k=k, v=v, c=causal:
-                torch.nn.functional.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=c, enable_gqa=True))}
+                     lambda q=q, k=k, v=v, out=out, lse=lse, kw=kw:
+                     flash_ops.launch(q, k, v, out, lse=lse, **kw)),
+            **_library_row(lib), "library_note": note,
+            "library_kernels": device_kernel_names(lib)}
     return same
 
 
@@ -616,11 +671,14 @@ def main() -> None:
                "flash_attention": _compare_flash}[args.library]
     same = compare(earlier, dev, times)
     for name, row in times.items():
+        library = (f" (SDPA with {row['library_note']}: "
+                   f"{row['library_kernels']})" if "library_note" in row
+                   else "")
         print(f"time {name}: earlier {row['earlier']} ms, current "
               f"{row['current']} ms, library {row['library']} ms; device "
               f"only (graph): earlier {row['earlier_graph']} ms, current "
               f"{row['current_graph']} ms, library {row['library_graph']} "
-              f"ms [{smi}]")
+              f"ms{library} [{smi}]")
     print(json.dumps({"library": args.library, "same_bits": all(same),
                       "times_ms": times, "card": smi}))
     if not all(same):

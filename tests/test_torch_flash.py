@@ -15,7 +15,14 @@ The same inputs, made with numpy from a seed, go to both packages:
   per element (the reference's own test of its kernel in bf16 allows
   atol = rtol = 2e-2);
 * the wrapper's `use_kernel` rules on the CPU, and the kernel's launch
-  plan (`launch_plan`: which design, blocks, shared memory).
+  plan (`launch_plan`: which design, blocks, shared memory);
+* the f32 kernel's arithmetic, emulated in torch (its key tiles, the
+  operands split into hi and lo, each rounded to TF32 by bit masking, and
+  `mma.sync`'s accumulation modelled as truncating): each product as
+  three TF32 products lands within the f32 bars of `chip_smoke.py` (2e-5
+  · max|ref|, 1e-4 a query row, lse 1e-5 · max(1, |lse|)) of a float64
+  reference, and one TF32 product does not; summing each tile's P V
+  apart gives smaller errors than one accumulator over the whole row.
 
 The CUDA kernel itself runs only on the card (`tests/test_torch_gpu.py`).
 """
@@ -196,6 +203,10 @@ def test_launch_plan_covers_the_queries_and_fits_a_block(b, s, n, h, dtype):
         assert pl.rows == 64 * consumers and pl.stages >= 2
         assert pl.threads == 128 * (consumers + 1)
         assert pl.rows * 128 % 1024 == 0 and pl.keys * 128 % 1024 == 0
+    else:
+        # 3xTF32: warps of 16 rows, a ring of at least two K/V stages
+        assert pl.design == "tf32x3" and pl.rows == 16 * (pl.threads // 32)
+        assert pl.stages >= 2 and pl.keys % 8 == 0
 
 
 def test_launch_plan_at_the_serving_shape():
@@ -205,7 +216,7 @@ def test_launch_plan_at_the_serving_shape():
     pl = launch_plan(4, 2048, 32, 64, torch.bfloat16)
     assert pl.design == "wgmma" and pl.items == 1408 and pl.stages == 3
     assert pl.smem_bytes == 24576 + 3 * 2 * 16384 + 64 + 1024
-    assert launch_plan(4, 2048, 32, 64, torch.float32).design == "fma"
+    assert launch_plan(4, 2048, 32, 64, torch.float32).design == "tf32x3"
     assert launch_plan(1, 512, 4, 256, torch.bfloat16).design == "wgmma"
 
 
@@ -226,3 +237,201 @@ def test_launch_plan_at_h256():
     assert pl.smem_bytes <= SMEM_PER_BLOCK
     # a third stage would not fit
     assert pl.smem_bytes + 2 * 4 * kv_panel > SMEM_PER_BLOCK
+
+
+# the f32 copies' instances (chip_smoke.py `f32_flash_shapes`): (B, S, N,
+# H) and the plan's (rows, keys, stages, threads, shared memory bytes): Q,
+# the ring's K and V stages and the split tile's hi and lo of K and V, in
+# rows of H + 4 words
+F32_PLANS = [((4, 2048, 32, 64), (128, 32, 3, 256, (128 + 6 * 32 + 4 * 32)
+                                  * 68 * 4)),
+             ((2, 2048, 32, 64), (128, 32, 3, 256, (128 + 6 * 32 + 4 * 32)
+                                  * 68 * 4)),
+             ((2, 2048, 16, 128), (128, 32, 2, 256, (128 + 4 * 32 + 4 * 32)
+                                   * 132 * 4)),
+             ((1, 2048, 8, 256), (64, 16, 2, 128, (64 + 4 * 16 + 4 * 16)
+                                  * 260 * 4))]
+
+
+@pytest.mark.parametrize("shape, want", F32_PLANS)
+def test_launch_plan_f32_at_the_copies_shapes(shape, want):
+    """The 3xTF32 design at 10b's, phase 6's, 9a's and a 13c-rg rank's
+    shapes: 8 warps (128 rows) at H = 64 and 128, 4 at 256; 32 keys a
+    tile (16 at 256) in a ring of 3 stages at H = 64, 2 above; Q, the ring
+    and the split tile in rows padded to H + 4 words, within one block's
+    227 KB; one block for each tile of rows of each (batch, head)."""
+    b, s, n, h = shape
+    pl = launch_plan(b, s, n, h, torch.float32)
+    assert pl.design == "tf32x3"
+    assert (pl.rows, pl.keys, pl.stages, pl.threads, pl.smem_bytes) == want
+    assert pl.smem_bytes <= SMEM_PER_BLOCK
+    assert pl.items == b * n * -(-s // pl.rows)
+    assert (pl.items // (b * n)) * pl.rows >= s
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero, as `cvt.rna.tf32.f32`) by bit masking."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _trunc(x: torch.Tensor, top: torch.Tensor) -> torch.Tensor:
+    """x (float64) cut toward zero to the last of the 24 bits that an f32
+    of `top`'s magnitude holds."""
+    grid = torch.ldexp(torch.ones_like(x), torch.frexp(top).exponent - 24)
+    return torch.trunc(x / grid) * grid
+
+
+def _mma(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """c + a @ b as one `mma.sync` m16n8k8 on TF32 operands a (..., R, 8)
+    and b (..., 8, C) into f32 c (..., R, C), in a model of the tensor
+    cores' accumulation: the eight products exact, the nine addends aligned
+    to the largest and cut toward zero to its 24 bits, and their sum cut
+    toward zero to f32. The card's exact rule is not published; this
+    model truncates at least as little as the hardware."""
+    terms = torch.cat([c.double()[None],
+                       a.double().movedim(-1, 0)[..., None]
+                       * b.double().movedim(-2, 0)[..., None, :]])
+    total = _trunc(terms, terms.abs().amax(0)).sum(0)
+    return _trunc(total, total).float()
+
+
+def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo): x rounded to TF32, and the rest rounded to TF32."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _flash_tf32(q, k, v, causal, window, products, per_tile=True):
+    """The f32 kernel's arithmetic (`flash_fwd_tf32x3`) in torch: (out
+    (B, S, N, H), lse (B, N, S)). Keys in tiles of 32 (16 at H = 256)
+    under the online softmax; Q K^T and P V a k-step of 8 at a time
+    through `_mma`, as three TF32 products (lo.hi, hi.lo, then hi.hi) or
+    as one (hi.hi). `per_tile`: each tile's P V summed in accumulators of
+    its own, the small terms apart from hi.hi, and added to the rescaled
+    O rounded to nearest, as the kernel does; else every product
+    accumulated into O itself."""
+    s_len, n, h = q.shape[1:]
+    t_len, kv = k.shape[1:3]
+    qt = q.permute(0, 2, 1, 3)
+    kt, vt = (x.permute(0, 2, 1, 3).repeat_interleave(n // kv, 1)
+              for x in (k, v))
+    keys = 16 if h == 256 else 32
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(h)))
+    row = torch.arange(s_len)[:, None]
+
+    def small_terms(acc, a, b):
+        (ah, al), (bh, bl) = a, b
+        return _mma(_mma(acc, al, bh), ah, bl) if products == 3 else acc
+
+    def mma_3x(acc, a, b):
+        return _mma(small_terms(acc, a, b), a[0], b[0])
+
+    qs = _split(qt)
+    out = torch.zeros_like(qt)
+    m = torch.full((*qt.shape[:-1], 1), -torch.inf)
+    l_sum = torch.zeros_like(m)
+    for k0 in range(0, t_len, keys):
+        ks, vs = (_split(x[..., k0:k0 + keys, :]) for x in (kt, vt))
+        sc = torch.zeros((*qt.shape[:-1], ks[0].shape[-2]))
+        for e in range(0, h, 8):
+            sc = mma_3x(sc, [x[..., e:e + 8] for x in qs],
+                        [x[..., e:e + 8].mT for x in ks])
+        key = torch.arange(k0, k0 + sc.shape[-1])[None, :]
+        vis = (key <= row) if causal else torch.ones_like(key > row)
+        if window:
+            vis &= key > row - window
+        sc = (sc * scale).masked_fill(~vis, -torch.inf)
+        mx = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.where(mx > -torch.inf, torch.exp(m - mx), 1.0)
+        p = torch.where(vis, torch.exp(sc - mx), 0.0)
+        m, l_sum = mx, l_sum * alpha + p.sum(-1, keepdim=True)
+        ps = _split(p)
+        if per_tile:
+            big, small = torch.zeros_like(out), torch.zeros_like(out)
+        else:
+            out = out * alpha
+        for j in range(0, p.shape[-1], 8):
+            a, b = [x[..., j:j + 8] for x in ps], [x[..., j:j + 8, :]
+                                                   for x in vs]
+            if per_tile:
+                small = small_terms(small, a, b)
+                big = _mma(big, a[0], b[0])
+            else:
+                out = mma_3x(out, a, b)
+        if per_tile:
+            out = (out.double() * alpha.double()
+                   + (big + small).double()).float()
+    out = out / l_sum.clamp_min(1e-30)
+    return out.permute(0, 2, 1, 3), (m + torch.log(l_sum))[..., 0]
+
+
+def _attention_f64(q, k, v, causal, window):
+    """(out (B, S, N, H), lse (B, N, S)) in float64, whole rows at once."""
+    q, k, v = (torch.from_numpy(x).double() for x in (q, k, v))
+    s_len, n, h = q.shape[1:]
+    t_len, kv = k.shape[1:3]
+    qt = q.permute(0, 2, 1, 3)
+    kt, vt = (x.permute(0, 2, 1, 3).repeat_interleave(n // kv, 1)
+              for x in (k, v))
+    s = qt @ kt.mT / np.sqrt(h)
+    row, key = torch.arange(s_len)[:, None], torch.arange(t_len)[None, :]
+    vis = (key <= row) if causal else torch.ones(s_len, t_len, dtype=bool)
+    if window:
+        vis &= key > row - window
+    s = s.masked_fill(~vis, -torch.inf)
+    lse = torch.logsumexp(s, -1)
+    return (torch.exp(s - lse[..., None]) @ vt).permute(0, 2, 1, 3), lse
+
+
+def _errors(got, ref):
+    """(max|d| / max|ref|, worst row's ||d|| / ||ref||, worst lse error /
+    max(1, |lse|)): the measures of chip_smoke.py's f32 bars."""
+    (out, lse), (ref_out, ref_lse) = got, ref
+    diff = out.double() - ref_out
+    return ((diff.abs().max() / ref_out.abs().max()).item(),
+            (diff.norm(dim=-1) / ref_out.norm(dim=-1)).max().item(),
+            ((lse.double() - ref_lse).abs()
+             / ref_lse.abs().clamp_min(1.0)).max().item())
+
+
+F32_BARS = (2e-5, 1e-4, 1e-5)     # chip_smoke.py TOL_FLASH, rows, lse
+
+
+@pytest.mark.parametrize("b, s, n, k, h, causal, window",
+                         [(1, 128, 4, 2, 64, True, 0),
+                          (1, 96, 2, 1, 128, True, 0),
+                          (1, 64, 2, 1, 256, True, 32),
+                          (1, 64, 4, 4, 64, False, 0)])
+def test_three_tf32_products_hold_the_f32_bars(b, s, n, k, h, causal,
+                                               window):
+    """The f32 kernel's arithmetic emulated (`_flash_tf32`: its tiles, its
+    split and its summation, with truncating accumulation): with three
+    TF32 products both of attention's products stay within the f32 bars
+    of a float64 reference (about 1e-6 here), and with one TF32 product
+    every bar is broken (about 5e-4)."""
+    q, kk, v = _qkv(7, b, s, n, k, h)
+    ref = _attention_f64(q, kk, v, causal, window)
+    q32, k32, v32 = (torch.from_numpy(x) for x in (q, kk, v))
+    three, one = (_errors(_flash_tf32(q32, k32, v32, causal, window, p),
+                          ref) for p in (3, 1))
+    assert all(e <= bar for e, bar in zip(three, F32_BARS)), three
+    assert all(e > bar for e, bar in zip(one, F32_BARS)), one
+
+
+def test_summing_each_tile_apart_cuts_the_row_error():
+    """Over a row of 1024 keys, the kernel's summation (each tile's P V
+    in accumulators of its own, added to O rounded to nearest) keeps both
+    the largest and the worst row error below those of one accumulator
+    over the whole row, which carries every k-step's truncation into O,
+    and within the f32 bars. In `_mma`'s model the gap is small (row
+    2.7e-6 against 3.0e-6, largest 4.4e-7 against 5.8e-7); on the card
+    the whole-row version's row errors were several times larger, so the
+    hardware truncates more than the model does."""
+    q, kk, v = _qkv(7, 1, 1024, 1, 1, 64)
+    ref = _attention_f64(q, kk, v, True, 0)
+    q32, k32, v32 = (torch.from_numpy(x) for x in (q, kk, v))
+    tile, whole = (_errors(_flash_tf32(q32, k32, v32, True, 0, 3, apart),
+                           ref) for apart in (True, False))
+    assert all(e <= bar for e, bar in zip(tile, F32_BARS)), tile
+    assert tile[0] < whole[0] and tile[1] < whole[1], (tile, whole)

@@ -16,7 +16,9 @@ it), and in f32 also within 2e-5 * max|plain|. Among the flash shapes,
 bf16 kernel at H = 64, and a window of 40 that cuts its tiles; at
 H = 256 (64-key tiles) recurrentgemma-9b's prefill (4, 2048, 16, 1) with
 its window of 2048, a ragged non-causal S = 300 against T = 333, and a
-window of 96 that cuts the tiles at a ragged S = 700.
+window of 96 that cuts the tiles at a ragged S = 700; and the f32 copies'
+instances (2, 2048, 32, 8, 64), (2, 2048, 16, 16, 128) and (1, 2048, 8, 1,
+256) with window 2048, which in f32 run the 3xTF32 body.
 
 The training forward's row log-sum-exp (`flash_attention_fwd_lse`) is
 held elementwise to the plain version's on the f32 upcast: within
@@ -530,7 +532,11 @@ def test_grid_solve_kernels_match_plain_path(cuda):
     (1, 64, 200, 4, 2, 64, True, 0), (1, 200, 333, 4, 1, 128, False, 16),
     (4, 2048, 2048, 32, 8, 64, True, 0), (1, 300, 300, 4, 2, 64, True, 40),
     (4, 2048, 2048, 16, 1, 256, True, 2048), (1, 300, 333, 4, 1, 256, False, 0),
-    (1, 700, 700, 4, 2, 256, True, 96)])
+    (1, 700, 700, 4, 2, 256, True, 96),
+    # the f32 copies' instances (chip_smoke.py f32_flash_shapes): phase 6's
+    # granite-3-2b, 9a's deepseek-moe-16b, a 13c-rg rank's recurrentgemma-9b
+    (2, 2048, 2048, 32, 8, 64, True, 0), (2, 2048, 2048, 16, 16, 128, True, 0),
+    (1, 2048, 2048, 8, 1, 256, True, 2048)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, t, n, k, h,
                                               causal, window):
     g = torch.Generator(device=cuda).manual_seed(6)
@@ -597,7 +603,10 @@ def test_flash_attention_launches_once_per_layer_of_prefill(cuda):
     (1, 300, 333, 4, 1, 256, False, 0), (1, 300, 100, 4, 2, 64, False, 50),
     # recurrentgemma-9b's local attention on a rank of a model axis of 2
     # (chip_smoke phase 12c): 8 q heads, its one kv head, window 2048
-    (2, 2048, 2048, 8, 1, 256, True, 2048)])
+    (2, 2048, 2048, 8, 1, 256, True, 2048),
+    # the f32 copies' other instances (chip_smoke.py f32_flash_shapes)
+    (2, 2048, 2048, 32, 8, 64, True, 0), (2, 2048, 2048, 16, 16, 128, True, 0),
+    (1, 2048, 2048, 8, 1, 256, True, 2048)])
 def test_flash_attention_lse_matches_plain(cuda, dtype, b, s, t, n, k, h,
                                            causal, window):
     """The kernel's lse (B, N, S) against the plain version's, twice for
