@@ -74,7 +74,11 @@ Phases, each of which raises on failure (exit code != 0):
    (launch counts zeroed just before, read just after), then with
    `use_kernel=False` on the card as the reference: beta_u within
    1e-4 * max|beta_u| after 1000 chained FISTA iterations, identical
-   support;
+   support; 4a. one more fit under `obs.torchprof.span_trace`: at least
+   99 % of its device time matched to its launch by correlation id, the
+   `dsml.fit` span's within 1 % of the busy time, device and idle ms by
+   span printed, one `engine.solve.*` record for each of the two solves
+   and one `dispatch.route` record each of its three plans (kernel);
 4b. the logistic path (paper Section 4) at the same widths:
    `dsml_logistic_fit` on `gen_classification` data, 600 lasso and 600
    debias iterations, launch counts zeroed just before and read just after,
@@ -156,7 +160,11 @@ Phases, each of which raises on failure (exit code != 0):
        model; the same chunks with `use_kernel=False` on the card: the
        same generations, cadence and supports, beta_tilde within
        1e-4 * max|.|; `restore()` into a fresh service: the last
-       checkpoint's generation and bits;
+       checkpoint's generation and bits; the refits' `engine.solve.*`
+       records against the iterations each refit returned, one
+       `stream.ingest{waited=True}` span a chunk, an unguarded service's
+       spans (`waited=False`, the issue alone), and a warm refit's device
+       and idle ms by span;
    7c. `benchmarks/stream_bench.py`'s full configuration, (8, 1024, 256),
        8 chunks, refit_every 1024: `rank_update` once a chunk (row 4i's
        launches), ingest times;
@@ -174,7 +182,8 @@ Phases, each of which raises on failure (exit code != 0):
    just after:
    8a. one NCCL rank: `dsml_fit_sharded` on phase 4's data, phase 4's
        bits, one all-gather of 16 x 1024 x 4 bytes, launches 1 / 400 /
-       600;
+       600, the host ms of its `dsml.fit_sharded` and `dsml.allgather`
+       spans;
    8b. four gloo ranks on the one card, 4 tasks each: beta_tilde within
        1e-5 * max|.| of phase 4's, its support, one collective a rank,
        launches 1 / 400 / 600 a rank; whether the bits are phase 4's is
@@ -656,6 +665,40 @@ def pct(values, q: float) -> float:
     return float(np.quantile(np.asarray(values, dtype=np.float64), q))
 
 
+def charge_lines(label: str, ch, calls: int = 1) -> list[str]:
+    """A `torchprof.SpanCharge`'s device ms and idle ms a call by span."""
+    per = 1e3 / calls
+    by = sorted(ch.spans.items(), key=lambda kv: -kv[1][1])
+    idle = sorted(ch.idle.items(), key=lambda kv: -kv[1])
+    return [f"{label}: device ms by span (self / inclusive), "
+            f"{ch.launched_s / max(ch.device_s, 1e-30) * 100:.2f} % of "
+            "device time matched to its launch: " + "; ".join(
+                f"{n} {a * per:.4f} / {b * per:.4f}" for n, (a, b) in by),
+            f"{label}: idle ms by kind and span (busy "
+            f"{ch.busy_s * per:.3f} of {ch.window_s * per:.3f}): "
+            + "; ".join(f"{k} {n} {s * per:.4f}" for (k, n), s in idle)]
+
+
+def solve_records(obs) -> dict:
+    """The `engine.solve.*` records by kind: (calls, iterations used,
+    their ceiling, early exits)."""
+    kinds = {c["labels"]["kind"] for c in obs.get_registry().snapshot()[
+        "counters"] if c["name"] == "engine.solve.calls"}
+    return {k: (obs.counter_total("engine.solve.calls", kind=k),
+                obs.hist_stats("engine.solve.iters_used", kind=k)["sum"],
+                obs.hist_stats("engine.solve.iters_ceiling", kind=k)["sum"],
+                obs.counter_total("engine.solve.early_exit", kind=k))
+            for k in kinds}
+
+
+def route_records(obs) -> dict:
+    """The `dispatch.route` records: (kernel, outcome, blocks) -> count."""
+    return {(c["labels"]["kernel"], c["labels"]["outcome"],
+             c["labels"]["blocks"]): c["value"]
+            for c in obs.get_registry().snapshot()["counters"]
+            if c["name"] == "dispatch.route"}
+
+
 def tf32_hmma(lib: Path) -> dict[str, int]:
     """{H: TF32 HMMA instructions in `flash_fwd_tf32x3<H>`'s SASS} of the
     built flash library, by `cuobjdump -sass` from the CUDA toolkit."""
@@ -863,16 +906,16 @@ def stream_phase(dev, card, data, res, cdata, cres, cfit_args, lam, mu,
     kw = dict(lam=lam, mu=mu, Lam=Lam, refit_every=1024, device=dev,
               chunk_n=256)
     svc = StreamingDsmlService(M, P, guard=True, ckpt_dir=ckpt_dir, **kw)
-    # each generation's publication, bracketed by the host clock
+    # each generation's publication and each request, bracketed by the
+    # Unix clock, the clock of the obs spans they are laid beside
     published = {0: (float("-inf"), float("-inf"),
                      svc.serving().beta_tilde)}
     publish = svc.publish_model
 
     def timed_publish():
-        t0 = time.perf_counter()
+        t0 = time.time()
         snap = publish()
-        published[snap.generation] = (t0, time.perf_counter(),
-                                      snap.beta_tilde)
+        published[snap.generation] = (t0, time.time(), snap.beta_tilde)
         return snap
 
     svc.publish_model = timed_publish
@@ -883,10 +926,10 @@ def stream_phase(dev, card, data, res, cdata, cres, cfit_args, lam, mu,
         i = 0
         while not stop.is_set():
             row = client_rows[i % len(client_rows)]
-            t0 = time.perf_counter()
+            t0 = time.time()
             fut = front.submit(row)
             fut.add_done_callback(lambda f, t0=t0, row=row: done.append(
-                (t0, time.perf_counter(), row, f.result())))
+                (t0, time.time(), row, f.result())))
             futures.append(fut)
             i += 1
             time.sleep(0.0005)
@@ -936,6 +979,24 @@ def stream_phase(dev, card, data, res, cdata, cres, cfit_args, lam, mu,
           "7b: the front or its client did not stop")
     launches_b = dict(LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # the refits' solve records against what each refit returned, and
+    # the fold's span by whether it waited on the guard's health read
+    refits = [t[2] for t in trail
+              if t[2] is not None and t[2].lasso_iters_run is not None]
+    solves = solve_records(obs)
+    ran = len(refits) + svc.rollbacks        # a rollback returns no count
+    check(solves["lasso_eq2"][0] == solves["debias"][0] == ran
+          and (svc.rollbacks or (
+              solves["lasso_eq2"][1] == sum(r.lasso_iters_run
+                                            for r in refits)
+              and solves["debias"][1] == sum(r.debias_iters_run
+                                             for r in refits))),
+          f"7b: solve records {solves} against the refits' iterations")
+    waited = {w: obs.hist_stats("stream.ingest.ms", waited=w)
+              for w in (True, False)}
+    check(waited[True] is not None
+          and waited[True]["count"] == len(chunks) and waited[False] is None,
+          f"7b: the guarded service's ingest spans {waited}")
     check(launches_b["rank_update"] == len(chunks),
           f"7b: {launches_b['rank_update']} rank_update launches for "
           f"{len(chunks)} chunks")
@@ -956,7 +1017,7 @@ def stream_phase(dev, card, data, res, cdata, cres, cfit_args, lam, mu,
               f"7b: a result differs from generation {g}'s model")
     # a request "during a refit" overlaps a `stream.refit` span (the
     # solves and the health check; not the checkpoint after them)
-    refit_spans = [(e["ts"] / 1e6, (e["ts"] + e["dur"]) / 1e6)
+    refit_spans = [(e["ts_ns"] / 1e9, (e["ts_ns"] + e["dur_ns"]) / 1e9)
                    for e in obs.get_registry().trace_events()
                    if e["name"] == "stream.refit"]
     refit_ms = [(b - a) * 1e3 for a, b in refit_spans]
@@ -1005,6 +1066,28 @@ def stream_phase(dev, card, data, res, cdata, cres, cfit_args, lam, mu,
         device_report(f"stream 7b profile, {label} (front stopped)", prof,
                       wall_s, 1)
     shutil.rmtree(prof_dir)
+    # the same chunks into an unguarded service: its spans time the issue
+    loose = StreamingDsmlService(M, P, lam=lam, mu=mu, Lam=Lam,
+                                 refit_every=10**9, device=dev, guard=False)
+    for X, y in chunks[6:12]:
+        loose.ingest(X, y)
+    torch.cuda.synchronize()
+    issued = obs.hist_stats("stream.ingest.ms", waited=False)
+    check(issued is not None and issued["count"] == 6,
+          f"7b: the unguarded ingests' spans {issued}")
+    del loose
+    torch.cuda.synchronize()
+    with torchprof.span_trace() as box:
+        warm_refit()
+        torch.cuda.synchronize()
+    for line in charge_lines("stream 7b a warm refit and its health "
+                             "check, traced", box["charge"]):
+        print(f"{line} {card}")
+    print(f"stream 7b ingest spans, the front stopped: unguarded "
+          f"(waited=False, the issue alone) mean {issued['mean']:.3f} ms "
+          f"over {issued['count']} chunks; guarded (waited=True) "
+          f"{pct(quiet_ms, 0.5):.3f} ms p50 to a synchronize "
+          f"{card}")
     t0 = time.perf_counter()
     ckpt_path = svc.checkpoint()
     ckpt_ms = (time.perf_counter() - t0) * 1e3
@@ -1035,6 +1118,11 @@ def stream_phase(dev, card, data, res, cdata, cres, cfit_args, lam, mu,
           f"(max {max(refit_ms[1:]):.1f}; stream.refit spans); checkpoint "
           f"save {ckpt_ms:.1f} ms ({ckpt_mib:.1f} MiB); peak memory "
           f"{peak_gib:.2f} GiB {card}")
+    print(f"stream 7b records: refits' solves {solves} (calls, "
+          f"iterations used, their ceiling, early exits); "
+          f"stream.ingest.ms{{waited=True}} mean "
+          f"{waited[True]['mean']:.3f} ms over {waited[True]['count']} "
+          f"chunks (the fused guard's read waits on the fold) {card}")
     print(f"stream 7b times, the front stopped: ingest p50 "
           f"{pct(quiet_ms, 0.5):.3f} ms a chunk ({len(quiet_ms)} chunks, "
           f"{M * 256 / pct(quiet_ms, 0.5) * 1e3:.0f} rows/s); a warm refit "
@@ -1228,6 +1316,8 @@ if "fit" in spec["phases"]:
                      debias_iters=2)
     res, out["fit"] = counted(lambda: dsml_fit_sharded(X, y, lam, mu, Lam,
                                                        mesh))
+    out["fit"]["span_ms"] = {n: obs.hist_stats(f"{n}.ms")["sum"]
+                             for n in ("dsml.fit_sharded", "dsml.allgather")}
     out["fit"]["gather_ms"] = gather_ms(res.beta_u, mesh)
     save("fit", {k: v.cpu() for k, v in res._asdict().items()})
 
@@ -1406,6 +1496,9 @@ def distributed_phase(dev, card, data, res, carried, lam, mu, Lam) -> dict:
               f"bytes); fit wall {min(walls):.1f}-{max(walls):.1f} ms; "
               f"all-gather alone "
               f"{[round(ln['fit']['gather_ms'], 4) for ln in lines]} ms; "
+              f"host spans (dsml.fit_sharded, dsml.allgather) "
+              f"{[[round(v, 3) for v in ln['fit']['span_ms'].values()]
+                  for ln in lines]} ms; "
               f"peak {[round(ln['fit']['peak_mib']) for ln in lines]} MiB "
               f"{card}")
 
@@ -4006,8 +4099,10 @@ def main() -> None:
     from repro_torch.core.engine import (
         power_iteration_batched, scaled_identity_m0,
     )
+    from repro_torch import obs
     from repro_torch.kernels import _build
     from repro_torch.configs import get_config
+    from repro_torch.obs import torchprof
     from repro_torch.launch.timing import (
         device_kernel_names, graph_ms, kernel_launches, sdpa_yardstick,
         time_ms, time_ms_cold,
@@ -4572,6 +4667,31 @@ def main() -> None:
     print(f"dsml_fit wall: kernels {fit_kernel_s * 1e3:.1f} ms, plain "
           f"{fit_plain_s * 1e3:.1f} ms, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB {card}")
+    # 4a. one fit traced: its device work and the card's idle charged to
+    # the engine's spans, and its solve and plan records
+    obs.reset()
+    torch.cuda.synchronize()
+    with torchprof.span_trace() as box:
+        dsml_fit(*fit_args)
+        torch.cuda.synchronize()
+    ch = box["charge"]
+    check(ch.launched_s >= 0.99 * ch.device_s,
+          f"4a: {ch.launched_s} of {ch.device_s} s matched to a launch")
+    fit_s = ch.spans.get("dsml.fit", (0.0, 0.0))[1]
+    check(abs(fit_s - ch.busy_s) <= 0.01 * ch.busy_s,
+          f"4a: dsml.fit holds {fit_s} s of the {ch.busy_s} s busy")
+    solves, routes = solve_records(obs), route_records(obs)
+    check(solves == {"lasso_eq2": (1, 400, 400, 0),
+                     "debias": (1, 600, 600, 0)}, f"4a: solves {solves}")
+    by_kernel: dict = {}
+    for (kernel, outcome, _), n in routes.items():
+        by_kernel[kernel, outcome] = by_kernel.get((kernel, outcome), 0) + n
+    check(by_kernel == {("fista_step_batched", "kernel"): 2,
+                        ("rank_update", "kernel"): 1}, f"4a: routes {routes}")
+    for line in charge_lines("dsml_fit traced", ch):
+        print(f"{line} {card}")
+    print(f"dsml_fit records: solves {solves} (calls, iterations, ceiling, "
+          f"early exits); plans {routes}")
 
     print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
           "phase 4b")

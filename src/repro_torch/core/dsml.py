@@ -15,6 +15,11 @@ Both run steps 1-2 through the batched sufficient-statistics engine
 (core/engine.py): the m local lassos are ONE batched solve, and the m
 debias M-matrix estimations are ONE batched multi-RHS solve, each
 iteration one launch of the fused FISTA kernel on CUDA tensors.
+
+Spans (`repro_torch.obs`): `dsml.fit` (or `dsml.fit_sharded`, a rank's
+worker) holds a whole fit and the engine's phase spans under it;
+`dsml.allgather` the one round; `dsml.master` the master step (the
+group threshold and the workers' filter or refit).
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.engine import (
     debias_batched,
     inverse_hessian_batched,
@@ -82,17 +88,22 @@ def dsml_fit(
     the device the fit runs on. `use_kernel` as in `kernels/common.py`:
     the CUDA kernels for CUDA tensors by default, `False` for the plain
     PyTorch path on any device."""
-    Sigmas, cs = sufficient_stats(Xs, ys, use_kernel=use_kernel)
-    beta_hat, beta_u = _local_work_stats(Sigmas, cs, lam, mu, lasso_iters,
-                                         debias_iters, use_kernel=use_kernel)
-    support = support_from_rows(beta_u.T, Lam)            # master: eq. (5)
-    if refit:
-        # one LU solve per task, as the reference maps it: a batched LU
-        # solve hangs in MKL-backed CPU builds of PyTorch (threaded getrf)
-        beta_tilde = torch.stack([refit_ols_masked_stats(S, c, support)
-                                  for S, c in zip(Sigmas, cs)])
-    else:
-        beta_tilde = beta_u * support[None, :]            # workers: eq. (6)
+    with obs.span("dsml.fit"):
+        Sigmas, cs = sufficient_stats(Xs, ys, use_kernel=use_kernel)
+        beta_hat, beta_u = _local_work_stats(Sigmas, cs, lam, mu,
+                                             lasso_iters, debias_iters,
+                                             use_kernel=use_kernel)
+        with obs.span("dsml.master"):
+            support = support_from_rows(beta_u.T, Lam)    # master: eq. (5)
+            if refit:
+                # one LU solve per task, as the reference maps it: a
+                # batched LU solve hangs in MKL-backed CPU builds of
+                # PyTorch (threaded getrf)
+                beta_tilde = torch.stack([
+                    refit_ols_masked_stats(S, c, support)
+                    for S, c in zip(Sigmas, cs)])
+            else:
+                beta_tilde = beta_u * support[None, :]    # workers: eq. (6)
     return DsmlResult(beta_tilde, beta_u, support, beta_hat)
 
 
@@ -107,15 +118,19 @@ def dsml_sharded_fn(lam, mu, Lam, mesh, axis: str = "task",
 
     def worker(X_blk, y_blk) -> ShardedDsmlResult:
         # X_blk: (m_local, n, p) — the tasks this rank owns
-        Sigmas, cs = sufficient_stats(X_blk, y_blk, use_kernel=use_kernel)
-        beta_hat, beta_u = _local_work_stats(Sigmas, cs, lam, mu,
-                                             lasso_iters, debias_iters,
-                                             use_kernel=use_kernel)
-        # ---- the ONE communication round of Algorithm 1 ----
-        B_all = all_gather_tasks(beta_u, mesh, axis)        # (m, p) everywhere
-        # ---- master step, replicated (== master + broadcast) ----
-        support = support_from_rows(B_all.T, Lam)
-        beta_tilde = beta_u * support[None, :]
+        with obs.span("dsml.fit_sharded"):
+            Sigmas, cs = sufficient_stats(X_blk, y_blk,
+                                          use_kernel=use_kernel)
+            beta_hat, beta_u = _local_work_stats(Sigmas, cs, lam, mu,
+                                                 lasso_iters, debias_iters,
+                                                 use_kernel=use_kernel)
+            # ---- the ONE communication round of Algorithm 1 ----
+            with obs.span("dsml.allgather"):
+                B_all = all_gather_tasks(beta_u, mesh, axis)  # (m, p)
+            # ---- master step, replicated (== master + broadcast) ----
+            with obs.span("dsml.master"):
+                support = support_from_rows(B_all.T, Lam)
+                beta_tilde = beta_u * support[None, :]
         return ShardedDsmlResult(beta_tilde, beta_u, support, beta_hat,
                                  B_all)
 

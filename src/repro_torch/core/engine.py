@@ -27,6 +27,21 @@ card for the shape (`kernels/autotune.py`), resolved once per solve;
 the plain path never consults the cache. `solve_lasso_eq2`,
 `solve_lasso_eq2_grid` and `inverse_hessian_batched` resolve None the
 same way.
+
+Telemetry (`repro_torch.obs`), one record a phase and none a step:
+spans `engine.stats` (`sufficient_stats`), `engine.power_iteration`,
+`engine.lasso` (one a lasso solve or grid, `lams=k` on a grid, where
+it holds the tiling copy and, but for the eq.-2 grid, the step-size
+power iteration), `engine.debias_solve`
+(`inverse_hessian_batched`, its identity and warm start included) and
+`engine.debias`; counters `engine.solve.calls`/`.early_exit` and
+histograms `engine.solve.iters_used`/`.iters_ceiling` by the reference
+package's `kind`, recorded where it records them; and
+`dispatch.route{kernel, outcome, reason, blocks}` once a solve, where a
+`resolve_*_block_policy` settles its plan. Nothing is recorded inside a
+FISTA or power-iteration loop or a kernel wrapper, and nothing reads
+the device: a span around issued work times the issue, and a device
+trace charges the kernels to the span that launched them.
 """
 from __future__ import annotations
 
@@ -35,6 +50,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.prox import soft_threshold
 from repro_torch.core.solvers import (
     fista_momentum, lasso_stats_step_scale, power_iteration,
@@ -49,7 +65,48 @@ from repro_torch.kernels.rank_update.ops import rank_update
 def power_iteration_batched(Sigmas: torch.Tensor,
                             iters: int = 64) -> torch.Tensor:
     """Largest eigenvalue per task of a (m, p, p) PSD stack."""
-    return power_iteration(Sigmas, iters=iters)
+    with obs.span("engine.power_iteration"):
+        return power_iteration(Sigmas, iters=iters)
+
+
+def _eq2_step(Sigmas: torch.Tensor) -> torch.Tensor:
+    """The eq.-2 step sizes (`solvers.lasso_stats_step_scale`), its power
+    iteration under the `engine.power_iteration` span."""
+    with obs.span("engine.power_iteration"):
+        return lasso_stats_step_scale(Sigmas)
+
+
+def _record_solve(kind: str, n_iters: int, ceiling: int) -> None:
+    """A solve's iterations used against its `iters` ceiling, and whether
+    it exited early, under the reference package's names and kinds.
+    `n_iters` is a host integer: recording it reads nothing back."""
+    if not obs.enabled():
+        return
+    obs.inc("engine.solve.calls", kind=kind)
+    obs.observe("engine.solve.iters_used", n_iters, kind=kind)
+    obs.observe("engine.solve.iters_ceiling", ceiling, kind=kind)
+    if n_iters < ceiling:
+        obs.inc("engine.solve.early_exit", kind=kind)
+
+
+def _record_route(kernel: str, block, use_kernel: bool | None,
+                  device: torch.device) -> None:
+    """The plan a solve settled on: `outcome` kernel or plain, `reason`
+    why the plain path ran (`backend`: tensors off the card;
+    `use_kernel`: asked for), `blocks` the plan ("none": the rule's on
+    the kernel path, nothing on the plain one)."""
+    if not obs.enabled():
+        return
+    if _on_kernel(use_kernel, device):
+        outcome, reason = "kernel", "kernel"
+    else:
+        outcome = "plain"
+        reason = "use_kernel" if use_kernel is False else "backend"
+    blocks = "none" if block is None else "x".join(
+        str(b) for b in (block if isinstance(block, (tuple, list))
+                         else (block,)))
+    obs.inc("dispatch.route", kernel=kernel, outcome=outcome, reason=reason,
+            blocks=blocks)
 
 
 def _on_kernel(use_kernel: bool | None, device: torch.device) -> bool:
@@ -67,10 +124,10 @@ def resolve_block_policy(m: int, p: int, r: int, dtype, block,
     None (the rule's plan) on the plain path."""
     if block is not None:
         check_block("resolve_block_policy", r, block)
-        return block
-    if not _on_kernel(use_kernel, device):
-        return None
-    return autotune.autotune_block(m, p, r, dtype=dtype, device=device)
+    elif _on_kernel(use_kernel, device):
+        block = autotune.autotune_block(m, p, r, dtype=dtype, device=device)
+    _record_route("fista_step_batched", block, use_kernel, device)
+    return block
 
 
 def resolve_logistic_block_policy(m: int, n: int, p: int, dtype, block,
@@ -80,11 +137,11 @@ def resolve_logistic_block_policy(m: int, n: int, p: int, dtype, block,
     as `resolve_block_policy` resolves the FISTA step's."""
     if block is not None:
         check_cluster("resolve_logistic_block_policy", p, block)
-        return block
-    if not _on_kernel(use_kernel, device):
-        return None
-    return autotune.autotune_logistic_block(m, n, p, dtype=dtype,
-                                            device=device)
+    elif _on_kernel(use_kernel, device):
+        block = autotune.autotune_logistic_block(m, n, p, dtype=dtype,
+                                                 device=device)
+    _record_route("logistic_grad", block, use_kernel, device)
+    return block
 
 
 def resolve_rank_block_policy(m: int, n: int, p: int, dtype, block,
@@ -93,10 +150,11 @@ def resolve_rank_block_policy(m: int, n: int, p: int, dtype, block,
     `resolve_block_policy` resolves the FISTA step's."""
     if block is not None:
         rank_ops.check_block("resolve_rank_block_policy", block)
-        return block
-    if not _on_kernel(use_kernel, device):
-        return None
-    return autotune.autotune_rank_block(m, n, p, dtype=dtype, device=device)
+    elif _on_kernel(use_kernel, device):
+        block = autotune.autotune_rank_block(m, n, p, dtype=dtype,
+                                             device=device)
+    _record_route("rank_update", block, use_kernel, device)
+    return block
 
 
 def sufficient_stats(Xs: torch.Tensor, ys: torch.Tensor,
@@ -110,10 +168,12 @@ def sufficient_stats(Xs: torch.Tensor, ys: torch.Tensor,
     the fused rank-n kernel (`kernels/rank_update`) on CUDA tensors, with
     `block` (an entry of RANK_TILES) or the autotuned tile.
     """
-    if Xs.ndim == 3:         # else rank_update raises on the shape
-        block = resolve_rank_block_policy(*Xs.shape, Xs.dtype, block,
-                                          use_kernel, Xs.device)
-    return rank_update(Xs, ys, weights, use_kernel=use_kernel, block=block)
+    with obs.span("engine.stats"):
+        if Xs.ndim == 3:     # else rank_update raises on the shape
+            block = resolve_rank_block_policy(*Xs.shape, Xs.dtype, block,
+                                              use_kernel, Xs.device)
+        return rank_update(Xs, ys, weights, use_kernel=use_kernel,
+                           block=block)
 
 
 def _fista_loop(body, init, iters: int, tol, check_every: int, residual):
@@ -143,37 +203,15 @@ def _fista_loop(body, init, iters: int, tol, check_every: int, residual):
     return carry[0], it
 
 
-def solve_lasso_batched(Sigmas: torch.Tensor, cs: torch.Tensor, lam, *,
-                        iters: int = 400, etas: torch.Tensor | None = None,
-                        beta0: torch.Tensor | None = None,
-                        use_kernel: bool | None = None, block=None,
-                        tol=None, check_every: int = 25,
-                        return_iters: bool = False):
-    """FISTA on a batch of sufficient-statistics lasso problems.
-
-    Sigmas: (m, p, p); cs: (m, p) for one RHS per task or (m, p, r) for
-    multi-RHS (the debias solve uses r = p with c = I). Returns a tensor
-    shaped like `cs`.
-
-    `etas` (m,) are per-task gradient step sizes; default 1/lambda_max
-    per task. `lam` is a scalar or per-task (m,) weight; the proximal
-    threshold is `etas * lam`. `beta0` warm-starts the iterates.
-    With `tol=` the fixed iteration budget becomes an exact ceiling:
-    the loop runs in `check_every`-iteration chunks and stops once the
-    prox-gradient KKT residual max|x - soft(x - eta(Sigma x - c),
-    eta lam)| drops to `tol`; the residual is one more launch of the
-    fused step with zero momentum, whose x_next is the ISTA step.
-    `return_iters` additionally returns the iterations run. `block` is a
-    plan of the step's table (GEMV_PLANS for r = 1, GEMM_TILES for
-    r > 1) or None for the autotuned one.
-    """
+def _fista_solve(Sigmas: torch.Tensor, cs: torch.Tensor, lam, etas, *,
+                 iters: int, beta0, block, use_kernel, tol,
+                 check_every: int):
+    """The FISTA loop of every quadratic solve, on step sizes `etas` and
+    a plan `block` its entry point has settled. Returns (x shaped like
+    `cs`, iterations run)."""
     squeeze = cs.ndim == 2
     C = cs[..., None] if squeeze else cs
-    m, p, r = C.shape
-    block = resolve_block_policy(m, p, r, C.dtype, block, use_kernel,
-                                 C.device)
-    if etas is None:
-        etas = 1.0 / torch.clamp_min(power_iteration_batched(Sigmas), 1e-12)
+    m = C.shape[0]
     etas = torch.as_tensor(etas, dtype=C.dtype, device=C.device)
     etas = etas.reshape(-1).expand(m).contiguous()
     lams = torch.as_tensor(lam, dtype=C.dtype, device=C.device)
@@ -201,7 +239,46 @@ def solve_lasso_batched(Sigmas: torch.Tensor, cs: torch.Tensor, lam, *,
 
     x, n_iters = _fista_loop(body, (X0, X0, np.float32(1.0)), iters, tol,
                              check_every, residual)
-    out = x[..., 0] if squeeze else x
+    return (x[..., 0] if squeeze else x), n_iters
+
+
+def solve_lasso_batched(Sigmas: torch.Tensor, cs: torch.Tensor, lam, *,
+                        iters: int = 400, etas: torch.Tensor | None = None,
+                        beta0: torch.Tensor | None = None,
+                        use_kernel: bool | None = None, block=None,
+                        tol=None, check_every: int = 25,
+                        return_iters: bool = False):
+    """FISTA on a batch of sufficient-statistics lasso problems.
+
+    Sigmas: (m, p, p); cs: (m, p) for one RHS per task or (m, p, r) for
+    multi-RHS (the debias solve uses r = p with c = I). Returns a tensor
+    shaped like `cs`.
+
+    `etas` (m,) are per-task gradient step sizes; default 1/lambda_max
+    per task. `lam` is a scalar or per-task (m,) weight; the proximal
+    threshold is `etas * lam`. `beta0` warm-starts the iterates.
+    With `tol=` the fixed iteration budget becomes an exact ceiling:
+    the loop runs in `check_every`-iteration chunks and stops once the
+    prox-gradient KKT residual max|x - soft(x - eta(Sigma x - c),
+    eta lam)| drops to `tol`; the residual is one more launch of the
+    fused step with zero momentum, whose x_next is the ISTA step.
+    `return_iters` additionally returns the iterations run. `block` is a
+    plan of the step's table (GEMV_PLANS for r = 1, GEMM_TILES for
+    r > 1) or None for the autotuned one.
+    """
+    m, p = cs.shape[:2]
+    r = 1 if cs.ndim == 2 else cs.shape[2]
+    with obs.span("engine.lasso"):
+        block = resolve_block_policy(m, p, r, cs.dtype, block, use_kernel,
+                                     cs.device)
+        if etas is None:
+            etas = 1.0 / torch.clamp_min(power_iteration_batched(Sigmas),
+                                         1e-12)
+        out, n_iters = _fista_solve(Sigmas, cs, lam, etas, iters=iters,
+                                    beta0=beta0, block=block,
+                                    use_kernel=use_kernel, tol=tol,
+                                    check_every=check_every)
+    _record_solve("lasso", n_iters, iters)
     return (out, n_iters) if return_iters else out
 
 
@@ -224,46 +301,57 @@ def solve_lasso_eq2(Sigmas: torch.Tensor, cs: torch.Tensor, lam, *,
     the iterates; `lam_max` (m,) are precomputed per-task largest
     eigenvalues, shared with the debias solve. `tol=` makes `iters` an
     exact ceiling; `return_iters` also returns the iterations run."""
-    if lam_max is None:
-        etas = lasso_stats_step_scale(Sigmas)
-    else:
-        etas = 2.0 / torch.clamp_min(2.0 * lam_max, 1e-12)
-    lam_half = 0.5 * torch.as_tensor(lam, dtype=cs.dtype, device=cs.device)
-    return solve_lasso_batched(Sigmas, cs, lam_half, iters=iters, etas=etas,
-                               beta0=beta0, use_kernel=use_kernel, tol=tol,
-                               check_every=check_every,
-                               return_iters=return_iters)
+    m, p = cs.shape
+    with obs.span("engine.lasso"):
+        if lam_max is None:
+            etas = _eq2_step(Sigmas)
+        else:
+            etas = 2.0 / torch.clamp_min(2.0 * lam_max, 1e-12)
+        lam_half = 0.5 * torch.as_tensor(lam, dtype=cs.dtype,
+                                         device=cs.device)
+        block = resolve_block_policy(m, p, 1, cs.dtype, None, use_kernel,
+                                     cs.device)
+        out, n_iters = _fista_solve(Sigmas, cs, lam_half, etas, iters=iters,
+                                    beta0=beta0, block=block,
+                                    use_kernel=use_kernel, tol=tol,
+                                    check_every=check_every)
+    _record_solve("lasso_eq2", n_iters, iters)
+    return (out, n_iters) if return_iters else out
 
 
 def solve_lasso_grid(Sigmas: torch.Tensor, cs: torch.Tensor, lams, *,
                      iters: int = 400, etas: torch.Tensor | None = None,
-                     use_kernel: bool | None = None,
-                     block=None) -> torch.Tensor:
+                     use_kernel: bool | None = None, block=None,
+                     kind: str = "lasso_grid") -> torch.Tensor:
     """Solve every (task, lambda) pair of a tuning grid in ONE batch.
 
     Sigmas (m, p, p), cs (m, p), lams (k,) -> (k, m, p). The engine takes
     per-task regularization weights, so a lambda grid is k*m tasks
     sharing tiled statistics: Sigma, c and the step sizes are tiled k
     times and each lambda repeated per task, and the whole sweep is one
-    `solve_lasso_batched` of `iters` steps (on CUDA tensors, one launch of
-    the fused FISTA kernel over the k*m tasks per step). Step sizes
-    depend only on Sigma and are shared across the grid; default
-    1/lambda_max per task. `block` (a GEMV_PLANS entry, or None for the
-    autotuned plan of the k*m-task solve) is resolved once."""
+    solve of `iters` steps (on CUDA tensors, one launch of the fused
+    FISTA kernel over the k*m tasks per step). Step sizes depend only on
+    Sigma and are shared across the grid; default 1/lambda_max per task.
+    `block` (a GEMV_PLANS entry, or None for the autotuned plan of the
+    k*m-task solve) is resolved once. `kind` names the solve in the
+    `engine.solve.*` records (`solve_lasso_eq2_grid` passes its own)."""
     m, p = cs.shape
     lams = torch.as_tensor(lams, dtype=cs.dtype, device=cs.device)
     lams = lams.reshape(-1)
     k = lams.shape[0]
-    block = resolve_block_policy(k * m, p, 1, cs.dtype, block, use_kernel,
-                                 cs.device)
-    if etas is None:
-        etas = 1.0 / torch.clamp_min(power_iteration_batched(Sigmas), 1e-12)
-    etas = torch.as_tensor(etas, dtype=cs.dtype, device=cs.device)
-    B = solve_lasso_batched(Sigmas.repeat(k, 1, 1), cs.repeat(k, 1),
-                            lams.repeat_interleave(m), iters=iters,
-                            etas=etas.reshape(-1).repeat(k),
-                            use_kernel=use_kernel, block=block,
-                            check_every=25)
+    with obs.span("engine.lasso", lams=k):
+        block = resolve_block_policy(k * m, p, 1, cs.dtype, block,
+                                     use_kernel, cs.device)
+        if etas is None:
+            etas = 1.0 / torch.clamp_min(power_iteration_batched(Sigmas),
+                                         1e-12)
+        etas = torch.as_tensor(etas, dtype=cs.dtype, device=cs.device)
+        B, _ = _fista_solve(Sigmas.repeat(k, 1, 1), cs.repeat(k, 1),
+                            lams.repeat_interleave(m),
+                            etas.reshape(-1).repeat(k), iters=iters,
+                            beta0=None, block=block, use_kernel=use_kernel,
+                            tol=None, check_every=25)
+    _record_solve(kind, iters, iters)
     return B.reshape(k, m, p)
 
 
@@ -272,11 +360,13 @@ def solve_lasso_eq2_grid(Sigmas: torch.Tensor, cs: torch.Tensor, lams, *,
                          use_kernel: bool | None = None) -> torch.Tensor:
     """`solve_lasso_grid` in the paper's eq.-2 convention (see
     `solve_lasso_eq2`: step 2/max(2*lambda_max, eps), threshold weight
-    lam/2). Sigmas (m, p, p), cs (m, p), lams (k,) -> (k, m, p)."""
+    lam/2). Sigmas (m, p, p), cs (m, p), lams (k,) -> (k, m, p). Its
+    step-size power iteration runs before the grid's `engine.lasso`
+    span, in its own `engine.power_iteration` span."""
     lams = torch.as_tensor(lams, dtype=cs.dtype, device=cs.device)
     return solve_lasso_grid(Sigmas, cs, 0.5 * lams, iters=iters,
-                            etas=lasso_stats_step_scale(Sigmas),
-                            use_kernel=use_kernel)
+                            etas=_eq2_step(Sigmas), use_kernel=use_kernel,
+                            kind="lasso_eq2_grid")
 
 
 def solve_logistic_lasso_batched(Xs: torch.Tensor, ys: torch.Tensor, lam, *,
@@ -354,6 +444,7 @@ def solve_logistic_lasso_batched(Xs: torch.Tensor, ys: torch.Tensor, lam, *,
 
     x, n_iters = _fista_loop(body, (X0, X0, np.float32(1.0)), iters, tol,
                              check_every, residual)
+    _record_solve("logistic", n_iters, iters)
     return (x, n_iters) if return_iters else x
 
 
@@ -365,8 +456,9 @@ def debias_batched(Sigmas: torch.Tensor, cs: torch.Tensor,
 
     Sigmas (m, p, p), cs/beta_hat (m, p), Ms (m, p, p) -> (m, p).
     """
-    resid_corr = cs - torch.einsum("tij,tj->ti", Sigmas, beta_hat)
-    return beta_hat + torch.einsum("tij,tj->ti", Ms, resid_corr)
+    with obs.span("engine.debias"):
+        resid_corr = cs - torch.einsum("tij,tj->ti", Sigmas, beta_hat)
+        return beta_hat + torch.einsum("tij,tj->ti", Ms, resid_corr)
 
 
 def scaled_identity_m0(Sigmas: torch.Tensor) -> torch.Tensor:
@@ -394,16 +486,20 @@ def inverse_hessian_batched(Sigmas: torch.Tensor, mu, iters: int = 600,
     The engine solves for C = M' (one column per RHS); the result is
     transposed back."""
     m, p, _ = Sigmas.shape
-    if lam_max is None:
-        lam_max = power_iteration_batched(Sigmas)
-    etas = 1.0 / torch.clamp_min(lam_max, 1e-12)
-    eye = torch.eye(p, dtype=Sigmas.dtype, device=Sigmas.device)
-    eye = eye.expand(m, p, p).contiguous()
-    C0 = scaled_identity_m0(Sigmas) if M0 is None else M0.transpose(-1, -2)
-    Cs, n_iters = solve_lasso_batched(Sigmas, eye, mu, iters=iters,
-                                      etas=etas, beta0=C0,
-                                      use_kernel=use_kernel, tol=tol,
-                                      check_every=check_every,
-                                      return_iters=True)
-    out = Cs.transpose(-1, -2)
+    with obs.span("engine.debias_solve"):
+        if lam_max is None:
+            lam_max = power_iteration_batched(Sigmas)
+        etas = 1.0 / torch.clamp_min(lam_max, 1e-12)
+        eye = torch.eye(p, dtype=Sigmas.dtype, device=Sigmas.device)
+        eye = eye.expand(m, p, p).contiguous()
+        C0 = scaled_identity_m0(Sigmas) if M0 is None \
+            else M0.transpose(-1, -2)
+        block = resolve_block_policy(m, p, p, Sigmas.dtype, None, use_kernel,
+                                     Sigmas.device)
+        Cs, n_iters = _fista_solve(Sigmas, eye, mu, etas, iters=iters,
+                                   beta0=C0, block=block,
+                                   use_kernel=use_kernel, tol=tol,
+                                   check_every=check_every)
+        out = Cs.transpose(-1, -2)
+    _record_solve("debias", n_iters, iters)
     return (out, n_iters) if return_iters else out

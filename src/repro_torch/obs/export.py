@@ -79,10 +79,15 @@ def to_prometheus(snap: dict) -> str:
 
 def chrome_trace(reg: Optional[_registry.Registry] = None) -> dict:
     """Buffered span events as a Chrome trace-event JSON object
-    (`{"traceEvents": [...]}`) — drop the file on ui.perfetto.dev or
-    chrome://tracing to see the timeline."""
+    (`{"traceEvents": [...]}`, times in microseconds on the Unix clock,
+    as `torch.profiler`'s exported traces have them) — drop the file on
+    ui.perfetto.dev or chrome://tracing to see the timeline."""
     reg = reg or _registry.get_registry()
-    return {"traceEvents": reg.trace_events(), "displayTimeUnit": "ms"}
+    events = []
+    for ev in reg.trace_events():
+        ts, dur = ev.pop("ts_ns"), ev.pop("dur_ns")
+        events.append({**ev, "ts": ts / 1e3, "dur": dur / 1e3})
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
 
 
 def write_chrome_trace(path: str,

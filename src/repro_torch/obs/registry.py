@@ -16,15 +16,23 @@ Semantics:
   (enough for rates, latency headlines, AND tail quantiles — the
   serving front's p50/p99 come from `hist_quantiles`, computed over
   the retained window, without bucket configuration), and **spans**
-  time a `with` block on the monotonic clock, recording both a
-  `<name>.ms` histogram observation and a Chrome trace event.
+  time a `with` block, recording both a `<name>.ms` histogram
+  observation (its duration on the monotonic clock) and a trace event.
+* A span's **trace event** lies on `time.time_ns()`, the clock of
+  `torch.profiler`'s events, in integer nanoseconds (`ts_ns`,
+  `dur_ns`; `export.chrome_trace` converts them to the Chrome format's
+  microseconds), and carries the OS thread id the profiler records
+  (`threading.get_native_id()`), so a span can be laid beside a device
+  trace. Its `args` hold its labels, its own `id` and the `parent` id
+  of the span open on the same thread when it began (None for a root):
+  ids never enter the histogram's labels, so they split no series.
 * Every metric takes free-form keyword **labels**; a (name, labels)
   pair is one series. Labels must be low-cardinality Python scalars
   (kernel names, route reasons, axis names — never tensor values).
 * **`REPRO_OBS=0`** (or `false`/`off`) in the environment hard-disables
   the process-global registry at import time: every recording call
   becomes a single attribute-check no-op and spans return a shared
-  null context manager.
+  null context manager, which keeps no stack of open spans.
 * All mutation happens under one lock — safe for the threaded serving
   paths — and the trace-event buffer is capped (oldest runs drop
   nothing; new events past the cap are counted as dropped instead of
@@ -37,6 +45,7 @@ guard reads the chunk's health).
 """
 from __future__ import annotations
 
+import itertools
 import os
 import threading
 import time
@@ -117,7 +126,8 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("_reg", "_name", "_labels", "_t0")
+    __slots__ = ("_reg", "_name", "_labels", "_t0", "_w0", "_id",
+                 "_parent", "_tid")
 
     def __init__(self, reg: "Registry", name: str, labels: dict) -> None:
         self._reg = reg
@@ -125,12 +135,19 @@ class _Span:
         self._labels = labels
 
     def __enter__(self) -> "_Span":
+        stack, self._tid = self._reg._thread()
+        self._parent = stack[-1] if stack else None
+        self._id = next(self._reg._span_ids)
+        stack.append(self._id)
+        self._w0 = time.time_ns()
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc) -> bool:
         dur_ns = time.perf_counter_ns() - self._t0
-        self._reg._finish_span(self._name, self._labels, self._t0, dur_ns)
+        w1 = time.time_ns()
+        self._reg._thread()[0].pop()
+        self._reg._finish_span(self, dur_ns, w1)
         return False
 
 
@@ -165,6 +182,11 @@ class Registry:
         self._hists: Dict[MetricKey, _Hist] = {}
         self._events: List[dict] = []
         self._dropped_events = 0
+        # each thread's stack of open span ids and its OS id (the object
+        # is set once; each thread touches only its own), and the ids' source
+        # (`next` on a count is atomic under the interpreter's lock)
+        self._local = threading.local()
+        self._span_ids = itertools.count(1)
 
     @property
     def enabled(self) -> bool:
@@ -197,33 +219,29 @@ class Registry:
             h.add(value)
 
     def span(self, name: str, **labels):
-        """Context manager timing its block on the monotonic clock. On
-        exit records a `<name>.ms` histogram observation and buffers a
-        Chrome trace event ("X" phase, microsecond timestamps) carrying
-        `labels` as the event args."""
+        """Context manager timing its block. On exit records a
+        `<name>.ms` histogram observation (the monotonic clock) and
+        buffers a trace event ("X" phase, start and duration on
+        `time.time_ns()`) carrying `labels`, the span's `id` and its
+        `parent` as the event args."""
         if not self._enabled:
             return _NULL_SPAN
         return _Span(self, name, labels)
 
-    def event(self, name: str, ts_us: float, dur_us: float,
-              **labels) -> None:
-        """Buffer an explicit Chrome trace event (e.g. reconstructed
-        from an external timing) without the histogram side effect."""
-        if not self._enabled:
-            return
-        self._push_event(name, labels, ts_us, dur_us)
+    def _thread(self) -> tuple:
+        """This thread's stack of open span ids, and its OS thread id
+        (read once a thread: it is a system call)."""
+        local = self._local
+        if not hasattr(local, "stack"):
+            local.stack, local.tid = [], threading.get_native_id()
+        return local.stack, local.tid
 
-    def _finish_span(self, name: str, labels: dict, t0_ns: int,
-                     dur_ns: int) -> None:
-        self.observe(f"{name}.ms", dur_ns / 1e6, **labels)
-        self._push_event(name, labels, t0_ns / 1e3, dur_ns / 1e3)
-
-    def _push_event(self, name: str, labels: dict, ts_us: float,
-                    dur_us: float) -> None:
-        ev = {"name": name, "ph": "X", "cat": "repro",
-              "ts": ts_us, "dur": dur_us,
-              "pid": os.getpid(), "tid": threading.get_ident(),
-              "args": dict(labels)}
+    def _finish_span(self, sp: _Span, dur_ns: int, w1: int) -> None:
+        self.observe(f"{sp._name}.ms", dur_ns / 1e6, **sp._labels)
+        ev = {"name": sp._name, "ph": "X", "cat": "repro",
+              "ts_ns": sp._w0, "dur_ns": w1 - sp._w0,
+              "pid": os.getpid(), "tid": sp._tid,
+              "args": {**sp._labels, "id": sp._id, "parent": sp._parent}}
         with self._lock:
             if len(self._events) >= MAX_TRACE_EVENTS:
                 self._dropped_events += 1
@@ -279,6 +297,8 @@ class Registry:
         return {q: _quantile(pooled, q) for q in qs}
 
     def trace_events(self) -> List[dict]:
+        """The buffered span events, their times in integer nanoseconds
+        on `time.time_ns()` (`ts_ns`, `dur_ns`)."""
         with self._lock:
             return [dict(ev) for ev in self._events]
 

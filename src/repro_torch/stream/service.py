@@ -271,12 +271,16 @@ class StreamingDsmlService:
         the chunk — a rejected chunk neither folds nor advances the
         refit cadence, so `(Sigma, c)` stay bitwise unchanged).
 
-        The `stream.ingest` span times the host-side fold: on the card
-        the fold is asynchronous, so without a guard it times the
-        issue (rows/sec headlines from it are an upper bound on
-        sustained throughput); the fused guard's health read waits for
-        the fold inside the span. A triggered refit is timed by its
-        own `stream.refit` span, not this one.
+        The `stream.ingest` span, labelled `waited`, times the fold as
+        the host sees it. With `waited=True` (the fused guard: dense,
+        unsharded, no `max_abs`) it ends on the guard's `health.tolist()`,
+        which waits for the fold's kernel, so it holds the fold's device
+        work. With `waited=False` (no guard, a window, a mesh, or a
+        standalone probe in front) nothing in it reads the device: on
+        the card it times the issue alone, and rows/sec headlines from
+        it are an upper bound on sustained throughput.
+        `hist_stats("stream.ingest.ms")` merges both. A triggered refit
+        is timed by its own `stream.refit` span, not this one.
         """
         X_batch, y_batch = self._on_device(X_batch), self._on_device(y_batch)
         # dense path: probe fused into the fold (one rank_update launch,
@@ -293,7 +297,7 @@ class StreamingDsmlService:
                 obs.inc("stream.ingest.quarantined_chunks")
                 return None
         n = int(X_batch.shape[1])
-        with obs.span("stream.ingest"):
+        with obs.span("stream.ingest", waited=fused):
             if fused:
                 folded, health = _guarded_fold(
                     self.state, X_batch, y_batch, self.decay,
@@ -344,9 +348,13 @@ class StreamingDsmlService:
         2^failures, capped at x4). The returned `RefitInfo` then
         describes the KEPT state (unchanged generation, jaccard 1.0).
 
-        The `stream.refit` span is TRUE latency (unlike the async
-        ingest span): the health verdict and drift read block on the
-        refreshed model inside the span.
+        The `stream.refit` span holds the refit's device work (unlike
+        an ingest span with `waited=False`): the health check reads the
+        candidate's residual back to the host inside it, and the drift
+        read (`float(info.jaccard)`) waits on the refreshed support. The
+        engine's phase spans (`engine.lasso`, `engine.debias_solve`,
+        ...) nest under it; each times the issue of its phase, and a
+        device trace charges the kernels to them.
         """
         with obs.span("stream.refit"):
             if self.window is not None and int(self.window.seen) > 0:

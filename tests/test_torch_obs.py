@@ -78,7 +78,8 @@ def test_span_records_histogram_and_trace_event():
     assert st is not None and st["count"] == 1 and st["max"] >= 0
     (e,) = obs.get_registry().trace_events()
     assert e["name"] == "t.step" and e["ph"] == "X" and e["cat"] == "repro"
-    assert e["dur"] >= 0 and e["args"] == {"phase": "ingest"}
+    assert e["dur_ns"] >= 0 and e["args"] == {
+        "phase": "ingest", "id": e["args"]["id"], "parent": None}
 
 
 def test_disabled_registry_is_inert():
@@ -96,10 +97,86 @@ def test_disabled_registry_is_inert():
 
 def test_trace_event_cap_drops_and_counts():
     reg = Registry()
-    for i in range(MAX_TRACE_EVENTS + 5):
-        reg.event("t.e", float(i), 1.0)
+    for _ in range(MAX_TRACE_EVENTS + 5):
+        with reg.span("t.e"):
+            pass
     assert len(reg.trace_events()) == MAX_TRACE_EVENTS
     assert reg.snapshot()["dropped_trace_events"] == 5
+
+
+def test_span_event_lies_on_the_profilers_clock():
+    """A span's event nests inside a `record_function` range opened
+    around it, on the profiler's clock (Unix nanoseconds, within 1 ms),
+    and carries the OS thread id the profiler gives the range."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("t.warm"):    # the first range's set-up
+            pass
+        with record_function("t.range"):
+            with obs.span("t.step"):
+                torch.ones(64, 64).sum()
+    (rng,) = [e for e in prof.profiler.kineto_results.events()
+              if e.name() == "t.range"]
+    (e,) = obs.get_registry().trace_events()
+    a, b = e["ts_ns"], e["ts_ns"] + e["dur_ns"]
+    assert isinstance(a, int) and isinstance(e["dur_ns"], int)
+    r0, r1 = rng.start_ns(), rng.start_ns() + rng.duration_ns()
+    assert r0 - 1_000_000 <= a <= b <= r1 + 1_000_000, (r0, a, b, r1)
+    assert abs(a - r0) < 1_000_000 and abs(b - r1) < 1_000_000
+    # the profiler's OS thread id; `start_thread_id()` is the profiler's
+    # own sequential numbering of threads, not the OS's
+    assert e["tid"] == rng.device_resource_id() == threading.get_native_id()
+
+
+def test_nested_spans_carry_parent_ids():
+    """Each event's `parent` is the span open on its thread when it
+    began: siblings share it, a root and another thread's span have
+    None, and ids stay out of the histograms' labels."""
+    def other():
+        with obs.span("t.thread"):
+            pass
+
+    with obs.span("t.root"):
+        with obs.span("t.child", k=1):
+            with obs.span("t.leaf"):
+                pass
+        with obs.span("t.child", k=2):
+            th = threading.Thread(target=other)
+            th.start()
+            th.join(60)
+    assert not th.is_alive()
+    assert obs.get_registry()._thread()[0] == []
+    ev = {(e["name"], e["args"].get("k")): e["args"]
+          for e in obs.get_registry().trace_events()}
+    root = ev[("t.root", None)]
+    assert root["parent"] is None and ev[("t.thread", None)]["parent"] is None
+    assert ev[("t.child", 1)]["parent"] == root["id"]
+    assert ev[("t.child", 2)]["parent"] == root["id"]
+    assert ev[("t.leaf", None)]["parent"] == ev[("t.child", 1)]["id"]
+    assert len({a["id"] for a in ev.values()}) == len(ev)
+    labels = [h["labels"] for h in obs.get_registry().snapshot()["histograms"]]
+    assert all(not {"id", "parent"} & set(lab) for lab in labels)
+    assert obs.hist_stats("t.child.ms")["count"] == 2
+
+
+def test_disabled_spans_record_nothing():
+    """`REPRO_OBS=0`: a span is the shared null context, nothing is
+    buffered and no stack of open spans is kept."""
+    code = (
+        "from repro_torch import obs\n"
+        "from repro_torch.obs import registry\n"
+        "with obs.span('x.outer') as a, obs.span('x.inner') as b:\n"
+        "    assert a is b is registry._NULL_SPAN\n"
+        "reg = obs.get_registry()\n"
+        "assert reg.trace_events() == []\n"
+        "assert getattr(reg._local, 'stack', None) is None\n"
+        "print('DISABLED_SPANS_OK')\n"
+    )
+    env = dict(_env(), REPRO_OBS="0")
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "DISABLED_SPANS_OK" in r.stdout
 
 
 def test_thread_safety_of_counters():
@@ -196,6 +273,10 @@ def test_chrome_trace_roundtrip(tmp_path):
     (e,) = trace["traceEvents"]
     assert e["name"] == "t.step" and e["ph"] == "X"
     assert set(e) >= {"ts", "dur", "pid", "tid", "args"}
+    # microseconds on the Unix clock, from the buffer's nanoseconds
+    (raw,) = obs.get_registry().trace_events()
+    assert e["ts"] == raw["ts_ns"] / 1e3 and e["dur"] == raw["dur_ns"] / 1e3
+    assert not {"ts_ns", "dur_ns"} & set(e)
 
 
 def test_cli_summary_and_prometheus(tmp_path):

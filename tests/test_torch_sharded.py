@@ -58,7 +58,15 @@ with count_collectives() as calls:
                            lasso_iters={li}, debias_iters={di})
 np.savez({out!r} + f"/rank{{rank}}.npz",
          **{{k: v.numpy() for k, v in res._asdict().items()}})
+events = obs.get_registry().trace_events()
+names = {{e["args"]["id"]: e["name"] for e in events}}
+spans = {{}}
+for e in events:
+    spans[e["name"]] = spans.get(e["name"], 0) + 1
 print("RESULT " + json.dumps({{
+    "spans": spans,
+    "span_parents": sorted({{(e["name"], names.get(e["args"]["parent"]))
+                            for e in events}}),
     "rank": rank, "world": world, "calls": dict(calls),
     "ledger_calls": obs.counter_total("collective.calls"),
     "gather_calls": obs.counter_total("collective.calls",
@@ -143,6 +151,20 @@ def test_sharded_fit_is_one_collective_per_rank(world_run):
                                       "all_gather_into_tensor"}, line
         assert line["ledger_calls"] == 1, line
         assert line["gather_calls"] == 1, line
+
+
+def test_sharded_fit_spans_one_allgather_per_rank(world_run):
+    """Every rank's fit is one `dsml.fit_sharded` span holding one
+    `dsml.allgather` (the round) and one `dsml.master` span."""
+    _, lines, _ = world_run
+    for line in lines:
+        spans = line["spans"]
+        assert spans["dsml.fit_sharded"] == spans["dsml.allgather"] \
+            == spans["dsml.master"] == 1, line
+        parents = {tuple(p) for p in line["span_parents"]}
+        assert ("dsml.allgather", "dsml.fit_sharded") in parents, line
+        assert ("dsml.master", "dsml.fit_sharded") in parents, line
+        assert ("dsml.fit_sharded", None) in parents, line
 
 
 def test_sharded_fit_ledger_bytes_follow_reference_model(world_run):

@@ -624,14 +624,21 @@ def test_service_run_matches_reference():
 def test_service_telemetry_matches_reference():
     """The same chunk sequence through both services records the same
     `stream.*` counter totals, gauge values and histogram counts in the
-    two packages' registries."""
+    two packages' registries. The port's `stream.ingest` span carries a
+    `waited` label the reference does not record: its series are summed
+    across that label."""
     from repro import obs as jobs
     from repro_torch import obs
 
     def stream_series(snap, kind):
-        return {(e["name"], tuple(sorted(e["labels"].items()))):
-                e.get("value", e.get("count"))
-                for e in snap[kind] if e["name"].startswith("stream.")}
+        out = {}
+        for e in snap[kind]:
+            if not e["name"].startswith("stream."):
+                continue
+            key = (e["name"], tuple(sorted(
+                (k, v) for k, v in e["labels"].items() if k != "waited")))
+            out[key] = out.get(key, 0) + e.get("value", e.get("count"))
+        return out
 
     obs.reset()
     jobs.reset()
@@ -643,6 +650,33 @@ def test_service_telemetry_matches_reference():
     assert obs.counter_total("stream.quarantine") == 3
     assert obs.counter_total("stream.refit.rejected",
                              reason="nonfinite_model") == 1
+
+
+@pytest.mark.parametrize("guard, waited", [(True, True), (False, False),
+                                           ("max_abs", False)])
+def test_ingest_span_says_whether_it_waited(guard, waited):
+    """`stream.ingest` is labelled `waited=True` only where it ends on the
+    fused guard's health read (dense, unsharded, no `max_abs`): a span
+    that times the fold's work, not its issue. `hist_stats` merges the
+    labels."""
+    from repro_torch import obs
+    if guard == "max_abs":
+        guard = IngestGuard(warmup_chunks=1, max_abs=1e6)
+    Xs, ys = _data()
+    svc = _service(StreamingDsmlService, refit_every=10**6, device=CPU,
+                   guard=guard)
+    obs.reset()
+    chunks = list(_chunks(Xs, ys, 4))
+    for Xc, yc in chunks:
+        svc.ingest(Xc, yc)
+    events = [e for e in obs.get_registry().trace_events()
+              if e["name"] == "stream.ingest"]
+    assert [e["args"]["waited"] for e in events] == [waited] * len(chunks)
+    assert obs.hist_stats("stream.ingest.ms", waited=waited)["count"] \
+        == len(chunks)
+    assert obs.hist_stats("stream.ingest.ms", waited=not waited) is None
+    assert obs.hist_stats("stream.ingest.ms")["count"] == len(chunks)
+    obs.reset()
 
 
 # ---------------------------------------------------------------------------
