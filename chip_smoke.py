@@ -451,6 +451,9 @@ FLASH_H128 = (4, 2048, 24, 8, 128)
 # prompts of the f32 serving copies (phase 6, 9a): the first two of the batch
 F32_COPY_BATCH = 2
 TOL_KERNEL = 1e-5                       # x max|plain|, per output
+# (m, p, k) of the benchmark's lambda-grid cell (`bench/configs/
+# dsml-reg-p200.json`, `bench/traffic/lambda-grid.json`): #1a's grid row
+GRID_CELL = (1024, 200, 8)
 TOL_FIT = 1e-4                          # x max|.|, after chained FISTA steps
 TOL_FLASH = 2e-5                        # x max|plain|, f32
 # worst relative l2 error of a query row's output
@@ -689,6 +692,15 @@ def solve_records(obs) -> dict:
                 obs.hist_stats("engine.solve.iters_ceiling", kind=k)["sum"],
                 obs.counter_total("engine.solve.early_exit", kind=k))
             for k in kinds}
+
+
+def grid_shared(obs) -> dict:
+    """The `engine.grid.shared` records: (lambdas, passes over Sigma a
+    step, path) -> count."""
+    return {(c["labels"]["lams"], c["labels"]["passes"],
+             c["labels"]["outcome"]): c["value"]
+            for c in obs.get_registry().snapshot()["counters"]
+            if c["name"] == "engine.grid.shared"}
 
 
 def route_records(obs) -> dict:
@@ -4097,8 +4109,9 @@ def main() -> None:
         gen_regression, group_lasso, hamming, icap, solve_lasso_eq2_grid,
     )
     from repro_torch.core.engine import (
-        power_iteration_batched, scaled_identity_m0,
+        power_iteration_batched, scaled_identity_m0, solve_lasso_batched,
     )
+    from repro_torch.core.solvers import lasso_stats_step_scale
     from repro_torch import obs
     from repro_torch.kernels import _build
     from repro_torch.configs import get_config
@@ -4115,10 +4128,12 @@ def main() -> None:
     from repro_torch.kernels.group_threshold.ref import group_threshold_ref
     from repro_torch.kernels.ista_step import ops as ista_ops
     from repro_torch.kernels.ista_step.ops import (
-        fista_step_batched, ista_solve, ista_step, ista_step_batched,
+        fista_step_batched, fista_step_grid, ista_solve, ista_step,
+        ista_step_batched,
     )
     from repro_torch.kernels.ista_step.ref import (
-        fista_step_batched_ref, ista_step_batched_ref, ista_step_ref,
+        fista_step_batched_ref, fista_step_grid_ref, ista_step_batched_ref,
+        ista_step_ref,
     )
     from repro_torch.kernels.logistic_grad import ops as logistic_ops
     from repro_torch.kernels.logistic_grad.ops import (
@@ -4290,6 +4305,54 @@ def main() -> None:
     Sig_r, _ = rank_update(Xr, yr, use_kernel=False)
     check_fista("r=1 p=1000", fista_inputs(Sig_r, 1, 0.5 * lam))
     check_fista("r=p=1000", fista_inputs(Sig_r, 1000, mu))
+
+    def grid_inputs(Sigmas, k, lam):
+        """The lambda grid's step on `Sigmas` at k values of lambda up to
+        `lam`, and the same k m problems tiled for the r == 1 kernel."""
+        m, p, _ = Sigmas.shape
+        etas = 1.0 / torch.clamp_min(power_iteration_batched(Sigmas), 1e-12)
+        z = 0.05 * torch.randn((k, m, p), generator=g, device=dev)
+        x = z + 0.01 * torch.randn((k, m, p), generator=g, device=dev)
+        c = 0.1 * torch.randn((m, p), generator=g, device=dev)
+        lams = lam * torch.logspace(-1, 0, k, device=dev)
+        theta = np.float32(0.7)
+        tiled = (Sigmas.repeat(k, 1, 1), z.reshape(k * m, p, 1),
+                 x.reshape(k * m, p, 1), c.repeat(k, 1)[..., None],
+                 etas.repeat(k), lams.repeat_interleave(m), theta)
+        return (Sigmas, z, x, c, etas, lams, theta), tiled
+
+    def check_grid(label, args, tiled):
+        """The grid's step against its plain version, and the same bits as
+        the r == 1 kernel on the tiled problems."""
+        got = fista_step_grid(*args, use_kernel=True)
+        want = fista_step_batched(*tiled, use_kernel=True)
+        ref = fista_step_grid(*args, use_kernel=False)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name, a, w, b in zip(("x_next", "z_next"), got, want, ref):
+            check(bool(torch.equal(a, w.reshape(a.shape))),
+                  f"fista_step_grid {label} {name}: not the tiled launch's "
+                  "bits")
+            err, scale = max_err(a, b)
+            check(err <= TOL_KERNEL * scale,
+                  f"fista_step_grid {label} {name}: err {err} > "
+                  f"{TOL_KERNEL} * {scale}")
+            worst = max(worst, err)
+        print(f"check fista_step_grid {label}: the tiled launch's bits; max "
+              f"abs err vs plain {worst:.3g}")
+        return worst
+
+    # the benchmark's lambda-grid cell: 1024 tasks at p 200, 8 lambdas
+    Xg = torch.randn((GRID_CELL[0], 2 * GRID_CELL[1], GRID_CELL[1]),
+                     generator=g, device=dev)
+    Sig_g = torch.einsum("tni,tnj->tij", Xg, Xg) / (2 * GRID_CELL[1])
+    del Xg
+    grid_args, grid_tiled = grid_inputs(Sig_g, GRID_CELL[2], 0.5 * lam)
+    grid4c_args, grid4c_tiled = grid_inputs(Sig, 8, 0.5 * lam)
+    errs["fista_step_gemv_grid"] = check_grid(
+        "({},{},k {})".format(*GRID_CELL), grid_args, grid_tiled)
+    errs["fista_step_gemv_grid_4c"] = check_grid(
+        f"({M},{P},k 8)", grid4c_args, grid4c_tiled)
     for shape in ((M, P), (1, P), (3, 1000), (8 * M, P)):
         plan = ista_ops.gemv_plan(*shape, sms)
         check(ista_ops.kernel_gemv_plan(*shape, dev) ==
@@ -4781,7 +4844,9 @@ def main() -> None:
     isb1 = ista_step_batched(Sig0, res.beta_local, c0, etas0, 0.5 * lam)
     isbp = ista_step_batched(Sig0, M0, eye.expand(M, P, P).contiguous(),
                              etas0, mu)
+    shared_before = grid_shared(obs)
     Bgrid, grid_s = wall(solve_lasso_eq2_grid, Sig0, c0, grid, iters=400)
+    shared_4c = grid_shared(obs)
     base_out = {name: wall(fn, *args) for name, (fn, args)
                 in baselines.items()}
     torch.cuda.synchronize()
@@ -4843,6 +4908,20 @@ def main() -> None:
         print(f"{name} on the fit's statistics: max abs err vs plain "
               f"{err:.3g} (max {scale:.3g})")
 
+    shared_4c = {key: n - shared_before.get(key, 0)
+                 for key, n in shared_4c.items()
+                 if n != shared_before.get(key, 0)}
+    check(shared_4c == {(8, 1, "kernel"): 1},
+          f"solve_lasso_eq2_grid's engine.grid.shared records: {shared_4c}")
+    Bgrid_tiled = solve_lasso_batched(
+        Sig0.repeat(8, 1, 1), c0.repeat(8, 1),
+        (0.5 * grid).repeat_interleave(M), iters=400,
+        etas=lasso_stats_step_scale(Sig0).repeat(8))
+    check(bool(torch.equal(Bgrid, Bgrid_tiled.reshape(8, M, P))),
+          "solve_lasso_eq2_grid: not the bits of the tiled solve")
+    print(f"solve_lasso_eq2_grid: the bits of the {8 * M} problems solved "
+          f"on Sigma tiled 8 times; engine.grid.shared {shared_4c} "
+          "(lambdas, passes over Sigma a step, path)")
     Bgrid_ref, grid_ref_s = wall(solve_lasso_eq2_grid, Sig0, c0, grid,
                                  iters=400, use_kernel=False)
     check(Bgrid.shape == (8, M, P) and bool(torch.isfinite(Bgrid).all()),
@@ -4897,6 +4976,26 @@ def main() -> None:
                        4 * (m * p * p + 3 * m * p + 2 * m + 2 * m * p))
     gemm_bound = bound(2 * m * p * p * p,
                        4 * (m * p * p + 3 * m * p * p + 2 * m + 2 * m * p * p))
+
+    def grid_row(name, args, tiled):
+        """#1a on a lambda grid: each Sigma and c read once, the k m
+        iterates read twice and written twice; its yardstick is the r == 1
+        kernel on the problems tiled (`library_ms`)."""
+        gk, gm, gp = args[1].shape
+        out = (torch.empty_like(args[1]), torch.empty_like(args[1]))
+        tiled_out = (torch.empty_like(tiled[1]), torch.empty_like(tiled[1]))
+        library_note[name] = ("the r == 1 kernel on Sigma, c and eta tiled "
+                              f"{gk} times")
+        return (name, "src/repro_torch/kernels/csrc/fista_step.cu",
+                "src/repro/kernels/ista_step/kernel.py:108",
+                bound(2 * gk * gm * gp * gp,
+                      4 * (gm * gp * gp + gm * gp + 4 * gk * gm * gp + gm
+                           + gk)),
+                lambda: ista_ops.launch_grid(*args, *out),
+                lambda: fista_step_grid(*args),
+                lambda: fista_step_grid_ref(*args),
+                lambda: ista_ops.launch(*tiled, *tiled_out))
+
     Xt = X.transpose(1, 2)
     S_out, c_out = torch.empty_like(Sig), torch.empty((m, p), device=dev)
     gemv_out = (torch.empty_like(gemv_args[1]), torch.empty_like(gemv_args[1]))
@@ -5025,6 +5124,9 @@ def main() -> None:
          lambda: fista_step_batched(*gemm_args),
          lambda: fista_step_batched_ref(*gemm_args),
          lambda: torch.bmm(Sig, gemm_args[1])),
+        *(grid_row(name, args, tiled) for name, args, tiled in (
+            ("fista_step_gemv_grid", grid_args, grid_tiled),
+            ("fista_step_gemv_grid_4c", grid4c_args, grid4c_tiled))),
     ]
     for suffix, (Xl, yl, Bl) in (("", lg_args), ("_p8192", lg_large)):
         lm, ln, lp = Xl.shape
@@ -5130,6 +5232,8 @@ def main() -> None:
                                                   keepdim=True) > 0.8)),
     ]
     shapes = {"rank_update": (m, n, p), "fista_step_gemv": (m, p, 1),
+              "fista_step_gemv_grid": GRID_CELL,
+              "fista_step_gemv_grid_4c": (m, p, 8),
               "fista_step_gemm": (m, p, p),
               "logistic_grad": (M, N, P), "logistic_grad_unfused": (M, N, P),
               "logistic_grad_p8192": LARGE_P,
@@ -5227,6 +5331,9 @@ def main() -> None:
             flash_backward_times(shape, train10c_qkv[name], card, causal))
     next(r for r in kernels if r["name"] == "group_threshold").update(
         launch_floor_ms=floor_ms, launch_floor_graph_ms=floor_g)
+    # the grid rows' inputs (the tiled copies 1.8 GB) are not needed again
+    del rows, grid_args, grid_tiled, grid4c_args, grid4c_tiled, Sig_g
+    free_card()
 
     print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
           "phase 6")
@@ -5361,7 +5468,9 @@ def main() -> None:
     # ingest shape's row from phase 7c's 8 chunks, the zoo's flash rows
     # from phase 9; a row at another shape than its path's takes its
     # kernel's count, but minitron-4b's H = 128 shape, which no path
-    # serves (9a's H = 128 launches are row flash_attention_moe's), 0
+    # serves (9a's H = 128 launches are row flash_attention_moe's), 0;
+    # both lambda-grid rows take 4c's grid solve's count (one launch a
+    # step at any shape; no phase solves a grid at the benchmark cell's)
     run_launches = {**launches,
                     "rank_update_weighted": claunches["rank_update"],
                     "rank_update_ingest": launches_ingest,
@@ -5371,6 +5480,9 @@ def main() -> None:
                     "logistic_grad_unfused": claunches["logistic_z"],
                     "logistic_grad_unfused_p8192": claunches["logistic_z"],
                     **{k: launches_4c[k] for k in new_keys},
+                    "fista_step_gemv_grid": launches_4c["fista_step_gemv"],
+                    "fista_step_gemv_grid_4c":
+                        launches_4c["fista_step_gemv"],
                     "flash_attention": serve_launches["flash_attention"],
                     **launches_9,
                     "flash_attention_lse": trained["launches"],

@@ -31,14 +31,16 @@ same way.
 Telemetry (`repro_torch.obs`), one record a phase and none a step:
 spans `engine.stats` (`sufficient_stats`), `engine.power_iteration`,
 `engine.lasso` (one a lasso solve or grid, `lams=k` on a grid, where
-it holds the tiling copy and, but for the eq.-2 grid, the step-size
-power iteration), `engine.debias_solve`
+it holds, but for the eq.-2 grid, the step-size power iteration),
+`engine.debias_solve`
 (`inverse_hessian_batched`, its identity and warm start included) and
 `engine.debias`; counters `engine.solve.calls`/`.early_exit` and
 histograms `engine.solve.iters_used`/`.iters_ceiling` by the reference
 package's `kind`, recorded where it records them; and
 `dispatch.route{kernel, outcome, reason, blocks}` once a solve, where a
-`resolve_*_block_policy` settles its plan. Nothing is recorded inside a
+`resolve_*_block_policy` settles its plan; `engine.grid.shared{lams,
+passes, outcome}` once a lambda grid, `passes` the times a step reads
+each Sigma (one on the plain path). Nothing is recorded inside a
 FISTA or power-iteration loop or a kernel wrapper, and nothing reads
 the device: a span around issued work times the issue, and a device
 trace charges the kernels to the span that launched them.
@@ -56,7 +58,9 @@ from repro_torch.core.solvers import (
     fista_momentum, lasso_stats_step_scale, power_iteration,
 )
 from repro_torch.kernels import autotune
-from repro_torch.kernels.ista_step.ops import check_block, fista_step_batched
+from repro_torch.kernels.ista_step.ops import (
+    check_block, fista_step_batched, grid_passes,
+)
 from repro_torch.kernels.logistic_grad.ops import check_cluster, logistic_grad
 from repro_torch.kernels.rank_update import ops as rank_ops
 from repro_torch.kernels.rank_update.ops import rank_update
@@ -117,15 +121,20 @@ def _on_kernel(use_kernel: bool | None, device: torch.device) -> bool:
 
 
 def resolve_block_policy(m: int, p: int, r: int, dtype, block,
-                         use_kernel: bool | None, device: torch.device):
-    """The FISTA step's plan for a (m, p, r) solve: an explicit `block`
+                         use_kernel: bool | None, device: torch.device, *,
+                         lams: int | None = None):
+    """The FISTA step's plan for a (m, p, r) solve, or with `lams=k` for
+    a lambda grid's k problems a task (r = 1; one lambda is the (m, p, 1)
+    solve, and takes its plan): an explicit `block`
     (validated on every path) wins; else, where kernels launch, the
     autotuned winner for the card and shape (timed once on a miss), and
     None (the rule's plan) on the plain path."""
     if block is not None:
         check_block("resolve_block_policy", r, block)
     elif _on_kernel(use_kernel, device):
-        block = autotune.autotune_block(m, p, r, dtype=dtype, device=device)
+        block = autotune.autotune_block(m, p, r, dtype=dtype, device=device) \
+            if lams in (None, 1) else autotune.autotune_grid_block(
+                m, p, lams, dtype=dtype, device=device)
     _record_route("fista_step_batched", block, use_kernel, device)
     return block
 
@@ -203,12 +212,31 @@ def _fista_loop(body, init, iters: int, tol, check_every: int, residual):
     return carry[0], it
 
 
-def _fista_solve(Sigmas: torch.Tensor, cs: torch.Tensor, lam, etas, *,
-                 iters: int, beta0, block, use_kernel, tol,
+def _fista_solve(step, X0: torch.Tensor, *, iters: int, tol,
                  check_every: int):
-    """The FISTA loop of every quadratic solve, on step sizes `etas` and
-    a plan `block` its entry point has settled. Returns (x shaped like
-    `cs`, iterations run)."""
+    """The FISTA loop of every quadratic solve from `X0`, on a step
+    `step(Z, X, theta) -> (X_next, Z_next)` whose statistics, step sizes
+    and plan its entry point has settled. Returns (x, iterations run)."""
+    def body(carry):
+        x, z, t = carry
+        t_next, theta = fista_momentum(t)
+        x_next, z_next = step(z, x, theta)
+        return x_next, z_next, t_next
+
+    def residual(x):
+        x_fp, _ = step(x, x, 0.0)
+        return torch.max(torch.abs(x_fp - x)).item()
+
+    return _fista_loop(body, (X0, X0, np.float32(1.0)), iters, tol,
+                       check_every, residual)
+
+
+def _batched_solve(Sigmas: torch.Tensor, cs: torch.Tensor, lam, etas, *,
+                   iters: int, beta0, block, use_kernel, tol,
+                   check_every: int):
+    """`_fista_solve` on m problems, each on its own Sigma: cs (m, p) or
+    (m, p, r), `lam` and `etas` scalars or per task. Returns (x shaped
+    like `cs`, iterations run)."""
     squeeze = cs.ndim == 2
     C = cs[..., None] if squeeze else cs
     m = C.shape[0]
@@ -226,19 +254,8 @@ def _fista_solve(Sigmas: torch.Tensor, cs: torch.Tensor, lam, etas, *,
     else:
         b0 = beta0[..., None] if beta0.ndim == C.ndim - 1 else beta0
         X0 = b0.expand(C.shape).to(C.dtype).contiguous()
-
-    def body(carry):
-        x, z, t = carry
-        t_next, theta = fista_momentum(t)
-        x_next, z_next = step(z, x, theta)
-        return x_next, z_next, t_next
-
-    def residual(x):
-        x_fp, _ = step(x, x, 0.0)
-        return torch.max(torch.abs(x_fp - x)).item()
-
-    x, n_iters = _fista_loop(body, (X0, X0, np.float32(1.0)), iters, tol,
-                             check_every, residual)
+    x, n_iters = _fista_solve(step, X0, iters=iters, tol=tol,
+                              check_every=check_every)
     return (x[..., 0] if squeeze else x), n_iters
 
 
@@ -274,10 +291,10 @@ def solve_lasso_batched(Sigmas: torch.Tensor, cs: torch.Tensor, lam, *,
         if etas is None:
             etas = 1.0 / torch.clamp_min(power_iteration_batched(Sigmas),
                                          1e-12)
-        out, n_iters = _fista_solve(Sigmas, cs, lam, etas, iters=iters,
-                                    beta0=beta0, block=block,
-                                    use_kernel=use_kernel, tol=tol,
-                                    check_every=check_every)
+        out, n_iters = _batched_solve(Sigmas, cs, lam, etas, iters=iters,
+                                      beta0=beta0, block=block,
+                                      use_kernel=use_kernel, tol=tol,
+                                      check_every=check_every)
     _record_solve("lasso", n_iters, iters)
     return (out, n_iters) if return_iters else out
 
@@ -311,10 +328,10 @@ def solve_lasso_eq2(Sigmas: torch.Tensor, cs: torch.Tensor, lam, *,
                                          device=cs.device)
         block = resolve_block_policy(m, p, 1, cs.dtype, None, use_kernel,
                                      cs.device)
-        out, n_iters = _fista_solve(Sigmas, cs, lam_half, etas, iters=iters,
-                                    beta0=beta0, block=block,
-                                    use_kernel=use_kernel, tol=tol,
-                                    check_every=check_every)
+        out, n_iters = _batched_solve(Sigmas, cs, lam_half, etas,
+                                      iters=iters, beta0=beta0, block=block,
+                                      use_kernel=use_kernel, tol=tol,
+                                      check_every=check_every)
     _record_solve("lasso_eq2", n_iters, iters)
     return (out, n_iters) if return_iters else out
 
@@ -325,34 +342,45 @@ def solve_lasso_grid(Sigmas: torch.Tensor, cs: torch.Tensor, lams, *,
                      kind: str = "lasso_grid") -> torch.Tensor:
     """Solve every (task, lambda) pair of a tuning grid in ONE batch.
 
-    Sigmas (m, p, p), cs (m, p), lams (k,) -> (k, m, p). The engine takes
-    per-task regularization weights, so a lambda grid is k*m tasks
-    sharing tiled statistics: Sigma, c and the step sizes are tiled k
-    times and each lambda repeated per task, and the whole sweep is one
-    solve of `iters` steps (on CUDA tensors, one launch of the fused
-    FISTA kernel over the k*m tasks per step). Step sizes depend only on
-    Sigma and are shared across the grid; default 1/lambda_max per task.
-    `block` (a GEMV_PLANS entry, or None for the autotuned plan of the
-    k*m-task solve) is resolved once. `kind` names the solve in the
-    `engine.solve.*` records (`solve_lasso_eq2_grid` passes its own)."""
+    Sigmas (m, p, p), cs (m, p), lams (k,) -> (k, m, p). The k problems
+    of a task share its Sigma, c and step size, and the whole sweep is
+    one solve of `iters` steps over the (k, m, p) iterates: on CUDA
+    tensors one launch a step of the lambda grid's FISTA step
+    (`fista_step_batched` on (k, m, p) iterates, which is
+    `fista_step_grid`), reading each Sigma once for up to GRID_LAMS
+    lambdas, with the bits of k m independent r = 1 problems on Sigma
+    tiled k times. Step sizes depend only on Sigma; default
+    1/lambda_max per task. `block` (a GEMV_PLANS entry, or None for the
+    plan autotuned for (m, p, k)) is resolved once. `kind` names the
+    solve in the `engine.solve.*` records (`solve_lasso_eq2_grid` passes
+    its own); `engine.grid.shared{lams, passes, outcome}` counts the
+    solve with the times a step reads each Sigma."""
     m, p = cs.shape
+    Sigmas, cs = Sigmas.contiguous(), cs.contiguous()
     lams = torch.as_tensor(lams, dtype=cs.dtype, device=cs.device)
-    lams = lams.reshape(-1)
+    lams = lams.reshape(-1).contiguous()
     k = lams.shape[0]
     with obs.span("engine.lasso", lams=k):
-        block = resolve_block_policy(k * m, p, 1, cs.dtype, block,
-                                     use_kernel, cs.device)
+        block = resolve_block_policy(m, p, 1, cs.dtype, block, use_kernel,
+                                     cs.device, lams=k)
         if etas is None:
             etas = 1.0 / torch.clamp_min(power_iteration_batched(Sigmas),
                                          1e-12)
         etas = torch.as_tensor(etas, dtype=cs.dtype, device=cs.device)
-        B, _ = _fista_solve(Sigmas.repeat(k, 1, 1), cs.repeat(k, 1),
-                            lams.repeat_interleave(m),
-                            etas.reshape(-1).repeat(k), iters=iters,
-                            beta0=None, block=block, use_kernel=use_kernel,
+        etas = etas.reshape(-1).expand(m).contiguous()
+
+        def step(Z, X, theta):
+            return fista_step_batched(Sigmas, Z, X, cs, etas, lams, theta,
+                                      use_kernel=use_kernel, block=block)
+
+        B, _ = _fista_solve(step, cs.new_zeros((k, m, p)), iters=iters,
                             tol=None, check_every=25)
+    kernel = _on_kernel(use_kernel, cs.device)
+    obs.inc("engine.grid.shared", lams=k,
+            passes=grid_passes(k) if kernel else 1,
+            outcome="kernel" if kernel else "plain")
     _record_solve(kind, iters, iters)
-    return B.reshape(k, m, p)
+    return B
 
 
 def solve_lasso_eq2_grid(Sigmas: torch.Tensor, cs: torch.Tensor, lams, *,
@@ -496,10 +524,10 @@ def inverse_hessian_batched(Sigmas: torch.Tensor, mu, iters: int = 600,
             else M0.transpose(-1, -2)
         block = resolve_block_policy(m, p, p, Sigmas.dtype, None, use_kernel,
                                      Sigmas.device)
-        Cs, n_iters = _fista_solve(Sigmas, eye, mu, etas, iters=iters,
-                                   beta0=C0, block=block,
-                                   use_kernel=use_kernel, tol=tol,
-                                   check_every=check_every)
+        Cs, n_iters = _batched_solve(Sigmas, eye, mu, etas, iters=iters,
+                                     beta0=C0, block=block,
+                                     use_kernel=use_kernel, tol=tol,
+                                     check_every=check_every)
         out = Cs.transpose(-1, -2)
     _record_solve("debias", n_iters, iters)
     return (out, n_iters) if return_iters else out

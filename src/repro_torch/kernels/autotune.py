@@ -6,7 +6,9 @@ and every plan of their tables is legal at every shape:
 
   * `fista_step` — the fused FISTA step (`kernels/ista_step`), swept over
     GEMV_PLANS, (rows_per_warp, warps), for r = 1 and over GEMM_TILES,
-    (bm, bn), for r > 1, for a (m, p, r) solve;
+    (bm, bn), for r > 1, for a (m, p, r) solve, and over GEMV_PLANS for
+    a lambda grid's step, k lambdas over m tasks, under a key of its own
+    (dims m, p, k);
   * `logistic_grad` — the fused logistic gradient, swept over the
     cluster sizes a row of p floats allows (`ops.cluster_max`) for a
     (m, n, p) batch;
@@ -265,6 +267,36 @@ def autotune_block(m: int, p: int, r: int, *, device, dtype=torch.float32,
     return _autotune(
         "fista_step", {"m": m, "p": p, "r": r},
         block_candidates(m, p, r), make_sweep, device=device, dtype=dtype,
+        reps=reps)
+
+
+def autotune_grid_block(m: int, p: int, k: int, *, device,
+                        dtype=torch.float32, reps: int = 2):
+    """The fastest plan of the lambda grid's FISTA step for k >= 2
+    lambdas over m tasks in p dimensions, a `block=` of
+    `ista_step.ops.fista_step_grid` (kernel namespace `fista_step`, dims
+    m, p, k: never the (k m, p, 1) key of the same problems tiled; one
+    lambda takes `autotune_block`'s (m, p, 1) key)."""
+    def make_sweep():
+        g = _generator(device)
+        Sigmas = torch.randn((m, p, p), generator=g, device=device,
+                             dtype=dtype)
+        zs, xs = (torch.randn((k, m, p), generator=g, device=device,
+                              dtype=dtype) for _ in range(2))
+        cs = torch.randn((m, p), generator=g, device=device, dtype=dtype)
+        etas = torch.full((m,), 0.01, device=device, dtype=dtype)
+        lams = torch.full((k,), 0.1, device=device, dtype=dtype)
+        xn, zn = torch.empty_like(zs), torch.empty_like(zs)
+
+        def fn_for(cand):
+            plan = ista_ops.check_block("autotune_grid_block", 1, cand)
+            return lambda: ista_ops.launch_grid(Sigmas, zs, xs, cs, etas,
+                                                lams, 0.5, xn, zn, plan)
+        return fn_for
+
+    return _autotune(
+        "fista_step", {"m": m, "p": p, "k": k},
+        block_candidates(m, p, 1), make_sweep, device=device, dtype=dtype,
         reps=reps)
 
 

@@ -46,6 +46,31 @@
 //   it; no shared memory and no barrier. The epilogue's operands are
 //   loaded before the loop.
 //
+// * r == 1 over a lambda grid (`solve_lasso_grid`: k values of lambda for
+//   each of m tasks, k m problems in the layout (k, m, p)): the k problems
+//   of a task share Sigma_t, and their iterates z, x and c_t are small
+//   (6.4 KB a task at p = 200, k = 8). So the bound is Sigma's bytes read
+//   once a step: 164 MB at (m, p) = (1024, 200), 49 us at 3.35 TB/s, where
+//   running the k m problems as r == 1 problems on Sigma tiled k times
+//   read 1.31 GB. Design (`fista_gemv_kernel_lams`): the r == 1 kernel's
+//   blocks, warps and Sigma loads, with 8 chains a row, one per lambda,
+//   against z_{j, t} read through L1 (Sigma's loads skip it); a launch
+//   takes the lambdas in passes of 8, reading Sigma_t ceil(k / 8) times,
+//   and a pass of fewer runs its last lambda again in the spare chains.
+//   One lambda (k == 1) is the r == 1 kernel's problem and takes its
+//   launch. The 8 ROWS sums of a warp are added across its lanes by
+//   `tree_scatter`, the same tree as the r == 1 kernel's in 31 shuffles
+//   where 8 ROWS trees take 40 ROWS (160 at 4 rows), and lane l ends
+//   with one sum and applies its epilogue. Every chain and every addition
+//   is the r == 1
+//   kernel's for that problem, so the outputs have the bits of the tiled
+//   solve. That alone reached 93 % of the bound at (16, 4096, k 8) but
+//   35 % at the paper's p = 200, where a warp's rows take one round of
+//   loads: short rows (p <= 256) take `fista_gemv_kernel_lams_staged`,
+//   whose warps each stream several groups of rows, loading one while
+//   they compute the last, with the pass's iterates in shared memory;
+//   72 % of the bound at (1024, 200, k 8) (H100 80GB HBM3, 700 W).
+//
 // * r > 1 (the debias solve, r = p, c = I): a batched matrix product, bound
 //   by operations. At (m, p) = (16, 1024) one step is 2 m p^3 = 34.4 GFLOP
 //   of f32 FMA, 0.51 ms at 67 TFLOP/s f32; the bytes (about 400 MB) take
@@ -242,6 +267,274 @@ fista_gemv_kernel(const float* __restrict__ Sig, const float* __restrict__ Z,
     const float xv = prox(a, c_o, z_o, e, __fmul_rn(e, l));
     Xn[o] = xv;
     if constexpr (MOMENTUM) Zn[o] = momentum(xv, x_o, theta);
+  }
+}
+
+// ---- r == 1 over a lambda grid: k problems a task share its Sigma ---------
+
+constexpr int GV_LAMS = 8;           // chains a row: lambdas a pass
+
+// The xor tree above over NV sums at once (NV a power of two up to 32):
+// each step halves the sums a lane keeps and sends the other half to its
+// partner, so lane l ends with sum l / (32 / NV) and then finishes it as
+// the tree does. Every addition has the operands the tree gives it (at the
+// step of offset `off` both lanes add a[l] and a[l ^ off]), so the sums
+// have the tree's bits, in 31 shuffles where NV trees take 5 NV.
+template <int H, int OFF, int NV>
+__device__ __forceinline__ void scatter_steps(float (&v)[NV], int lane) {
+  if constexpr (H >= 1) {
+    const bool up = lane & OFF;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float send = up ? v[i] : v[i + H];
+      const float keep = up ? v[i + H] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+    }
+    scatter_steps<H / 2, OFF / 2>(v, lane);
+  }
+}
+
+template <int NV>
+__device__ __forceinline__ float tree_scatter(float (&v)[NV], int lane) {
+  scatter_steps<NV / 2, 16>(v, lane);
+  float s = v[0];
+#pragma unroll
+  for (int off = 16 / NV; off > 0; off /= 2)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// The FISTA step of a lambda grid: problem j * m + t is task t at lam[j],
+// with Sigma_t, c_t and eta_t its task's (m, p, p), (m, p) and (m,) and z,
+// x, x', z' (k, m, p). Each warp streams its ROWS rows of Sigma_t once a
+// pass, as `fista_gemv_kernel` does, and runs K = GV_LAMS chains a row,
+// one per lambda of the pass, against z_{j, t} read through L1; a pass
+// takes K of the k lambdas, so Sigma_t is read ceil(k / K) times, and a
+// pass of fewer runs its last lambda again in the spare chains (k >= 2:
+// one lambda takes the r == 1 kernel). Every (row, j)
+// chain is the r == 1 kernel's chain for problem j * m + t, in its order,
+// and `tree_scatter` adds the lanes in its tree's order, so every output
+// has the bits of the r == 1 kernel on Sigma, c and eta tiled k times.
+// Lane l ends with chain i = l / (32 / (K ROWS)), (j, rr) = (i / ROWS,
+// i % ROWS), and applies its epilogue. Rows of more than 64 float4 (p >
+// 256), or of floats (p not a multiple of 4), take this kernel; the
+// others the next.
+template <int ROWS, bool VEC>
+__global__ void __launch_bounds__(GV_MAX_THREADS, 2)
+fista_gemv_kernel_lams(const float* __restrict__ Sig,
+                       const float* __restrict__ Z,
+                       const float* __restrict__ Xp,
+                       const float* __restrict__ C,
+                       const float* __restrict__ eta,
+                       const float* __restrict__ lam, float theta,
+                       float* __restrict__ Xn, float* __restrict__ Zn, int m,
+                       int p, int k) {
+  // steps a batch: one row a warp takes half the r == 1 kernel's, since
+  // its K chains' iterates are loaded too
+  constexpr int U = GV_LOADS / (ROWS > 1 ? ROWS : 2);
+  constexpr int W = VEC ? 4 : 1;
+  constexpr int K = GV_LAMS, NV = K * ROWS;
+  constexpr int SPREAD = 32 / NV;     // lanes that end with each chain
+  using V = typename std::conditional<VEC, float4, float>::type;
+  const int t = blockIdx.y;
+  const int lane = threadIdx.x % 32;
+  const int row0 = (blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32) * ROWS;
+  if (row0 >= p) return;                      // whole warps only
+  const int nrows = min(ROWS, p - row0);
+  const V* rows[ROWS];
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr)
+    rows[rr] = reinterpret_cast<const V*>(
+        Sig + ((size_t)t * p + row0 + min(rr, nrows - 1)) * p);
+  const size_t plane = (size_t)m * p;         // one lambda's iterates
+  const size_t task = (size_t)t * p;
+  const int iv = lane / SPREAD, jv = iv / ROWS, rv = iv % ROWS;
+  const bool owner = lane % SPREAD == 0 && rv < nrows;
+  const float c_o = owner ? C[task + row0 + rv] : 0.f;
+  const float e = eta[t];
+  const int pv = p / W;
+
+  for (int j0 = 0; j0 < k; j0 += K) {
+    const int nj = min(K, k - j0);
+    // z_{j0 + j, t} at zt[j * zstride]; a pass short of K lambdas runs
+    // its last one again in the chains past nj
+    const V* zt = reinterpret_cast<const V*>(Z + j0 * plane + task);
+    const size_t zstride = plane / W;
+    // the epilogue's operands, early
+    const bool writes = owner && jv < nj;
+    const size_t o = (j0 + min(jv, nj - 1)) * plane + task + row0 + rv;
+    float z_o = 0.f, x_o = 0.f, l = 0.f;
+    if (writes) {
+      z_o = Z[o];
+      x_o = Xp[o];
+      l = lam[j0 + jv];
+    }
+
+    // U steps a lane at once, each only where it lies inside the row, so
+    // that a short row (p = 200: two steps a lane) is one round of loads
+    float acc[NV] = {};               // chain j * ROWS + rr
+    for (int q = lane; q < pv; q += 32 * U) {
+      V a[U][ROWS];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (q + 32 * u < pv)
+#pragma unroll
+          for (int rr = 0; rr < ROWS; ++rr)
+            a[u][rr] = ld_stream(rows[rr] + q + 32 * u);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (q + 32 * u < pv)
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            const V b = zt[min(j, nj - 1) * zstride + q + 32 * u];
+#pragma unroll
+            for (int rr = 0; rr < ROWS; ++rr) {
+              float& s = acc[j * ROWS + rr];
+              if constexpr (VEC) s = dot4(a[u][rr], b, s);
+              else s = fmaf(a[u][rr], b, s);
+            }
+          }
+    }
+
+    const float sum = tree_scatter<NV>(acc, lane);
+    if (writes) {
+      const float xv = prox(sum, c_o, z_o, e, __fmul_rn(e, l));
+      Xn[o] = xv;
+      Zn[o] = momentum(xv, x_o, theta);
+    }
+  }
+}
+
+// The rows of one group of the short-row kernel below, at STEPS steps a
+// lane, and the epilogue's operands of the output its lane owns
+template <int ROWS, int STEPS>
+struct GridRows {
+  float4 a[STEPS][ROWS];
+  float c, z, x;
+};
+
+// Group rows row0 .. row0 + ROWS of Sigma_t into d, and where lane owns an
+// output row0 + rv of the pass, that output's c, z and x
+template <int ROWS, int STEPS>
+__device__ __forceinline__ void grid_load(GridRows<ROWS, STEPS>& d,
+                                          const float* __restrict__ St,
+                                          int row0, int p, int pv, int lane,
+                                          bool own, int rv,
+                                          const float* __restrict__ C,
+                                          const float* __restrict__ Z,
+                                          const float* __restrict__ Xp,
+                                          size_t task, size_t out) {
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr) {
+    const float4* row = reinterpret_cast<const float4*>(
+        St + (size_t)min(row0 + rr, p - 1) * p);
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s)
+      if (lane + 32 * s < pv) d.a[s][rr] = ld_stream(row + lane + 32 * s);
+  }
+  if (own && row0 + rv < p) {
+    d.c = C[task + row0 + rv];
+    d.z = Z[out + row0 + rv];
+    d.x = Xp[out + row0 + rv];
+  }
+}
+
+// The K ROWS chains of a group against the pass's iterates in shared
+// memory, the tree, and the epilogue of the output the lane owns
+template <int ROWS, int STEPS>
+__device__ __forceinline__ void grid_rows(const GridRows<ROWS, STEPS>& d,
+                                          const float4 (*zs)[32 * STEPS],
+                                          int row0, int p, int pv, int lane,
+                                          bool own, int rv, float e,
+                                          float tau, float theta,
+                                          float* __restrict__ Xn,
+                                          float* __restrict__ Zn,
+                                          size_t out) {
+  constexpr int K = GV_LAMS, NV = K * ROWS;
+  float acc[NV] = {};                 // chain j * ROWS + rr
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s)
+    if (lane + 32 * s < pv)
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const float4 b = zs[j][lane + 32 * s];
+#pragma unroll
+        for (int rr = 0; rr < ROWS; ++rr)
+          acc[j * ROWS + rr] = dot4(d.a[s][rr], b, acc[j * ROWS + rr]);
+      }
+  const float sum = tree_scatter<NV>(acc, lane);
+  if (own && row0 + rv < p) {
+    const float xv = prox(sum, d.c, d.z, e, tau);
+    Xn[out + row0 + rv] = xv;
+    Zn[out + row0 + rv] = momentum(xv, d.x, theta);
+  }
+}
+
+// The same step where a row is at most STEPS float4 a lane (p <= 256, a
+// multiple of 4). There a warp is done with its rows after one round of
+// loads and a short burst of FMAs, and the kernel above, one round a
+// warp, reached 35 % of the bound at p = 200, k = 8 (93 % at p = 4096).
+// So each warp takes G turns of ROWS rows of Sigma_t (turn g: rows
+// base + (g warps + w) ROWS; past p a warp computes clamped rows and
+// writes nothing, so that every warp of a block takes the same turns),
+// loading a turn's Sigma while it computes the one before, and the pass's
+// K iterates of the task (K p floats) are copied into shared memory once,
+// where the chains read them. The chains, the tree and so the bits are
+// the kernel's above.
+template <int ROWS, int STEPS>
+__global__ void __launch_bounds__(GV_MAX_THREADS, 2)
+fista_gemv_kernel_lams_staged(const float* __restrict__ Sig,
+                              const float* __restrict__ Z,
+                              const float* __restrict__ Xp,
+                              const float* __restrict__ C,
+                              const float* __restrict__ eta,
+                              const float* __restrict__ lam, float theta,
+                              float* __restrict__ Xn, float* __restrict__ Zn,
+                              int m, int p, int k, int G) {
+  constexpr int K = GV_LAMS, NV = K * ROWS;
+  constexpr int SPREAD = 32 / NV;     // lanes that end with each chain
+  __shared__ float4 zs[K][32 * STEPS];  // z_{j0 + j, t} of the pass
+  const int t = blockIdx.y;
+  const int lane = threadIdx.x % 32;
+  const int span = blockDim.x / 32 * ROWS;    // rows of a turn of the block
+  const int base = blockIdx.x * G * span;
+  const int first = base + threadIdx.x / 32 * ROWS;
+  const int turns = min(G, (p - base + span - 1) / span);
+  const int pv = p / 4;
+  const size_t plane = (size_t)m * p;         // one lambda's iterates
+  const size_t task = (size_t)t * p;
+  const float* St = Sig + task * p;
+  const int iv = lane / SPREAD, jv = iv / ROWS, rv = iv % ROWS;
+  const float e = eta[t];
+
+  for (int j0 = 0; j0 < k; j0 += K) {
+    const int nj = min(K, k - j0);
+    const bool own = lane % SPREAD == 0 && jv < nj;
+    const float tau = own ? __fmul_rn(e, lam[j0 + jv]) : 0.f;
+    const size_t out = (j0 + min(jv, nj - 1)) * plane + task;
+    // a pass short of K lambdas runs its last one again in the chains
+    // past nj
+    const float4* zt = reinterpret_cast<const float4*>(Z + j0 * plane + task);
+    __syncthreads();                  // the last pass's reads of zs are done
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      for (int i = threadIdx.x; i < pv; i += blockDim.x)
+        zs[j][i] = zt[min(j, nj - 1) * (plane / 4) + i];
+    __syncthreads();
+
+    GridRows<ROWS, STEPS> A, B;
+    grid_load(A, St, first, p, pv, lane, own, rv, C, Z, Xp, task, out);
+    for (int g = 0; g < turns; g += 2) {
+      const int r0 = first + g * span, r1 = r0 + span, r2 = r1 + span;
+      if (g + 1 < turns)
+        grid_load(B, St, r1, p, pv, lane, own, rv, C, Z, Xp, task, out);
+      grid_rows(A, zs, r0, p, pv, lane, own, rv, e, tau, theta, Xn, Zn, out);
+      if (g + 2 < turns)
+        grid_load(A, St, r2, p, pv, lane, own, rv, C, Z, Xp, task, out);
+      if (g + 1 < turns)
+        grid_rows(B, zs, r1, p, pv, lane, own, rv, e, tau, theta, Xn, Zn,
+                  out);
+    }
   }
 }
 
@@ -539,6 +832,72 @@ int launch_gemv(const void* Sig, const void* Z, const void* Xp,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Turns of the short-row kernel's warps: as many as still leave the grid
+// GV_BLOCKS_PER_SM blocks an SM (one block a task at most)
+int grid_turns(int m, int p, int rows, int warps, int sms) {
+  const int turns = (p + rows * warps - 1) / (rows * warps);
+  for (int g = turns; g > 1; --g)
+    if ((long long)m * ((turns + g - 1) / g) >=
+        (long long)GV_BLOCKS_PER_SM * sms)
+      return g;
+  return 1;
+}
+
+template <int ROWS>
+void launch_lams_rows(bool vec, int warps, const float* const* in,
+                      float theta, float* Xn, float* Zn, int m, int p, int k,
+                      int sms, cudaStream_t s) {
+  if (vec && p <= 4 * 64) {           // a row is at most 2 float4 a lane
+    const int G = grid_turns(m, p, ROWS, warps, sms);
+    const dim3 grid((p + ROWS * warps * G - 1) / (ROWS * warps * G), m);
+    auto kernel = p <= 4 * 32 ? fista_gemv_kernel_lams_staged<ROWS, 1>
+                              : fista_gemv_kernel_lams_staged<ROWS, 2>;
+    kernel<<<grid, 32 * warps, 0, s>>>(in[0], in[1], in[2], in[3], in[4],
+                                       in[5], theta, Xn, Zn, m, p, k, G);
+    return;
+  }
+  const dim3 grid((p + ROWS * warps - 1) / (ROWS * warps), m);
+  if (vec)
+    fista_gemv_kernel_lams<ROWS, true><<<grid, 32 * warps, 0, s>>>(
+        in[0], in[1], in[2], in[3], in[4], in[5], theta, Xn, Zn, m, p, k);
+  else
+    fista_gemv_kernel_lams<ROWS, false><<<grid, 32 * warps, 0, s>>>(
+        in[0], in[1], in[2], in[3], in[4], in[5], theta, Xn, Zn, m, p, k);
+}
+
+// `forced` is an index into GV_PLANS, or -1 for `gemv_plan`'s choice at
+// (m, p): rows a warp and warps a block, as for the r == 1 kernel. k >= 2:
+// one lambda is the r == 1 kernel's problem (`launch_gemv`).
+int launch_gemv_grid(const void* Sig, const void* Z, const void* Xp,
+                     const void* C, const void* eta, const void* lam,
+                     float theta, void* Xn, void* Zn, int m, int p, int k,
+                     int device, void* stream, int forced) {
+  if (forced < -1 || forced >= GV_NPLANS || k < 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int sms = device_sms(device);
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int plan = forced < 0 ? gemv_plan(m, p, sms) : forced;
+  const int rows = GV_PLANS[plan][0], warps = GV_PLANS[plan][1];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = p % 4 == 0 && reinterpret_cast<uintptr_t>(Sig) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(Z) % 16 == 0;
+  const float* in[6] = {
+      static_cast<const float*>(Sig), static_cast<const float*>(Z),
+      static_cast<const float*>(Xp), static_cast<const float*>(C),
+      static_cast<const float*>(eta), static_cast<const float*>(lam)};
+  float* xn = static_cast<float*>(Xn);
+  float* zn = static_cast<float*>(Zn);
+  if (rows == 4)
+    launch_lams_rows<4>(vec, warps, in, theta, xn, zn, m, p, k, sms, s);
+  else if (rows == 2)
+    launch_lams_rows<2>(vec, warps, in, theta, xn, zn, m, p, k, sms, s);
+  else
+    launch_lams_rows<1>(vec, warps, in, theta, xn, zn, m, p, k, sms, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool aligned16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
@@ -591,6 +950,19 @@ extern "C" int fista_step_gemv_f32(const void* Sig, const void* Z,
                                    int plan) {
   return launch_gemv<true>(Sig, Z, Xp, C, eta, lam, theta, Xn, Zn, m, p,
                            device, stream, plan);
+}
+
+// The lambda grid's step, Sigma shared by k >= 2 problems a task: Sigma
+// (m, p, p); z, x (k, m, p); c (m, p); eta (m,); lam (k,) -> x', z'
+// (k, m, p).
+extern "C" int fista_step_gemv_grid_f32(const void* Sig, const void* Z,
+                                        const void* Xp, const void* C,
+                                        const void* eta, const void* lam,
+                                        float theta, void* Xn, void* Zn,
+                                        int m, int p, int k, int device,
+                                        void* stream, int plan) {
+  return launch_gemv_grid(Sig, Z, Xp, C, eta, lam, theta, Xn, Zn, m, p, k,
+                          device, stream, plan);
 }
 
 // Sigma (m, p, p); z, x, c (m, p, r); eta, lam (m,) -> x', z' (m, p, r).

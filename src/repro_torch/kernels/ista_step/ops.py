@@ -7,7 +7,9 @@ batched matrix-vector product) and r > 1 (a batched matrix product).
   body of the engine's solves;
 * `ista_step_batched`: the same step without momentum, m tasks;
 * `ista_step`: one task with scalar eta and lam (the kernel at m = 1), and
-  `ista_solve`, a whole proximal-gradient solve with it as the body.
+  `ista_solve`, a whole proximal-gradient solve with it as the body;
+* `fista_step_grid`: the fused FISTA step of a lambda grid, k problems a
+  task sharing its Sigma (the r == 1 kernel's lambda-grid instance).
 
 `use_kernel` follows `kernels/common.py`.
 
@@ -36,12 +38,16 @@ from repro_torch.kernels.common import (
     LAUNCHES, check_f32, resolve_use_kernel,
 )
 from repro_torch.kernels.ista_step.ref import (
-    fista_step_batched_ref, ista_step_batched_ref, ista_step_ref,
+    fista_step_batched_ref, fista_step_grid_ref, ista_step_batched_ref,
+    ista_step_ref,
 )
 
 # the launch entries take the plan last (-1: the rule's)
 _GEMV_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p, ctypes.c_int])
+_GRID_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
+                  + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                   + [ctypes.c_void_p, ctypes.c_int])
 _GEMM_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
@@ -62,6 +68,9 @@ GEMM_STAGES = 4
 # the blocks per SM its plan asks for (GV_PLANS, GV_BLOCKS_PER_SM)
 GEMV_PLANS = ((4, 8), (2, 8), (1, 8), (1, 4), (1, 2))
 GEMV_BLOCKS_PER_SM = 4
+# the lambda grid's step: chains a row, the lambdas of one pass over
+# Sigma (GV_LAMS)
+GRID_LAMS = 8
 
 
 class GemmPlan(NamedTuple):
@@ -106,6 +115,12 @@ def gemv_plan(m: int, p: int, sms: int) -> GemvPlan:
         if blocks >= GEMV_BLOCKS_PER_SM * sms:
             break
     return GemvPlan(rows, warps, blocks, 32 * warps)
+
+
+def grid_passes(k: int) -> int:
+    """How many times the lambda grid's step reads each Sigma for k
+    lambdas: once for up to GRID_LAMS of them."""
+    return -(-k // GRID_LAMS)
 
 
 def kernel_gemv_plan(m: int, p: int,
@@ -199,7 +214,14 @@ def fista_step_batched(Sigmas: torch.Tensor, zs: torch.Tensor,
     float32 scalar momentum coefficient, a host number; `block` a plan
     of GEMV_PLANS (r == 1) or GEMM_TILES (r > 1), or None for the
     rule's. Returns (x_next, z_next), fresh tensors (never aliasing zs
-    or xs)."""
+    or xs).
+
+    A lambda grid's step takes zs/xs (k, m, p) beside cs (m, p) and lam
+    (k,): it is `fista_step_grid`'s, so that every FISTA step of the
+    engine goes through this entry."""
+    if zs.ndim == 3 and cs.ndim == 2:
+        return fista_step_grid(Sigmas, zs, xs, cs, etas, lam, theta,
+                               use_kernel=use_kernel, block=block)
     squeeze = zs.ndim == 2
     if squeeze:
         zs, xs, cs = zs[..., None], xs[..., None], cs[..., None]
@@ -242,6 +264,66 @@ def launch(Sigmas, zs, xs, cs, etas, lams, theta, xn, zn,
         _build.call(fn, *ptrs, float(theta), xn.data_ptr(), zn.data_ptr(), m,
                     p, r, dev.index, _build.stream(dev), plan)
         LAUNCHES["fista_step_gemm"] += 1
+
+
+def fista_step_grid(Sigmas: torch.Tensor, zs: torch.Tensor,
+                    xs: torch.Tensor, cs: torch.Tensor, etas: torch.Tensor,
+                    lams: torch.Tensor, theta, *,
+                    use_kernel: bool | None = None, block=None):
+    """One fused FISTA iteration of a lambda grid: problem (j, t) is task
+    t's lasso at lams[j], on that task's Sigma, c and step size. Sigmas
+    (m, p, p); zs, xs (k, m, p); cs (m, p); etas (m,); lams (k,); theta
+    and `block` (a GEMV_PLANS entry) as in `fista_step_batched`. Returns
+    (x_next, z_next), fresh (k, m, p) tensors, with the bits of
+    `fista_step_batched` on Sigma, c and eta tiled k times: the kernel
+    reads each Sigma once for up to GRID_LAMS lambdas. One lambda is
+    the r == 1 kernel's problem, and takes its launch."""
+    name = "fista_step_grid"
+    if zs.ndim != 3 or Sigmas.ndim != 3:
+        raise ValueError(f"{name}: Sigmas (m, p, p) and iterates (k, m, p) "
+                         f"expected, got {tuple(Sigmas.shape)}, "
+                         f"{tuple(zs.shape)}")
+    k, m, p = zs.shape
+    if tuple(Sigmas.shape) != (m, p, p) or xs.shape != zs.shape \
+            or tuple(cs.shape) != (m, p) or tuple(etas.shape) != (m,) \
+            or tuple(lams.shape) != (k,):
+        raise ValueError(
+            f"{name}: shapes Sigmas {tuple(Sigmas.shape)}, zs "
+            f"{tuple(zs.shape)}, xs {tuple(xs.shape)}, cs {tuple(cs.shape)}, "
+            f"etas {tuple(etas.shape)}, lams {tuple(lams.shape)} do not fit "
+            f"(k, m, p) = {(k, m, p)}")
+    tensors = (Sigmas, zs, xs, cs, etas, lams)
+    check_f32(name, Sigmas=Sigmas, zs=zs, xs=xs, cs=cs, etas=etas, lams=lams)
+    plan = check_block(name, 1, block)
+    if not resolve_use_kernel(name, use_kernel, *tensors):
+        return fista_step_grid_ref(*tensors, theta)
+    if k == 1:
+        xn, zn = fista_step_batched(Sigmas, zs[0], xs[0], cs, etas, lams,
+                                    theta, use_kernel=True, block=block)
+        return xn[None], zn[None]
+    _kernel_ready(name, (k, m, p), tensors)
+    xn = torch.empty_like(zs)
+    zn = torch.empty_like(zs)
+    launch_grid(*tensors, theta, xn, zn, plan)
+    return xn, zn
+
+
+def launch_grid(Sigmas, zs, xs, cs, etas, lams, theta, xn, zn,
+                plan: int = -1) -> None:
+    """Launch the lambda grid's step into the given outputs, with no
+    checks: the operands are what `fista_step_grid` passes for k >= 2
+    lambdas (float32, contiguous, one CUDA device; xn and zn aliasing
+    neither zs nor xs; the launcher refuses k = 1, the r == 1 kernel's).
+    Adds one to LAUNCHES["fista_step_gemv"]: it is #1a's launch of a
+    step."""
+    k, m, p = zs.shape
+    ptrs = [t.data_ptr() for t in (Sigmas, zs, xs, cs, etas, lams)]
+    dev = zs.device
+    fn = _build.function("fista_step", "fista_step_gemv_grid_f32",
+                         _GRID_ARGTYPES)
+    _build.call(fn, *ptrs, float(theta), xn.data_ptr(), zn.data_ptr(), m, p,
+                k, dev.index, _build.stream(dev), plan)
+    LAUNCHES["fista_step_gemv"] += 1
 
 
 def ista_step_batched(Sigmas: torch.Tensor, betas: torch.Tensor,

@@ -56,3 +56,19 @@ def fista_step_batched_ref(Sigmas: torch.Tensor, zs: torch.Tensor,
     x_next = ista_step_batched_ref(Sigmas, zs, cs, etas, lam)
     z_next = x_next + float(theta) * (x_next - xs)
     return x_next, z_next
+
+
+def fista_step_grid_ref(Sigmas: torch.Tensor, zs: torch.Tensor,
+                        xs: torch.Tensor, cs: torch.Tensor,
+                        etas: torch.Tensor, lams: torch.Tensor, theta):
+    """`fista_step_batched_ref` for a lambda grid, each Sigma shared by
+    its task's k problems: Sigmas (m, p, p), zs/xs (k, m, p), cs (m, p),
+    etas (m,), lams (k,). The products of all k iterates are one batched
+    product, Sigma_t against the (p, k) matrix of its task's iterates.
+    Returns (x_next, z_next) (k, m, p)."""
+    grad = torch.bmm(Sigmas, zs.permute(1, 2, 0)).permute(2, 0, 1) - cs
+    eta = etas.reshape(1, -1, 1).to(zs.dtype)
+    z = zs - eta * grad
+    x_next = _soft(z, eta * lams.reshape(-1, 1, 1).to(zs.dtype))
+    z_next = x_next + float(theta) * (x_next - xs)
+    return x_next, z_next

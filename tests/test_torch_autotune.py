@@ -77,6 +77,8 @@ KERNELS = {
                       autotune.block_candidates),
     "fista_step_rp": (autotune.autotune_block, (2, 8, 8),
                       autotune.block_candidates),
+    "fista_step_grid": (autotune.autotune_grid_block, (2, 8, 3),
+                        lambda m, p, k: autotune.block_candidates(m, p, 1)),
     "logistic_grad": (autotune.autotune_logistic_block, (2, 4, 2048),
                       autotune.logistic_candidates),
     "rank_update": (autotune.autotune_rank_block, (2, 4, 8),
@@ -153,6 +155,43 @@ def test_keys_are_namespaced_per_kernel(cache_dir, timed, monkeypatch):
     assert default.name == "repro_torch_autotune.json"
     assert default.parent.name == ".cache"
     assert autotune.backend_slug(CPU) == "cpu"
+
+
+def test_grid_key_is_not_the_r1_key(cache_dir, timed, monkeypatch):
+    """The lambda grid's step keeps a key of its own, with k: neither the
+    r = 1 key of the same m and p nor that of the k m problems tiled, and
+    the grid's solve asks for it."""
+    autotune.autotune_block(2, 8, 1, device=CPU)
+    autotune.autotune_block(6, 8, 1, device=CPU)
+    autotune.autotune_grid_block(2, 8, 3, device=CPU)
+    entries = json.loads(autotune.cache_path().read_text())
+    assert sorted(entries) == ["fista_step/cpu_m2_p8_k3_float32",
+                               "fista_step/cpu_m2_p8_r1_float32",
+                               "fista_step/cpu_m6_p8_r1_float32"]
+    assert all(KEY_RE.match(k) for k in entries), list(entries)
+    asked = []
+    monkeypatch.setattr(engine, "_on_kernel", lambda use_kernel, dev: True)
+    monkeypatch.setattr(autotune, "autotune_grid_block",
+                        lambda *a, **kw: asked.append(a) or None)
+    engine.resolve_block_policy(2, 8, 1, torch.float32, None, None, CPU,
+                                lams=3)
+    assert asked == [(2, 8, 3)]
+
+
+def test_one_lambda_grid_takes_the_r1_key(cache_dir, timed, monkeypatch):
+    """A grid of one lambda is the (m, p, 1) solve: its plan is asked of
+    `autotune_block` at r = 1, and no grid key is made."""
+    asked = []
+    monkeypatch.setattr(engine, "_on_kernel", lambda use_kernel, dev: True)
+    monkeypatch.setattr(autotune, "autotune_block",
+                        lambda *a, **kw: asked.append(("r", a)) or None)
+    monkeypatch.setattr(autotune, "autotune_grid_block",
+                        lambda *a, **kw: asked.append(("k", a)) or None)
+    engine.resolve_block_policy(2, 8, 1, torch.float32, None, None, CPU,
+                                lams=1)
+    engine.resolve_block_policy(2, 8, 1, torch.float32, None, None, CPU,
+                                lams=2)
+    assert asked == [("r", (2, 8, 1)), ("k", (2, 8, 2))]
 
 
 def test_several_ranks_take_the_rule(cache_dir, timed, monkeypatch):

@@ -234,6 +234,30 @@ def test_eq2_grid_is_one_lasso_span():
                              kind="lasso_eq2_grid") == 1
 
 
+def _grid_shared():
+    return {(c["labels"]["lams"], c["labels"]["passes"],
+             c["labels"]["outcome"]): c["value"]
+            for c in obs.get_registry().snapshot()["counters"]
+            if c["name"] == "engine.grid.shared"}
+
+
+@pytest.mark.parametrize("eq2", [False, True])
+@pytest.mark.parametrize("k", [1, 4, 11])
+def test_grid_records_its_shared_reads_once_a_solve(k, eq2):
+    """A lambda grid counts `engine.grid.shared` once, with its lambdas,
+    the times a step reads each Sigma (one on the plain path, whatever
+    k) and the path it took; the other solves count nothing there."""
+    X, y = _data()
+    S, c = _stats(X, y)
+    solve = engine.solve_lasso_eq2_grid if eq2 else engine.solve_lasso_grid
+    solve(torch.from_numpy(S), torch.from_numpy(c),
+          torch.linspace(0.05, 0.5, k), iters=5)
+    assert _grid_shared() == {(k, 1, "plain"): 1}
+    dsml_fit(torch.from_numpy(X), torch.from_numpy(y), LAM, MU, THR,
+             **ITERS)
+    assert _grid_shared() == {(k, 1, "plain"): 1}
+
+
 def test_engine_adds_no_host_read(monkeypatch):
     """Without `tol=`, a fit reads nothing back from its tensors: no
     `.item()`, `.tolist()` or synchronisation, with telemetry on."""

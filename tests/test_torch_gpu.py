@@ -56,9 +56,11 @@ from repro_torch.kernels.flash_attention.ops import (
 from repro_torch.kernels.group_threshold.ops import (
     group_threshold, kernel_row_lanes, row_lanes,
 )
+from repro_torch.kernels.ista_step import ops as ista_ops
 from repro_torch.kernels.ista_step.ops import (
-    fista_step_batched, gemm_plan, gemv_plan, ista_solve, ista_step,
-    ista_step_batched, kernel_gemm_plan, kernel_gemv_plan,
+    GEMV_PLANS, fista_step_batched, fista_step_grid, gemm_plan, gemv_plan,
+    ista_solve, ista_step, ista_step_batched, kernel_gemm_plan,
+    kernel_gemv_plan,
 )
 from repro_torch.kernels.logistic_grad.ops import (
     kernel_plan, kernel_unfused_plan, launch, launch_unfused, logistic_grad,
@@ -523,6 +525,83 @@ def test_grid_solve_kernels_match_plain_path(cuda):
     want = solve_lasso_eq2_grid(S, c, lams, iters=200, use_kernel=False)
     assert got.shape == (5, 4, 120)
     _assert_close((got,), (want,), tol=1e-4)
+
+
+def _grid_step_inputs(device, m, p, k):
+    g = torch.Generator(device=device).manual_seed(13)
+    X = torch.randn((m, 2 * p, p), generator=g, device=device)
+    Sig = torch.einsum("tni,tnj->tij", X, X) / (2 * p)
+    etas = 1.0 / power_iteration_batched(Sig)
+    z = 0.3 * torch.randn((k, m, p), generator=g, device=device)
+    x = z + 0.1 * torch.randn((k, m, p), generator=g, device=device)
+    c = 0.5 * torch.randn((m, p), generator=g, device=device)
+    lams = 0.01 + 0.1 * torch.rand((k,), generator=g, device=device)
+    return Sig, z, x, c, etas, lams
+
+
+@pytest.mark.parametrize("theta", [0.6, 0.0])
+@pytest.mark.parametrize("m, p, k", [(4, 120, 5), (1024, 200, 8),
+                                     (16, 1024, 8), (3, 201, 11),
+                                     (2, 200, 1)])
+def test_fista_step_grid_is_the_tiled_launch(cuda, m, p, k, theta):
+    """The lambda grid's step (Sigma read once for up to 8 lambdas; the
+    4-byte body at p = 201; two passes at k = 11; at k = 1 the r == 1
+    launch itself, which the grid's launcher refuses), with momentum and
+    without (theta 0, the residual's step), gives under every plan the
+    bits of the r == 1 kernel launched on Sigma, c and eta tiled k times
+    and each lambda repeated over the tasks; one launch a step."""
+    Sig, z, x, c, etas, lams = _grid_step_inputs(cuda, m, p, k)
+    tiled = (Sig.repeat(k, 1, 1), z.reshape(k * m, p, 1),
+             x.reshape(k * m, p, 1), c.repeat(k, 1)[..., None],
+             etas.repeat(k), lams.repeat_interleave(m))
+    want = (torch.empty_like(tiled[1]), torch.empty_like(tiled[1]))
+    ista_ops.launch(*tiled, np.float32(theta), *want)
+    want = tuple(w.reshape(k, m, p) for w in want)
+    for block in (None, *GEMV_PLANS):
+        before = LAUNCHES["fista_step_gemv"]
+        got = fista_step_grid(Sig, z, x, c, etas, lams, np.float32(theta),
+                              block=block)
+        assert LAUNCHES["fista_step_gemv"] == before + 1
+        assert all(torch.equal(a, w) for a, w in zip(got, want)), block
+    _assert_close(got, fista_step_grid(Sig, z, x, c, etas, lams,
+                                       np.float32(theta), use_kernel=False))
+    if k == 1:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            ista_ops.launch_grid(Sig, z, x, c, etas, lams, np.float32(theta),
+                                 torch.empty_like(z), torch.empty_like(z))
+
+
+@pytest.mark.parametrize("k", [8, 11])
+def test_grid_solve_is_the_tiled_solve(cuda, k):
+    """A whole `solve_lasso_eq2_grid` gives the bits of the k m problems
+    solved as r == 1 problems on Sigma, c and the step sizes tiled k
+    times, with one launch of #1a a step; `engine.grid.shared` records
+    the solve on the kernel with the passes a step makes over Sigma."""
+    from repro_torch import obs
+    from repro_torch.core.engine import solve_lasso_batched
+    from repro_torch.core.solvers import lasso_stats_step_scale
+    d = gen_regression(1, m=16, n=200, p=256, s=8, signal_low=0.3,
+                       device=cuda)
+    S, c = sufficient_stats(d.Xs, d.ys)
+    lam_max = 2.0 * torch.max(torch.abs(c)).item()
+    lams = torch.tensor(lam_max * np.geomspace(1.0, 0.01, k),
+                        dtype=torch.float32, device=cuda)
+    etas = lasso_stats_step_scale(S)
+    assert torch.equal(etas, lasso_stats_step_scale(S))
+    obs.reset()
+    before = LAUNCHES["fista_step_gemv"]
+    got = solve_lasso_eq2_grid(S, c, lams, iters=200)
+    assert LAUNCHES["fista_step_gemv"] == before + 200
+    shared = [(x["labels"], x["value"])
+              for x in obs.get_registry().snapshot()["counters"]
+              if x["name"] == "engine.grid.shared"]
+    assert shared == [({"lams": k, "passes": -(-k // 8),
+                        "outcome": "kernel"}, 1)]
+    m, p = c.shape
+    want = solve_lasso_batched(S.repeat(k, 1, 1), c.repeat(k, 1),
+                               (0.5 * lams).repeat_interleave(m), iters=200,
+                               etas=etas.repeat(k))
+    assert torch.equal(got, want.reshape(k, m, p))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

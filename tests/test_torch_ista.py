@@ -22,11 +22,13 @@ from repro.kernels.ista_step.ops import (
 )
 from repro_torch.kernels.common import LAUNCHES
 from repro_torch.kernels.ista_step.ops import (
-    GEMM_TILES, GEMV_BLOCKS_PER_SM, GEMV_PLANS, gemm_plan, gemv_plan,
-    ista_solve, ista_step, ista_step_batched,
+    GEMM_TILES, GEMV_BLOCKS_PER_SM, GEMV_PLANS, GRID_LAMS, fista_step_grid,
+    gemm_plan, gemv_plan, grid_passes, ista_solve, ista_step,
+    ista_step_batched,
 )
 from repro_torch.kernels.ista_step.ref import (
-    ista_step_batched_ref, ista_step_ref,
+    fista_step_batched_ref, fista_step_grid_ref, ista_step_batched_ref,
+    ista_step_ref,
 )
 
 ATOL = 1e-5
@@ -195,6 +197,117 @@ def test_float64_raises():
     with pytest.raises(TypeError, match="float32"):
         ista_step(_t(Sig[0]), _t(b[0]), _t(c[0]),
                   torch.tensor(0.3, dtype=torch.float64), 0.1)
+
+
+# ---- the lambda grid's step: Sigma shared by k problems a task ---------------
+
+def _grid_inputs(m, p, k, seed=0):
+    """Sigmas (m, p, p), zs, xs (k, m, p), cs (m, p), etas (m,), lams
+    (k,) as float32 tensors."""
+    Sig, b, c, etas, _ = _inputs(m, p, 1, seed)
+    rng = np.random.default_rng(seed + 100)
+    z = (0.3 * rng.standard_normal((k, m, p))).astype(np.float32)
+    x = (z + 0.05 * rng.standard_normal((k, m, p))).astype(np.float32)
+    lams = rng.uniform(0.02, 0.3, k).astype(np.float32)
+    return tuple(_t(a) for a in (Sig, z, x, c[..., 0], etas, lams))
+
+
+@pytest.mark.parametrize("theta", [0.6, 0.0])
+@pytest.mark.parametrize("m, p, k", [(4, 20, 5), (3, 13, 11), (2, 16, 1)])
+def test_fista_step_grid_plain_is_the_tiled_step(m, p, k, theta):
+    """The plain grid step (one batched product of each Sigma against its
+    task's k iterates) against `fista_step_batched_ref` on Sigma, c and
+    eta tiled k times and each lambda repeated over the tasks, the
+    engine's earlier layout: within float32 rounding of the products."""
+    Sig, z, x, c, etas, lams = _grid_inputs(m, p, k)
+    got = fista_step_grid(Sig, z, x, c, etas, lams, np.float32(theta))
+    tiled = fista_step_batched_ref(
+        Sig.repeat(k, 1, 1), z.reshape(k * m, p, 1), x.reshape(k * m, p, 1),
+        c.repeat(k, 1)[..., None], etas.repeat(k),
+        lams.repeat_interleave(m), np.float32(theta))
+    for a, b in zip(got, tiled):
+        assert a.shape == (k, m, p)
+        np.testing.assert_allclose(a.numpy(), b.reshape(k, m, p).numpy(),
+                                   rtol=0, atol=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, fista_step_grid_ref(Sig, z, x, c, etas, lams, theta)))
+
+
+def test_fista_step_grid_checks_its_operands():
+    Sig, z, x, c, etas, lams = _grid_inputs(2, 8, 3, seed=3)
+    with pytest.raises(ValueError, match="do not fit"):
+        fista_step_grid(Sig, z, x, c, etas, lams[:2], 0.5)
+    with pytest.raises(ValueError, match="do not fit"):
+        fista_step_grid(Sig, z, x[:, :1], c, etas, lams, 0.5)
+    with pytest.raises(ValueError, match="do not fit"):
+        fista_step_grid(Sig, z, x, c[None], etas, lams, 0.5)
+    with pytest.raises(ValueError, match="expected"):
+        fista_step_grid(Sig, z[0], x[0], c, etas, lams, 0.5)
+    with pytest.raises(TypeError, match="float32"):
+        fista_step_grid(Sig, z, x, c, etas, lams.double(), 0.5)
+    with pytest.raises(ValueError, match="GEMV_PLANS"):
+        fista_step_grid(Sig, z, x, c, etas, lams, 0.5, block=(128, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        fista_step_grid(Sig, z, x, c, etas, lams, 0.5, use_kernel=True)
+    before = dict(LAUNCHES)
+    for block in GEMV_PLANS:
+        fista_step_grid(Sig, z, x, c, etas, lams, 0.5, block=block)
+    assert dict(LAUNCHES) == before
+
+
+def test_grid_passes():
+    """The grid's step reads each Sigma once for every 8 lambdas."""
+    assert GRID_LAMS == 8
+    assert [grid_passes(k) for k in (1, 5, 8, 9, 11, 16, 17)] == \
+        [1, 1, 1, 2, 2, 2, 3]
+
+
+def _xor_tree(a: np.ndarray) -> np.ndarray:
+    """The r == 1 kernel's shuffle tree on (32 lanes, sums) in float32:
+    at each offset every lane adds its partner's value."""
+    a = a.copy()
+    for off in (16, 8, 4, 2, 1):
+        a = a + a[np.arange(32) ^ off]
+    return a
+
+
+def _tree_scatter(a: np.ndarray) -> np.ndarray:
+    """`tree_scatter` in fista_step.cu, lane by lane in float32: each
+    step keeps half of a lane's sums (the upper half where the lane's
+    offset bit is set), adds its partner's copy of them, and the last
+    sum finishes the tree. Returns each lane's sum."""
+    nv = a.shape[1]
+    lanes = np.arange(32)
+    v = a.copy()
+    h, off = nv // 2, 16
+    while h >= 1:
+        up = (lanes & off) != 0
+        send = np.where(up[:, None], v[:, :h], v[:, h:2 * h])
+        keep = np.where(up[:, None], v[:, h:2 * h], v[:, :h])
+        v = keep + send[lanes ^ off]
+        h, off = h // 2, off // 2
+    s = v[:, 0]
+    off = 16 // nv
+    while off > 0:
+        s = s + s[lanes ^ off]
+        off //= 2
+    return s
+
+
+@pytest.mark.parametrize("nv", [1, 2, 4, 8, 16, 32])
+def test_tree_scatter_adds_in_the_trees_order(nv):
+    """Lane l ends with sum l / (32 / nv), with the bits the xor tree gives
+    that sum on every lane (lanes past a row's end hold 0, as the kernel's
+    lanes past p do)."""
+    rng = np.random.default_rng(nv)
+    a = (rng.standard_normal((32, nv)) * 10.0 ** rng.integers(
+        -3, 4, (32, nv))).astype(np.float32)
+    a[25:, : nv // 2] = 0.0
+    want = _xor_tree(a)
+    got = _tree_scatter(a)
+    idx = np.arange(32) // (32 // nv)
+    assert np.array_equal(got, want[np.arange(32), idx])
+    assert all(np.array_equal(want[l], want[0]) for l in range(32))
 
 
 # ---- the r > 1 kernel's tile plan (the card tests run the kernel) -----------
