@@ -391,6 +391,17 @@ Phases, each of which raises on failure (exit code != 0):
         plans memory hits: beta_u and the support bit for bit phase 4's;
    14c. the memory cache cleared, the fit again: its three plans disk
         hits, no sweep (the `autotune.cache` counter), phase 4's bits.
+15. granite-4.0-h-small's training products at the benchmark cell's
+   shapes (`hybrid_moe_phase`; `python chip_smoke.py 15` runs it alone):
+   15a. the held experts' grouped products (`moe.grouped_mm`, one
+        `torch.mm` a group) over 20,480 rows in 9 groups, one empty, 4096
+        -> 768 and 768 -> 4096 in bf16, forward and backward, held to the
+        float64 products within 1e-2 * max|want|, with their launches,
+        times and bound;
+   15b. #9 with its lse at (2, 8192, 32, 8, 128), causal, scale 1/128,
+        held to the plain forward (rows within 1e-2, the lse 1e-4), one
+        launch a call, timed against its bound and SDPA at that scale,
+        and the plain training backward against SDPA's.
 
 The engine's plans (`block=None` on the card) are the ones timed fastest
 (`kernels/autotune.py`), in a cache directory of the run's own that the
@@ -4100,6 +4111,132 @@ def init_params_shapes(cfg):
     return meta_train_state(cfg).params
 
 
+def hybrid_moe_phase(dev, card) -> dict:
+    """Phase 15: the products of granite-4.0-h-small's training cell at
+    its shapes, each against its plain version. (a) The held experts'
+    grouped products (`moe.grouped_mm`, one `torch.mm` a group) over the
+    cell's 20,480 routed rows in 9 groups, one empty, K 4096 -> N 768 and
+    768 -> 4096, bf16: y, and through autograd dx and dw, against the
+    float64 products group by group (within 1e-2 of max|want|: the
+    output's bf16 rounding), with the kernels a call launches and the
+    time of the forward and of forward and backward against their bound.
+    (b) #9 with its lse at (2, 8192, 32, 8, 128), causal, softmax scale
+    1/128, no rotary: against the plain forward at that scale on the f32
+    upcast (each row's output within 1e-2 in l2, the lse within 1e-4),
+    one launch a call (`LAUNCHES`), its time against the bound and SDPA's
+    at the same scale; and the training backward (the plain path) against
+    SDPA's. Returns the rows it prints."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_fwd_lse,
+    )
+    from repro_torch.launch.timing import kernel_launches, time_ms
+    from repro_torch.models.layers import flash_attention_train
+    from repro_torch.models.moe import grouped_mm
+    bf16, f64 = torch.bfloat16, torch.float64
+    g = torch.Generator(device=dev).manual_seed(15)
+    rows = {}
+    counts = [3000, 0, 2500, 1, 4000, 2275, 2300, 2000, 4404]
+    R = sum(counts)
+    for K, N in ((4096, 768), (768, 4096)):
+        x = torch.randn((R, K), generator=g, device=dev).to(bf16)
+        w = (torch.randn((len(counts), K, N), generator=g, device=dev)
+             * K ** -0.5).to(bf16)
+        dy = torch.randn((R, N), generator=g, device=dev).to(bf16)
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = grouped_mm(xs, ws, counts)
+        dx, dw = torch.autograd.grad(y, (xs, ws), dy)
+        a = 0
+        errs = [0.0, 0.0, 0.0]
+        y = y.detach()
+        for e, n in enumerate(counts):
+            if not n:                    # an empty group's dw: zeros
+                continue
+            xe, dye, we = x[a:a + n].to(f64), dy[a:a + n].to(f64), \
+                w[e].to(f64)
+            for i, (got, want) in enumerate((
+                    (y[a:a + n], xe @ we), (dx[a:a + n], dye @ we.T),
+                    (dw[e], xe.T @ dye))):
+                scale = max(float(want.abs().max()), 1e-30)
+                errs[i] = max(errs[i], float((got.to(f64) - want).abs()
+                                             .max()) / scale)
+            a += n
+        check(max(errs) <= 1e-2 and all(
+            bool((dw[e] == 0).all()) for e, n in enumerate(counts) if not n),
+            f"15a: grouped products ({K} -> {N}) off the float64 products "
+            f"by {errs}")
+
+        def fwd():
+            return grouped_mm(x, w, counts)
+
+        def fwd_bwd():
+            torch.autograd.grad(grouped_mm(xs, ws, counts), (xs, ws), dy)
+        flops = 2.0 * R * K * N
+        nbytes = 2 * (R * (K + N) + len(counts) * K * N)
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        ms, ms3 = time_ms(fwd), time_ms(fwd_bwd)
+        row = {"name": f"grouped_mm_{K}x{N}", "errors": errs,
+               "launches": len(kernel_launches(fwd)),
+               "launches_fwd_bwd": len(kernel_launches(fwd_bwd)),
+               "ms": ms, "fwd_bwd_ms": ms3, "bound_ms": b_ms,
+               "bound_by": b_by, "fwd_bwd_bound_ms": 3 * b_ms}
+        rows[row["name"]] = row
+        print(f"15a {row['name']} {card}: {row['launches']} launches, "
+              f"{ms:.4f} ms, bound {b_ms:.4f} ({b_ms / ms:.1%}); forward "
+              f"and backward {row['launches_fwd_bwd']} launches, "
+              f"{ms3:.4f} ms ({3 * b_ms / ms3:.1%}); errors {errs}")
+
+    B, S, Nh, Kh, H = 2, 8192, 32, 8, 128
+    q = torch.randn((B, S, Nh, H), generator=g, device=dev).to(bf16)
+    k, v = (torch.randn((B, S, Kh, H), generator=g, device=dev).to(bf16)
+            for _ in range(2))
+    before = LAUNCHES["flash_attention"]
+    out, lse = flash_attention_fwd_lse(q, k, v, scale=1 / 128)
+    launches = LAUNCHES["flash_attention"] - before
+    want_out, want_lse = flash_attention_fwd_lse(
+        q.float(), k.float(), v.float(), scale=1 / 128, use_kernel=False)
+    lse_err = float((torch.abs(lse - want_lse)
+                     / torch.clamp_min(torch.abs(want_lse), 1.0)).max())
+    row_err_ = float((torch.linalg.vector_norm(out.float() - want_out, dim=-1)
+                      / torch.linalg.vector_norm(want_out, dim=-1)).max())
+    del want_out, want_lse
+    check(launches == 1 and lse_err <= 1e-4 and row_err_ <= 1e-2,
+          f"15b: #9 at scale 1/128: {launches} launches, lse {lse_err}, "
+          f"rows {row_err_}")
+    flops = 4.0 * B * Nh * H * flash_pairs(S, True, 0)
+    nbytes = 2 * (2 * B * S * Nh * H + 2 * B * S * Kh * H) + 4 * B * Nh * S
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    ms = time_ms(lambda: flash_attention_fwd_lse(q, k, v, scale=1 / 128))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=1 / 128, enable_gqa=True)
+    sdpa_ms = time_ms(sdpa)
+    dout = torch.randn((B, S, Nh, H), generator=g, device=dev).to(bf16)
+    ts = [t.detach().requires_grad_() for t in (q, k, v)]
+    fwd = flash_attention_train(*ts, scale=1 / 128)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(fwd, ts, dout,
+                                                 retain_graph=True),
+                     reps=3, warm=1)
+    so = sdpa()
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        so, (qt, kt, vt), dout.transpose(1, 2), retain_graph=True))
+    row = {"name": "flash_attention_lse_granite4h", "launches": launches,
+           "lse_err": lse_err, "row_err": row_err_, "ms": ms,
+           "bound_ms": b_ms, "bound_by": b_by, "sdpa_ms": sdpa_ms,
+           "plain_bwd_ms": bwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms}
+    rows[row["name"]] = row
+    print(f"15b #9 (2, 8192, 32, 8, 128) causal, scale 1/128 {card}: "
+          f"{launches} launch, {ms:.4f} ms, bound {b_ms:.4f} "
+          f"({b_ms / ms:.1%}), SDPA {sdpa_ms:.4f}; the plain backward "
+          f"{bwd_ms:.2f} ms, SDPA's {sdpa_bwd_ms:.4f}; lse {lse_err:.2e}, "
+          f"rows {row_err_:.2e}")
+    print(json.dumps({"phase15": rows}))
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels "
@@ -5462,6 +5599,11 @@ def main() -> None:
     autotune_phase(dev, card, data, res, fit_args)
     run_cache.cleanup()
 
+    print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
+          "phase 15")
+    # ---- 15. granite-4.0-h-small's training products ---------------------
+    hybrid_moe_phase(dev, card)
+
     # launches per run: the regression rows from phase 4, the logistic
     # rows from phase 4b (the unfused pair is not on either path), the
     # rows of the third slice from phase 4c, flash from phase 6, the
@@ -5506,5 +5648,23 @@ def main() -> None:
                                              "count": count}}))
 
 
+def phase_15_alone() -> None:
+    """`python chip_smoke.py 15`: phase 15 by itself, after the card's
+    name and limit."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60
+    ).stdout.strip().splitlines()[0]
+    print(f"nvidia-smi: {smi}; torch {torch.__version__}")
+    hybrid_moe_phase(torch.device("cuda"), f"[{smi}]")
+    print(json.dumps({"ok": True}))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["15"]:
+        phase_15_alone()
+    else:
+        main()

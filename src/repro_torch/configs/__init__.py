@@ -1,4 +1,7 @@
 """Architecture configs (assigned pool + the paper's own experiment config)."""
-from repro_torch.configs.registry import ASSIGNED, get_config, list_archs, smoke
+from repro_torch.configs.registry import (
+    ASSIGNED, PORT_ONLY, expert_share, get_config, list_archs, smoke,
+)
 
-__all__ = ["ASSIGNED", "get_config", "list_archs", "smoke"]
+__all__ = ["ASSIGNED", "PORT_ONLY", "expert_share", "get_config",
+           "list_archs", "smoke"]

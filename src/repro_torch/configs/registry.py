@@ -5,14 +5,18 @@ returns a same-family reduced variant (<=2 layers, d_model<=512,
 <=4 experts) for CPU tests.
 
 The port's own copy of the JAX package's registry: the same ten
-configurations, field for field (`tests/test_torch_models.py` checks).
+configurations, field for field (`tests/test_torch_models.py` checks),
+and the port's own, `PORT_ONLY`: granite-4.0-h-small (granitemoehybrid),
+whose one-card share `expert_share` cuts.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict
 
-from repro_torch.models.config import ModelConfig, MoeConfig, RglruConfig, SsdConfig
+from repro_torch.models.config import (
+    HybridMoeConfig, ModelConfig, MoeConfig, RglruConfig, SsdConfig,
+)
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
@@ -57,7 +61,36 @@ def smoke(cfg: ModelConfig) -> ModelConfig:
         kw["n_frontend_tokens"] = 16
     if cfg.window:
         kw["window"] = 32
+    if cfg.hybrid_moe is not None:
+        # one layer of each mixer and a second Mamba-2 one; every expert
+        # held, the shared expert twice an expert's width
+        kw["n_layers"] = 3
+        kw["hybrid_moe"] = dataclasses.replace(
+            cfg.hybrid_moe, layer_types=("mamba", "attention", "mamba"),
+            experts_held=4, expert_offset=0, d_shared=256)
+        kw["moe"] = dataclasses.replace(kw["moe"], n_shared=1)
     return cfg.replace(**kw)
+
+
+def expert_share(cfg: ModelConfig, *, n_layers: int, experts_held: int,
+                 vocab: int, expert_offset: int = 0) -> ModelConfig:
+    """One card's share of a `hybrid_moe` deployment: the first `n_layers`
+    layers (a pipeline stage), routed experts [expert_offset,
+    expert_offset + experts_held) of every MoE layer, and the first
+    `vocab` rows of the vocabulary. Every width, the router's width and
+    its experts per token stay as published."""
+    if cfg.hybrid_moe is None:
+        raise ValueError(f"{cfg.name}: not a hybrid_moe configuration")
+    if not 0 <= expert_offset < expert_offset + experts_held \
+            <= cfg.moe.n_experts:
+        end = expert_offset + experts_held
+        raise ValueError(f"experts [{expert_offset}, {end}) of "
+                         f"{cfg.moe.n_experts}")
+    return cfg.replace(
+        n_layers=n_layers, vocab=vocab,
+        hybrid_moe=dataclasses.replace(
+            cfg.hybrid_moe, layer_types=cfg.hybrid_moe.layer_types[:n_layers],
+            experts_held=experts_held, expert_offset=expert_offset))
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +215,36 @@ def mamba2_1_3b() -> ModelConfig:
                       chunk=128, conv_kernel=4, expand=2),
         source="arXiv:2405.21060")
 
+
+# granite-4.0-h-small's published `layer_types`: attention at 5, 15, 25, 35
+GRANITE_4_LAYER_TYPES = tuple("attention" if i % 10 == 5 else "mamba"
+                              for i in range(40))
+
+
+@register
+def granite_4_0_h_small() -> ModelConfig:
+    """Granite 4.0-H Small (32B-A9B, granitemoehybrid): 40 layers, 36
+    Mamba-2 and 4 NoPE GQA attention mixers, each followed by a MoE of 72
+    SwiGLU experts of width 768, top-10, and one shared expert of width
+    1536; muP multipliers, tied embeddings
+    [hf:ibm-granite/granite-4.0-h-small]."""
+    return ModelConfig(
+        name="granite-4.0-h-small", arch_type="hybrid_moe", n_layers=40,
+        d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128, d_ff=768,
+        vocab=100352, mlp_act="swiglu", norm_eps=1e-5, tie_embeddings=True,
+        moe=MoeConfig(n_experts=72, top_k=10, n_shared=1, d_expert=768,
+                      router_aux_weight=0.0, router_z_weight=0.0),
+        ssd=SsdConfig(state_dim=128, head_dim=64, n_heads=128, n_groups=1,
+                      chunk=256, conv_kernel=4, expand=2),
+        hybrid_moe=HybridMoeConfig(
+            layer_types=GRANITE_4_LAYER_TYPES, experts_held=72, d_shared=1536,
+            embedding_multiplier=12.0, residual_multiplier=0.22,
+            logits_scaling=16.0, attention_multiplier=0.0078125),
+        source="hf:ibm-granite/granite-4.0-h-small")
+
+
+# the port's own configurations, beyond the reference's ten
+PORT_ONLY = ("granite-4.0-h-small",)
 
 ASSIGNED = [
     "minitron-4b", "deepseek-moe-16b", "nemotron-4-15b", "qwen3-moe-30b-a3b",

@@ -116,25 +116,29 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    use_kernel: bool | None = None) -> torch.Tensor:
+                    use_kernel: bool | None = None,
+                    scale: float | None = None) -> torch.Tensor:
     """Causal (or not) attention with an optional sliding window, by
     position index: query s sees key t where t <= s (causal) and
     t > s - window (window > 0). q (B, S, N, H), k/v (B, T, K, H) with
     N % K == 0 (query head n reads kv head n // (N // K)), float32 or
     bfloat16, H in {64, 128, 256} -> (B, S, N, H) in q's dtype. A row
-    that sees no key is zero."""
+    that sees no key is zero. The scores are q·k times `scale` (None:
+    1/sqrt(H))."""
     _check(q, k, v, window)
     if not resolve_use_kernel("flash_attention", use_kernel, q, k, v):
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
     q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    launch(q, k, v, out, causal=causal, window=window)
+    launch(q, k, v, out, causal=causal, window=window, scale=scale)
     return out
 
 
 def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
-                            window: int = 0, use_kernel: bool | None = None
+                            window: int = 0, use_kernel: bool | None = None,
+                            scale: float | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """`flash_attention` and each query row's log-sum-exp of its scaled
     scores: (out (B, S, N, H) in q's dtype, lse (B, N, S) float32), lse =
@@ -144,12 +148,12 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
     _check(q, k, v, window)
     if not resolve_use_kernel("flash_attention", use_kernel, q, k, v):
         return flash_attention_fwd_lse_ref(q, k, v, causal=causal,
-                                           window=window)
+                                           window=window, scale=scale)
     q, k, v = (_aligned(t) for t in (q, k, v))
     B, S, N, _ = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, N, S), dtype=torch.float32, device=q.device)
-    launch(q, k, v, out, causal=causal, window=window, lse=lse)
+    launch(q, k, v, out, causal=causal, window=window, lse=lse, scale=scale)
     return out, lse
 
 
@@ -165,16 +169,19 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            out: torch.Tensor, *, causal: bool = True, window: int = 0,
-           lse: torch.Tensor | None = None) -> None:
+           lse: torch.Tensor | None = None,
+           scale: float | None = None) -> None:
     """Launch the kernel into `out` (B, S, N, H), and into `lse` (B, N, S)
     float32 contiguous where given, with no checks: the operands are what
     `flash_attention` or `flash_attention_fwd_lse` passes (checked shapes
     and types, strides the kernel reads, one CUDA device). A timing loop
-    calls it to time the kernel alone."""
+    calls it to time the kernel alone. `scale` multiplies the scores
+    (None: 1/sqrt(H), as ref.py)."""
     B, S, N, H = q.shape
     T, K = k.shape[1], k.shape[2]
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(H)))  # as ref.py
+    if scale is None:
+        scale = float(np.float32(1.0) / np.sqrt(np.float32(H)))
     if lse is None:
         fn = _build.function("flash_attention", "flash_attention_fwd",
                              _ARGTYPES)

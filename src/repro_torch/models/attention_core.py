@@ -78,10 +78,11 @@ def _key_blocks(k, v, k_pos, k_valid, block: int):
 
 
 def _flash_fwd(q, k, v, q_pos, k_pos, k_valid, causal: bool, window: int,
-               block: int):
-    """(out (B,K,G,S,H) in q's dtype, lse (B,K,G,S) f32)."""
+               block: int, scale: Optional[float] = None):
+    """(out (B,K,G,S,H) in q's dtype, lse (B,K,G,S) f32); softmax scale
+    `scale` (None: 1/sqrt(H))."""
     B, K, G, S, H = q.shape
-    scale = _scale(H)
+    scale = _scale(H) if scale is None else scale
     f32 = torch.float32
     blk, nb, kp, vp, kpos, kval = _key_blocks(k, v, k_pos, k_valid, block)
 
@@ -111,14 +112,15 @@ def _flash_fwd(q, k, v, q_pos, k_pos, k_valid, causal: bool, window: int,
 
 def _flash_bwd(q, k, v, q_pos, k_pos, k_valid, out, lse, dout,
                causal: bool, window: int, block: int, *,
-               scores_f32: bool = False):
+               scores_f32: bool = False, scale: Optional[float] = None):
     """(dq, dk, dv) in the dtypes of q, k, v, grouped layout. The scores
     are recomputed as `_flash_fwd` computes them (q·k rounded to the input
-    dtype), or with `scores_f32` from q and k upcast to f32."""
+    dtype), or with `scores_f32` from q and k upcast to f32; softmax
+    scale `scale` (None: 1/sqrt(H))."""
     with torch.profiler.record_function("attention_core._flash_bwd"):
         B, K, G, S, H = q.shape
         T = k.shape[2]
-        scale = _scale(H)
+        scale = _scale(H) if scale is None else scale
         f32 = torch.float32
         blk, nb, kp, vp, kpos, kval = _key_blocks(k, v, k_pos, k_valid,
                                                   block)
@@ -213,23 +215,26 @@ def flash_attention(q, k, v, *, q_pos, k_pos,
 def flash_attention_with_lse(q, k, v, *, q_pos, k_pos,
                              k_valid: Optional[torch.Tensor] = None,
                              causal: bool = True, window: int = 0,
-                             block: int = BLOCK):
+                             block: int = BLOCK,
+                             scale: Optional[float] = None):
     """The forward alone, standard layout: (out (B,S,N,H), lse (B,N,S)
-    f32), no gradient."""
+    f32), no gradient; softmax scale `scale` (None: 1/sqrt(H))."""
     B, S, N, _ = q.shape
     out, lse = _flash_fwd(*_grouped(q, k, v),
                           *_positions(q, k, q_pos, k_pos, k_valid),
-                          causal, window, block)
+                          causal, window, block, scale)
     return _standard(out), lse.reshape(B, N, S)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
-                        window: int, scores_f32: bool):
+                        window: int, scores_f32: bool,
+                        scale: Optional[float] = None):
     """`_flash_bwd` in the standard layout, positions by index: q, out,
     dout (B,S,N,H), k, v (B,T,K,H), lse (B,N,S) f32 -> (dq, dk, dv) in
     the layouts of q, k, v. `scores_f32` recomputes q·k in f32 instead of
     rounding it to the input dtype first: the scores of a forward that
-    kept them in f32 (the CUDA kernel's), which its lse normalises."""
+    kept them in f32 (the CUDA kernel's), which its lse normalises.
+    `scale` is the forward's softmax scale (None: 1/sqrt(H))."""
     B, S, N, _ = q.shape
     T, K = k.shape[1], k.shape[2]
     qg, kg, vg = _grouped(q, k, v)
@@ -240,5 +245,5 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool,
                             _grouped(out, k, v)[0],
                             lse.reshape(B, K, N // K, S),
                             _grouped(dout, k, v)[0], causal, window, BLOCK,
-                            scores_f32=scores_f32)
+                            scores_f32=scores_f32, scale=scale)
     return _standard(dq), dk.transpose(1, 2), dv.transpose(1, 2)

@@ -23,6 +23,17 @@ stacks). The caches follow the same lists.
 and the tail (the MoE head, Griffin's remainder) is not. The serving
 entry points run under `torch.no_grad`.
 
+granitemoehybrid (`hybrid_moe`) runs its published `layer_types` in
+order, each layer a (mixer, FFN) pair, `ssd+moe` or `attn+moe`: h = x +
+r · mixer(n(x)), then h + r · (moe_held(n(h)) + shared(n(h))), with r the
+residual multiplier, the embedding times its multiplier and the logits
+divided by its scaling (`_pair_*`). Its stack is one list of layers, each
+checkpointed alone under `remat`, and its caches hold both kinds, the SSD
+state and conv window and the KV cache. The mixers, the held experts and
+the shared expert each run in an obs span (`model.ssd`, `model.attn`,
+`model.moe{held}`, `model.moe.shared`), opened in the forward and so
+again in remat's recompute.
+
 Three entry points per model:
   forward_train   — full-sequence logits (+ the MoE aux)
   forward_prefill — causal forward that also returns per-layer caches
@@ -55,13 +66,14 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.models.config import LayerKind, ModelConfig
 from repro_torch.models.layers import (
     attention_decode, attention_prefill, attention_train,
     init_attention_params, init_kv_cache, normal, rms_norm,
 )
 from repro_torch.models.mlp import init_mlp_params, mlp_apply
-from repro_torch.models.moe import init_moe_params, moe_apply
+from repro_torch.models.moe import init_moe_params, moe_apply, moe_held_apply
 from repro_torch.models.rglru import (
     init_recurrent_cache, init_recurrent_params, recurrent_block_decode,
     recurrent_block_train,
@@ -102,7 +114,16 @@ def stack_plan(cfg: ModelConfig) -> Tuple[Tuple[LayerKind, ...], int,
     if cfg.arch_type == "moe" and cfg.moe.first_k_dense:
         fk = cfg.moe.first_k_dense
         return ("moe",), len(kinds) - fk, ("attn",) * fk
+    if cfg.arch_type == "hybrid_moe":
+        # no reference layout: the published order as one group
+        return kinds, 1, ()
     return (kinds[0],), len(kinds), ()
+
+
+def _remat_group(cfg: ModelConfig) -> int:
+    """Layers a checkpoint holds under `remat`: a scanned group of
+    `stack_plan`'s, or one `hybrid_moe` layer."""
+    return 1 if cfg.arch_type == "hybrid_moe" else len(stack_plan(cfg)[0])
 
 
 def _moe_head_first(cfg: ModelConfig) -> bool:
@@ -135,11 +156,61 @@ def _cross(p: dict, x, cfg: ModelConfig, positions, enc_out):
                                cfg, positions=positions, kv_override=enc_out)
 
 
+def _pair_ffn(p: dict, h, cfg: ModelConfig):
+    """A `hybrid_moe` layer's second half: h + r · (the held experts'
+    part + the shared expert), both of n(h)."""
+    hn = rms_norm(h, p["norm2"], cfg.norm_eps)
+    with obs.span("model.moe", held=cfg.hybrid_moe.experts_held):
+        y = moe_held_apply(p["moe"], hn, cfg)
+    with obs.span("model.moe.shared"):
+        y = y + mlp_apply(p["moe"]["shared"], hn, cfg.mlp_act)
+    return h + y * cfg.hybrid_moe.residual_multiplier
+
+
+def _pair_mixer(kind: LayerKind, p: dict, x, cfg: ModelConfig, positions,
+                use_kernel, cache_len=None, cache=None):
+    """A `hybrid_moe` layer's mixer on n(x), by `kind`'s first half: the
+    training pass (neither `cache_len` nor `cache`), the prefill (with
+    `cache_len`; also returns the cache) or a decode step (with `cache`,
+    `positions` the position; also returns the new cache)."""
+    xn = rms_norm(x, p["norm1"], cfg.norm_eps)
+    mixer = kind.split("+")[0]
+    with obs.span(f"model.{mixer}"):
+        if mixer == "ssd" and cache is not None:
+            return ssd_block_decode(p["ssd"], xn, cfg, cache)
+        if mixer == "ssd":
+            return ssd_block_train(p["ssd"], xn, cfg,
+                                   with_cache=cache_len is not None)
+        if cache is not None:
+            return attention_decode(p["attn"], xn, cfg, position=positions,
+                                    cache=cache)
+        if cache_len is not None:
+            return attention_prefill(p["attn"], xn, cfg, positions=positions,
+                                     cache_len=cache_len,
+                                     use_kernel=use_kernel)
+        return attention_train(p["attn"], xn, cfg, positions=positions,
+                               use_kernel=use_kernel)
+
+
+def _pair_layer(kind: LayerKind, p: dict, x, cfg: ModelConfig, positions,
+                use_kernel, cache_len=None, cache=None):
+    """A whole `hybrid_moe` layer: (x', cache) where the mixer keeps one
+    (`_pair_mixer`), else x'."""
+    out = _pair_mixer(kind, p, x, cfg, positions, use_kernel, cache_len,
+                      cache)
+    keeps = cache_len is not None or cache is not None
+    h, c = out if keeps else (out, None)
+    x = _pair_ffn(p, x + h * cfg.hybrid_moe.residual_multiplier, cfg)
+    return (x, c) if keeps else x
+
+
 def _layer_train(kind: LayerKind, p: dict, x, cfg: ModelConfig, positions,
                  enc_out, use_kernel):
     """Returns (x, aux_loss_scalar)."""
     aux = replicated_like(torch.zeros((), dtype=torch.float32,
                                       device=x.device), x)
+    if "+" in kind:
+        return _pair_layer(kind, p, x, cfg, positions, use_kernel), aux
     if kind in ("attn", "local_attn"):
         x = x + attention_train(p["attn"], rms_norm(x, p["norm1"],
                                                     cfg.norm_eps),
@@ -185,6 +256,9 @@ def _ffn(kind: LayerKind, p: dict, x, cfg: ModelConfig):
 def _layer_prefill(kind: LayerKind, p: dict, x, cfg: ModelConfig, positions,
                    cache_len, enc_out, use_kernel):
     """Returns (x, cache) — the cache's type depends on the layer kind."""
+    if "+" in kind:
+        return _pair_layer(kind, p, x, cfg, positions, use_kernel,
+                           cache_len=cache_len)
     if kind in ("attn", "local_attn", "moe"):
         h, cache = attention_prefill(p["attn"],
                                      rms_norm(x, p["norm1"], cfg.norm_eps),
@@ -213,6 +287,8 @@ def _layer_prefill(kind: LayerKind, p: dict, x, cfg: ModelConfig, positions,
 
 def _layer_decode(kind: LayerKind, p: dict, x, cfg: ModelConfig, pos, cache,
                   enc_out):
+    if "+" in kind:
+        return _pair_layer(kind, p, x, cfg, pos, None, cache=cache)
     if kind in ("attn", "local_attn", "moe"):
         h, new_cache = attention_decode(p["attn"],
                                         rms_norm(x, p["norm1"], cfg.norm_eps),
@@ -269,6 +345,13 @@ def _init_layer(gen: torch.Generator, kind: LayerKind, cfg: ModelConfig,
         p["norm2"] = zeros()
     elif kind == "ssd":
         p["ssd"] = init_ssd_params(gen, cfg, dtype)
+    elif kind in ("ssd+moe", "attn+moe"):
+        if kind == "ssd+moe":
+            p["ssd"] = init_ssd_params(gen, cfg, dtype)
+        else:
+            p["attn"] = init_attention_params(gen, cfg, dtype)
+        p["moe"] = init_moe_params(gen, cfg, dtype)
+        p["norm2"] = zeros()
     else:
         raise ValueError(kind)
     if cross:
@@ -314,13 +397,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def _init_layer_cache(kind: LayerKind, cfg: ModelConfig, batch: int,
                       cache_len: int, device):
-    if kind in ("attn", "local_attn", "moe"):
+    if kind in ("attn", "local_attn", "moe", "attn+moe"):
         L = min(cache_len, cfg.window) if cfg.window else cache_len
         return init_kv_cache(batch, L, cfg.n_kv_heads, cfg.resolved_head_dim,
                              dtype=_dtype(cfg.compute_dtype), device=device)
     if kind == "recurrent":
         return init_recurrent_cache(batch, cfg, device)
-    if kind == "ssd":
+    if kind in ("ssd", "ssd+moe"):
         return init_ssd_cache(batch, cfg, device)
     raise ValueError(kind)
 
@@ -350,7 +433,10 @@ def _embed(params, cfg, tokens):
             Shard(0) in table.placements:
         return _embed_vocab_parallel(table, tokens).to(
             _dtype(cfg.compute_dtype))
-    return table[tokens].to(_dtype(cfg.compute_dtype))
+    x = table[tokens].to(_dtype(cfg.compute_dtype))
+    if cfg.hybrid_moe is not None:
+        x = x * cfg.hybrid_moe.embedding_multiplier
+    return x
 
 
 def _embed_vocab_parallel(table: DTensor, tokens: DTensor) -> DTensor:
@@ -388,7 +474,10 @@ def _embed_vocab_parallel(table: DTensor, tokens: DTensor) -> DTensor:
 def _unembed(params, cfg, x):
     x = grad_placed_as_input(x)
     head = params["head"] if "head" in params else params["embed"].T
-    return torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+    logits = torch.einsum("bsd,dv->bsv", x, head.to(x.dtype))
+    if cfg.hybrid_moe is not None:
+        logits = logits / cfg.hybrid_moe.logits_scaling
+    return logits
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -433,7 +522,7 @@ def _decoder_stack_train(params, cfg: ModelConfig, x, enc_out, use_kernel,
     positions = _positions(x)
     aux_total = replicated_like(torch.zeros((), dtype=torch.float32,
                                             device=x.device), x)
-    group = len(stack_plan(cfg)[0])
+    group = _remat_group(cfg)
 
     def run(layers, kinds, x, aux_total):
         for lp, kind in zip(layers, kinds):

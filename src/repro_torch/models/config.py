@@ -5,7 +5,12 @@ dense decoders, MoE decoders, encoder-decoder (audio), VLM decoders,
 hybrid RG-LRU/local-attention (Griffin-style), and Mamba-2 SSD.
 
 The port's own copy of the JAX package's `models/config.py`, letter for
-letter: it is pure Python, but the port imports nothing of the reference.
+letter, with one family of its own: `hybrid_moe` (granitemoehybrid), whose
+layers are (mixer, FFN) pairs, `ssd+moe` or `attn+moe`, in the order its
+published `layer_types` gives, every FFN a dropless MoE over the experts
+held here with a shared expert of its own width (`HybridMoeConfig`,
+`ModelConfig.hybrid_moe`, None for the ten families of the reference).
+It is pure Python, but the port imports nothing of the reference.
 """
 from __future__ import annotations
 
@@ -13,9 +18,11 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Literal, Optional, Tuple
 
-ArchType = Literal["dense", "moe", "encdec", "vlm", "hybrid", "ssm"]
+ArchType = Literal["dense", "moe", "encdec", "vlm", "hybrid", "ssm",
+                   "hybrid_moe"]
 MlpAct = Literal["swiglu", "squared_relu", "geglu", "gelu"]
-LayerKind = Literal["attn", "local_attn", "recurrent", "ssd", "moe"]
+LayerKind = Literal["attn", "local_attn", "recurrent", "ssd", "moe",
+                    "ssd+moe", "attn+moe"]
 
 
 @dataclass(frozen=True)
@@ -46,6 +53,30 @@ class RglruConfig:
     d_rnn: int = 0                # RG-LRU width (defaults to d_model)
     conv_kernel: int = 4
     c: float = 8.0                # Griffin's fixed recurrence-sharpness const
+
+
+@dataclass(frozen=True)
+class HybridMoeConfig:
+    """granitemoehybrid's layer pairs and multipliers (the port's own).
+
+    Layer i's mixer is Mamba-2 (`"mamba"`: the SSD block with a bias on
+    its depthwise conv and the gated RMSNorm before `out_proj`) or GQA
+    attention (`"attention"`: no rotary embedding, softmax scale
+    `attention_multiplier`); its FFN is a MoE whose router spans
+    all `moe.n_experts` experts and keeps `moe.top_k`, of which experts
+    [expert_offset, expert_offset + experts_held) are held here and
+    computed without dropping a token, beside one shared SwiGLU expert
+    of width `d_shared`. The multipliers: the embedding times
+    `embedding_multiplier`, each residual branch times
+    `residual_multiplier`, the logits divided by `logits_scaling`."""
+    layer_types: Tuple[str, ...] = ()  # "mamba" | "attention", per layer
+    experts_held: int = 0              # routed experts held here
+    expert_offset: int = 0             # the first of them
+    d_shared: int = 0                  # the shared expert's width
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_multiplier: float = 0.0  # softmax scale; 0 -> 1/sqrt(H)
 
 
 @dataclass(frozen=True)
@@ -84,6 +115,8 @@ class ModelConfig:
     vocab_pad_multiple: int = 256
     # citation for the config provenance
     source: str = ""
+    # the port's own family: None for the reference's ten
+    hybrid_moe: Optional[HybridMoeConfig] = None
 
     @property
     def padded_vocab(self) -> int:
@@ -136,7 +169,27 @@ class ModelConfig:
             proj_in = d * (2 * d_in + 2 * sc.n_groups * sc.state_dim + sc.n_heads)
             conv = sc.conv_kernel * (d_in + 2 * sc.n_groups * sc.state_dim)
             return proj_in + conv + 2 * sc.n_heads + d_in * d + 2 * d
+        if kind in ("ssd+moe", "attn+moe"):
+            return self._mixer_params(kind) + self._held_moe_params() + 2 * d
         raise ValueError(kind)
+
+    def _mixer_params(self, kind: LayerKind) -> int:
+        """A `hybrid_moe` layer's mixer: Mamba-2 with its conv bias and
+        gated norm, or attention."""
+        if kind == "attn+moe":
+            return self._attn_params()
+        sc = self.ssd
+        d_in = sc.n_heads * sc.head_dim
+        conv_dim = d_in + 2 * sc.n_groups * sc.state_dim
+        # the conv's bias and the gated norm's scale
+        return self._layer_params("ssd") - 2 * self.d_model + conv_dim + d_in
+
+    def _held_moe_params(self) -> int:
+        """A `hybrid_moe` layer's FFN as held here: the held experts, the
+        shared expert and the router over every expert."""
+        mc, hm = self.moe, self.hybrid_moe
+        return (hm.experts_held * self._mlp_params(mc.d_expert)
+                + self._mlp_params(hm.d_shared) + self.d_model * mc.n_experts)
 
     def layer_kinds(self) -> Tuple[LayerKind, ...]:
         """The concrete per-layer kind list for the decoder stack."""
@@ -149,6 +202,10 @@ class ModelConfig:
         if self.arch_type == "moe":
             fk = self.moe.first_k_dense
             return ("attn",) * fk + ("moe",) * (self.n_layers - fk)
+        if self.arch_type == "hybrid_moe":
+            kinds = {"mamba": "ssd+moe", "attention": "attn+moe"}
+            return tuple(kinds[t] for t in
+                         self.hybrid_moe.layer_types[:self.n_layers])
         return ("attn",) * self.n_layers
 
     def param_count(self) -> int:
@@ -164,7 +221,14 @@ class ModelConfig:
         return n
 
     def active_param_count(self) -> int:
-        """Active params per token (MoE: top_k + shared experts only)."""
+        """Active params per token (MoE: top_k + shared experts only; for
+        `hybrid_moe`, the token's routes that reach a held expert counted
+        as top_k · held / n_experts of them)."""
+        if self.arch_type == "hybrid_moe":
+            mc, hm = self.moe, self.hybrid_moe
+            unused = (hm.experts_held - mc.top_k * hm.experts_held
+                      / mc.n_experts) * self._mlp_params(mc.d_expert)
+            return round(self.param_count() - self.n_layers * unused)
         if self.arch_type != "moe":
             return self.param_count()
         mc = self.moe

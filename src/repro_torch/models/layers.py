@@ -112,15 +112,33 @@ def init_kv_cache(batch: int, length: int, n_kv: int, head_dim: int,
     )
 
 
-def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def softmax_scale(cfg: ModelConfig) -> Optional[float]:
+    """The configuration's softmax scale where it is not 1/sqrt(H)
+    (`hybrid_moe`'s `attention_multiplier`), else None."""
+    hm = cfg.hybrid_moe
+    return hm.attention_multiplier if hm is not None and \
+        hm.attention_multiplier else None
+
+
+def uses_rope(cfg: ModelConfig) -> bool:
+    """granitemoehybrid's attention has no positional encoding (NoPE)."""
+    return cfg.hybrid_moe is None
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor,
+                scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,S,N,H), k: (B,T,K,H) -> scores (B,K,G,S,T) with N = K*G; the
-    product in the compute dtype, divided by sqrt(H) cast to it."""
+    product in the compute dtype, divided by sqrt(H) cast to it, or
+    multiplied by `scale` where one is given."""
     B, S, N, H = q.shape
     K = k.shape[2]
     G = N // K
     qg = q.reshape(B, S, K, G, H)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k)
+    if scale is not None:
+        return s * float(torch.tensor(scale).to(q.dtype))
     root = float(torch.tensor(math.sqrt(H)).to(q.dtype))   # in q's dtype
-    return torch.einsum("bskgh,btkh->bkgst", qg, k) / root
+    return s / root
 
 
 def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -150,43 +168,48 @@ class _FlashTrain(torch.autograd.Function):
     the forward normalised."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, use_kernel):
+    def forward(ctx, q, k, v, causal, window, use_kernel, scale):
         kernel = resolve_use_kernel("flash_attention", use_kernel, q, k, v)
         out, lse = flash_ops.flash_attention_fwd_lse(
-            q, k, v, causal=causal, window=window, use_kernel=kernel)
+            q, k, v, causal=causal, window=window, use_kernel=kernel,
+            scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = dict(causal=causal, window=window, scores_f32=kernel)
+        ctx.args = dict(causal=causal, window=window, scores_f32=kernel,
+                        scale=scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         dq, dk, dv = attention_core.flash_attention_bwd(
             *ctx.saved_tensors, dout, **ctx.args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0,
-                          use_kernel: bool | None = None) -> torch.Tensor:
+                          use_kernel: bool | None = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """Attention by position index over q (B,S,N,H), k/v (B,T,K,H) ->
     (B,S,N,H), differentiable in q, k and v: `kernels/flash_attention`'s
-    forward (`use_kernel` as there) and the plain blockwise backward.
-    Where no gradient is taken it is `flash_attention`'s call itself."""
+    forward (`use_kernel` as there) and the plain blockwise backward;
+    softmax scale `scale` (None: 1/sqrt(H)). Where no gradient is taken
+    it is `flash_attention`'s call itself."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashTrain.apply(q, k, v, causal, window, use_kernel)
+        return _FlashTrain.apply(q, k, v, causal, window, use_kernel, scale)
     return flash_ops.flash_attention(q, k, v, causal=causal, window=window,
-                                     use_kernel=use_kernel)
+                                     use_kernel=use_kernel, scale=scale)
 
 
 def _attention_core(q, k, v, *, flash: bool, causal: bool, window: int,
                     use_kernel, cross: bool,
-                    kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    kv_mask: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """Attention of q (B,S,N,H) over k, v (B,T,K,H) -> (B,S,N,H): the flash
     branch, or the dense one (masked by position, or by `kv_mask` where
-    `cross`)."""
+    `cross`); softmax scale `scale` (None: 1/sqrt(H))."""
     if flash:
         return flash_attention_train(q, k, v, causal=causal, window=window,
-                                     use_kernel=use_kernel)
-    scores = _gqa_scores(q, k)                                  # (B,K,G,S,T)
+                                     use_kernel=use_kernel, scale=scale)
+    scores = _gqa_scores(q, k, scale)                           # (B,K,G,S,T)
     S, T = scores.shape[-2], scores.shape[-1]
     dev = q.device
     if cross:
@@ -267,7 +290,7 @@ def _attend(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         grad_placed_as_input(kv_override.to(x.dtype))
     k = _proj(src, p["wk"], "btd,dkh->btkh")
     v = _proj(src, p["wv"], "btd,dkh->btkh")
-    if kv_override is None:
+    if kv_override is None and uses_rope(cfg):
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
 
@@ -280,7 +303,8 @@ def _attend(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         _attention_core,
         flash=kv_override is None and S_q * T_k >= FLASH_THRESHOLD
         and S_q > 1, causal=causal, window=window, use_kernel=use_kernel,
-        cross=kv_override is not None, kv_mask=kv_mask)
+        cross=kv_override is not None, kv_mask=kv_mask,
+        scale=softmax_scale(cfg))
     o = _on_local_heads(core, q, k, v) if isinstance(q, DTensor) \
         else core(q, k, v)
     # (B, S, N·H) @ (N·H, d): `einsum`'s own flattening of this product
@@ -387,7 +411,7 @@ def attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     v[:, slot:slot + 1] = v_new
     slot_pos[slot] = pos
 
-    scores = _gqa_scores(q, k)                                   # (B,K,G,1,L)
+    scores = _gqa_scores(q, k, softmax_scale(cfg))               # (B,K,G,1,L)
     valid = _valid_slots(slot_pos, pos, window)
     probs = _masked_softmax(scores, valid[None, None, None, None, :]).to(cdt)
     out = _gqa_out(probs, v)
@@ -397,10 +421,13 @@ def attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 def _decode_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, pos: int):
     """The new token's q (B,1,N,H), k and v (B,1,K,H), RoPE at `pos`
-    applied to q and k (of the heads of the weights given)."""
+    applied to q and k (of the heads of the weights given) where the
+    configuration has it."""
     q = _proj(x, p["wq"], "bsd,dnh->bsnh")
     k_new = _proj(x, p["wk"], "bsd,dkh->bskh")
     v_new = _proj(x, p["wv"], "bsd,dkh->bskh")
+    if not uses_rope(cfg):
+        return q, k_new, v_new
     pos_b = torch.full((x.shape[0], 1), float(np.float32(pos)),
                        dtype=torch.float32, device=x.device)
     return (rope(q, pos_b, cfg.rope_theta),

@@ -32,17 +32,27 @@ reference's two `moe_sharding` hints, `expert_batch` over `model` and
 any other. `moe_shard_map.moe_apply_a2a` stays the reference's
 serving-side layer, an all-to-all a way, each device routing its own
 tokens as the reference's `shard_map` layer does.
+
+`moe_held_apply` is the port's own layer for `hybrid_moe` (granitemoehybrid
+on one card's share of the experts): the router spans every expert and
+keeps the top k, as `route` does; only the held experts' routes are
+computed, each held expert's group of routed rows at its own length
+through one `torch.mm` a group (`grouped_mm`: no capacity, no token
+dropped), and the gated outputs are added back in k order. What the experts held elsewhere
+would add is left out, as on a card of an expert-parallel deployment
+without its exchange.
 """
 from __future__ import annotations
 
 import math
 from contextlib import contextmanager
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
+from repro_torch import obs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import normal
 from repro_torch.models.mlp import init_mlp_params, mlp_apply, mlp_partial
@@ -198,6 +208,190 @@ def moe_apply(p: dict, x: torch.Tensor,
     return out.reshape(B, S, d), aux
 
 
+class HeldRoutes(NamedTuple):
+    """The routes of T tokens' top-k choices that reach the held experts,
+    grouped by expert: `tok` (R,) the token of each grouped row, in token
+    order within a group; `counts` (E_held host ints) the groups' sizes;
+    `pos` (T, K) each choice's grouped row
+    (clamped) and `held` (T, K) whether it has one; `chosen` the count of
+    choices that fell on a held expert (host int); `order` the flat
+    (token, k) choices in grouped order, the held ones first."""
+    tok: torch.Tensor
+    counts: list
+    pos: torch.Tensor
+    held: torch.Tensor
+    chosen: int
+    order: torch.Tensor
+
+
+def held_routes(top_e: torch.Tensor, lo: int, n: int) -> HeldRoutes:
+    """Group the choices `top_e` (T, K) that fall on experts [lo, lo + n)
+    by expert, keeping every one: a stable sort of the (token, k) order
+    by held expert, the others last. The group sizes are read back to the
+    host once (the launches' shapes)."""
+    T, K = top_e.shape
+    flat = top_e.reshape(-1) - lo
+    held = (flat >= 0) & (flat < n)
+    key = torch.where(held, flat, n)
+    order = torch.sort(key, stable=True).indices
+    sizes = torch.bincount(key, minlength=n + 1)
+    *counts, others = sizes.tolist()
+    R = sum(counts)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(T * K, device=top_e.device)
+    return HeldRoutes(order[:R] // K, counts,
+                      torch.clamp_max(pos, max(R - 1, 0)).reshape(T, K),
+                      held.reshape(T, K), T * K - others, order)
+
+
+class _Dispatch(torch.autograd.Function):
+    """xs = x[tok]: each grouped row its token's input. The gradient
+    gathers too, each token's grouped rows added in k order (`pos`,
+    `held`), where indexing's own backward would scatter-add into the
+    tokens."""
+
+    @staticmethod
+    def forward(ctx, x, r):
+        ctx.r = r
+        return x[r.tok]
+
+    @staticmethod
+    def backward(ctx, dxs):
+        r = ctx.r
+        dx = torch.zeros((r.pos.shape[0], dxs.shape[1]), dtype=dxs.dtype,
+                         device=dxs.device)
+        if dxs.shape[0]:
+            for k in range(r.pos.shape[1]):
+                dx = dx + dxs[r.pos[:, k]] * r.held[:, k, None]
+        return dx, None
+
+
+class _Combine(torch.autograd.Function):
+    """out[t] = Σ_k w[t, k] · ys[pos[t, k]] over t's choices, added in k
+    order (w is 0 at a choice not held). Its gradients are gathers: each
+    grouped row's from its one token, each gate's a dot product. None
+    scatters, so nothing adds with atomics, and no row that every unheld
+    choice points at is written T·K times (indexing's own backward took
+    1.45 s a step so at the cell's size)."""
+
+    @staticmethod
+    def forward(ctx, ys, w, r):
+        ctx.save_for_backward(ys, w)
+        ctx.r = r
+        out = torch.zeros((w.shape[0], ys.shape[1]), dtype=ys.dtype,
+                          device=ys.device)
+        if ys.shape[0]:
+            for k in range(w.shape[1]):
+                out = out + ys[r.pos[:, k]] * w[:, k, None]
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        ys, w = ctx.saved_tensors
+        r = ctx.r
+        K = w.shape[1]
+        dw = torch.zeros_like(w)
+        if not ys.shape[0]:
+            return torch.zeros_like(ys), dw, None
+        # grouped row j is the choice (tok[j], order[j] % K)
+        dys = dout[r.tok] * w[r.tok, r.order[:ys.shape[0]] % K][:, None]
+        for k in range(K):
+            dw[:, k] = torch.sum((dout * ys[r.pos[:, k]]).to(torch.float32),
+                                 dim=-1).to(w.dtype) * r.held[:, k]
+        return dys, dw, None
+
+
+def _mm_groups(x: torch.Tensor, w: torch.Tensor, counts: list,
+               out: torch.Tensor) -> torch.Tensor:
+    """out[rows of group e] = x[rows of group e] @ w[e], one `torch.mm` a
+    group written in place: the rows of a group are a contiguous slice."""
+    a = 0
+    for e, n in enumerate(counts):
+        if n:
+            torch.mm(x[a:a + n], w[e], out=out[a:a + n])
+        a += n
+    return out
+
+
+class _GroupedMM(torch.autograd.Function):
+    """y_e = x_e w_e over each held expert's group of rows (x (R, K)
+    grouped in order, `counts` host ints, w (E, K, N)); dx_e = dy_e w_eᵀ,
+    dw_e = x_eᵀ dy_e (zeros for an empty group). Forward and backward
+    open the span `model.moe.experts`, so that the products' device time
+    is charged to it also where autograd launches the backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, counts):
+        ctx.save_for_backward(x, w)
+        ctx.counts = counts
+        with obs.span("model.moe.experts"):
+            return _mm_groups(x, w, counts,
+                              x.new_empty((x.shape[0], w.shape[2])))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        with obs.span("model.moe.experts"):
+            dx = _mm_groups(dy, w.transpose(1, 2), ctx.counts,
+                            dy.new_empty(x.shape))
+            dw = w.new_empty(w.shape)
+            a = 0
+            for e, n in enumerate(ctx.counts):
+                if n:
+                    torch.mm(x[a:a + n].T, dy[a:a + n], out=dw[e])
+                else:
+                    dw[e].zero_()
+                a += n
+        return dx, dw, None
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor,
+               counts: list) -> torch.Tensor:
+    """Each group of x's rows times its expert's matrix: (R, K) x (E, K,
+    N) -> (R, N), differentiable in x and w."""
+    return _GroupedMM.apply(x, w, counts)
+
+
+def _held_swiglu(p: dict, xs: torch.Tensor, r: HeldRoutes,
+                 act: str) -> torch.Tensor:
+    """Each grouped row through its expert's FFN: (R, d) -> (R, d)."""
+    cdt = xs.dtype
+
+    def gmm(a, w):
+        return grouped_mm(a, w.to(cdt), r.counts)
+    if act not in ("swiglu", "geglu"):
+        raise ValueError(f"moe_held_apply: {act} experts")
+    g = gmm(xs, p["w_gate"])
+    g = F.silu(g) if act == "swiglu" else F.gelu(g, approximate="tanh")
+    return gmm(g * gmm(xs, p["w_up"]), p["w_down"])
+
+
+def moe_held_apply(p: dict, x: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """The routed part of a `hybrid_moe` layer on the experts held here:
+    x (B, S, d) -> Σ over each token's top-k experts that are held of
+    gate · FFN_e(x), (B, S, d) in x's dtype. The router (float32, every
+    expert) and the gates are `route`'s: the softmax of the top k of the
+    logits, which is the renormalised top k of the softmax. No route is
+    dropped. Records `moe.routes_held` (the routes computed),
+    `moe.routes_dropped` (held routes not computed: 0) and
+    `moe.routes_max_expert` (the largest group, observed a call)."""
+    mc, hm = cfg.moe, cfg.hybrid_moe
+    B, S, d = x.shape
+    T, K = B * S, mc.top_k
+    xf = x.reshape(T, d)
+    logits = torch.einsum("td,de->te", xf.to(torch.float32),
+                          p["router"].to(torch.float32))
+    _, top_w, top_e = route(logits, K)
+    r = held_routes(top_e, hm.expert_offset, hm.experts_held)
+    ys = _held_swiglu(p["experts"], _Dispatch.apply(xf, r), r, cfg.mlp_act)
+    out = _Combine.apply(ys, (top_w * r.held).to(ys.dtype), r)
+    obs.inc("moe.routes_held", ys.shape[0])
+    obs.inc("moe.routes_dropped", r.chosen - ys.shape[0])
+    obs.observe("moe.routes_max_expert", max(r.counts, default=0))
+    return out.reshape(B, S, d)
+
+
 def _router_losses(logits, probs, top_e, valid, E: int, T: int, K: int):
     """Switch-style balance loss, z-loss and the fraction of the T·K
     choices dropped, over every token routed."""
@@ -301,15 +495,19 @@ def init_moe_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     """The reference's distributions and scales, drawn from `gen` on its
     device: experts N(0, 1) · d^-1/2 in and · d_expert^-1/2 out, the
     router N(0, 1) · d^-1/2 in float32."""
-    mc = cfg.moe
+    mc, hm = cfg.moe, cfg.hybrid_moe
     d, E, f = cfg.d_model, mc.n_experts, mc.d_expert
+    # a `hybrid_moe` layer holds its share of the experts, its router
+    # spans them all, and its shared expert has a width of its own
+    held = E if hm is None else hm.experts_held
     si, so = d ** -0.5, f ** -0.5
-    experts = {"w_up": normal(gen, (E, d, f), si, dtype),
-               "w_down": normal(gen, (E, f, d), so, dtype)}
+    experts = {"w_up": normal(gen, (held, d, f), si, dtype),
+               "w_down": normal(gen, (held, f, d), so, dtype)}
     if cfg.mlp_act in ("swiglu", "geglu"):
-        experts["w_gate"] = normal(gen, (E, d, f), si, dtype)
+        experts["w_gate"] = normal(gen, (held, d, f), si, dtype)
     p = {"router": normal(gen, (d, E), si, torch.float32),
          "experts": experts}
     if mc.n_shared:
-        p["shared"] = init_mlp_params(gen, cfg, mc.n_shared * f, dtype)
+        width = mc.n_shared * f if hm is None else hm.d_shared
+        p["shared"] = init_mlp_params(gen, cfg, width, dtype)
     return p

@@ -12,6 +12,12 @@ dtype.
 Decode carries the (B, H, P, N) SSM state and a depthwise-conv window,
 and returns a new cache.
 
+granitemoehybrid's mixer (`cfg.hybrid_moe`) adds a bias to the depthwise
+conv (`conv_b`, before the SiLU) and, in place of the plain gate
+y · silu(z), the gated RMSNorm before `out_proj`: rmsnorm(y · silu(z)) ·
+(1 + `norm`) over each group's d_in / G channels (`gated_rms_norm`).
+Other configurations have neither, and their path is unchanged.
+
 On DTensors (the sharded train step) the block is head parallel over
 `model` (`_ssd_block_sharded`).
 """
@@ -139,6 +145,40 @@ def _prep(p: dict, xin, Bc, Cc, dt, cfg: ModelConfig, heads=None):
     return x_dt, dtA, Bh, Ch, xh
 
 
+def _conv_act(p: dict, xbc_in: torch.Tensor, cfg: ModelConfig,
+              carry: torch.Tensor | None = None) -> torch.Tensor:
+    """silu(conv(x ‖ B ‖ C) + conv_b), the bias where the configuration
+    has one."""
+    out = _causal_depthwise_conv(xbc_in, p["conv_w"], carry=carry)
+    if cfg.hybrid_moe is not None:
+        out = out + p["conv_b"].to(out.dtype)
+    return F.silu(out)
+
+
+def gated_rms_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   groups: int, eps: float) -> torch.Tensor:
+    """rmsnorm(y · silu(z)) · (1 + scale), the statistics over each of
+    `groups` equal slices of the last axis: the gate and the norm in f32,
+    the result cast to y's dtype before the scale (Mamba-2's
+    `RMSNormGated`, norm before gate off)."""
+    f32, dtype = torch.float32, y.dtype
+    g = y.to(f32) * F.silu(z.to(f32))
+    g = g.reshape(*g.shape[:-1], groups, -1)
+    g = g * torch.rsqrt(torch.mean(torch.square(g), dim=-1, keepdim=True)
+                        + eps)
+    return g.reshape(y.shape).to(dtype) * (1.0 + scale.to(dtype))
+
+
+def _gate(p: dict, y: torch.Tensor, z: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    """The scan's output gated by z: the gated RMSNorm where the
+    configuration has it, else y · silu(z)."""
+    if cfg.hybrid_moe is not None:
+        return gated_rms_norm(y, z, p["norm"], cfg.ssd.n_groups,
+                              cfg.norm_eps)
+    return y * F.silu(z)
+
+
 def _conv_split(xbc: torch.Tensor, cfg: ModelConfig):
     sc = cfg.ssd
     d_in = sc.n_heads * sc.head_dim
@@ -163,14 +203,14 @@ def ssd_block_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
     sc = cfg.ssd
     z, xin, Bc, Cc, dt = _split_proj(p, x, cfg)
     xbc_in = torch.cat([xin, Bc, Cc], dim=-1)
-    xbc = F.silu(_causal_depthwise_conv(xbc_in, p["conv_w"]))
+    xbc = _conv_act(p, xbc_in, cfg)
     xin, Bc, Cc = _conv_split(xbc, cfg)
 
     x_dt, dtA, Bh, Ch, xh = _prep(p, xin, Bc, Cc, dt, cfg)
     y, final = ssd_chunked(x_dt, dtA, Bh, Ch, sc.chunk)
     y = y + xh * p["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(x.shape[0], x.shape[1], sc.n_heads * sc.head_dim)
-    y = y * F.silu(z)
+    y = _gate(p, y, z, cfg)
     out = torch.einsum("bse,ed->bsd", y, p["w_out"].to(y.dtype))
     if not with_cache:
         return out
@@ -263,8 +303,7 @@ def ssd_block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     f32 = torch.float32
     z, xin, Bc, Cc, dt = _split_proj(p, x, cfg)
     xbc_in = torch.cat([xin, Bc, Cc], dim=-1)
-    xbc = F.silu(_causal_depthwise_conv(xbc_in, p["conv_w"],
-                                        carry=cache.conv))
+    xbc = _conv_act(p, xbc_in, cfg, carry=cache.conv)
     conv_new = torch.cat([cache.conv[:, 1:], xbc_in.to(cache.conv.dtype)],
                          dim=1)
     xin, Bc, Cc = _conv_split(xbc, cfg)
@@ -277,7 +316,7 @@ def ssd_block_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y = torch.einsum("bhn,bhpn->bhp", Ch[:, 0].to(f32), state)
     y = y.to(x.dtype) + xh[:, 0] * p["D"].to(x.dtype)[None, :, None]
     y = y.reshape(x.shape[0], 1, sc.n_heads * sc.head_dim)
-    y = y * F.silu(z)
+    y = _gate(p, y, z, cfg)
     out = torch.einsum("bse,ed->bsd", y, p["w_out"].to(y.dtype))
     return out, SsdCache(state=state, conv=conv_new)
 
@@ -360,7 +399,9 @@ def init_ssd_cache(batch: int, cfg: ModelConfig, device="cuda") -> SsdCache:
 def init_ssd_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     """The reference's distributions and scales, drawn from `gen` on its
     device: dt_bias the inverse softplus of dt ~ logU[1e-3, 1e-1],
-    A_log = log(linspace(1, 16, H)), D = 1."""
+    A_log = log(linspace(1, 16, H)), D = 1; granitemoehybrid's conv bias
+    U(-k^-1/2, k^-1/2) (a depthwise conv's default) and gated norm scale
+    0 (a factor of 1), drawn after the rest."""
     sc = cfg.ssd
     d = cfg.d_model
     d_in = sc.n_heads * sc.head_dim
@@ -370,7 +411,7 @@ def init_ssd_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     dev = gen.device
     lo, hi = math.log(1e-3), math.log(1e-1)
     u = torch.rand((sc.n_heads,), generator=gen, device=dev) * (hi - lo) + lo
-    return {
+    p = {
         "w_in": normal(gen, (d, proj_out), d ** -0.5, dtype),
         "conv_w": normal(gen, (sc.conv_kernel, conv_dim),
                          sc.conv_kernel ** -0.5, dtype),
@@ -380,3 +421,9 @@ def init_ssd_params(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
         "D": torch.ones((sc.n_heads,), dtype=dtype, device=dev),
         "w_out": normal(gen, (d_in, d), d_in ** -0.5, dtype),
     }
+    if cfg.hybrid_moe is not None:
+        b = sc.conv_kernel ** -0.5
+        p["conv_b"] = ((torch.rand((conv_dim,), generator=gen, device=dev)
+                        * 2 - 1) * b).to(dtype)
+        p["norm"] = torch.zeros((d_in,), dtype=dtype, device=dev)
+    return p

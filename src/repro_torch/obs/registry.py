@@ -230,9 +230,13 @@ class Registry:
 
     def _thread(self) -> tuple:
         """This thread's stack of open span ids, and its OS thread id
-        (read once a thread: it is a system call)."""
+        (read once a thread: it is a system call). A thread that Python
+        did not start (autograd's, where remat recomputes a forward) is
+        entered in `threading.enumerate()` here, so that
+        `torchprof.thread_ids` can name it."""
         local = self._local
         if not hasattr(local, "stack"):
+            threading.current_thread()
             local.stack, local.tid = [], threading.get_native_id()
         return local.stack, local.tid
 

@@ -1201,3 +1201,128 @@ def test_a_sweep_caches_its_winner(cuda, tmp_path, monkeypatch):
                                                iters=20, etas=etas,
                                                block=block), got)
     autotune.clear_memory_cache()
+
+
+# ---- granite-4.0-h-small: the held experts' grouped products, the
+# attention's softmax scale ----------------------------------------------
+
+GROUPS = [[3000, 0, 2500, 1, 4000, 2275, 2300, 2000, 4404],
+          [0, 0, 129, 0], [1, 1, 1]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("counts, K, N", [(GROUPS[0], 4096, 768),
+                                          (GROUPS[0], 768, 4096),
+                                          (GROUPS[1], 200, 136),
+                                          (GROUPS[2], 64, 64)])
+def test_grouped_products_match_f32(cuda, dtype, counts, K, N):
+    """`moe.grouped_mm` (one `torch.mm` a group: y, and through autograd
+    the input gradient and dw, zeros for an empty group) on the card
+    against the float64 products, group by group: within 1e-5 ·
+    max|want| in f32 (TF32 off, another order), 1e-2 in bf16 (the output
+    rounded to bf16), ragged groups and edges included (the cell's
+    20,480 rows over 9 experts, one empty; 129 rows in one group of four;
+    rows of one)."""
+    from repro_torch.models.moe import grouped_mm
+    g = torch.Generator(device=cuda).manual_seed(10)
+    R = sum(counts)
+    x = torch.randn((R, K), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((len(counts), K, N), generator=g, device=cuda)
+         * K ** -0.5).to(dtype)
+    dy = torch.randn((R, N), generator=g, device=cuda).to(dtype)
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        y = grouped_mm(xs, ws, counts)
+        dx, dw = torch.autograd.grad(y, (xs, ws), dy)
+        xf, wf, dyf = x.double(), w.double(), dy.double()
+        want = (torch.empty_like(y, dtype=torch.float64),
+                torch.empty_like(dx, dtype=torch.float64),
+                torch.zeros_like(wf))
+        a = 0
+        for e, n in enumerate(counts):
+            want[0][a:a + n] = xf[a:a + n] @ wf[e]
+            want[1][a:a + n] = dyf[a:a + n] @ wf[e].T
+            want[2][e] = xf[a:a + n].T @ dyf[a:a + n]
+            a += n
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    tol = TOL if dtype == torch.float32 else 1e-2
+    for got, ref_ in zip((y, dx, dw), want):
+        assert got.dtype == dtype
+        _assert_close([got.float()], [ref_.float()], tol)
+    for e, n in enumerate(counts):
+        if n == 0:
+            assert bool((dw[e] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_scale_is_the_kernels_argument(cuda, dtype):
+    """#9 with its lse at granite-4.0-h-small's softmax scale 1/128 (H =
+    128, no rotary) against the plain forward at that scale, and the
+    training gradients against the plain path's, at (1, 1024, 32, 8, 128)
+    causal: the bars of the tests above."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    shapes = ((1, 1024, 32, 128), (1, 1024, 8, 128), (1, 1024, 8, 128))
+    qkv = [torch.randn(sh, generator=g, device=cuda).to(dtype)
+           for sh in shapes]
+    out, lse = flash_attention_fwd_lse(*qkv, scale=1 / 128)
+    want_out, want = flash_attention_fwd_lse(*(t.float() for t in qkv),
+                                             scale=1 / 128, use_kernel=False)
+    default = flash_attention_fwd_lse(*qkv)[1]
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-4
+    err = (torch.abs(lse - want) / torch.clamp_min(torch.abs(want), 1.0))
+    assert err.max().item() <= tol
+    assert (default - lse).abs().max().item() > 0.1
+    row = (torch.linalg.vector_norm(out.float() - want_out, dim=-1)
+           / torch.linalg.vector_norm(want_out, dim=-1)).max().item()
+    assert row <= (1e-4 if dtype == torch.float32 else 1e-2), row
+    dout = torch.randn(shapes[0], generator=g, device=cuda).to(dtype)
+    grads = []
+    for use_kernel in (None, False):
+        ts = [t.clone().requires_grad_() for t in qkv]
+        flash_attention_train(*ts, use_kernel=use_kernel,
+                              scale=1 / 128).backward(dout)
+        grads.append([t.grad for t in ts])
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for got, want_g in zip(*grads):
+        err = (got.float() - want_g.float()).abs().max().item()
+        assert err <= tol * want_g.float().abs().max().item()
+
+
+def test_granite_hybrid_train_step_on_the_card(cuda):
+    """granite-4.0-h-small at the smoke size in f32 on the card, through
+    #9 at S = 2048 and the grouped products: the loss and every
+    gradient leaf within 1e-4 of the plain reference's (TF32 off), none
+    of the held routes dropped."""
+    from repro_torch import obs
+    from repro_torch.configs import smoke
+    from repro_torch.models import layers as tlayers
+    from repro_torch.testing import granite_hybrid_ref as ref
+    from repro_torch.training.step import make_grad_fn
+    from repro_torch.tree import named_leaves
+    cfg = smoke(get_config("granite-4.0-h-small")).replace(
+        param_dtype="float32", compute_dtype="float32", head_dim=128,
+        n_heads=2, n_kv_heads=1)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    params = init_params(g, cfg)
+    tokens = torch.randint(0, cfg.vocab, (1, 2048), generator=g,
+                           device=cuda)
+    labels = torch.randint(0, cfg.vocab, (1, 2048), generator=g,
+                           device=cuda)
+    obs.reset()
+    before = LAUNCHES["flash_attention"]
+    with ref.no_tf32():
+        loss, _, grads = make_grad_fn(cfg)(params, Batch(tokens, labels))
+    assert 2048 * 2048 >= tlayers.FLASH_THRESHOLD
+    assert LAUNCHES["flash_attention"] > before
+    assert obs.counter_total("moe.routes_dropped") == 0
+    want_loss, want = ref.loss_and_grads(params, ref.spec_of(cfg), tokens,
+                                         labels)
+    assert abs(float(loss) - float(want_loss)) <= 1e-4 * float(want_loss)
+    mine = named_leaves(grads)
+    for k, w in want.items():
+        err = torch.linalg.vector_norm(mine[k].float() - w)
+        assert err <= 1e-4 * torch.linalg.vector_norm(w), k

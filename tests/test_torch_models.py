@@ -336,14 +336,21 @@ def test_params_from_reference_is_bitwise(dtype):
 
 
 def test_registry_matches_reference():
-    assert tconfigs.list_archs() == list_archs()
+    """The reference's ten field for field, the port's own family
+    (`hybrid_moe`) unset on them; the port's other names are exactly
+    `PORT_ONLY`."""
+    assert tconfigs.PORT_ONLY == ("granite-4.0-h-small",)
+    assert tconfigs.list_archs() == sorted(list_archs()
+                                           + list(tconfigs.PORT_ONLY))
     assert tconfigs.ASSIGNED == JAX_ASSIGNED
     for name in list_archs():
         for full in (True, False):
             jc, tc = get_config(name), tconfigs.get_config(name)
             if not full:
                 jc, tc = smoke(jc), tconfigs.smoke(tc)
-            assert dataclasses.asdict(tc) == dataclasses.asdict(jc), name
+            port = dataclasses.asdict(tc)
+            assert port.pop("hybrid_moe") is None, name
+            assert port == dataclasses.asdict(jc), name
             assert tc.param_count() == jc.param_count()
             assert tc.active_param_count() == jc.active_param_count()
             assert tc.padded_vocab == jc.padded_vocab
