@@ -465,6 +465,10 @@ TOL_KERNEL = 1e-5                       # x max|plain|, per output
 # (m, p, k) of the benchmark's lambda-grid cell (`bench/configs/
 # dsml-reg-p200.json`, `bench/traffic/lambda-grid.json`): #1a's grid row
 GRID_CELL = (1024, 200, 8)
+# (m, p, r) of the debias step of the benchmark's fit cell (`dsml-reg.fit`:
+# 1024 tasks at p = 200, r = p): #1b's row at the paper's widths, where the
+# SGEMM's rule takes the short-row tile
+CELL_1B = (1024, 200, 200)
 TOL_FIT = 1e-4                          # x max|.|, after chained FISTA steps
 TOL_FLASH = 2e-5                        # x max|plain|, f32
 # worst relative l2 error of a query row's output
@@ -4442,6 +4446,30 @@ def main() -> None:
     Sig_r, _ = rank_update(Xr, yr, use_kernel=False)
     check_fista("r=1 p=1000", fista_inputs(Sig_r, 1, 0.5 * lam))
     check_fista("r=p=1000", fista_inputs(Sig_r, 1000, mu))
+    # #1b at the fit cell's shape: the plain version's bar, and the bits of
+    # the 128 x 64 tile (every output one FMA chain over k in order)
+    # (a generator of its own, so that the draws after it keep theirs)
+    g_1b = torch.Generator(device=dev).manual_seed(35)
+    m_1b, p_1b, _ = CELL_1B
+    X_1b = torch.randn((m_1b, 120, p_1b), generator=g_1b, device=dev)
+    Sig_1b = torch.bmm(X_1b.mT, X_1b) / 120
+    z_1b = 0.05 * torch.randn(CELL_1B, generator=g_1b, device=dev)
+    args_1b = (Sig_1b, z_1b,
+               z_1b + 0.01 * torch.randn(CELL_1B, generator=g_1b, device=dev),
+               torch.eye(p_1b, device=dev).expand(*CELL_1B).contiguous(),
+               1.0 / torch.clamp_min(power_iteration_batched(Sig_1b), 1e-12),
+               torch.full((m_1b,), mu, device=dev), np.float32(0.7))
+    del X_1b, z_1b
+    errs["fista_step_gemm_p200"] = check_fista(
+        "r=p={}, {} tasks".format(CELL_1B[1], CELL_1B[0]), args_1b)
+    tile_1b = ista_ops.kernel_gemm_plan(*CELL_1B, dev)[:2]
+    check(all(torch.equal(a, b) for a, b in zip(
+        fista_step_batched(*args_1b),
+        fista_step_batched(*args_1b, block=(128, 64)))),
+        f"fista_step_batched at {CELL_1B}: the rule's {tile_1b} tile does "
+        "not give the bits of 128 x 64")
+    print(f"check fista_step_batched at {CELL_1B}: the rule's "
+          f"{tile_1b[0]} x {tile_1b[1]} tile gives the bits of 128 x 64")
 
     def grid_inputs(Sigmas, k, lam):
         """The lambda grid's step on `Sigmas` at k values of lambda up to
@@ -4505,6 +4533,9 @@ def main() -> None:
               f"gemm_plan's {plan}")
         print(f"SGEMM tile at {shape}: {plan.bm} x {plan.bn}, "
               f"{plan.blocks} blocks of {plan.threads} threads on {sms} SMs")
+    check(ista_ops.kernel_gemm_tiles() == ista_ops.GEMM_TILES,
+          f"the library's SGEMM tiles {ista_ops.kernel_gemm_tiles()} are "
+          f"not GEMM_TILES {ista_ops.GEMM_TILES}")
 
     def logistic_inputs(m, n, p):
         X = torch.randn((m, n, p), generator=g, device=dev)
@@ -5113,6 +5144,9 @@ def main() -> None:
                        4 * (m * p * p + 3 * m * p + 2 * m + 2 * m * p))
     gemm_bound = bound(2 * m * p * p * p,
                        4 * (m * p * p + 3 * m * p * p + 2 * m + 2 * m * p * p))
+    bound_1b = bound(2 * m_1b * p_1b ** 3,
+                     4 * (6 * m_1b * p_1b * p_1b + 2 * m_1b))
+    out_1b = (torch.empty_like(args_1b[1]), torch.empty_like(args_1b[1]))
 
     def grid_row(name, args, tiled):
         """#1a on a lambda grid: each Sigma and c read once, the k m
@@ -5261,6 +5295,13 @@ def main() -> None:
          lambda: fista_step_batched(*gemm_args),
          lambda: fista_step_batched_ref(*gemm_args),
          lambda: torch.bmm(Sig, gemm_args[1])),
+        # the fit cell's debias step, the rule's (short-row) tile
+        ("fista_step_gemm_p200", "src/repro_torch/kernels/csrc/fista_step.cu",
+         "src/repro/kernels/ista_step/kernel.py:108", bound_1b,
+         lambda: ista_ops.launch(*args_1b, *out_1b),
+         lambda: fista_step_batched(*args_1b),
+         lambda: fista_step_batched_ref(*args_1b),
+         lambda: torch.bmm(Sig_1b, args_1b[1])),
         *(grid_row(name, args, tiled) for name, args, tiled in (
             ("fista_step_gemv_grid", grid_args, grid_tiled),
             ("fista_step_gemv_grid_4c", grid4c_args, grid4c_tiled))),
@@ -5372,6 +5413,7 @@ def main() -> None:
               "fista_step_gemv_grid": GRID_CELL,
               "fista_step_gemv_grid_4c": (m, p, 8),
               "fista_step_gemm": (m, p, p),
+              "fista_step_gemm_p200": CELL_1B,
               "logistic_grad": (M, N, P), "logistic_grad_unfused": (M, N, P),
               "logistic_grad_p8192": LARGE_P,
               "logistic_grad_unfused_p8192": LARGE_P,
@@ -5405,6 +5447,7 @@ def main() -> None:
                  **{name: flash_flops(shape, window=window)
                     for name, (shape, window, _) in f32_flash.items()},
                  "fista_step_gemm": 2 * m * p * p * p,
+                 "fista_step_gemm_p200": 2 * m_1b * p_1b ** 3,
                  "ista_step_gemm": 2 * p * p * p,
                  "rank_update": rank_work(m, n, p)[0],
                  "rank_update_weighted": rank_work(m, n, p, True)[0],
@@ -5468,8 +5511,51 @@ def main() -> None:
             flash_backward_times(shape, train10c_qkv[name], card, causal))
     next(r for r in kernels if r["name"] == "group_threshold").update(
         launch_floor_ms=floor_ms, launch_floor_graph_ms=floor_g)
+    # row 1b at the cell's shape: the 128 x 64 tile forced, beside the
+    # rule's tile and bmm(Sigma, Z)
+    wide_1b = lambda: ista_ops.launch(                      # noqa: E731
+        *args_1b, *out_1b, ista_ops.check_block("5", p_1b, (128, 64)))
+    row_1b = next(r for r in kernels if r["name"] == "fista_step_gemm_p200")
+    row_1b.update(tile=list(tile_1b), wide_tile_ms=time_ms(wide_1b),
+                  wide_tile_graph_ms=graph_ms(wide_1b)[0])
+    print(f"time fista_step_gemm_p200 at {CELL_1B} (events / graph ms): "
+          f"the rule's {tile_1b[0]} x {tile_1b[1]} tile {row_1b['ms']:.4f} / "
+          f"{row_1b['graph_ms']:.4f}, 128 x 64 forced "
+          f"{row_1b['wide_tile_ms']:.4f} / {row_1b['wide_tile_graph_ms']:.4f},"
+          f" bmm(Sigma, Z) {row_1b['library_ms']:.4f} / "
+          f"{row_1b['library_graph_ms']:.4f}; bound {bound_1b[0]:.4f} "
+          f"({bound_1b[1]}) {card}")
+    # the fit cell's own path: one dsml_fit at its (m, n, p) (`bench/
+    # configs/dsml-reg-p200.json`), after a warm-up that sweeps its plans;
+    # its r = p launches are the row's count, and its debias solve's plan
+    # (`dispatch.route`) the rule's tile
+    data_1b = gen_regression(torch.Generator(device=dev).manual_seed(35),
+                             m=m_1b, n=120, p=p_1b, s=10, device=dev)
+    mu_1b = float(np.sqrt(np.log(p_1b) / 120))
+    fit_1b = (data_1b.Xs, data_1b.ys, 4.0 * mu_1b, mu_1b, 8.0)
+    dsml_fit(*fit_1b)
+    torch.cuda.synchronize()
+    routes_0 = route_records(obs)
+    reset_launches()
+    dsml_fit(*fit_1b)
+    torch.cuda.synchronize()
+    launches_1b = LAUNCHES["fista_step_gemm"]
+    routes_1b = {k: n - routes_0.get(k, 0)
+                 for k, n in route_records(obs).items()
+                 if n != routes_0.get(k, 0)}
+    rule_1b = "x".join(str(b) for b in next(
+        t for t in ista_ops.GEMM_TILES if t[:2] == tile_1b))
+    check(launches_1b == 600, f"dsml_fit at {CELL_1B}: {launches_1b} "
+          "launches of fista_step_gemm, not its 600 debias steps")
+    check(routes_1b.get(("fista_step_batched", "kernel", rule_1b)) == 1,
+          f"dsml_fit at {CELL_1B}: plans {routes_1b}, not the rule's "
+          f"{rule_1b} once")
+    print(f"dsml_fit at {CELL_1B} (n = 120): {launches_1b} launches of "
+          f"fista_step_gemm; plans {routes_1b}, the debias solve's the "
+          f"rule's {rule_1b}")
     # the grid rows' inputs (the tiled copies 1.8 GB) are not needed again
     del rows, grid_args, grid_tiled, grid4c_args, grid4c_tiled, Sig_g
+    del args_1b, out_1b, Sig_1b, wide_1b, data_1b, fit_1b
     free_card()
 
     print(f"elapsed {time.perf_counter() - t_start:.1f} s before "
@@ -5623,6 +5709,7 @@ def main() -> None:
                     "logistic_grad_unfused_p8192": claunches["logistic_z"],
                     **{k: launches_4c[k] for k in new_keys},
                     "fista_step_gemv_grid": launches_4c["fista_step_gemv"],
+                    "fista_step_gemm_p200": launches_1b,
                     "fista_step_gemv_grid_4c":
                         launches_4c["fista_step_gemv"],
                     "flash_attention": serve_launches["flash_attention"],

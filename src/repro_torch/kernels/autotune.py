@@ -6,9 +6,9 @@ and every plan of their tables is legal at every shape:
 
   * `fista_step` — the fused FISTA step (`kernels/ista_step`), swept over
     GEMV_PLANS, (rows_per_warp, warps), for r = 1 and over GEMM_TILES,
-    (bm, bn), for r > 1, for a (m, p, r) solve, and over GEMV_PLANS for
-    a lambda grid's step, k lambdas over m tasks, under a key of its own
-    (dims m, p, k);
+    (bm, bn, bk, stages), for r > 1, for a (m, p, r) solve, and over
+    GEMV_PLANS for a lambda grid's step, k lambdas over m tasks, under a
+    key of its own (dims m, p, k);
   * `logistic_grad` — the fused logistic gradient, swept over the
     cluster sizes a row of p floats allows (`ops.cluster_max`) for a
     (m, n, p) batch;
@@ -24,8 +24,11 @@ in-process cache backed by a JSON file of the port's own:
 `<repo>/.cache/` (never `.cache/autotune.json`, whose namespaces belong
 to the JAX package). Delete the file, or point `REPRO_TORCH_CACHE_DIR`
 elsewhere, to time again. Keys are `"<kernel>/<backend>_<dims>_<dtype>"`,
-`<backend>` a slug of the card's name and SM count. A sweep's launches
-are not the path's: `LAUNCHES` is restored after it.
+`<backend>` a slug of the card's name and SM count; each entry keeps its
+winner with the candidates it was timed among (`{"plan": ..., "among":
+[...]}`), and an entry timed among other candidates than the table's now
+(an older table, or an entry without them) is timed again, not served.
+A sweep's launches are not the path's: `LAUNCHES` is restored after it.
 
 The engine (`core/engine.py`) takes these winners as its default plans on
 CUDA tensors (`block=None`); an explicit `block=` always wins and never
@@ -170,6 +173,11 @@ def _as_block(value):
     return tuple(value) if isinstance(value, list) else value
 
 
+def _as_json(block):
+    """A block as a cache file holds it: a tuple becomes a list."""
+    return list(block) if isinstance(block, tuple) else block
+
+
 def _autotune(kernel: str, dims: dict[str, int], candidates: list,
               make_sweep: Callable, *, device: torch.device, dtype,
               reps: int):
@@ -180,7 +188,7 @@ def _autotune(kernel: str, dims: dict[str, int], candidates: list,
     winner, or the winner of a sweep, which both caches then keep.
     `make_sweep()` builds the sweep's inputs on `device` and returns a
     `candidate -> thunk` factory; it runs only on a miss. A disk entry
-    that is not among `candidates` counts as a miss."""
+    whose `among` is not `candidates`, in order, counts as a miss."""
     if _multi_rank():
         obs.inc("autotune.cache", kernel=kernel, event="default_multiprocess")
         return None
@@ -193,8 +201,10 @@ def _autotune(kernel: str, dims: dict[str, int], candidates: list,
         obs.inc("autotune.cache", kernel=kernel, event="hit_memory")
         return _memory_cache[key]
     disk = _load_disk()
-    if key in disk and _as_block(disk[key]) in candidates:
-        block = _memory_cache[key] = _as_block(disk[key])
+    entry, among = disk.get(key), [_as_json(c) for c in candidates]
+    if isinstance(entry, dict) and entry.get("among") == among \
+            and _as_block(entry.get("plan")) in candidates:
+        block = _memory_cache[key] = _as_block(entry["plan"])
         obs.inc("autotune.cache", kernel=kernel, event="hit_disk")
         return block
 
@@ -216,7 +226,7 @@ def _autotune(kernel: str, dims: dict[str, int], candidates: list,
     finally:
         LAUNCHES.update(saved)
     _memory_cache[key] = best
-    disk[key] = list(best) if isinstance(best, tuple) else best
+    disk[key] = {"plan": _as_json(best), "among": among}
     _save_disk(disk)
     return best
 

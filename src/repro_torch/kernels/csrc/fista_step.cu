@@ -71,42 +71,66 @@
 //   they compute the last, with the pass's iterates in shared memory;
 //   72 % of the bound at (1024, 200, k 8) (H100 80GB HBM3, 700 W).
 //
-// * r > 1 (the debias solve, r = p, c = I): a batched matrix product, bound
-//   by operations. At (m, p) = (16, 1024) one step is 2 m p^3 = 34.4 GFLOP
-//   of f32 FMA, 0.51 ms at 67 TFLOP/s f32; the bytes (about 400 MB) take
-//   0.12 ms. Full f32 rules out the TF32 tensor cores, so the kernel is an
-//   SGEMM on the CUDA cores and what bounds it is the FMA issue rate: the
-//   design keeps the FMA pipes fed.
-//   - A ring of STAGES = 4 shared-memory stages, each 16 deep in k, filled
-//     by 16-byte `cp.async.cg` (4-byte `cp.async.ca` where p or r is not a
-//     multiple of 4 or an operand is not 16-byte aligned), with the loads
-//     of the next three stages in flight while a stage's FMAs run; one
-//     barrier per stage.
+// * r > 1 (the debias solve, r = p, c = I): a batched matrix product. At
+//   (m, p) = (16, 1024) it is bound by operations: one step is 2 m p^3 =
+//   34.4 GFLOP of f32 FMA, 0.51 ms at 67 TFLOP/s f32, and its bytes
+//   (about 400 MB) take 0.12 ms. At the paper's p = 200 over 1024 tasks
+//   the two meet: 16.4 GFLOP take 0.245 ms and Sigma with four (m, p, r)
+//   arrays (819 MB) 0.2445 ms, c a sixth array (0.293 ms with it). Full
+//   f32 rules out the TF32 tensor cores, so the kernel is an SGEMM on the
+//   CUDA cores that keeps the FMA pipes fed while the arrays stream.
+//   - Each block tile has its ring: STAGES shared-memory stages, each BK
+//     deep in k, filled by 16-byte `cp.async.cg` (4-byte `cp.async.ca`
+//     where p or r is not a multiple of 4 or an operand is not 16-byte
+//     aligned), with the loads of the next STAGES - 1 stages in flight
+//     while a stage's FMAs run; one barrier per stage. A thread that has
+//     no copy left in a stage's last round (125 threads do not divide its
+//     copies) skips it.
 //   - Each thread owns an 8 x 8 register tile made of 4-wide groups: rows
 //     4 ty + {0..3} and BM/2 + 4 ty + {0..3}, columns 4 tx + {0..3} and
 //     BN/2 + 4 tx + {0..3}. Sigma's tile stays row-major in shared memory
 //     (i-major, as cp.async copies it) and a thread reads four k values of
 //     a row as one float4; z's tile is k-major and a thread reads four
 //     columns as one float4. That is 4 LDS.128 per 64 FMA. The 16-byte
-//     chunks of a Sigma row are XOR-swizzled by (row / 4) % 4, so the rows
-//     that the warp's threads read at once fall in distinct banks.
-//   - The block tile is chosen per launch by `gemm_plan`: 128 x 64 (128
-//     threads) where m * tiles gives at least one block per SM, else
-//     64 x 64 (64 threads). At m = 16, p = r = 1024 that is 2048 blocks of
-//     128 x 64, three resident per SM (168 registers a thread); on the
-//     H100 that ran faster than 128 x 128 tiles, of which one block of 8
-//     warps fits an SM. At m = 1 it is 256 blocks of 64 x 64, where
-//     128 x 128 left more than half of the 132 SMs idle. `ops.py` keeps a
-//     copy of the rule for its tests; `fista_gemm_plan` returns this one.
+//     chunks of a Sigma row are XOR-swizzled by row / 4, so the rows that
+//     the warp's threads read at once fall in distinct banks.
+//   - The tiles (PLAN_TILES): 128 x 64 (128 threads) and 64 x 64 (64
+//     threads), 16 deep in k, 4 stages; and 40 x 200 (125 threads), 8 deep,
+//     6 stages, which covers p = r = 200 exactly, k included, in 5 blocks
+//     a task, where 128 x 64 covered it as 256 x 256 (61 % of the outputs
+//     real) and padded k to 208. `gemm_plan` takes, of the tiles whose grid
+//     gives every SM a block, the one of least padded area, the first on a
+//     tie; where none does, 64 x 64. 40 x 200, wider than tall, counts
+//     only where the r columns fit in one of its blocks: at (16, 1000,
+//     1000) its 8-deep stages took 0.973 ms against 128 x 64's 0.871
+//     (H100 80GB HBM3, 700 W), though it pads 4.6 % less. So p = 200 from
+//     27 tasks takes 40 x 200; p = r = 1024 takes 128 x 64 at m = 16 (2048
+//     blocks, three resident per SM at 168 registers a thread; faster on
+//     the H100 than 128 x 128, of which one block of 8 warps fits an SM)
+//     and 64 x 64 at m = 1 (256 blocks, where 128 x 64 leaves SMs idle);
+//     p = 256 takes 128 x 64, which covers it exactly, and p = 300 64 x 64
+//     (0.570 ms at m = 300 against 128 x 64's 0.618). `ops.py` keeps a
+//     copy of the rule and of PLAN_TILES for its tests; `fista_gemm_plan`
+//     and `fista_gemm_tiles` return these. At
+//     (1024, 200, 200) the step took 0.586 ms against 0.785 with 128 x 64
+//     (H100 80GB HBM3, 700 W): 40 x 200 ran faster than 200 x 40, whose
+//     epilogue writes 160-byte pieces of rows (0.632), and 8 deep in 6
+//     stages faster than 16 deep in 3 (0.606) or 4 (0.702).
 //   - No split-K: every output is one FMA chain over k = 0 .. p - 1 in
 //     order from 0, as in the first version of this kernel, so the result
 //     is the same bits whatever tile is chosen, and deterministic.
-//   What holds it back: it reaches about 58 % of the f32 peak at m = 16,
-//   where cuBLAS's `bmm` reaches 75 % (`chip_smoke.py` phase 5); the
-//   loop's instructions are nearly all FFMA, so the rest is issue stalls
-//   that the compiled loop does not hide (latency with 12 warps a SM,
-//   register bank conflicts; not measured: the card's profilers do not
-//   run where it was built).
+//   What holds it back: at p = 1024 it reaches about 58 % of the f32 peak
+//   at m = 16, where cuBLAS's `bmm` reaches 75 % (`chip_smoke.py` phase
+//   5); the loop's instructions are nearly all FFMA, so the rest is issue
+//   stalls that the compiled loop does not hide (latency with 12 warps a
+//   SM, register bank conflicts; not measured: the card's profilers do
+//   not run where it was built). At p = 200 the bytes and the FMAs take
+//   about as long as each other and overlap only in part: the step with
+//   no FMAs took 0.43 ms (2.3 TB/s), the one without the epilogue's reads
+//   0.54, the whole 0.59 to 0.61 (bmm(Sigma, Z) alone 0.59). Prefetching
+//   the epilogue's c, z, x into L2 during the last k-stages, streaming
+//   them through the ring behind the k-stages, and persistent blocks
+//   that load the next tile while the last one finishes were all slower.
 //   The gradient step, soft threshold and momentum run in the epilogue on
 //   the accumulator registers, four columns at a time where r % 4 == 0.
 //
@@ -540,12 +564,15 @@ fista_gemv_kernel_lams_staged(const float* __restrict__ Sig,
 
 // ---- r > 1: batched SGEMM ---------------------------------------------------
 
-constexpr int BK = 16;             // contraction depth per stage
-constexpr int STAGES = 4;          // shared-memory ring
 constexpr int TILE = 8;            // register tile per thread, TILE x TILE
 
-template <int BM, int BN>
+// A block tile BM x BN, and its ring: STAGES shared-memory stages, each BK
+// deep in k
+template <int BM, int BN, int BK, int STAGES>
 struct GemmTile {
+  static_assert(BM % TILE == 0 && BN % TILE == 0,
+                "a tile is whole 8 x 8 register tiles");
+  static_assert(BK == 8 || BK == 16, "a row of a stage is 2 or 4 float4");
   static constexpr int TX = BN / TILE;          // threads along j
   static constexpr int TY = BM / TILE;          // threads along i
   static constexpr int THREADS = TX * TY;
@@ -585,48 +612,55 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
-// Where Sigma's (i, k) of a stage lives: row i holds BK floats as four
-// 16-byte chunks, chunk k / 4 stored at position (k / 4) ^ ((i / 4) % 4)
+// Where Sigma's (i, k) of a stage lives: row i holds BK floats as BK / 4
+// 16-byte chunks, chunk k / 4 stored at position (k / 4) ^ (i / 4) modulo
+// BK / 4
+template <int BK>
 __device__ __forceinline__ int a_index(int i, int k) {
-  return i * BK + ((((k >> 2) ^ (i >> 2)) & 3) << 2) + (k & 3);
+  return i * BK + ((((k >> 2) ^ (i >> 2)) & (BK / 4 - 1)) << 2) + (k & 3);
 }
 
 // One stage: Sigma[i0 .. i0 + BM, k0 .. k0 + BK) and z[k0 .. k0 + BK,
-// j0 .. j0 + BN) of task t into As / Bs, zero past p and r
-template <int BM, int BN, bool VEC>
+// j0 .. j0 + BN) of task t into As / Bs, zero past p and r. Copy c of
+// COPIES goes to thread c % THREADS; where THREADS does not divide COPIES
+// (a 40 x 200 tile has 125 threads) the last round is guarded.
+template <int BM, int BN, int BK, int STAGES, bool VEC>
 __device__ __forceinline__ void load_stage(float* As, float* Bs,
                                            const float* __restrict__ St,
                                            const float* __restrict__ Zt,
                                            int i0, int j0, int k0, int p,
                                            int r, int tid) {
-  using G = GemmTile<BM, BN>;
+  using G = GemmTile<BM, BN, BK, STAGES>;
   constexpr int W = VEC ? 4 : 1;                // floats per copy
+  constexpr int A_COPIES = G::A_FLOATS / W, B_COPIES = G::B_FLOATS / W;
 #pragma unroll
-  for (int l = 0; l < G::A_FLOATS / W / G::THREADS; ++l) {
-    const int idx = (tid + l * G::THREADS) * W;
-    const int i = idx / BK, k = idx % BK;
+  for (int l = 0; l < (A_COPIES + G::THREADS - 1) / G::THREADS; ++l) {
+    const int c = tid + l * G::THREADS;
+    if (A_COPIES % G::THREADS != 0 && c >= A_COPIES) break;
+    const int i = c * W / BK, k = c * W % BK;
     const bool in = i0 + i < p && k0 + k < p;
-    cp_async<VEC>(As + a_index(i, k),
+    cp_async<VEC>(As + a_index<BK>(i, k),
                   in ? St + (size_t)(i0 + i) * p + k0 + k : St, in);
   }
 #pragma unroll
-  for (int l = 0; l < G::B_FLOATS / W / G::THREADS; ++l) {
-    const int idx = (tid + l * G::THREADS) * W;
-    const int k = idx / BN, j = idx % BN;
+  for (int l = 0; l < (B_COPIES + G::THREADS - 1) / G::THREADS; ++l) {
+    const int c = tid + l * G::THREADS;
+    if (B_COPIES % G::THREADS != 0 && c >= B_COPIES) break;
+    const int k = c * W / BN, j = c * W % BN;
     const bool in = k0 + k < p && j0 + j < r;
-    cp_async<VEC>(Bs + idx, in ? Zt + (size_t)(k0 + k) * r + j0 + j : Zt,
+    cp_async<VEC>(Bs + c * W, in ? Zt + (size_t)(k0 + k) * r + j0 + j : Zt,
                   in);
   }
 }
 
-template <int BM, int BN, bool VEC, bool MOMENTUM>
-__global__ void __launch_bounds__(GemmTile<BM, BN>::THREADS)
+template <int BM, int BN, int BK, int STAGES, bool VEC, bool MOMENTUM>
+__global__ void __launch_bounds__(GemmTile<BM, BN, BK, STAGES>::THREADS)
 fista_gemm_kernel(const float* __restrict__ Sig, const float* __restrict__ Z,
                   const float* __restrict__ Xp, const float* __restrict__ C,
                   const float* __restrict__ eta, const float* __restrict__ lam,
                   float theta, float* __restrict__ Xn, float* __restrict__ Zn,
                   int p, int r) {
-  using G = GemmTile<BM, BN>;
+  using G = GemmTile<BM, BN, BK, STAGES>;
   extern __shared__ __align__(16) float smem[];
   const int t = blockIdx.z;
   const int i0 = blockIdx.y * BM;
@@ -644,8 +678,8 @@ fista_gemm_kernel(const float* __restrict__ Sig, const float* __restrict__ Z,
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < kts) {
       float* As = smem + s * G::STAGE_FLOATS;
-      load_stage<BM, BN, VEC>(As, As + G::A_FLOATS, St, Zt, i0, j0, s * BK,
-                              p, r, tid);
+      load_stage<BM, BN, BK, STAGES, VEC>(As, As + G::A_FLOATS, St, Zt, i0,
+                                          j0, s * BK, p, r, tid);
     }
     cp_async_commit();
   }
@@ -656,8 +690,8 @@ fista_gemm_kernel(const float* __restrict__ Sig, const float* __restrict__ Z,
     const int next = kt + STAGES - 1;
     if (next < kts) {
       float* As = smem + (next % STAGES) * G::STAGE_FLOATS;
-      load_stage<BM, BN, VEC>(As, As + G::A_FLOATS, St, Zt, i0, j0,
-                              next * BK, p, r, tid);
+      load_stage<BM, BN, BK, STAGES, VEC>(As, As + G::A_FLOATS, St, Zt, i0,
+                                          j0, next * BK, p, r, tid);
     }
     cp_async_commit();
 
@@ -670,7 +704,7 @@ fista_gemm_kernel(const float* __restrict__ Sig, const float* __restrict__ Z,
 #pragma unroll
       for (int q = 0; q < TILE; ++q) {
         const int i = (q < 4 ? 0 : BM / 2) + 4 * ty + (q & 3);
-        a[q] = *reinterpret_cast<const float4*>(As + a_index(i, 4 * kc));
+        a[q] = *reinterpret_cast<const float4*>(As + a_index<BK>(i, 4 * kc));
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -728,17 +762,35 @@ fista_gemm_kernel(const float* __restrict__ Sig, const float* __restrict__ Z,
   }
 }
 
-// The block tile for (m, p, r) on a card with `sms` SMs (`gemm_plan` in
-// ops.py is the same rule): the larger tile where its grid has at least
-// one block per SM, else the smaller. Returns 0 for 128 x 64, 1 for
-// 64 x 64.
-constexpr int PLAN_TILES[2][2] = {{128, 64}, {64, 64}};
+// The block tiles, larger blocks first (GEMM_TILES in ops.py is the same
+// table; `fista_gemm_tiles` below lets a card test hold them equal):
+// {bm, bn, bk, stages}. 40 x 200 covers the paper's p = r = 200 with no
+// padding, k included.
+constexpr int PLAN_TILES[][4] = {
+    {128, 64, 16, 4}, {40, 200, 8, 6}, {64, 64, 16, 4}};
+constexpr int N_TILES = sizeof(PLAN_TILES) / sizeof(PLAN_TILES[0]);
 
+// The block tile for (m, p, r) on a card with `sms` SMs, an index into
+// PLAN_TILES (`gemm_plan` in ops.py is the same rule): of the tiles whose
+// grid gives every SM a block, the one of least padded area
+// ceil(p / bm) bm x ceil(r / bn) bn, the first on a tie; where none does,
+// the last, the smallest block. A short-row tile (bn > bm) counts only
+// where the r columns fit in one of its blocks.
 int gemm_plan(int m, int p, int r, int sms) {
-  const long long blocks = (long long)m *
-                           ((p + PLAN_TILES[0][0] - 1) / PLAN_TILES[0][0]) *
-                           ((r + PLAN_TILES[0][1] - 1) / PLAN_TILES[0][1]);
-  return blocks >= sms ? 0 : 1;
+  int best = N_TILES - 1;
+  long long best_area = -1;
+  for (int i = 0; i < N_TILES; ++i) {
+    const long long rows = (p + PLAN_TILES[i][0] - 1) / PLAN_TILES[i][0];
+    const long long cols = (r + PLAN_TILES[i][1] - 1) / PLAN_TILES[i][1];
+    if (m * rows * cols < sms) continue;
+    if (PLAN_TILES[i][1] > PLAN_TILES[i][0] && cols > 1) continue;
+    const long long area = rows * PLAN_TILES[i][0] * cols * PLAN_TILES[i][1];
+    if (best_area < 0 || area < best_area) {
+      best = i;
+      best_area = area;
+    }
+  }
+  return best;
 }
 
 int device_sms(int device) {
@@ -750,11 +802,11 @@ int device_sms(int device) {
   return sms[device];
 }
 
-template <int BM, int BN, bool VEC, bool MOMENTUM>
+template <int BM, int BN, int BK, int STAGES, bool VEC, bool MOMENTUM>
 cudaError_t launch_tile(const float* const* in, float theta, float* Xn,
                         float* Zn, int m, int p, int r, cudaStream_t s) {
-  using G = GemmTile<BM, BN>;
-  auto kernel = fista_gemm_kernel<BM, BN, VEC, MOMENTUM>;
+  using G = GemmTile<BM, BN, BK, STAGES>;
+  auto kernel = fista_gemm_kernel<BM, BN, BK, STAGES, VEC, MOMENTUM>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (err != cudaSuccess) return err;
@@ -764,14 +816,18 @@ cudaError_t launch_tile(const float* const* in, float theta, float* Xn,
   return cudaGetLastError();
 }
 
-template <bool VEC, bool MOMENTUM>
+// The instance of PLAN_TILES[tile], tile >= I
+template <bool VEC, bool MOMENTUM, int I = 0>
 cudaError_t launch_plan(int tile, const float* const* in, float theta,
                         float* Xn, float* Zn, int m, int p, int r,
                         cudaStream_t s) {
-  return tile == 0 ? launch_tile<128, 64, VEC, MOMENTUM>(in, theta, Xn, Zn,
-                                                         m, p, r, s)
-                   : launch_tile<64, 64, VEC, MOMENTUM>(in, theta, Xn, Zn, m,
-                                                        p, r, s);
+  if constexpr (I + 1 < N_TILES)
+    if (tile != I)
+      return launch_plan<VEC, MOMENTUM, I + 1>(tile, in, theta, Xn, Zn, m, p,
+                                               r, s);
+  return launch_tile<PLAN_TILES[I][0], PLAN_TILES[I][1], PLAN_TILES[I][2],
+                     PLAN_TILES[I][3], VEC, MOMENTUM>(in, theta, Xn, Zn, m, p,
+                                                      r, s);
 }
 
 // The GEMV's plan for (m, p) on a card with `sms` SMs: an index into
@@ -908,7 +964,7 @@ int launch_gemm(const void* Sig, const void* Z, const void* Xp,
                 const void* C, const void* eta, const void* lam, float theta,
                 void* Xn, void* Zn, int m, int p, int r, int device,
                 void* stream, int forced) {
-  if (forced < -1 || forced >= 2)
+  if (forced < -1 || forced >= N_TILES)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -1007,6 +1063,14 @@ extern "C" int fista_gemm_plan(int m, int p, int r, int device, int* bm,
   *bm = PLAN_TILES[tile][0];
   *bn = PLAN_TILES[tile][1];
   return 0;
+}
+
+// The SGEMM's tile table, PLAN_TILES: its first `cap` rows of
+// {bm, bn, bk, stages} into `out`, and the number of rows.
+extern "C" int fista_gemm_tiles(int* out, int cap) {
+  for (int i = 0; i < N_TILES && i < cap; ++i)
+    for (int j = 0; j < 4; ++j) out[4 * i + j] = PLAN_TILES[i][j];
+  return N_TILES;
 }
 
 // The GEMV's plan for (m, p) on `device`: rows per warp, warps per block

@@ -20,9 +20,10 @@ rules (`fista_gemm_plan` and `fista_gemv_plan` in the .cu return their
 choices).
 
 `block=` overrides the rule: a `(rows_per_warp, warps)` entry of
-GEMV_PLANS where r == 1, a `(bm, bn)` entry of GEMM_TILES where r > 1,
-or None for the rule's plan. On CUDA tensors the kernel launches exactly
-that plan; the plain version ignores it. Every plan gives the same bits.
+GEMV_PLANS where r == 1, an entry of GEMM_TILES, whole or as its
+`(bm, bn)`, where r > 1, or None for the rule's plan. On CUDA tensors
+the kernel launches exactly that plan; the plain version ignores it.
+Every plan gives the same bits.
 Anything else raises ValueError on every path, the CPU's too, the JAX
 package's TPU tilings (`128`, `(bp, br, bk)`) included.
 """
@@ -57,13 +58,12 @@ _ISTA_GEMV_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + \
 _ISTA_GEMM_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
     [ctypes.c_void_p, ctypes.c_int]
 _PLAN_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+_TILES_ARGTYPES = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
 _GEMV_PLAN_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
 
-# the SGEMM's block tiles, larger first (PLAN_TILES in the .cu), and its
-# ring: k per stage and stages (BK, STAGES in the .cu)
-GEMM_TILES = ((128, 64), (64, 64))
-GEMM_BK = 16
-GEMM_STAGES = 4
+# the SGEMM's block tiles, larger blocks first, each (bm, bn) and its
+# ring, k per stage and stages: PLAN_TILES in the .cu, row for row
+GEMM_TILES = ((128, 64, 16, 4), (40, 200, 8, 6), (64, 64, 16, 4))
 # the GEMV's (rows per warp, warps per block), first choice first, and
 # the blocks per SM its plan asks for (GV_PLANS, GV_BLOCKS_PER_SM)
 GEMV_PLANS = ((4, 8), (2, 8), (1, 8), (1, 4), (1, 2))
@@ -81,19 +81,29 @@ class GemmPlan(NamedTuple):
     smem_bytes: int      # the ring of stages, dynamic shared memory
 
 
+def padded_area(p: int, r: int, bm: int, bn: int) -> int:
+    """The outputs a task's grid of bm x bn tiles covers for (p, r)."""
+    return -(-p // bm) * bm * -(-r // bn) * bn
+
+
 def gemm_plan(m: int, p: int, r: int, sms: int) -> GemmPlan:
     """Block tile of the r > 1 kernel for (m, p, r) on a card with `sms`
-    SMs: the larger of GEMM_TILES where its grid has at least one block
-    per SM, else the smaller. No split-K, so every tile gives the same
-    bits."""
+    SMs: of the GEMM_TILES whose grid gives every SM a block, the one of
+    least padded area, the first on a tie; where none does, the last
+    (the smallest block). A short-row tile (wider than tall) counts only
+    where a task's r columns fit in one of its blocks: at longer rows its
+    shallow stages lose to 128 x 64 (11 % at (16, 1000, 1000) on an
+    H100). No split-K, so every tile gives the same bits."""
     def blocks(bm: int, bn: int) -> int:
         return m * -(-p // bm) * -(-r // bn)
 
-    bm, bn = GEMM_TILES[0]
-    if blocks(bm, bn) < sms:
-        bm, bn = GEMM_TILES[1]
+    filling = [t for t in GEMM_TILES
+               if blocks(*t[:2]) >= sms and (t[1] <= t[0] or r <= t[1])]
+    bm, bn, bk, stages = min(
+        filling, key=lambda t: padded_area(p, r, *t[:2])) \
+        if filling else GEMM_TILES[-1]
     return GemmPlan(bm, bn, blocks(bm, bn), bm * bn // 64,
-                    4 * GEMM_STAGES * GEMM_BK * (bm + bn))
+                    4 * stages * bk * (bm + bn))
 
 
 class GemvPlan(NamedTuple):
@@ -148,17 +158,30 @@ def kernel_gemm_plan(m: int, p: int, r: int,
     return bm.value, bn.value, sms.value
 
 
+def kernel_gemm_tiles() -> tuple[tuple[int, int, int, int], ...]:
+    """The SGEMM's tile table as the library holds it (PLAN_TILES), rows
+    of (bm, bn, bk, stages), so that a test can hold GEMM_TILES to it."""
+    fn = _build.function("fista_step", "fista_gemm_tiles", _TILES_ARGTYPES)
+    n = fn(None, 0)
+    out = (ctypes.c_int * (4 * n))()
+    fn(out, n)
+    return tuple(tuple(out[4 * i:4 * i + 4]) for i in range(n))
+
+
 def check_block(name: str, r: int, block) -> int:
     """The launcher's `plan` for `block` at r columns: -1 for None (the
-    rule), else the index of `block` in GEMV_PLANS (r == 1) or GEMM_TILES
-    (r > 1). Raises ValueError for anything else."""
+    rule), else the index of `block` in GEMV_PLANS (r == 1) or of the
+    GEMM_TILES entry it is, whole or as its (bm, bn) (r > 1). Raises
+    ValueError for anything else."""
     if block is None:
         return -1
     table, what = (GEMV_PLANS, "GEMV_PLANS (rows_per_warp, warps)") \
-        if r == 1 else (GEMM_TILES, "GEMM_TILES (bm, bn)")
+        if r == 1 else (GEMM_TILES, "GEMM_TILES (bm, bn[, bk, stages])")
     entry = tuple(block) if isinstance(block, (list, tuple)) else block
-    if entry in table and all(type(b) is int for b in entry):
-        return table.index(entry)
+    if isinstance(entry, tuple) and all(type(b) is int for b in entry):
+        for i, row in enumerate(table):
+            if entry in (row, row[:2]):
+                return i
     raise ValueError(f"{name}: block={block!r} is not an entry of {what} "
                      f"{table} (r = {r}), nor None for the rule's plan")
 

@@ -31,9 +31,13 @@ device.
   `dsml_logistic_fit` (600 r = p), `ista_solve` (400 r = 1 steps of one
   task) and phase 4c's `ista_step` and `ista_step_batched`, at r = 1 on
   the fit's beta_local and at r = p, on the fit's statistics, must give
-  the same bits. Times of the SGEMM at (16, 1024, 1024) with momentum
-  and (1, 1024, 1024) without, and of the GEMV at (16, 1024, 1) with
-  momentum and (1, 1024, 1) without, beside `bmm` / `mm`.
+  the same bits, and so must the r = p step with and without momentum at
+  the fit cell's (1024, 200, 200) (c = I), and with momentum at the long
+  rows of (16, 1000, 1000) and (3, 1000, 1000). Times of the SGEMM at
+  (1024, 200, 200), (16, 1024, 1024), (16, 1000, 1000) and
+  (3, 1000, 1000) with momentum and (1, 1024, 1024) without, and of the
+  GEMV at (16, 1024, 1) with momentum and (1, 1024, 1) without, beside
+  `bmm` / `mm`.
 * `rank_update`, the rank-n update: `dsml_fit` (one launch) must give
   the same bits, and so must `rank_update` and the unfused pair's
   Sigma and c, unweighted, on the fit's X and y; `dsml_logistic_fit`
@@ -123,6 +127,8 @@ from repro_torch.launch.timing import (
 )
 
 M, N, P, S = 16, 512, 1024, 16            # chip_smoke.py phases 4-4c
+CELL = (1024, 200, 200)                   # the dsml-reg.fit cell's debias step
+LONG = ((16, 1000, 1000), (3, 1000, 1000))  # long rows; chip_smoke.py phase 3
 INGEST = (8, 1024, 256)                   # benchmarks/stream_bench.py
 LARGE_P = (4, 256, 8192)                  # benchmarks/largep_logistic.py
 TOL_FIT = 1e-4                            # x max|.|, as chip_smoke.py
@@ -241,7 +247,7 @@ def _compare_sgemm(earlier: ctypes.CDLL, dev: torch.device,
     eyes = eye.expand(M, P, P).contiguous()
     beta = dsml_fit(*fit_args, use_kernel=False).beta_local
 
-    def paths():
+    def paths_fits():
         return {
             "phase 4 dsml_fit": dsml_fit(*fit_args),
             "phase 4b dsml_logistic_fit": dsml_logistic_fit(*cfit_args),
@@ -256,6 +262,40 @@ def _compare_sgemm(earlier: ctypes.CDLL, dev: torch.device,
             "phase 4c ista_step_batched r=p": ista_step_batched(
                 Sig0, M0, eyes, etas0, mu),
         }
+
+    # the debias step at the fit cell's (1024, 200, 200), where the rule
+    # takes the short-row tile
+    g = torch.Generator(device=dev).manual_seed(2)
+    Xc = torch.randn((CELL[0], 120, CELL[1]), generator=g, device=dev)
+    Sigc = torch.bmm(Xc.mT, Xc) / 120
+    del Xc
+    etasc = 1.0 / power_iteration_batched(Sigc)
+    zc = 0.05 * torch.randn(CELL, generator=g, device=dev)
+    xc = zc + 0.01 * torch.randn(CELL, generator=g, device=dev)
+    eyec = torch.eye(CELL[1], device=dev).expand(*CELL).contiguous()
+    lamsc = torch.full((CELL[0],), mu, device=dev)
+    cell = (Sigc, zc, xc, eyec, etasc, lamsc, np.float32(0.7))
+    # the step at long rows, on Sigma's leading block
+    long = {}
+    for shape in LONG:
+        m, p, _ = shape
+        Sigl = Sig0[:m, :p, :p].contiguous()
+        zl = 0.05 * torch.randn(shape, generator=g, device=dev)
+        long[shape] = (Sigl, zl,
+                       zl + 0.01 * torch.randn(shape, generator=g, device=dev),
+                       torch.eye(p, device=dev).expand(*shape).contiguous(),
+                       1.0 / power_iteration_batched(Sigl),
+                       torch.full((m,), mu, device=dev), np.float32(0.7))
+
+    def paths():
+        return {**paths_fits(),
+                "fista_step_batched r=p (1024, 200, 200)":
+                    ista_ops.fista_step_batched(*cell),
+                "ista_step_batched r=p (1024, 200, 200)":
+                    ista_step_batched(Sigc, zc, eyec, etasc, lamsc),
+                **{f"fista_step_batched r=p {shape}":
+                   ista_ops.fista_step_batched(*args)
+                   for shape, args in long.items()}}
 
     new = paths()
     with _library("fista_step", earlier):
@@ -277,7 +317,19 @@ def _compare_sgemm(earlier: ctypes.CDLL, dev: torch.device,
     xnv, znv = torch.empty_like(zv), torch.empty_like(zv)
     onev = [Sig0[:1], zv[:1], cv[:1], etas0[:1], lams[:1]]
     out1v = torch.empty_like(onev[1])
+    xnc, znc = torch.empty_like(zc), torch.empty_like(zc)
+
+    def long_row(args):
+        out = (torch.empty_like(args[1]), torch.empty_like(args[1]))
+        return (lambda: ista_ops.launch(*args, *out),
+                lambda: torch.bmm(args[0], args[1]))
+
     calls = {
+        "fista_step_gemm (1024, 200, 200)": (
+            lambda: ista_ops.launch(*cell, xnc, znc),
+            lambda: torch.bmm(Sigc, zc)),
+        **{f"fista_step_gemm {shape}": long_row(args)
+           for shape, args in long.items()},
         "fista_step_gemm (16, 1024, 1024)": (
             lambda: ista_ops.launch(Sig0, z, x, eyes, etas0, lams,
                                     np.float32(0.7), xn, zn),

@@ -109,7 +109,10 @@ def test_cache_round_trip(name, cache_dir, timed):
     entries = json.loads(autotune.cache_path().read_text())
     assert len(entries) == 1
     stored = next(iter(entries.values()))
-    assert (tuple(stored) if isinstance(stored, list) else stored) == first
+    plan = stored["plan"]
+    assert (tuple(plan) if isinstance(plan, list) else plan) == first
+    assert stored["among"] == [list(c) if isinstance(c, tuple) else c
+                               for c in want]
 
 
 def test_a_sweep_does_not_count_as_launches(cache_dir, monkeypatch):
@@ -125,15 +128,29 @@ def test_a_sweep_does_not_count_as_launches(cache_dir, monkeypatch):
     assert dict(LAUNCHES) == before
 
 
-def test_a_stale_disk_entry_is_timed_again(cache_dir, timed):
-    """An entry that is not among the candidates (a hand edit, an older
-    table) is a miss, and the sweep's winner replaces it."""
+TILES = [list(t) for t in rank_ops.RANK_TILES]
+STALE = {
+    "a plan not among the candidates (a hand edit)":
+        {"plan": [128, 128], "among": TILES},
+    "timed among another table": {"plan": TILES[0], "among": TILES[1:]},
+    "a bare plan, without the candidates it was timed among":
+        TILES[0],
+}
+
+
+@pytest.mark.parametrize("case", list(STALE))
+def test_a_stale_disk_entry_is_timed_again(case, cache_dir, timed):
+    """An entry whose plan is not among the candidates, or that was timed
+    among other candidates than the table's now, is a miss, and the
+    sweep's winner replaces it."""
     key = autotune.cache_key("rank_update", "cpu",
                              {"m": 2, "n": 4, "p": 8}, torch.float32)
-    autotune.cache_path().write_text(json.dumps({key: [128, 128]}))
+    autotune.cache_path().write_text(json.dumps({key: STALE[case]}))
     got = autotune.autotune_rank_block(2, 4, 8, device=CPU)
     assert got == rank_ops.RANK_TILES[-1] and timed
-    assert json.loads(autotune.cache_path().read_text())[key] == list(got)
+    assert _events("miss_sweep") == 1 and _events("hit_disk") == 0
+    assert json.loads(autotune.cache_path().read_text())[key] == {
+        "plan": list(got), "among": TILES}
 
 
 def test_keys_are_namespaced_per_kernel(cache_dir, timed, monkeypatch):
@@ -155,6 +172,44 @@ def test_keys_are_namespaced_per_kernel(cache_dir, timed, monkeypatch):
     assert default.name == "repro_torch_autotune.json"
     assert default.parent.name == ".cache"
     assert autotune.backend_slug(CPU) == "cpu"
+
+
+EARLIER = {
+    # the file as the table of two tiles (128 x 64, 64 x 64) left it
+    "a bare winner": [128, 64],
+    # an entry timed over the two tiles of 16-deep, 4-stage rings
+    "timed over the earlier table": {
+        "plan": [128, 64, 16, 4],
+        "among": [[128, 64, 16, 4], [64, 64, 16, 4]]},
+}
+
+
+@pytest.mark.parametrize("case", list(EARLIER))
+def test_an_r_gt_1_entry_of_the_earlier_table_is_not_read(case, cache_dir,
+                                                          timed):
+    """An r > 1 entry written over an earlier tile table (its winner,
+    128 x 64, still a tile of the table) is not read: the step is timed
+    again over every tile, the short-row one among them, and the entry
+    replaced under the same key. The r = 1 and grid keys are as they
+    were."""
+    dims = {"m": 2, "p": 8, "r": 8}
+    key = autotune.cache_key("fista_step", "cpu", dims, torch.float32)
+    assert key == "fista_step/cpu_m2_p8_r8_float32"
+    autotune.cache_path().write_text(json.dumps({key: EARLIER[case]}))
+    assert ista_ops.check_block("test", 8, (128, 64)) == 0
+    got = autotune.autotune_block(2, 8, 8, device=CPU)
+    assert got == ista_ops.GEMM_TILES[-1]
+    assert len(timed) == len(ista_ops.GEMM_TILES)
+    assert _events("miss_sweep") == 1 and _events("hit_disk") == 0
+    entries = json.loads(autotune.cache_path().read_text())
+    assert entries == {key: {"plan": list(got), "among": [
+        list(t) for t in ista_ops.GEMM_TILES]}}
+    autotune.autotune_block(2, 8, 1, device=CPU)
+    autotune.autotune_grid_block(2, 8, 3, device=CPU)
+    entries = json.loads(autotune.cache_path().read_text())
+    assert {"fista_step/cpu_m2_p8_r1_float32",
+            "fista_step/cpu_m2_p8_k3_float32"} <= set(entries)
+    assert all(KEY_RE.match(k) for k in entries), list(entries)
 
 
 def test_grid_key_is_not_the_r1_key(cache_dir, timed, monkeypatch):
@@ -231,11 +286,15 @@ def test_capture_and_compile_take_the_rule(how, cache_dir, timed,
 
 def test_candidates_are_the_plan_tables():
     """The candidates are the launchers' tables, the fused logistic
-    gradient's cluster sizes cut at `cluster_max`."""
+    gradient's cluster sizes cut at `cluster_max`; the fit cell's sweep
+    at (1024, 200, 200) times the rule's short-row tile too."""
     assert autotune.block_candidates(16, 1024, 1) == list(
         ista_ops.GEMV_PLANS)
     assert autotune.block_candidates(16, 1024, 1024) == list(
         ista_ops.GEMM_TILES)
+    rule = ista_ops.gemm_plan(1024, 200, 200, 132)
+    assert (rule.bm, rule.bn) in [
+        t[:2] for t in autotune.block_candidates(1024, 200, 200)]
     assert autotune.rank_candidates(16, 512, 1024) == list(
         rank_ops.RANK_TILES)
     assert autotune.logistic_candidates(16, 512, 1024) == [1]
@@ -332,7 +391,7 @@ def _candidates_of(name: str) -> list:
                 "solve_lasso_batched", "solve_lasso_grid"):
         return list(ista_ops.GEMV_PLANS)
     if name in ("fista_step_batched r=3", "ista_step"):
-        return list(ista_ops.GEMM_TILES)
+        return [*ista_ops.GEMM_TILES, *(t[:2] for t in ista_ops.GEMM_TILES)]
     if name in ("rank_update", "rank_update_unfused", "sufficient_stats"):
         return list(rank_ops.RANK_TILES)
     if name in ("logistic_grad", "solve_logistic_lasso_batched"):

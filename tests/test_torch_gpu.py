@@ -158,13 +158,16 @@ def test_fista_step_kernel_matches_plain(cuda, m, p, r):
 
 @pytest.mark.parametrize("momentum", [True, False])
 @pytest.mark.parametrize("m, p, r", [(1, 1024, 1024), (16, 1024, 1024),
-                                     (3, 129, 7), (2, 1001, 1001)])
+                                     (3, 129, 7), (2, 1001, 1001),
+                                     (32, 200, 200), (64, 197, 197),
+                                     (3, 1000, 1000)])
 def test_fista_gemm_kernel_matches_plain_on_every_tile(cuda, m, p, r,
                                                        momentum):
     """The r > 1 kernel at shapes that between them take every tile of
-    `gemm_plan` (the launcher's own choice is held to the Python rule),
-    the 16-byte and the 4-byte copies, with and without momentum; two
-    launches give the same bits."""
+    `gemm_plan` (the launcher's own choice is held to the Python rule;
+    the short-row tile at p = 200 and 197, not at p = 1000), the 16-byte
+    and the 4-byte copies, with and without momentum; two launches give
+    the same bits."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     plan = gemm_plan(m, p, r, sms)
     assert kernel_gemm_plan(m, p, r, cuda) == (plan.bm, plan.bn, sms)
@@ -190,6 +193,47 @@ def test_fista_gemm_kernel_matches_plain_on_every_tile(cuda, m, p, r,
                         for t in (got, again, want))
     _assert_close(got, want)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("momentum", [True, False])
+@pytest.mark.parametrize("m, p", [(1024, 200), (64, 197)])
+def test_short_row_tile_gives_the_bits_of_128x64(cuda, m, p, momentum):
+    """At the fit cell's (1024, 200, 200), and at an odd p (the 4-byte
+    copies), the rule takes the short-row tile, the launcher's plan is
+    `gemm_plan`'s, and the debias step (c = I) has the bits of the forced
+    128 x 64 tile, with and without momentum: every output is one FMA
+    chain over k in order, whatever the tile."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = gemm_plan(m, p, p, sms)
+    assert (plan.bm, plan.bn) not in ((128, 64), (64, 64))
+    assert kernel_gemm_plan(m, p, p, cuda) == (plan.bm, plan.bn, sms)
+    g = torch.Generator(device=cuda).manual_seed(35)
+    X = torch.randn((m, 120, p), generator=g, device=cuda)
+    Sig = torch.bmm(X.mT, X) / 120
+    etas = 1.0 / power_iteration_batched(Sig)
+    z = 0.05 * torch.randn((m, p, p), generator=g, device=cuda)
+    x = z + 0.01 * torch.randn((m, p, p), generator=g, device=cuda)
+    c = torch.eye(p, device=cuda).expand(m, p, p).contiguous()
+    lams = torch.full((m,), 0.38, device=cuda)
+    if momentum:
+        args, fn = (Sig, z, x, c, etas, lams, np.float32(0.7)), \
+            fista_step_batched
+    else:
+        args, fn = (Sig, z, c, etas, lams), ista_step_batched
+    got, wide, want = (fn(*args), fn(*args, block=(128, 64)),
+                       fn(*args, use_kernel=False))
+    got, wide, want = ((t,) if not momentum else t
+                       for t in (got, wide, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, wide))
+    _assert_close(got, want)
+
+
+def test_the_librarys_tile_table_is_gemm_tiles(cuda):
+    """The SGEMM's tiles as the library holds them (PLAN_TILES: bm, bn,
+    k per stage, stages) are GEMM_TILES, row for row: the rule in
+    `gemm_plan`, the autotune's candidates and `block=` read that
+    table."""
+    assert ista_ops.kernel_gemm_tiles() == ista_ops.GEMM_TILES
 
 
 def _gemv_inputs(device, m, p, seed=9):
@@ -1149,7 +1193,7 @@ def test_a_plan_out_of_range_is_refused_at_launch(cuda):
     Z = torch.cat([b] * 4, -1)
     with pytest.raises(RuntimeError, match="CUDA error"):
         ista_ops.launch_ista(Sig, Z, Z, etas, lams, torch.empty_like(Z),
-                             "ista_step_batched", 2)
+                             "ista_step_batched", len(ista_ops.GEMM_TILES))
     X = torch.randn((2, 16, 256), device=cuda)
     y = torch.randn((2, 16), device=cuda)
     with pytest.raises(RuntimeError, match="CUDA error"):

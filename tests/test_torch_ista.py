@@ -22,9 +22,9 @@ from repro.kernels.ista_step.ops import (
 )
 from repro_torch.kernels.common import LAUNCHES
 from repro_torch.kernels.ista_step.ops import (
-    GEMM_TILES, GEMV_BLOCKS_PER_SM, GEMV_PLANS, GRID_LAMS, fista_step_grid,
-    gemm_plan, gemv_plan, grid_passes, ista_solve, ista_step,
-    ista_step_batched,
+    GEMM_TILES, GEMV_BLOCKS_PER_SM, GEMV_PLANS, GRID_LAMS, check_block,
+    fista_step_grid, gemm_plan, gemv_plan, grid_passes, ista_solve,
+    ista_step, ista_step_batched, padded_area,
 )
 from repro_torch.kernels.ista_step.ref import (
     fista_step_batched_ref, fista_step_grid_ref, ista_step_batched_ref,
@@ -318,34 +318,98 @@ SMEM_PER_BLOCK = 232448        # 227 KB, the opt-in limit of one block
 
 @pytest.mark.parametrize("m, p, r", [(1, 1024, 1024), (16, 1024, 1024),
                                      (3, 129, 7), (2, 1001, 1001),
-                                     (1, 64, 5000), (128, 1024, 1024)])
+                                     (1, 64, 5000), (128, 1024, 1024),
+                                     (1024, 200, 200), (64, 197, 197),
+                                     (256, 256, 256), (26, 200, 200),
+                                     (16, 1000, 1000), (128, 400, 400)])
 def test_gemm_plan_covers_the_output_and_fits_a_block(m, p, r):
     pl = gemm_plan(m, p, r, H100_SMS)
-    assert (pl.bm, pl.bn) in GEMM_TILES
+    blocks = [t[:2] for t in GEMM_TILES]
+    assert (pl.bm, pl.bn) in blocks
     rows, cols = -(-p // pl.bm), -(-r // pl.bn)
     assert rows * pl.bm >= p and cols * pl.bn >= r
     assert (rows - 1) * pl.bm < p and (cols - 1) * pl.bn < r
     assert pl.blocks == m * rows * cols
-    assert pl.threads == pl.bm * pl.bn // 64 and pl.threads % 32 == 0
+    assert pl.threads == pl.bm * pl.bn // 64 and pl.threads <= 1024
+    _, _, bk, stages = GEMM_TILES[blocks.index((pl.bm, pl.bn))]
+    assert pl.smem_bytes == 4 * stages * bk * (pl.bm + pl.bn)
     assert pl.smem_bytes <= SMEM_PER_BLOCK
-    # the larger tile where it gives every SM a block, else the smaller
-    larger = GEMM_TILES[:GEMM_TILES.index((pl.bm, pl.bn))]
-    assert all(m * -(-p // bm) * -(-r // bn) < H100_SMS
-               for bm, bn in larger)
-    assert pl.blocks >= H100_SMS or (pl.bm, pl.bn) == GEMM_TILES[-1]
+    # of the tiles whose grid gives every SM a block (a short-row one,
+    # wider than tall, only where r fits in one of its blocks), the least
+    # padded area, the first on a tie; where none does, the last
+    filling = [t for t in blocks
+               if m * -(-p // t[0]) * -(-r // t[1]) >= H100_SMS
+               and (t[1] <= t[0] or r <= t[1])]
+    if not filling:
+        assert (pl.bm, pl.bn) == blocks[-1]
+        return
+    assert pl.blocks >= H100_SMS
+    area = padded_area(p, r, pl.bm, pl.bn)
+    before = filling[:filling.index((pl.bm, pl.bn))]
+    assert all(padded_area(p, r, *t) > area for t in before)
+    assert all(padded_area(p, r, *t) >= area for t in filling)
 
 
-def test_gemm_plan_fills_the_card_at_one_task():
-    """At m = 1, p = r = 1024 a 128 x 128 tile gives 64 blocks for 132
-    SMs; the plan takes a tile that gives at least one block per SM, and
-    the larger tile at the debias solve's m = 16."""
-    one = gemm_plan(1, 1024, 1024, H100_SMS)
-    assert one.blocks >= H100_SMS and (one.bm, one.bn) == (64, 64)
-    many = gemm_plan(16, 1024, 1024, H100_SMS)
-    assert (many.bm, many.bn) == (128, 64) and many.blocks == 2048
-    # the four card-test shapes reach every tile
-    shapes = [(1, 1024, 1024), (16, 1024, 1024), (3, 129, 7), (2, 1001, 1001)]
-    assert {gemm_plan(*s, H100_SMS)[:2] for s in shapes} == set(GEMM_TILES)
+# (m, p, r), the tile the rule takes there, and why
+RULE_CASES = {
+    "#3 at m = 1: 128 x 64 gives 128 blocks for 132 SMs":
+        ((1, 1024, 1024), (64, 64)),
+    "row 1b, chip_smoke.py's phases, the logistic fit's debias":
+        ((16, 1024, 1024), (128, 64)),
+    "the stream service's refits: 128 x 64 covers p = 256 exactly":
+        ((256, 256, 256), (128, 64)),
+    "no tile gives every SM a block: the smallest":
+        ((3, 129, 7), (64, 64)),
+    "too few tasks at p = 200 for the short-row tile to fill the card":
+        ((26, 200, 200), (128, 64)),
+    "long rows: the short-row tile pads less but is slower, not taken":
+        ((16, 1000, 1000), (128, 64)),
+    "chip_smoke.py phase 3's long rows":
+        ((3, 1000, 1000), (128, 64)),
+    "rows past one short-row block: 64 x 64 pads least":
+        ((128, 400, 400), (64, 64)),
+}
+
+
+@pytest.mark.parametrize("case", list(RULE_CASES))
+def test_gemm_plan_fills_the_card_at_one_task(case):
+    """The rule's tile at the shapes the port runs and at long rows: 128 x
+    64 and 64 x 64 where they were chosen before the short-row tile (at
+    one task, p = r = 1024, 128 x 64 gives 128 blocks for 132 SMs: 64 x 64
+    fills the card), and no short-row tile where r passes its width."""
+    shape, tile = RULE_CASES[case]
+    pl = gemm_plan(*shape, H100_SMS)
+    assert (pl.bm, pl.bn) == tile
+    assert pl.blocks >= H100_SMS or tile == GEMM_TILES[-1][:2]
+
+
+def test_gemm_plan_covers_the_papers_p_with_little_padding():
+    """At the fit cell's (1024, 200, 200) the rule takes a tile whose grid
+    covers 200 x 200 with at least 90 % of its outputs real (128 x 64
+    covered it as 256 x 256, 61 %), and fills the card."""
+    pl = gemm_plan(1024, 200, 200, H100_SMS)
+    assert 200 * 200 / padded_area(200, 200, pl.bm, pl.bn) >= 0.9
+    assert (pl.bm, pl.bn) not in ((128, 64), (64, 64))
+    assert pl.blocks >= H100_SMS
+
+
+@pytest.mark.parametrize("index", range(len(GEMM_TILES)))
+def test_a_tile_is_named_whole_or_by_its_block(index):
+    """`block=` at r > 1 takes a GEMM_TILES entry whole, as the autotune
+    gives it, or as its (bm, bn); a ring that is not the tile's is
+    refused."""
+    tile = GEMM_TILES[index]
+    assert check_block("t", 8, tile) == index
+    assert check_block("t", 8, list(tile[:2])) == index
+    with pytest.raises(ValueError, match="GEMM_TILES"):
+        check_block("t", 8, (*tile[:2], tile[2] + 1, tile[3]))
+
+
+@pytest.mark.parametrize("tile", GEMM_TILES)
+def test_every_gemm_tile_is_the_rules_somewhere(tile):
+    shapes = [(1, 1024, 1024), (16, 1024, 1024), (1024, 200, 200),
+              (3, 129, 7), (2, 1001, 1001)]
+    assert tile[:2] in {gemm_plan(*s, H100_SMS)[:2] for s in shapes}
 
 
 # ---- the r == 1 kernel's launch plan (the card tests run the kernel) --------
